@@ -5,27 +5,40 @@
 
 Phases (any failure exits non-zero; nothing is caught):
   1. card, power limit, torch and CUDA versions;
-  2. build the three CUDA kernels from ``src/repro_torch/kernels/csrc``;
+  2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
+     ``nvcc`` per source, all started together);
   3. full-width ``qwen3-0.6b`` (28 layers, bf16, random weights from seed
      0): capture 2 calibration batches, compress per-(layer, site) tables,
      and a shared-table plan;
-  4. every kernel against its plain PyTorch version on the card, at the
+  4. K1-K3 against their plain PyTorch versions on the card, at the
      serving path's shapes: K1/K2 bit for bit on bin edges +-1 ulp (bf16
      and f32, raw and packed slabs, a stack mixing w_lb == 0 and w_lb > 0);
      K3 bit for bit against its own GEMM followed by K1, and within 1% of
      ``torch.matmul`` followed by the plain LUT;
-  5. the main path through the launcher's entry points, 4 requests x 64
-     prompt tokens x 16 new tokens: (a) stacked + cuda, (b) unrolled +
+  5. the serving path through the launcher's entry points, 4 requests x
+     64 prompt tokens x 16 new tokens: (a) stacked + cuda, (b) unrolled +
      cuda, (c) shared tables + cuda, each token-identical to the gather
      backend on the same tables, and (d) stacked + cuda + --lut-fuse, with
      its agreement with (a); launch counts are zeroed before each form and
      read after it;
-  6. per-kernel times (median CUDA-event time per launch over a run of
+  6. K5 (Eq. (1) at integer addresses) and K6 (plain lookup) bit for bit
+     against their plain versions and ``plan.reconstruct()``: w_in 5-16,
+     several M and w_lb, plain plans, odd query shapes, tables staged in
+     shared memory and tables read from device memory;
+  7. K7 (one LUT-NN layer) bit for bit against its plain version: ragged
+     B x N x F x bits, and the paper models' layer shapes;
+  8. the paper's LUT-NN toolflow on jsc-2l at full paper width through
+     ``repro_torch.launch.lutnn``'s functions (train, extract, don't cares,
+     CompressedLUT / ReducedLUT, reconstruction through K5/K6, accuracy
+     through K7, Verilog), then the quickstart; launch counts zeroed
+     before each and read after it;
+  9. per-kernel times (median CUDA-event time per launch over a run of
      launches after a warm-up; also with the host out of the loop, from a
      CUDA graph of the launches), the bound from bytes and operations, the
-     plain versions' times, and for K3 the unfused library path (cuBLAS
-     GEMM followed by K1) as ``library_ms``;
-  7. one profiled decode step (exact, form (a), form (d)): wall time,
+     plain versions' times, and the library yardstick where one PyTorch
+     call computes the same function (K3: cuBLAS GEMM followed by K1; K6:
+     ``torch.take``);
+  10. one profiled decode step (exact, form (a), form (d)): wall time,
      kernels launched, device busy time and idle share.
 The last lines are the kernel JSON, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.  Long logs go to ``chiprun_out/``.
@@ -140,6 +153,337 @@ def kernel_inputs(torch, rows, dtype, dev, gen):
 def bits_equal(torch, a, b) -> bool:
     ib = torch.int32 if a.dtype == torch.float32 else torch.int16
     return a.dtype == b.dtype and torch.equal(a.view(ib), b.view(ib))
+
+
+# -------------------------------------------------------------------------
+# the LUT-NN toolflow's kernels: K5 / K6 (lut_gather.cu), K7 (lutnn_layer.cu)
+# -------------------------------------------------------------------------
+# (w_in, w_out, w_lb, M) of decomposed plans built directly from a
+# decomposition: the golden tests' geometries, w_in 8-14, and w_in 16 with a
+# low-bit table of 2^16 entries (256 KB: read from device memory)
+GATHER_DECOMPOSED = [(5, 4, 0, 4), (5, 6, 2, 8), (6, 5, 1, 8), (9, 8, 3, 16),
+                     (8, 4, 0, 8), (10, 6, 1, 16), (12, 8, 2, 32),
+                     (14, 7, 1, 64), (16, 8, 1, 64)]
+GATHER_PLAIN = [(5, 3), (7, 6), (12, 8), (16, 8)]   # (w_in, w_out)
+# (B, P, N, F, bits) of the paper models' LUT-NN layers
+LUTNN_SHAPES = {"jsc-2l L0": (3000, 16, 32, 3, 4),
+                "jsc-2l L1": (3000, 32, 5, 3, 4),
+                "jsc-5l L0": (20000, 16, 128, 2, 7),
+                "mnist L0": (5000, 784, 256, 6, 2)}
+# 32-bit integer ALU work is counted at the f32 CUDA-core peak: an H100 SM
+# issues int32 no faster than f32, so the operation bound stays a lower
+# bound on the time
+PEAK_INT32_OPS = PEAK_F32_FLOPS
+
+
+def max_abs_diff(a, b) -> int:
+    if a.shape != b.shape:
+        return -1
+    return int((a.long() - b.long()).abs().max()) if a.numel() else 0
+
+
+def decomposed_plan(w_in, w_out, w_lb, m, seed):
+    """A decomposed plan of a smooth random table (no plain fallback)."""
+    from repro_torch.core import TableSpec
+    from repro_torch.core.pipeline import pack_decomposition
+    from repro_torch.core.similarity import make_decomposition
+
+    spec = TableSpec.random(w_in, w_out, 0.3, seed, smooth=True)
+    hb = spec.values >> w_lb
+    lb = (spec.values & ((1 << w_lb) - 1)) if w_lb else None
+    d = make_decomposition(hb, spec.care_mask(), m)
+    return pack_decomposition(d, w_in=w_in, w_hb=w_out - w_lb, w_lb=w_lb,
+                              lb_values=lb, name="g")
+
+
+def gather_plain(x, pa):
+    """The plain version of K5 or K6 for ``pa``'s kind."""
+    from repro_torch.kernels.lut_gather import (
+        COMPONENTS,
+        lut_reconstruct_plain,
+        plain_lookup_plain,
+    )
+
+    if pa.kind == "plain":
+        return plain_lookup_plain(x, pa.arrays["table"])
+    return lut_reconstruct_plain(x, *(pa.arrays[c] for c in COMPONENTS),
+                                 l=pa.l, w_lb=pa.w_lb, w_hb=pa.w_hb)
+
+
+def table_bytes(pa) -> int:
+    """Bytes of the tables K5 / K6 stage for ``pa`` (t_lb only when read)."""
+    if pa.kind == "plain":
+        return pa.arrays["table"].numel() * 4
+    return 4 * sum(t.numel() for c, t in pa.arrays.items()
+                   if c != "t_lb" or pa.w_lb > 0)
+
+
+def check_gather_kernels(dev) -> dict:
+    """K5 and K6 bit for bit against their plain versions (and the plan's
+    own reconstruction), in both the shared- and the global-memory branch.
+    Returns each kernel's largest difference from its plain version."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import PlainPlan, TableSpec
+    from repro_torch.kernels import PlanArrays, lut_reconstruct
+    from repro_torch.kernels.lut_gather import smem_optin_bytes
+
+    limit = smem_optin_bytes()
+    plans = [decomposed_plan(*g, seed=sum(g)) for g in GATHER_DECOMPOSED]
+    plans += [PlainPlan(TableSpec.random(w, o, 0.0, 2).values, w, o)
+              for w, o in GATHER_PLAIN]
+    rng = np.random.default_rng(3)
+    branches = {"decomposed": set(), "plain": set()}
+    errors = {"lut_reconstruct": 0, "plain_lookup": 0}
+    cases = 0
+    for plan in plans:
+        pa = PlanArrays.from_plan(plan, device=dev)
+        name = "plain_lookup" if pa.kind == "plain" else "lut_reconstruct"
+        nbytes = table_bytes(pa)
+        branches[pa.kind].add("shared" if nbytes <= limit else "global")
+        size = 1 << plan.w_in
+        full = torch.arange(size, dtype=torch.int32, device=dev)
+        queries = [full] + [
+            torch.as_tensor(rng.integers(0, size, s), dtype=torch.int32,
+                            device=dev)
+            for s in ((), (1,), (1000,), (3, 37), (1 << 20,))]
+        for x in queries:
+            yk = lut_reconstruct(x, pa)
+            yp = gather_plain(x, pa)
+            errors[name] = max(errors[name], max_abs_diff(yk, yp))
+            if yk.shape != x.shape or not torch.equal(yk, yp):
+                raise AssertionError(
+                    f"{pa.kind} plan w_in {plan.w_in} ({nbytes} table "
+                    f"bytes): kernel differs from its plain version on "
+                    f"query shape {tuple(x.shape)}")
+            cases += 1
+        if not np.array_equal(lut_reconstruct(full, pa).cpu().numpy(),
+                              plan.reconstruct()):
+            raise AssertionError(f"{pa.kind} plan w_in {plan.w_in}: kernel "
+                                 f"differs from plan.reconstruct()")
+    torch.cuda.synchronize()
+    for kind, seen in branches.items():
+        if seen != {"shared", "global"}:
+            raise AssertionError(f"{kind} plans covered only {seen}")
+    log(f"[6] K5/K6 bit-exact against their plain versions and "
+        f"plan.reconstruct() on {cases} (plan, query shape) cases, "
+        f"shared- and global-memory branches of both (staging limit "
+        f"{limit} bytes)")
+    return errors
+
+
+def lutnn_inputs(dev, rng, b, p, n, f, bits):
+    """Random in-range (codes, conn, tables) int32 tensors on ``dev``."""
+    import torch
+
+    as_t = lambda a: torch.as_tensor(a, dtype=torch.int32, device=dev)
+    return (as_t(rng.integers(0, 1 << bits, (b, p))),
+            as_t(rng.integers(0, p, (n, f))),
+            as_t(rng.integers(0, 1 << bits, (n, 1 << (bits * f)))))
+
+
+def check_lutnn_layer(dev) -> int:
+    """K7 bit for bit against its plain version: a sweep of ragged sizes
+    and the paper models' layer shapes.  Returns the largest difference
+    from the plain version."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import lutnn_layer
+    from repro_torch.kernels.lutnn_layer import lutnn_layer_plain
+
+    rng = np.random.default_rng(4)
+    shapes = [(b, 50, n, f, bits) for b in (1, 7, 300) for n in (1, 13, 40)
+              for f in range(2, 7) for bits in range(1, 8)
+              if bits * f <= 14]
+    shapes += list(LUTNN_SHAPES.values())
+    err = 0
+    for b, p, n, f, bits in shapes:
+        codes, conn, tables = lutnn_inputs(dev, rng, b, p, n, f, bits)
+        yk = lutnn_layer(codes, conn, tables, bits=bits)
+        yp = lutnn_layer_plain(codes, conn, tables, bits=bits)
+        err = max(err, max_abs_diff(yk, yp))
+        if yk.shape != (b, n) or not torch.equal(yk, yp):
+            raise AssertionError(
+                f"K7 differs from its plain version at B {b}, P {p}, N {n}, "
+                f"F {f}, bits {bits}")
+    torch.cuda.synchronize()
+    log(f"[7] K7 bit-exact against its plain version on {len(shapes)} "
+        f"shapes (B 1/7/300 x N 1/13/40 x F 2-6 x bits 1-7 with "
+        f"bits*F <= 14, and {', '.join(LUTNN_SHAPES)})")
+    return err
+
+
+def run_toolflow(dev) -> dict:
+    """The paper's LUT-NN toolflow on jsc-2l at full paper width through
+    the launcher's functions, then the quickstart; launch counts zeroed
+    before each and read after it."""
+    import torch
+
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import lutnn, quickstart
+
+    args = lutnn.parse_args(["--model", "jsc-2l", "--verilog-out",
+                             str(OUT_DIR / "jsc2l_reducedlut.v")])
+    reset_launch_counts()
+    out = lutnn.run(args, log=lambda m: log("    " + m))
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    if not out["device"].startswith("cuda"):
+        raise AssertionError(f"the toolflow ran on {out['device']}")
+    want = {"lut_reconstruct": out["plans"]["decomposed"],
+            "plain_lookup": out["plans"]["plain"]}
+    for name, n in want.items():
+        if counts[name] != n:
+            raise AssertionError(f"{name} launched {counts[name]} times for "
+                                 f"{n} plans: {counts}")
+    if counts["lut_reconstruct"] == 0 or counts["lutnn_layer"] == 0:
+        raise AssertionError(f"the toolflow did not launch K5 and K7: "
+                             f"{counts}")
+    acc, pl = out["accuracy"], out["pluts"]
+    log(f"[8] toolflow {out['model']} on {out['device']}: P-LUTs baseline "
+        f"{pl['baseline']}, CompressedLUT {pl['compressedlut']}, "
+        f"ReducedLUT {pl['reducedlut']}; train acc {acc['train_before']:.4f}"
+        f" -> {acc['train_after']:.4f} (equal), test acc "
+        f"{acc['test_before']:.4f} -> {acc['test_after']:.4f}; seconds "
+        + ", ".join(f"{k} {v:.3f}" for k, v in out["seconds"].items())
+        + f"; launches {counts}")
+    out["launches"] = counts
+    reset_launch_counts()
+    q = quickstart.run(log=lambda m: log("    " + m))
+    torch.cuda.synchronize()
+    qcounts = launch_counts()
+    if qcounts["lut_reconstruct"] + qcounts["plain_lookup"] != 4 or \
+            qcounts["plain_lookup"] == 0:
+        raise AssertionError(f"the quickstart launched {qcounts} for its "
+                             f"four plans (one plain)")
+    log(f"[8] quickstart: CompressedLUT {q['compressedlut']}, ReducedLUT "
+        f"{q['reducedlut_20']} / {q['reducedlut_250']} P-LUTs (ex 20 / 250),"
+        f" care-exact {q['care_exact']}; launches {qcounts}")
+    out["quickstart"] = dict(q, launches=qcounts)
+    # the slice's main path: both entry points
+    out["main_launches"] = {k: counts[k] + qcounts[k] for k in counts}
+    return out
+
+
+def n_unique(t) -> int:
+    import torch
+
+    return int(torch.unique(t).numel())
+
+
+def gather_work(pa, x):
+    """(bytes, ops) K5 / K6 needs for addresses ``x``: each address read
+    and each output written once, and each table entry these addresses
+    touch read once."""
+    import torch
+
+    n = x.numel()
+    if pa.kind == "plain":
+        return 4 * (2 * n + n_unique(x)), n
+    xl = x.long()
+    hb = xl >> pa.l
+    idx = pa.arrays["t_idx"][hb].long()
+    touched = 3 * n_unique(hb) + n_unique(idx * (1 << pa.l)
+                                          + (xl & ((1 << pa.l) - 1)))
+    if pa.w_lb > 0:
+        touched += n_unique(xl)
+    return 4 * (2 * n + touched), 12 * n
+
+
+def lutnn_work(codes, conn, tables, bits):
+    """(bytes, ops) K7 needs: the code columns the wiring reads, the
+    wiring, the table entries the addresses touch, and the output."""
+    import torch
+
+    from repro_torch.kernels.lutnn_layer import pack_addresses
+
+    b = codes.shape[0]
+    n, f = conn.shape
+    rows = torch.arange(n, device=codes.device)
+    touched = n_unique(rows * tables.shape[1]
+                       + pack_addresses(codes, conn, bits))
+    nbytes = 4 * (b * n_unique(conn) + n * f + touched + b * n)
+    return nbytes, b * n * (3 * f + 2)
+
+
+def time_toolflow_kernels(dev, flow, errors) -> list:
+    """Per-kernel times of K5, K6 and K7 at the toolflow's shapes."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import PlainPlan
+    from repro_torch.kernels import PlanArrays, lut_reconstruct, lutnn_layer
+    from repro_torch.kernels.lutnn_layer import lutnn_layer_plain
+
+    plan = next(p for p in flow["plan_list"] if p.kind == "decomposed")
+    plain = PlainPlan(plan.reconstruct(), plan.w_in, plan.w_out)
+    rng = np.random.default_rng(5)
+    size = 1 << plan.w_in
+    queries = {"one table": torch.arange(size, dtype=torch.int32,
+                                         device=dev),
+               "2^20 addresses": torch.as_tensor(
+                   rng.integers(0, size, 1 << 20), dtype=torch.int32,
+                   device=dev)}
+    kernels = []
+    for name, p, line in (("lut_reconstruct", plan, 43),
+                          ("plain_lookup", plain, 83)):
+        pa = PlanArrays.from_plan(p, device=dev)
+        entry = {"name": name, "route": "cuda",
+                 "source": "src/repro_torch/kernels/csrc/lut_gather.cu",
+                 "replaces": f"src/repro/kernels/lut_gather.py:{line}",
+                 "launches": flow["main_launches"][name],
+                 "max_abs_err": errors[name], "shapes": {}}
+        for label, x in queries.items():
+            nbytes, ops_ = gather_work(pa, x)
+            bms, by = bound(nbytes, ops_, PEAK_INT32_OPS)
+            t = {"shape": list(x.shape),
+                 "ms": timed_ms(lambda: lut_reconstruct(x, pa)),
+                 "graph_ms": graph_ms(lambda: lut_reconstruct(x, pa)),
+                 "plain_ms": timed_ms(lambda: gather_plain(x, pa)),
+                 "bound_ms": bms, "bound_by": by, "library_ms": None}
+            if name == "plain_lookup":
+                # torch.take indexes with int64 addresses
+                table, xl = pa.arrays["table"], x.long()
+                t["library_ms"] = timed_ms(lambda: torch.take(table, xl))
+                t["library_graph_ms"] = graph_ms(
+                    lambda: torch.take(table, xl))
+            if not entry["shapes"]:
+                entry.update({k: v for k, v in t.items()})
+            entry["shapes"][label] = t
+        kernels.append(entry)
+
+    entry = {"name": "lutnn_layer", "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/lutnn_layer.cu",
+             "replaces": "src/repro/kernels/lutnn_layer.py:40",
+             "launches": flow["main_launches"]["lutnn_layer"],
+             "max_abs_err": errors["lutnn_layer"], "shapes": {}}
+    for label, (b, p, n, f, bits) in LUTNN_SHAPES.items():
+        codes, conn, tables = lutnn_inputs(dev, rng, b, p, n, f, bits)
+        kfn = lambda: lutnn_layer(codes, conn, tables, bits=bits)
+        nbytes, ops_ = lutnn_work(codes, conn, tables, bits)
+        bms, by = bound(nbytes, ops_, PEAK_INT32_OPS)
+        t = {"shape": [b, p, n, f, bits], "ms": timed_ms(kfn),
+             "graph_ms": graph_ms(kfn),
+             "plain_ms": timed_ms(lambda: lutnn_layer_plain(
+                 codes, conn, tables, bits=bits)),
+             "bound_ms": bms, "bound_by": by, "library_ms": None}
+        if not entry["shapes"]:
+            entry.update(t)
+        entry["shapes"][label] = t
+    kernels.append(entry)
+    for k in kernels:
+        for label, t in k["shapes"].items():
+            log(f"[9] {k['name']} {label} {t['shape']}: {t['ms'] * 1e3:.2f} "
+                f"us/launch (graph {t['graph_ms'] * 1e3:.2f} us), bound "
+                f"{t['bound_ms'] * 1e3:.3f} us ({t['bound_by']}), plain "
+                f"{t['plain_ms'] * 1e3:.2f} us"
+                + ("" if t["library_ms"] is None else
+                   f", library {t['library_ms'] * 1e3:.2f} us (graph "
+                   f"{t['library_graph_ms'] * 1e3:.2f} us)")
+                + f"; launches {k['launches']} (toolflow + quickstart)")
+    return kernels
 
 
 def main() -> int:
@@ -417,7 +761,14 @@ def main() -> int:
         log(f"[5] verify_backend_equivalence ({s_cfg.name}, {exec_}): "
             f"cuda == gather, request 0 {toks[0]}")
 
-    # ---- 6. per-kernel times ---------------------------------------------
+    # ---- 6. K5/K6 and 7. K7 against their plain versions on the card ------
+    errors = check_gather_kernels(dev)
+    errors["lutnn_layer"] = check_lutnn_layer(dev)
+
+    # ---- 8. the LUT-NN toolflow (jsc-2l, full paper width), quickstart ----
+    flow = run_toolflow(dev)
+
+    # ---- 9. per-kernel times ---------------------------------------------
     L = cfg.n_layers
     st = stacks["packed"]
     slab_bytes = sum(int(st["arrays"][c][0].numel()) * 4
@@ -490,7 +841,7 @@ def main() -> int:
             entry["prefill"] = dict(t, shape=[m, K, N])
     kernels.append(entry)
     for k in kernels:
-        log(f"[6] {k['name']}: {k['ms'] * 1e3:.2f} us/launch (graph "
+        log(f"[9] {k['name']}: {k['ms'] * 1e3:.2f} us/launch (graph "
             f"{k['graph_ms'] * 1e3:.2f} us) at {k['shape']}, bound "
             f"{k['bound_ms'] * 1e3:.3f} us ({k['bound_by']}), plain "
             f"{k['plain_ms'] * 1e3:.2f} us; prefill {k['prefill']['ms'] * 1e3:.2f}"
@@ -501,7 +852,9 @@ def main() -> int:
             + ("" if k["library_ms"] is None else
                f"; library {k['library_ms'] * 1e3:.2f} us, prefill "
                f"{k['prefill']['library_ms'] * 1e3:.2f} us"))
-    # ---- 7. where a decode step's time goes --------------------------------
+    kernels += time_toolflow_kernels(dev, flow, errors)
+
+    # ---- 10. where a decode step's time goes -------------------------------
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -532,7 +885,7 @@ def main() -> int:
                         "idle_share": (1 - busy_us / 1e6 / wall) if kern
                         else None,
                         "top_kernels_us": top}
-        log(f"[7] decode step ({label}): wall {wall * 1e3:.2f} ms, "
+        log(f"[10] decode step ({label}): wall {wall * 1e3:.2f} ms, "
             f"{len(kern)} kernels, device busy {busy_us / 1e3:.2f} ms"
             + (f", idle share {steps[label]['idle_share']:.3f}" if kern
                else " (profiler saw no device events: idle not measured)"))
@@ -543,7 +896,8 @@ def main() -> int:
 
     summary = {"card": smi, "exact": exact, "steps": steps, "forms": {
         f: {k: v for k, v in r.items() if k != "plans"}
-        for f, r in results.items()}, "kernels": kernels}
+        for f, r in results.items()}, "kernels": kernels,
+        "toolflow": {k: v for k, v in flow.items() if k != "plan_list"}}
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(summary, indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -9,7 +9,10 @@ the reference side — so this module imports nothing of JAX.
 * :func:`tables_from_jax` — a reference ``ServingPlans.tables_for_model``
   dict -> the port's ``lut_tables`` (same structure, tensors on the
   device, backend ``"pallas"`` renamed ``"cuda"``), so both packages can
-  compute with the same slabs.
+  compute with the same slabs;
+* :func:`lutnn_params_from_jax` — a reference LUT-NN parameter tree
+  (``{"layers": [{w1, b1, w2, b2}, ...]}``) -> a
+  :class:`~repro_torch.lutnn.LUTNN`.
 """
 from __future__ import annotations
 
@@ -17,6 +20,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.lutnn.model import LUTNN, LUTNNConfig
 from repro_torch.nn.transformer import DecoderParams
 
 _BACKENDS = {"pallas": "cuda", "gather": "gather"}
@@ -30,15 +34,13 @@ def _tensor(a: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(np.array(a)).to(device)
 
 
-def params_from_jax(tree: dict, cfg, device=None) -> DecoderParams:
-    """Copy a reference parameter tree (numpy leaves) into the port."""
-    params = DecoderParams(cfg, device)
-    named = dict(params.named_parameters())
-    flat = {k: v for k, v in tree.items() if k != "blocks"}
-    flat.update({f"blocks.{k}": v for k, v in tree["blocks"].items()})
+def _copy_named(who: str, module: torch.nn.Module, flat: dict) -> None:
+    """Copy ``flat`` (dotted name -> numpy leaf) into ``module``'s
+    parameters of the same names, shapes and dtypes, bit for bit."""
+    named = dict(module.named_parameters())
     if set(flat) != set(named):
         raise ValueError(
-            f"params_from_jax: parameter names differ — reference only "
+            f"{who}: parameter names differ — reference only "
             f"{sorted(set(flat) - set(named))}, port only "
             f"{sorted(set(named) - set(flat))}")
     with torch.no_grad():
@@ -47,11 +49,30 @@ def params_from_jax(tree: dict, cfg, device=None) -> DecoderParams:
             src = _tensor(leaf, t.device)
             if src.shape != t.shape or src.dtype != t.dtype:
                 raise ValueError(
-                    f"params_from_jax: {name} is {tuple(src.shape)} "
+                    f"{who}: {name} is {tuple(src.shape)} "
                     f"{src.dtype}, the port expects {tuple(t.shape)} "
                     f"{t.dtype}")
             t.copy_(src)
+
+
+def params_from_jax(tree: dict, cfg, device=None) -> DecoderParams:
+    """Copy a reference parameter tree (numpy leaves) into the port."""
+    params = DecoderParams(cfg, device)
+    flat = {k: v for k, v in tree.items() if k != "blocks"}
+    flat.update({f"blocks.{k}": v for k, v in tree["blocks"].items()})
+    _copy_named("params_from_jax", params, flat)
     return params
+
+
+def lutnn_params_from_jax(params: dict, cfg: LUTNNConfig,
+                          device=None) -> LUTNN:
+    """Copy a reference LUT-NN parameter tree (numpy leaves) into a
+    :class:`~repro_torch.lutnn.LUTNN` on ``device``."""
+    model = LUTNN(cfg, resolve_device(device))
+    flat = {f"layers.{l}.{k}": v for l, layer in enumerate(params["layers"])
+            for k, v in layer.items()}
+    _copy_named("lutnn_params_from_jax", model, flat)
+    return model
 
 
 def tables_from_jax(tables, device=None):

@@ -5,11 +5,11 @@ Public API:
   - :func:`compress_table` / :func:`compress_network` — the paper's flow
   - :class:`CompressConfig` — exiguity / search-space knobs
   - plans (:class:`PlainPlan` / :class:`DecomposedPlan`) with bit-exact
-    reconstruction and analytical P-LUT cost
+    reconstruction, analytical P-LUT cost and Verilog emission
 
-A copy of the reference package's numpy engine (its Verilog emitter is
-not part of the serving path and is not carried over), so the PyTorch
-port builds byte-identical plans without importing the reference.
+A copy of the reference package's numpy engine and Verilog emitter, so
+the PyTorch port builds byte-identical plans (and Verilog text) without
+importing the reference.
 """
 from .cost_model import (
     adder_plut_cost,
@@ -35,6 +35,7 @@ from .plan import DecomposedPlan, Plan, PlainPlan, load_plans, save_plans
 from .reduced import reduce_uniques
 from .similarity import Decomposition, make_decomposition
 from .table import TableSpec
+from .verilog import network_to_verilog, plan_to_verilog
 
 __all__ = [
     "TableSpec",
@@ -56,6 +57,8 @@ __all__ = [
     "load_plans",
     "Decomposition",
     "make_decomposition",
+    "plan_to_verilog",
+    "network_to_verilog",
     "reduce_uniques",
     "rom_plut_cost",
     "adder_plut_cost",

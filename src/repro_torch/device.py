@@ -14,3 +14,10 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
             "repro_torch: CUDA is not available on this machine; pass "
             "device='cpu' (launcher: --device cpu) to run on the CPU")
     return dev
+
+
+def synchronize(dev: torch.device) -> None:
+    """Wait for the card's queued work (a host clock around it then times
+    the device); nothing to wait for on the CPU."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)

@@ -1,8 +1,10 @@
-"""Hand-written CUDA kernels of the LUT hot path, with their plain versions.
+"""Hand-written CUDA kernels of the port, with their plain versions.
 
 K1 ``lut_act_stacked``, K2 ``lut_act`` and K3 ``fused_matmul_lut`` replace
-the reference's three Pallas kernels on the serving path.  Sources live in
-``csrc/``; :mod:`.build` compiles them on first use (never at import).
+the reference's three Pallas kernels on the serving path; K5
+``lut_reconstruct``, K6 ``plain_lookup`` and K7 ``lutnn_layer`` the three
+of the LUT-NN toolflow.  Sources live in ``csrc/``; :mod:`.build` compiles
+them on first use (never at import).
 """
 from .ops import (
     PlanArrays,
@@ -10,8 +12,12 @@ from .ops import (
     launch_counts,
     lut_act,
     lut_act_stacked,
+    lut_reconstruct,
+    lutnn_layer,
+    plain_lookup,
     reset_launch_counts,
 )
 
 __all__ = ["PlanArrays", "fused_matmul_lut", "launch_counts", "lut_act",
-           "lut_act_stacked", "reset_launch_counts"]
+           "lut_act_stacked", "lut_reconstruct", "lutnn_layer",
+           "plain_lookup", "reset_launch_counts"]

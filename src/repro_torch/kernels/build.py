@@ -38,6 +38,12 @@ ENTRY_POINTS = {
     "rlut_fused_matmul_lut": (
         "fused_matmul_lut",
         [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P]),
+    "rlut_lut_reconstruct": (
+        "lut_gather", [_P, _P, _LL] + [_P, _I] * 5 + [_I, _I, _I, _P]),
+    "rlut_plain_lookup": ("lut_gather", [_P, _P, _LL, _P, _I, _P]),
+    "rlut_smem_optin_bytes": ("lut_gather", []),
+    "rlut_lutnn_layer": (
+        "lutnn_layer", [_P, _P, _P, _P, _I, _I, _I, _I, _LL, _I, _P]),
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}   # process-wide: one load per library

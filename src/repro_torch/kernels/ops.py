@@ -5,12 +5,14 @@ Counterpart of the reference's ``kernels/ops.py``:
 * :class:`PlanArrays` — one plan's lane-padded component arrays, padded
   to 128 entries exactly as the reference pads them, so the slabs (raw or
   bit-packed) are byte-identical across the two packages;
-* :func:`lut_act` (K2), :func:`lut_act_stacked` (K1) and
-  :func:`fused_matmul_lut` (K3) — the launch wrappers.  A tensor on the
-  CPU goes to the kernel's plain version; a tensor on the card goes to the
-  kernel, or the wrapper raises.  Each wrapper counts its kernel launches
-  in a plain integer attribute (``lut_act_stacked.launches``), so a run
-  can show that it went through the kernels.
+* :func:`lut_act` (K2), :func:`lut_act_stacked` (K1),
+  :func:`fused_matmul_lut` (K3), :func:`lut_reconstruct` (K5, or K6
+  through :func:`plain_lookup` for a plain plan) and :func:`lutnn_layer`
+  (K7) — the launch wrappers.  A tensor on the CPU goes to the kernel's
+  plain version; a tensor on the card goes to the kernel, or the wrapper
+  raises.  Each wrapper counts its kernel launches in a plain integer
+  attribute (``lut_act_stacked.launches``), so a run can show that it went
+  through the kernels.
 """
 from __future__ import annotations
 
@@ -19,7 +21,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch.core.plan import DecomposedPlan, Plan
+from repro_torch.core.plan import DecomposedPlan, Plan, PlainPlan
 from repro_torch.device import resolve_device
 
 from .fused_matmul_lut import fused_matmul_lut_cuda, fused_matmul_lut_plain
@@ -29,6 +31,17 @@ from .lut_act import (
     lut_act_plain,
     lut_act_stacked_plain,
     lut_launch_args,
+)
+from .lut_gather import (
+    lut_reconstruct_cuda,
+    lut_reconstruct_plain,
+    plain_lookup_cuda,
+    plain_lookup_plain,
+)
+from .lutnn_layer import (
+    MAX_ADDR_BITS,
+    lutnn_layer_cuda,
+    lutnn_layer_plain,
 )
 from .packing import COMPONENTS, pack_component_dict
 
@@ -45,7 +58,9 @@ def _pad_to(a: np.ndarray, mult: int) -> np.ndarray:
 
 @dataclasses.dataclass
 class PlanArrays:
-    """Device-ready, lane-padded arrays for one compression plan.
+    """Device-ready, lane-padded arrays for one compression plan: the
+    five Eq. (1) components of a decomposed plan, or ``{"table": ...}``
+    for a plain plan.
 
     ``pack`` (component -> unpack meta, :mod:`.packing`) marks the arrays
     as bit-packed int32 words; ``None`` means raw int32 (the gather
@@ -64,10 +79,12 @@ class PlanArrays:
     def host_arrays(plan: Plan, packed: bool = False
                     ) -> tuple[dict, dict | None]:
         """The padded (and optionally packed) numpy component arrays."""
-        if not isinstance(plan, DecomposedPlan):
-            raise ValueError(
-                "PlanArrays: the LUT kernels take decomposed plans (the "
-                "plain-table lookup is kernel K6, not ported yet)")
+        if isinstance(plan, PlainPlan):
+            if packed:
+                raise ValueError("PlanArrays: a plain plan has no packed "
+                                 "form (its table is raw int32)")
+            return {"table": _pad_to(plan.values.astype(np.int32),
+                                     LANES)}, None
         lb = plan.t_lb if plan.t_lb is not None else np.zeros(1, np.int64)
         host = {
             "t_ust": _pad_to(plan.t_ust.astype(np.int32), LANES),
@@ -87,6 +104,9 @@ class PlanArrays:
         dev = resolve_device(device)
         host, pack = PlanArrays.host_arrays(plan, packed)
         arrays = {c: torch.from_numpy(a).to(dev) for c, a in host.items()}
+        if isinstance(plan, PlainPlan):
+            return PlanArrays(kind="plain", w_in=plan.w_in,
+                              w_out=plan.w_out, arrays=arrays)
         return PlanArrays(
             kind="decomposed", w_in=plan.w_in, w_out=plan.w_out,
             l=plan.l, w_lb=plan.w_lb, w_hb=plan.w_hb, arrays=arrays,
@@ -198,8 +218,102 @@ def _tab_tensors(tab: dict):
         yield meta_f
 
 
+def _int_operands(name: str, x: torch.Tensor, tables) -> torch.Tensor:
+    """Validate an integer-kernel launch: ``x`` of an integer dtype,
+    every table a contiguous int32 tensor on ``x``'s card.  Returns ``x``
+    as contiguous int32."""
+    if x.device.type != "cuda":
+        raise ValueError(
+            f"{name}: input on {x.device}; the kernel runs on a CUDA "
+            f"tensor and the plain version on a CPU one")
+    if x.dtype.is_floating_point or x.dtype.is_complex or \
+            x.dtype == torch.bool:
+        raise ValueError(f"{name}: addresses and codes must be integers, "
+                         f"got {x.dtype}")
+    for t in tables:
+        if t.device != x.device:
+            raise ValueError(
+                f"{name}: table tensor on {t.device}, input on "
+                f"{x.device} — tables must live on the input's card")
+        if t.dtype != torch.int32 or not t.is_contiguous():
+            raise ValueError(f"{name}: tables must be contiguous int32, "
+                             f"got {t.dtype}")
+    return x.to(torch.int32).contiguous()
+
+
+def plain_lookup(x: torch.Tensor, pa: PlanArrays) -> torch.Tensor:
+    """K6: a plain plan's table at int addresses ``x`` (any shape), as
+    int32 of ``x``'s shape."""
+    if pa.kind != "plain":
+        raise ValueError("plain_lookup expects a plain plan")
+    table = pa.arrays["table"]
+    if x.device.type == "cpu":
+        return plain_lookup_plain(x, table)
+    xc = _int_operands("plain_lookup", x, [table])
+    if xc.numel() == 0:
+        return torch.empty_like(xc)
+    out = plain_lookup_cuda(xc, table)
+    plain_lookup.launches += 1
+    return out
+
+
+def lut_reconstruct(x: torch.Tensor, pa: PlanArrays) -> torch.Tensor:
+    """Evaluate a compressed table at int addresses ``x`` (any shape):
+    K5 (Eq. (1)) for a decomposed plan, K6 (:func:`plain_lookup`) for a
+    plain one.  Addresses lie in ``[0, 2^w_in)``."""
+    if pa.kind == "plain":
+        return plain_lookup(x, pa)
+    if pa.pack is not None:
+        raise ValueError("lut_reconstruct takes raw int32 component "
+                         "arrays (PlanArrays.from_plan(plan, packed=False))")
+    kw = dict(l=pa.l, w_lb=pa.w_lb, w_hb=pa.w_hb)
+    a = pa.arrays
+    if x.device.type == "cpu":
+        return lut_reconstruct_plain(x, *(a[c] for c in COMPONENTS), **kw)
+    xc = _int_operands("lut_reconstruct", x, a.values())
+    if xc.numel() == 0:
+        return torch.empty_like(xc)
+    out = lut_reconstruct_cuda(xc, a, **kw)
+    lut_reconstruct.launches += 1
+    return out
+
+
+def lutnn_layer(codes: torch.Tensor, conn: torch.Tensor,
+                tables: torch.Tensor, *, bits: int) -> torch.Tensor:
+    """K7: one LUT-NN layer — parent codes ``(B, P)``, wiring ``(N, F)``,
+    truth tables ``(N, T)`` with ``T >= 2^(bits*F)`` -> output codes
+    ``(B, N)`` int32.  Rejects ``bits * F > 24``."""
+    if codes.dim() != 2 or conn.dim() != 2 or tables.dim() != 2:
+        raise ValueError(
+            f"lutnn_layer: codes (B, P), conn (N, F) and tables (N, T) "
+            f"must be 2-D, got {tuple(codes.shape)}, {tuple(conn.shape)}, "
+            f"{tuple(tables.shape)}")
+    n, f = conn.shape
+    if (tables.shape[0] != n or bits < 1 or f < 1
+            or bits * f > MAX_ADDR_BITS
+            or tables.shape[1] < (1 << (bits * f)) or codes.shape[1] < 1):
+        raise ValueError(
+            f"lutnn_layer: bits {bits} x fan-in {f} must be in "
+            f"[1, {MAX_ADDR_BITS}] with tables (N={n}, T >= "
+            f"2^(bits*F)) and P >= 1; got tables {tuple(tables.shape)}, "
+            f"codes {tuple(codes.shape)}")
+    if codes.device.type == "cpu":
+        return lutnn_layer_plain(codes, conn, tables, bits=bits)
+    cc = _int_operands("lutnn_layer", codes, [tables])
+    if conn.device != cc.device:
+        raise ValueError(f"lutnn_layer: conn on {conn.device}, codes on "
+                         f"{cc.device}")
+    conn = conn.to(torch.int32).contiguous()
+    out = lutnn_layer_cuda(cc, conn, tables, bits=bits)
+    if out.numel():
+        lutnn_layer.launches += 1
+    return out
+
+
 WRAPPERS = {"lut_act_stacked": lut_act_stacked, "lut_act": lut_act,
-            "fused_matmul_lut": fused_matmul_lut}
+            "fused_matmul_lut": fused_matmul_lut,
+            "lut_reconstruct": lut_reconstruct,
+            "plain_lookup": plain_lookup, "lutnn_layer": lutnn_layer}
 for _fn in WRAPPERS.values():
     _fn.launches = 0
 

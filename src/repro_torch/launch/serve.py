@@ -34,7 +34,7 @@ from repro_torch.calib import (
     synthetic_batches,
 )
 from repro_torch.configs import ARCH_NAMES, get_config, smoke_config
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, synchronize
 from repro_torch.kernels import launch_counts
 from repro_torch.nn import init_params
 from repro_torch.serve import (
@@ -147,11 +147,6 @@ def serving_tables(args, plans, device, log=print) -> dict:
     return tables
 
 
-def _sync(dev: torch.device) -> None:
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-
-
 def serve(args, cfg, params, batch, lut_tables, log=print) -> dict:
     """Prefill the prompts and decode ``--new-tokens`` greedy tokens.
     Returns the tokens (B, n_new), the prefill seconds and decode tok/s
@@ -159,23 +154,23 @@ def serve(args, cfg, params, batch, lut_tables, log=print) -> dict:
     dev = batch["tokens"].device
     b, t = batch["tokens"].shape
     max_seq = t + args.new_tokens
-    _sync(dev)
+    synchronize(dev)
     t0 = time.perf_counter()
     logits, cache = prefill(params, cfg, batch, max_seq=max_seq,
                             lut_tables=lut_tables)
-    _sync(dev)
+    synchronize(dev)
     prefill_s = time.perf_counter() - t0
     log(f"prefill {b}x{t}: {prefill_s:.4f}s")
     tok = logits[:, -1].argmax(-1)[:, None]
     toks = []
-    _sync(dev)
+    synchronize(dev)
     t0 = time.perf_counter()
     for i in range(args.new_tokens):
         toks.append(tok)
         logits, cache = decode_step(params, cfg, cache, tok, t + i,
                                     lut_tables=lut_tables)
         tok = logits[:, -1].argmax(-1)[:, None]
-    _sync(dev)
+    synchronize(dev)
     dt = time.perf_counter() - t0
     tokens = torch.cat(toks, dim=1).tolist() if toks else [[]] * b
     tok_s = args.new_tokens * b / dt if dt > 0 else float("inf")

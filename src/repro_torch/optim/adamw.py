@@ -1,0 +1,79 @@
+"""AdamW with global-norm clipping on lists of tensors.
+
+Own copy of the reference's ``optim/adamw.py`` in the reference's
+association: clip scale ``min(1, c / (||g|| + 1e-9))``, moments
+``b * m + (1 - b) * g``, step ``mhat / (sqrt(vhat) + eps)`` with the weight
+decay added to the step, and the update ``p - lr * step`` in float32.
+(``torch.optim.AdamW`` computes ``p * (1 - lr * wd)`` and
+``sqrt(v) / sqrt(c2) + eps``: another association, other bits.)
+
+Unlike the reference, which returns new trees, :func:`adamw_update`
+updates the parameters and the moments in place: the step's memory is the
+parameters' and the moments', nothing more.  The step count stays on the
+host, so the learning rate and the bias corrections are float32 scalars
+computed there.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+_F = np.float32
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamWConfig:
+    lr: Callable[[int], Any] | float = 1e-3
+    b1: float = 0.9
+    b2: float = 0.999
+    eps: float = 1e-8
+    weight_decay: float = 0.01
+    grad_clip_norm: float | None = 1.0
+
+    def lr_at(self, step: int) -> np.float32:
+        if callable(self.lr):
+            return _F(self.lr(step))
+        return _F(self.lr)
+
+
+def adamw_init(params: list[torch.Tensor]) -> dict:
+    return {"mu": [torch.zeros_like(p) for p in params],
+            "nu": [torch.zeros_like(p) for p in params],
+            "count": 0}
+
+
+def global_norm(tensors: list[torch.Tensor]) -> torch.Tensor:
+    return torch.sqrt(sum(torch.sum(torch.square(t.float()))
+                          for t in tensors))
+
+
+@torch.no_grad()
+def adamw_update(grads: list[torch.Tensor], state: dict,
+                 params: list[torch.Tensor], cfg: AdamWConfig) -> dict:
+    """One AdamW step, in place on ``params`` and ``state``.  Returns the
+    metrics ``{"grad_norm": tensor, "lr": float32}``."""
+    state["count"] += 1
+    count = state["count"]
+    gnorm = global_norm(grads)
+    if cfg.grad_clip_norm is not None:
+        # tensor / tensor: PyTorch's scalar / tensor is a reciprocal and a
+        # multiply, another rounding than the reference's division
+        clip = torch.tensor(_F(cfg.grad_clip_norm), device=gnorm.device)
+        scale = torch.minimum(torch.ones_like(gnorm),
+                              clip / (gnorm + 1e-9))
+        grads = [g * scale for g in grads]
+    b1, b2 = cfg.b1, cfg.b2
+    c1 = float(_F(1) - _F(b1) ** _F(count))
+    c2 = float(_F(1) - _F(b2) ** _F(count))
+    lr = cfg.lr_at(count)
+    for p, g, m, v in zip(params, grads, state["mu"], state["nu"]):
+        m.copy_(b1 * m + (1 - b1) * g.to(m.dtype))
+        v.copy_(b2 * v + (1 - b2) * torch.square(g.to(v.dtype)))
+        step = (m / c1) / (torch.sqrt(v / c2) + cfg.eps)
+        if cfg.weight_decay > 0:
+            step = step + cfg.weight_decay * p.to(step.dtype)
+        p.copy_((p.float() - float(lr) * step).to(p.dtype))
+    return {"grad_norm": gnorm, "lr": lr}

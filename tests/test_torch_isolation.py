@@ -35,7 +35,7 @@ def test_importing_every_submodule_pulls_in_no_jax_and_no_reference():
     r = subprocess.run([sys.executable, "-c", _IMPORT_ALL], env=env,
                        capture_output=True, text=True, timeout=240)
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.strip()) >= 25   # every submodule was imported
+    assert int(r.stdout.strip()) >= 53   # every submodule was imported
 
 
 def _imported_modules(path: Path) -> list[str]:
@@ -64,6 +64,7 @@ def _cfg():
 
 
 def _entry_points():
+    from repro_torch.launch import lutnn, quickstart
     from repro_torch.launch import serve as launcher
     from repro_torch.nn import init_params
     from repro_torch.serve import build_serving_plans, init_cache
@@ -74,11 +75,14 @@ def _entry_points():
         "init_cache": lambda: init_cache(_cfg(), 1, 8),
         "tables_for_model": lambda: plans.tables_for_model(),
         "launcher": lambda: launcher.main(["--lut-act"]),
+        "lutnn": lambda: lutnn.main([]),
+        "quickstart": lambda: quickstart.main([]),
     }
 
 
 @pytest.mark.parametrize("name", ["init_params", "init_cache",
-                                  "tables_for_model", "launcher"])
+                                  "tables_for_model", "launcher", "lutnn",
+                                  "quickstart"])
 def test_entry_point_without_device_needs_the_card(name):
     """Called without ``device`` on a machine with no CUDA, an entry point
     raises instead of running on the CPU."""
