@@ -8,19 +8,24 @@ Phases (any failure exits non-zero; nothing is caught):
   2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
      ``nvcc`` per source, all started together);
   3. full-width ``qwen3-0.6b`` (28 layers, bf16, random weights from seed
-     0): capture 2 calibration batches, compress per-(layer, site) tables,
-     and a shared-table plan;
-  4. K1-K3 against their plain PyTorch versions on the card, at the
+     0): capture 2 calibration batches, compress per-(layer, site) tables
+     for the MLP site, for every site (``--lut-sites all``) and for every
+     site plus the logit softcap, and a shared-table plan;
+  4. K1-K4 against their plain PyTorch versions on the card, at the
      serving path's shapes: K1/K2 bit for bit on bin edges +-1 ulp (bf16
      and f32, raw and packed slabs, a stack mixing w_lb == 0 and w_lb > 0);
      K3 bit for bit against its own GEMM followed by K1, and within 1% of
-     ``torch.matmul`` followed by the plain LUT;
-  5. the serving path through the launcher's entry points, 4 requests x
+     ``torch.matmul`` followed by the plain LUT; K4 bit for bit against its
+     plain version and, per site, against K1 on the all-sites super-slab
+     (every layer, every site in one launch, f32 and bf16);
+  5. qwen3-0.6b served through the launcher's entry points, 4 requests x
      64 prompt tokens x 16 new tokens: (a) stacked + cuda, (b) unrolled +
-     cuda, (c) shared tables + cuda, each token-identical to the gather
-     backend on the same tables, and (d) stacked + cuda + --lut-fuse, with
-     its agreement with (a); launch counts are zeroed before each form and
-     read after it;
+     cuda, (c) shared tables + cuda, (e) ``--lut-sites all`` stacked +
+     cuda, (g) ``--lut-sites all --logit-softcap 30``, each token-identical
+     to the gather backend on the same tables, and (d) ``--lut-fuse``, (f)
+     ``--lut-sites all --lut-fuse`` (K3 + K4), with their agreement with
+     (a) and (e); launch counts are zeroed before each form and read after
+     it;
   6. K5 (Eq. (1) at integer addresses) and K6 (plain lookup) bit for bit
      against their plain versions and ``plan.reconstruct()``: w_in 5-16,
      several M and w_lb, plain plans, odd query shapes, tables staged in
@@ -32,14 +37,27 @@ Phases (any failure exits non-zero; nothing is caught):
      CompressedLUT / ReducedLUT, reconstruction through K5/K6, accuracy
      through K7, Verilog), then the quickstart; launch counts zeroed
      before each and read after it;
-  9. per-kernel times (median CUDA-event time per launch over a run of
+  9. full-width ``rwkv6-3b`` (32 layers, bf16, random weights from seed
+     0): plans for the ``ffn`` site and for every site; K3 non-gated at the
+     ``ffn`` shape bit for bit against its own GEMM followed by K1; K4 on
+     its super-slab; K8 within ``rtol = atol = 1e-4`` of its plain version
+     (layer 0's inputs of a real prefill, strong and weak decay, a ragged
+     T, chunk 16, a given initial state);
+  10. rwkv6-3b served in the same sizes: (x) exact (K8 only), (h)
+     ``--lut-act`` stacked + cuda and (i) ``--lut-sites all``, each
+     token-identical to gather, (j) ``--lut-sites all --lut-fuse`` (K3 + K4
+     + K8) with its agreement with (i); each form must launch K8 once per
+     layer of its prefill; and how far the LUT forms move the prefill
+     logits, against the top-1 margin;
+  11. per-kernel times (median CUDA-event time per launch over a run of
      launches after a warm-up; also with the host out of the loop, from a
      CUDA graph of the launches), the bound from bytes and operations, the
      plain versions' times, and the library yardstick where one PyTorch
-     call computes the same function (K3: cuBLAS GEMM followed by K1; K6:
-     ``torch.take``);
-  10. one profiled decode step (exact, form (a), form (d)): wall time,
-     kernels launched, device busy time and idle share.
+     call computes the same function (K3: cuBLAS GEMM followed by K1, also
+     from a CUDA graph; K6: ``torch.take``); K4 and K8 have none;
+  12. one profiled decode step (qwen3-0.6b exact, form (a), form (d);
+     rwkv6-3b exact and form (j)): wall time, kernels launched, device
+     busy time and idle share.
 The last lines are the kernel JSON, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.  Long logs go to ``chiprun_out/``.
 """
@@ -475,7 +493,7 @@ def time_toolflow_kernels(dev, flow, errors) -> list:
     kernels.append(entry)
     for k in kernels:
         for label, t in k["shapes"].items():
-            log(f"[9] {k['name']} {label} {t['shape']}: {t['ms'] * 1e3:.2f} "
+            log(f"[11] {k['name']} {label} {t['shape']}: {t['ms'] * 1e3:.2f} "
                 f"us/launch (graph {t['graph_ms'] * 1e3:.2f} us), bound "
                 f"{t['bound_ms'] * 1e3:.3f} us ({t['bound_by']}), plain "
                 f"{t['plain_ms'] * 1e3:.2f} us"
@@ -484,6 +502,261 @@ def time_toolflow_kernels(dev, flow, errors) -> list:
                    f"{t['library_graph_ms'] * 1e3:.2f} us)")
                 + f"; launches {k['launches']} (toolflow + quickstart)")
     return kernels
+
+
+# -------------------------------------------------------------------------
+# the multi-site kernel K4 (lut_act_multi.cu) and the WKV kernel K8 (wkv.cu)
+# -------------------------------------------------------------------------
+# K4 segment lengths: one per per-layer site, different, one not a multiple
+# of the 256-thread block, one past the per-segment block cap (grid stride)
+MULTI_LENGTHS = (B * 3072, (1 << 20) + 3, 4, 5120 + 37)
+
+
+def site_edge_inputs(torch, entry, site, n, dtype, dev, gen):
+    """``n`` inputs for ``site`` of a multi-site entry: every quantizer
+    edge and grid point of its domain +-1 ulp of ``dtype`` first, then
+    uniform draws across (and 5% beyond) the domain."""
+    sm = entry["meta"]["site_meta"][site]
+    lo, hi = sm["x_lo"], sm["x_hi"]
+    span = hi - lo
+    x = (torch.rand(n, generator=gen, device=dev) * 1.1 * span
+         + (lo - 0.05 * span)).to(dtype)
+    e = edge_values(torch, dtype, dev, w_in=sm["w_in"], x_lo=lo, x_hi=hi)
+    e = e[torch.randperm(e.numel(), generator=gen, device=dev)]
+    m = min(n, e.numel())
+    x[:m] = e[:m]
+    return x
+
+
+def check_multisite(dev, entry, gen) -> tuple[float, int]:
+    """K4 bit for bit against its plain version and, per site, against K1
+    on that site's slice of the super-slab: every layer, every per-layer
+    site in one launch, f32 and bf16.  Returns (largest difference, cases)."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.lut_act import lut_act_multi_plain
+    from repro_torch.serve.stacked import multi_site_stacked_entry
+
+    sites = entry["meta"]["sites"]
+    slices = {s: multi_site_stacked_entry(entry, s) for s in sites}
+    err, cases = 0.0, 0
+    for dtype in (torch.float32, torch.bfloat16):
+        xs = {s: site_edge_inputs(torch, entry, s, n, dtype, dev, gen)
+              for s, n in zip(sites, MULTI_LENGTHS)}
+        for layer in range(entry["meta"]["n_layers"]):
+            yk = ops.lut_act_multi(xs, entry, layer)
+            yp = lut_act_multi_plain(xs, entry, layer)
+            for s, x in xs.items():
+                y1 = ops.lut_act_stacked(x, slices[s], layer)
+                err = max(err, float((yk[s].float() - yp[s].float()).abs()
+                                     .max()))
+                if not (bits_equal(torch, yk[s], yp[s])
+                        and bits_equal(torch, yk[s], y1)):
+                    raise AssertionError(
+                        f"K4 differs from its plain version or from K1: "
+                        f"site {s} layer {layer} {dtype} "
+                        f"({int((yk[s] != yp[s]).sum())} / "
+                        f"{int((yk[s] != y1).sum())} elements)")
+                cases += 1
+    torch.cuda.synchronize()
+    return err, cases
+
+
+def wkv_cases(torch, dev, gen, layer0):
+    """K8's comparison cases at rwkv6-3b's prefill shape: layer 0's inputs
+    from the real prefill, random inputs with strong and with weak decay,
+    a ragged T, chunk 16, and a given initial state."""
+    q0, k0, v0, lw0, u0 = layer0
+    b, t, h, n = q0.shape
+
+    def rnd(hi):
+        q, k, v = (torch.randn(b, t, h, n, generator=gen, device=dev)
+                   for _ in range(3))
+        lw = -torch.exp(torch.rand(b, t, h, n, generator=gen, device=dev)
+                        * (hi + 3.0) - 3.0)
+        return q, k, v, lw, torch.randn(h, n, generator=gen, device=dev)
+
+    strong, weak = rnd(0.7), rnd(-1.0)   # log_w = -exp(U(-3, hi))
+    s0 = torch.randn(b, h, n, n, generator=gen, device=dev) * 0.1
+    return {
+        "layer-0 prefill": ((q0, k0, v0, lw0, u0), 64, None),
+        "strong decay": (strong, 64, None),
+        "weak decay": (weak, 64, None),
+        "ragged T 48": (tuple(a[:, :48] for a in strong[:4])
+                        + (strong[4],), 64, None),
+        "chunk 16": (strong, 16, None),
+        "initial state": (weak, 64, s0),
+    }
+
+
+def check_wkv(dev, cases) -> float:
+    """K8 against its plain version on the card, ``rtol = atol = 1e-4`` on
+    y and on the final state.  Returns the largest absolute difference."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.wkv import wkv_chunked_plain
+
+    worst = 0.0
+    for name, (args, chunk, s0) in cases.items():
+        yk, sk = ops.wkv(*args, chunk=chunk, state=s0)
+        yp, sp = wkv_chunked_plain(*args, chunk=chunk, state=s0)
+        torch.cuda.synchronize()
+        ey = float((yk - yp).abs().max())
+        es = float((sk - sp).abs().max())
+        worst = max(worst, ey, es)
+        ok = (torch.allclose(yk, yp, rtol=1e-4, atol=1e-4)
+              and torch.allclose(sk, sp, rtol=1e-4, atol=1e-4))
+        log(f"    K8 {name} {tuple(args[0].shape)} chunk {chunk}: max |y - "
+            f"plain| {ey:.3e}, max |state - plain| {es:.3e} (|y| <= "
+            f"{float(yp.abs().max()):.3g})")
+        if not ok:
+            raise AssertionError(f"K8 differs from its plain version beyond "
+                                 f"rtol = atol = 1e-4: {name}")
+    return worst
+
+
+def check_fused_nongated(dev, params, multi, gen, site="ffn"):
+    """K3 non-gated at rwkv6-3b's ``ffn`` shape: bit for bit against its own
+    GEMM followed by K1, and the share of outputs that differ from
+    ``torch.matmul`` followed by the plain LUT.  Returns (largest
+    difference from the plain path, {M: share})."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.fused_matmul_lut import fused_matmul_lut_plain
+    from repro_torch.serve.stacked import multi_site_stacked_entry
+
+    ws = params.blocks["w_ffn_k"]
+    n_layers = ws.shape[0]
+    sl = multi_site_stacked_entry(multi, site)
+    err, share = 0.0, {}
+    for m in (B, B * T):
+        x = torch.randn(m, ws.shape[1], generator=gen, device=dev).to(
+            ws.dtype)
+        worst = 0.0
+        for layer in (0, n_layers // 2, n_layers - 1):
+            tab = {"multi_entry": multi, "site": site, "layer": layer}
+            yk = ops.fused_matmul_lut(x, ws[layer], tab, gated=False)
+            h = ops.fused_matmul_lut(x, ws[layer], tab, gated=False,
+                                     epilogue=False)
+            yc = ops.lut_act_stacked(h, sl, layer)
+            if not bits_equal(torch, yk, yc):
+                raise AssertionError(
+                    f"K3 (non-gated) differs from its own GEMM followed by "
+                    f"K1: M={m} layer {layer} ({int((yk != yc).sum())} "
+                    f"elements)")
+            yp = fused_matmul_lut_plain(x, ws[layer], tab, gated=False)
+            err = max(err, float((yk.float() - yp.float()).abs().max()))
+            worst = max(worst, float((yk != yp).float().mean()))
+        share[m] = worst
+        log(f"    K3 non-gated M={m} K={ws.shape[1]} N={ws.shape[2]}: "
+            f"bit-exact vs own GEMM + K1; share differing from torch.matmul "
+            f"+ plain LUT: {worst:.6f}")
+        if worst > 0.01:
+            raise AssertionError(f"K3 (non-gated) differs from the plain "
+                                 f"path on {worst:.4%} of outputs (limit 1%)")
+    torch.cuda.synchronize()
+    return err, share
+
+
+def form_config(plans, cfg0, args):
+    """The served config of a launcher form: the plans' patched config with
+    the form's flags, as ``launch.serve.setup`` applies them."""
+    cfg = plans.patched_config(cfg0) if plans is not None else cfg0
+    return dataclasses.replace(cfg, lut_fuse=args.lut_fuse,
+                               lut_sites=args.lut_sites,
+                               logit_softcap=args.logit_softcap)
+
+
+def serve_form(launcher, dev, label, args, cfg0, params, batch, plans, uses,
+               results, totals, ref=None, want=None):
+    """Serve one launcher form: a warm-up run, then a counted run (launch
+    counts zeroed just before it and read just after).  ``ref`` is
+    ``"gather"`` (tokens must equal the gather backend's on the same
+    tables) or another form's label (token agreement is reported);
+    ``want`` maps kernels to the exact launch count the run must show."""
+    import argparse
+
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    quiet = lambda m: None
+    fcfg = form_config(plans, cfg0, args)
+    tables = None if plans is None else launcher.serving_tables(
+        args, plans, dev, log=quiet)
+    launcher.serve(args, fcfg, params, batch, tables, log=quiet)
+    reset_launch_counts()
+    res = launcher.serve(args, fcfg, params, batch, tables, log=quiet)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    for k, v in counts.items():
+        totals[k] += v
+    for k in uses:
+        if counts[k] == 0:
+            raise AssertionError(f"form ({label}) launched no {k} kernel: "
+                                 f"{counts}")
+    for k, n in (want or {}).items():
+        if counts[k] != n:
+            raise AssertionError(f"form ({label}) launched {k} {counts[k]} "
+                                 f"times, not {n}: {counts}")
+    line = (f"({label}) {fcfg.name} exec={args.plan_exec} "
+            f"fuse={args.lut_fuse} sites={args.lut_sites} softcap="
+            f"{args.logit_softcap}: prefill {res['prefill_s']:.4f}s, decode "
+            f"{res['decode_tok_s']:.1f} tok/s")
+    if plans is not None:
+        line += (f"; calib={plans.calib}, {plans.total_cost} P-LUTs, "
+                 f"{launcher.tables_nbytes(tables)} table bytes")
+    line += f"; launches {counts}"
+    if ref == "gather":
+        g_args = argparse.Namespace(**vars(args))
+        g_args.lut_backend = "gather"
+        g_tables = launcher.serving_tables(g_args, plans, dev, log=quiet)
+        g = launcher.serve(g_args, fcfg, params, batch, g_tables, log=quiet)
+        if g["tokens"] != res["tokens"]:
+            raise AssertionError(
+                f"form ({label}) tokens differ from the gather backend: "
+                f"{res['tokens']} vs {g['tokens']}")
+        line += (f"; tokens == gather (gather: prefill {g['prefill_s']:.4f}"
+                 f"s, decode {g['decode_tok_s']:.1f} tok/s)")
+        res["gather"] = {k: g[k] for k in ("prefill_s", "decode_s",
+                                           "decode_tok_s")}
+    elif ref is not None:
+        agree = float(np.mean(np.array(results[ref]["tokens"])
+                              == np.array(res["tokens"])))
+        line += f"; token agreement with ({ref}): {agree:.4f}"
+        res[f"agreement_with_{ref}"] = agree
+    res["launches"] = counts
+    log(line)
+    log(f"    request 0: {res['tokens'][0]}")
+    results[label] = res
+    return res
+
+
+def logit_drift(launcher, dev, cfg0, params, batch, a, b) -> dict:
+    """How far form ``b`` moves the last-token prefill logits from form
+    ``a`` (each ``(args, plans)``, plans ``None`` for the exact model),
+    beside ``a``'s top-1 margin: the yardstick for a token agreement."""
+    import torch
+
+    def logits(args, plans):
+        tabs = None if plans is None else launcher.serving_tables(
+            args, plans, dev, log=lambda m: None)
+        lg, _ = launcher.prefill(params, form_config(plans, cfg0, args),
+                                 batch, max_seq=T, lut_tables=tabs)
+        return lg[:, -1].float()
+
+    la, lb = logits(*a), logits(*b)
+    top2 = torch.topk(la, 2, dim=-1).values
+    return {"max_abs_diff": float((la - lb).abs().max()),
+            "mean_abs_diff": float((la - lb).abs().mean()),
+            "logit_std": float(la.std()),
+            "top1_margin": [float(m) for m in top2[:, 0] - top2[:, 1]],
+            "same_argmax": [bool(x) for x in
+                            la.argmax(-1) == lb.argmax(-1)]}
 
 
 def main() -> int:
@@ -503,13 +776,15 @@ def main() -> int:
     import numpy as np
 
     from repro_torch.kernels import build, launch_counts, ops
-    from repro_torch.kernels import reset_launch_counts
     from repro_torch.kernels.fused_matmul_lut import fused_matmul_lut_plain
     from repro_torch.kernels.lut_act import (
+        lut_act_multi_plain,
         lut_act_plain,
         lut_act_stacked_plain,
     )
+    from repro_torch.kernels.wkv import wkv_chunked_plain
     from repro_torch.launch import serve as launcher
+    from repro_torch.nn import ssm as ssm_mod
     from repro_torch.nn.lut_act import build_lut_activation
     from repro_torch.serve import verify_backend_equivalence
     from repro_torch.serve.stacked import (
@@ -517,6 +792,8 @@ def main() -> int:
         multi_site_stacked_entry,
     )
 
+    t_start = time.perf_counter()
+    stamp = lambda: f"[{time.perf_counter() - t_start:.0f}s]"
     OUT_DIR.mkdir(exist_ok=True)
     # parity runs: no TF32, no reduced-precision bf16 reductions
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -554,8 +831,9 @@ def main() -> int:
     t0 = time.perf_counter()
     cfg0, params, batch, rng = launcher.setup(args_a)
     torch.cuda.synchronize()
-    log(f"[3] {cfg0.name}: {cfg0.n_layers} layers, d_model {cfg0.d_model}, "
-        f"d_ff {cfg0.d_ff}, vocab {cfg0.vocab_size}, {cfg0.dtype}; "
+    log(f"[3] {stamp()} {cfg0.name}: {cfg0.n_layers} layers, d_model "
+        f"{cfg0.d_model}, d_ff {cfg0.d_ff}, vocab {cfg0.vocab_size}, "
+        f"{cfg0.dtype}; "
         f"{sum(p.numel() for p in params.parameters()) / 1e9:.3f}G params "
         f"in {time.perf_counter() - t0:.1f}s")
     plans = launcher.build_plans(args_a, cfg0, params, rng,
@@ -568,6 +846,18 @@ def main() -> int:
     shared = launcher.build_plans(args_c, cfg0, params, rng,
                                   log=lambda m: log("    " + m))
     cfg = plans.patched_config(cfg0)
+    # path A: every LUT site (--lut-sites all), and with the logit softcap
+    args_e = parse(common + ["--calib-steps", "2", "--lut-sites", "all"])
+    args_f = parse(common + ["--calib-steps", "2", "--lut-sites", "all",
+                             "--lut-fuse"])
+    args_g = parse(common + ["--calib-steps", "2", "--lut-sites", "all",
+                             "--logit-softcap", "30"])
+    plans_all = launcher.build_plans(
+        args_e, form_config(None, cfg0, args_e), params, rng,
+        log=lambda m: log("    " + m))
+    plans_cap = launcher.build_plans(
+        args_g, form_config(None, cfg0, args_g), params, rng,
+        log=lambda m: log("    " + m))
 
     # ---- 4. kernels against their plain versions on the card -------------
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -627,8 +917,8 @@ def main() -> int:
                             f"{name} packed={packed} rows {rows} {dtype}")
                     checked += 1
     torch.cuda.synchronize()
-    log(f"[4] K1/K2 bit-exact against their plain versions on {checked} "
-        f"(slab, layer, shape, dtype) cases")
+    log(f"[4] {stamp()} K1/K2 bit-exact against their plain versions on "
+        f"{checked} (slab, layer, shape, dtype) cases")
 
     f_tables = plans.tables_for_model(backend="cuda", kernel="fused",
                                       device=dev)
@@ -679,69 +969,41 @@ def main() -> int:
                                  f"{worst:.4%} of outputs (limit 1%)")
     log("[4] K3 checks passed")
 
-    # ---- 5. the main path -------------------------------------------------
-    forms = {
-        "a": (args_a, plans),
-        "b": (parse(common + ["--calib-steps", "2", "--plan-exec",
-                            "unrolled"]), plans),
-        "c": (args_c, shared),
-        "d": (parse(common + ["--calib-steps", "2", "--lut-fuse"]), plans),
-    }
-    uses = {"a": "lut_act_stacked", "b": "lut_act", "c": "lut_act",
-            "d": "fused_matmul_lut"}
+    a_tables = plans_all.tables_for_model(backend="cuda", kernel="fused",
+                                          device=dev)
+    a_multi = a_tables["multi"]
+    k4_err, k4_cases = check_multisite(dev, a_multi, gen)
+    max_err["lut_act_multi"] = k4_err
+    log(f"[4] {stamp()} K4 bit-exact against its plain version and against "
+        f"K1 per site on {k4_cases} (site, layer, dtype) cases: sites "
+        f"{a_multi['meta']['sites']} in one launch per layer, segment "
+        f"lengths {MULTI_LENGTHS}, f32 and bf16, bin edges +-1 ulp")
+
+    # ---- 5. the serving path, qwen3-0.6b (path A: forms e-g) --------------
     results = {}
     totals = {k: 0 for k in launch_counts()}
     quiet = lambda m: None
     # the exact activation (no LUT) on the same weights, as a yardstick
     launcher.serve(args_a, cfg0, params, batch, None, log=quiet)
     exact = launcher.serve(args_a, cfg0, params, batch, None, log=quiet)
-    log(f"[5] exact (no LUT): prefill {exact['prefill_s']:.4f}s, decode "
-        f"{exact['decode_tok_s']:.1f} tok/s")
-    for form, (args, pl) in forms.items():
-        fcfg = dataclasses.replace(pl.patched_config(cfg0),
-                                   lut_fuse=args.lut_fuse)
-        tables = launcher.serving_tables(args, pl, dev, log=quiet)
-        # warm-up run (first-launch costs), then the counted run
-        launcher.serve(args, fcfg, params, batch, tables, log=quiet)
-        reset_launch_counts()
-        res = launcher.serve(args, fcfg, params, batch, tables, log=quiet)
-        torch.cuda.synchronize()
-        counts = launch_counts()
-        for k, v in counts.items():
-            totals[k] += v
-        if counts[uses[form]] == 0:
-            raise AssertionError(f"form ({form}) launched no "
-                                 f"{uses[form]} kernel: {counts}")
-        line = (f"[5] ({form}) exec={args.plan_exec} fuse={args.lut_fuse} "
-                f"calib={pl.calib}: prefill {res['prefill_s']:.4f}s, "
-                f"decode {res['decode_tok_s']:.1f} tok/s; "
-                f"{pl.total_cost} P-LUTs, dedup_rate "
-                f"{pl.report.dedup_rate:.3f}, "
-                f"{launcher.tables_nbytes(tables)} table bytes; "
-                f"launches {counts}")
-        if form != "d":
-            g_args = parse(common + ["--lut-backend", "gather",
-                                     "--plan-exec", args.plan_exec])
-            g_tables = launcher.serving_tables(g_args, pl, dev, log=quiet)
-            ref = launcher.serve(g_args, fcfg, params, batch, g_tables,
-                                 log=quiet)
-            if ref["tokens"] != res["tokens"]:
-                raise AssertionError(
-                    f"form ({form}) tokens differ from the gather backend: "
-                    f"{res['tokens']} vs {ref['tokens']}")
-            line += (f"; tokens == gather (gather: prefill "
-                     f"{ref['prefill_s']:.4f}s, decode "
-                     f"{ref['decode_tok_s']:.1f} tok/s)")
-            res["gather"] = {k: ref[k] for k in ("prefill_s", "decode_s",
-                                                 "decode_tok_s")}
-        else:
-            a = results["a"]["tokens"]
-            agree = np.mean(np.array(a) == np.array(res["tokens"]))
-            line += f"; token agreement with (a): {agree:.4f}"
-            res["agreement_with_a"] = float(agree)
-        log(line)
-        log(f"    request 0: {res['tokens'][0]}")
-        results[form] = res
+    log(f"[5] {stamp()} exact (no LUT): prefill {exact['prefill_s']:.4f}s, "
+        f"decode {exact['decode_tok_s']:.1f} tok/s")
+    forms = [
+        ("a", args_a, plans, ["lut_act_stacked"], "gather"),
+        ("b", parse(common + ["--calib-steps", "2", "--plan-exec",
+                              "unrolled"]), plans, ["lut_act"], "gather"),
+        ("c", args_c, shared, ["lut_act"], "gather"),
+        ("d", parse(common + ["--calib-steps", "2", "--lut-fuse"]), plans,
+         ["fused_matmul_lut"], "a"),
+        ("e", args_e, plans_all, ["lut_act_stacked"], "gather"),
+        ("f", args_f, plans_all, ["fused_matmul_lut", "lut_act_multi"],
+         "e"),
+        ("g", args_g, plans_cap, ["lut_act_stacked", "lut_act"], "gather"),
+    ]
+    for label, args, pl, uses, ref in forms:
+        log(f"[5] {stamp()}")
+        serve_form(launcher, dev, label, args, cfg0, params, batch, pl, uses,
+                   results, totals, ref=ref)
     logits, _ = launcher.prefill(params, cfg, batch, max_seq=T + 1,
                                  lut_tables=st_cuda)
     if logits.shape != (B, 1, cfg.vocab_size) or not torch.isfinite(
@@ -766,9 +1028,98 @@ def main() -> int:
     errors["lutnn_layer"] = check_lutnn_layer(dev)
 
     # ---- 8. the LUT-NN toolflow (jsc-2l, full paper width), quickstart ----
+    log(f"[8] {stamp()}")
     flow = run_toolflow(dev)
 
-    # ---- 9. per-kernel times ---------------------------------------------
+    # ---- 9. rwkv6-3b (path B): model, plans, K3 non-gated and K8 ----------
+    rcommon = ["--arch", "rwkv6-3b", "--full", "--batch", str(B),
+               "--prompt-len", str(T), "--new-tokens", str(NEW),
+               "--device", "cuda"]
+    r_args_x = parse(rcommon)
+    r_args_h = parse(rcommon + ["--lut-act", "--calib-steps", "2"])
+    r_args_i = parse(rcommon + ["--lut-act", "--calib-steps", "2",
+                                "--lut-sites", "all"])
+    r_args_j = parse(rcommon + ["--lut-act", "--calib-steps", "2",
+                                "--lut-sites", "all", "--lut-fuse"])
+    t0 = time.perf_counter()
+    rcfg0, rparams, rbatch, rrng = launcher.setup(r_args_x)
+    torch.cuda.synchronize()
+    log(f"[9] {stamp()} {rcfg0.name}: {rcfg0.n_layers} layers, d_model "
+        f"{rcfg0.d_model}, {rcfg0.d_model // rcfg0.rwkv_head_dim} heads x "
+        f"{rcfg0.rwkv_head_dim}, d_ff {rcfg0.d_ff}, vocab "
+        f"{rcfg0.vocab_size}, {rcfg0.dtype}; "
+        f"{sum(p.numel() for p in rparams.parameters()) / 1e9:.3f}G params "
+        f"in {time.perf_counter() - t0:.1f}s")
+    r_plans = launcher.build_plans(r_args_h, rcfg0, rparams, rrng,
+                                   log=lambda m: log("    " + m))
+    r_plans_all = launcher.build_plans(
+        r_args_i, form_config(None, rcfg0, r_args_i), rparams, rrng,
+        log=lambda m: log("    " + m))
+    r_multi = r_plans_all.tables_for_model(backend="cuda", kernel="fused",
+                                           device=dev)["multi"]
+    k3_err, k3_ng_share = check_fused_nongated(dev, rparams, r_multi, gen)
+    max_err["fused_matmul_lut"] = max(max_err["fused_matmul_lut"], k3_err)
+    k4_err, k4_cases = check_multisite(dev, r_multi, gen)
+    max_err["lut_act_multi"] = max(max_err["lut_act_multi"], k4_err)
+    log(f"[9] K4 bit-exact on rwkv6-3b's super-slab "
+        f"({r_multi['meta']['sites']}), {k4_cases} (site, layer, dtype) "
+        f"cases")
+    # layer 0's WKV inputs of a real full-width prefill
+    seen = []
+    orig_wkv = ssm_mod.wkv_chunked
+
+    def record(*a, **kw):
+        if not seen:
+            seen.append(a)
+        return orig_wkv(*a, **kw)
+
+    ssm_mod.wkv_chunked = record
+    try:
+        launcher.prefill(rparams, rcfg0, rbatch, max_seq=T,
+                         lut_tables=None)
+    finally:
+        ssm_mod.wkv_chunked = orig_wkv
+    k8_cases = wkv_cases(torch, dev, gen, seen[0])
+    max_err["wkv"] = check_wkv(dev, k8_cases)
+    log(f"[9] {stamp()} K8 within rtol = atol = 1e-4 of its plain version "
+        f"on {len(k8_cases)} cases; largest difference {max_err['wkv']:.3e}")
+
+    # ---- 10. the serving path, rwkv6-3b (path B: forms x, h-j) -------------
+    n_wkv = {"wkv": rcfg0.n_layers}   # one K8 launch per layer per prefill
+    r_forms = [
+        ("x", r_args_x, None, ["wkv"], None),
+        ("h", r_args_h, r_plans, ["lut_act_stacked", "wkv"], "gather"),
+        ("i", r_args_i, r_plans_all, ["lut_act_stacked", "wkv"], "gather"),
+        ("j", r_args_j, r_plans_all,
+         ["fused_matmul_lut", "lut_act_multi", "wkv"], "i"),
+    ]
+    for label, args, pl, uses, ref in r_forms:
+        log(f"[10] {stamp()}")
+        serve_form(launcher, dev, label, args, rcfg0, rparams, rbatch, pl,
+                   uses, results, totals, ref=ref, want=n_wkv)
+    drift = {
+        "qwen e->f": logit_drift(launcher, dev, cfg0, params, batch,
+                                 (args_e, plans_all), (args_f, plans_all)),
+        "rwkv x->h": logit_drift(launcher, dev, rcfg0, rparams, rbatch,
+                                 (r_args_x, None), (r_args_h, r_plans)),
+        "rwkv i->j": logit_drift(launcher, dev, rcfg0, rparams, rbatch,
+                                 (r_args_i, r_plans_all),
+                                 (r_args_j, r_plans_all))}
+    for k, v in drift.items():
+        log(f"[10] prefill logits {k}: max |diff| {v['max_abs_diff']:.4g}, "
+            f"mean {v['mean_abs_diff']:.4g}, logit std {v['logit_std']:.4g},"
+            f" top-1 margins {[round(m, 4) for m in v['top1_margin']]}, "
+            f"same argmax {v['same_argmax']}")
+    r_logits, r_state = launcher.prefill(rparams, rcfg0, rbatch,
+                                         max_seq=T, lut_tables=None)
+    if r_logits.shape != (B, 1, rcfg0.vocab_size) or not torch.isfinite(
+            r_logits.float()).all() or not all(
+                torch.isfinite(v.float()).all() for v in r_state.values()):
+        raise AssertionError(f"bad rwkv6-3b logits or state "
+                             f"{tuple(r_logits.shape)}")
+
+    # ---- 11. per-kernel times ---------------------------------------------
+    log(f"[11] {stamp()}")
     L = cfg.n_layers
     st = stacks["packed"]
     slab_bytes = sum(int(st["arrays"][c][0].numel()) * 4
@@ -813,7 +1164,8 @@ def main() -> int:
              "replaces": "src/repro/kernels/fused_matmul_lut.py:62",
              "launches": totals["fused_matmul_lut"],
              "max_abs_err": max_err["fused_matmul_lut"],
-             "mismatch_share_vs_plain": k3_mismatch}
+             "mismatch_share_vs_plain": k3_mismatch,
+             "mismatch_share_vs_plain_nongated": k3_ng_share}
     K, N = cfg.d_model, 2 * cfg.d_ff
     for shape_name, m in (("decode", B), ("prefill", B * T)):
         x = torch.randn(m, K, generator=gen, device=dev).to(torch.bfloat16)
@@ -834,43 +1186,161 @@ def main() -> int:
                         2 * m * K * N, PEAK_BF16_FLOPS)
         t = {"ms": timed_ms(kfn), "graph_ms": graph_ms(kfn),
              "plain_ms": timed_ms(pfn), "bound_ms": bms, "bound_by": by,
-             "library_ms": timed_ms(lfn), "matmul_only_ms": timed_ms(mfn)}
+             "library_ms": timed_ms(lfn), "library_graph_ms": graph_ms(lfn),
+             "matmul_only_ms": timed_ms(mfn),
+             "matmul_only_graph_ms": graph_ms(mfn)}
         if shape_name == "decode":
             entry.update(t, shape=[m, K, N])
         else:
             entry["prefill"] = dict(t, shape=[m, K, N])
+    # rwkv6-3b's ffn site: non-gated, K 2560 x N 8960
+    rws = rparams.blocks["w_ffn_k"]
+    RL, RK, RN = rws.shape
+    r_slice = multi_site_stacked_entry(r_multi, "ffn")
+    r_slab = sum(int(r_slice["arrays"][c][0].numel()) * 4
+                 for c in r_slice["arrays"])
+    rtab = {"multi_entry": r_multi, "site": "ffn", "layer": RL // 2}
+    entry["ffn_nongated"] = {}
+    for shape_name, m in (("decode", B), ("prefill", B * T)):
+        x = torch.randn(m, RK, generator=gen, device=dev).to(torch.bfloat16)
+        it = iter(range(10 ** 9))
+        kfn = lambda: ops.fused_matmul_lut(x, rws[next(it) % RL], rtab,
+                                           gated=False)
+
+        def lfn():
+            return ops.lut_act_stacked(torch.matmul(x, rws[next(it) % RL]),
+                                       r_slice, RL // 2)
+        bms, by = bound(2 * (m * RK + RK * RN + m * RN) + r_slab,
+                        2 * m * RK * RN, PEAK_BF16_FLOPS)
+        entry["ffn_nongated"][shape_name] = {
+            "shape": [m, RK, RN], "ms": timed_ms(kfn, n=20),
+            "graph_ms": graph_ms(kfn, n=20), "bound_ms": bms,
+            "bound_by": by, "library_ms": timed_ms(lfn, n=20),
+            "library_graph_ms": graph_ms(lfn, n=20),
+            "plain_ms": timed_ms(lambda: fused_matmul_lut_plain(
+                x, rws[next(it) % RL], rtab, gated=False), n=20)}
+    kernels.append(entry)
+
+    # K4 at each site's decode shape (form (f)) and one multi-segment launch
+    dshapes = {"attn_exp": (B, cfg.n_kv_heads,
+                            cfg.n_heads // cfg.n_kv_heads, 1, T + NEW),
+               "norm_rsqrt": (B, 1, 1), "rope_table": (1, cfg.d_head // 2)}
+    meta_bytes = 4 * (3 + 4 + 2 + 15)
+
+    def multi_work(xs):
+        nbytes = sum(2 * x.numel() * x.element_size() for x in xs.values())
+        for s in xs:
+            sl = multi_site_stacked_entry(a_multi, s)
+            nbytes += meta_bytes + sum(
+                int(sl["arrays"][c][0].numel()) * 4 for c in sl["arrays"]
+                if c != "t_lb" or sl["meta"]["any_lb"])
+        return nbytes, 20 * sum(x.numel() for x in xs.values())
+
+    entry = {"name": "lut_act_multi", "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/lut_act_multi.cu",
+             "replaces": "src/repro/kernels/lut_act.py:279",
+             "launches": totals["lut_act_multi"],
+             "max_abs_err": max_err["lut_act_multi"], "library_ms": None,
+             "shapes": {}}
+    groups = {s: {s: sh} for s, sh in dshapes.items()}
+    groups["multi-segment"] = dshapes
+    for label, group in groups.items():
+        xs = {s: site_edge_inputs(torch, a_multi, s, int(np.prod(sh)),
+                                  torch.float32, dev, gen).view(sh)
+              for s, sh in group.items()}
+        kfn = lambda: ops.lut_act_multi(xs, a_multi, L // 2)
+        nbytes, ops_ = multi_work(xs)
+        bms, by = bound(nbytes, ops_, PEAK_F32_FLOPS)
+        t = {"shape": {s: list(sh) for s, sh in group.items()},
+             "ms": timed_ms(kfn), "graph_ms": graph_ms(kfn),
+             "plain_ms": timed_ms(
+                 lambda: lut_act_multi_plain(xs, a_multi, L // 2)),
+             "bound_ms": bms, "bound_by": by, "library_ms": None}
+        if not entry["shapes"]:
+            entry.update({k: v for k, v in t.items() if k != "shape"},
+                         shape=t["shape"])
+        entry["shapes"][label] = t
+    kernels.append(entry)
+
+    # K8 at rwkv6-3b's prefill shape, layer 0's real inputs
+    (q, k, v, lw, u), chunk, _ = k8_cases["layer-0 prefill"]
+    f32 = [a.float().contiguous() for a in (q, k, v, lw, u)]
+    kfn = lambda: ops.wkv(*f32, chunk=chunk)
+    bsz, tt, hh, nn = q.shape
+    n_chunks = -(-tt // chunk)
+    cc = min(chunk, tt)
+    wkv_bytes = 4 * (5 * bsz * tt * hh * nn + hh * nn + bsz * hh * nn * nn)
+    per_chunk = (cc * (cc - 1) // 2 * nn * 5 + cc * nn * 3 + 2 * cc * nn * 3
+                 + cc * (cc + 1) // 2 * nn * 2 + 2 * cc * nn * nn
+                 + 2 * nn * nn * cc + 2 * nn * nn)
+    bms, by = bound(wkv_bytes, bsz * hh * n_chunks * per_chunk,
+                    PEAK_F32_FLOPS)
+    entry = {"name": "wkv", "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/wkv.cu",
+             "replaces": "src/repro/kernels/wkv.py:68",
+             "launches": totals["wkv"], "max_abs_err": max_err["wkv"],
+             "shape": [bsz, tt, hh, nn, chunk], "ms": timed_ms(kfn, n=20),
+             "graph_ms": graph_ms(kfn, n=20),
+             "plain_ms": timed_ms(lambda: wkv_chunked_plain(
+                 *f32, chunk=chunk), n=5),
+             "bound_ms": bms, "bound_by": by, "library_ms": None}
     kernels.append(entry)
     for k in kernels:
-        log(f"[9] {k['name']}: {k['ms'] * 1e3:.2f} us/launch (graph "
-            f"{k['graph_ms'] * 1e3:.2f} us) at {k['shape']}, bound "
-            f"{k['bound_ms'] * 1e3:.3f} us ({k['bound_by']}), plain "
-            f"{k['plain_ms'] * 1e3:.2f} us; prefill {k['prefill']['ms'] * 1e3:.2f}"
-            f" us (graph {k['prefill']['graph_ms'] * 1e3:.2f}), bound "
-            f"{k['prefill']['bound_ms'] * 1e3:.3f} us, plain "
-            f"{k['prefill']['plain_ms'] * 1e3:.2f} us; launches "
-            f"{k['launches']}"
-            + ("" if k["library_ms"] is None else
-               f"; library {k['library_ms'] * 1e3:.2f} us, prefill "
-               f"{k['prefill']['library_ms'] * 1e3:.2f} us"))
+        line = (f"[11] {k['name']}: {k['ms'] * 1e3:.2f} us/launch (graph "
+                f"{k['graph_ms'] * 1e3:.2f} us) at {k['shape']}, bound "
+                f"{k['bound_ms'] * 1e3:.3f} us ({k['bound_by']}), plain "
+                f"{k['plain_ms'] * 1e3:.2f} us; launches {k['launches']}")
+        if "prefill" in k:
+            line += (f"; prefill {k['prefill']['ms'] * 1e3:.2f} us (graph "
+                     f"{k['prefill']['graph_ms'] * 1e3:.2f}), bound "
+                     f"{k['prefill']['bound_ms'] * 1e3:.3f} us, plain "
+                     f"{k['prefill']['plain_ms'] * 1e3:.2f} us")
+        if k.get("library_ms") is not None:
+            line += (f"; library {k['library_ms'] * 1e3:.2f} us (graph "
+                     f"{k['library_graph_ms'] * 1e3:.2f}), prefill "
+                     f"{k['prefill']['library_ms'] * 1e3:.2f} us (graph "
+                     f"{k['prefill']['library_graph_ms'] * 1e3:.2f}); "
+                     f"cuBLAS alone {k['matmul_only_ms'] * 1e3:.2f} us "
+                     f"(graph {k['matmul_only_graph_ms'] * 1e3:.2f})")
+        log(line)
+        for label, t in k.get("shapes", {}).items():
+            log(f"    {label} {t['shape']}: {t['ms'] * 1e3:.2f} us (graph "
+                f"{t['graph_ms'] * 1e3:.2f}), bound {t['bound_ms'] * 1e3:.3f}"
+                f" us ({t['bound_by']}), plain {t['plain_ms'] * 1e3:.2f} us")
+        for label, t in k.get("ffn_nongated", {}).items():
+            log(f"    ffn non-gated {label} {t['shape']}: {t['ms'] * 1e3:.2f}"
+                f" us (graph {t['graph_ms'] * 1e3:.2f}), bound "
+                f"{t['bound_ms'] * 1e3:.3f} us ({t['bound_by']}), plain "
+                f"{t['plain_ms'] * 1e3:.2f} us, library (cuBLAS + K1) "
+                f"{t['library_ms'] * 1e3:.2f} us (graph "
+                f"{t['library_graph_ms'] * 1e3:.2f})")
     kernels += time_toolflow_kernels(dev, flow, errors)
 
-    # ---- 10. where a decode step's time goes -------------------------------
+    # ---- 12. where a decode step's time goes -------------------------------
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    log(f"[12] {stamp()}")
+    r_tables_j = launcher.serving_tables(r_args_j, r_plans_all, dev,
+                                         log=quiet)
     steps = {}
-    for label, scfg, stab in (
-            ("exact", cfg0, None), ("a", cfg, st_cuda),
-            ("d", dataclasses.replace(cfg, lut_fuse=True), f_tables)):
-        logits, cache = launcher.prefill(params, scfg, batch,
+    for label, scfg, sparams, sbatch, stab in (
+            ("exact", cfg0, params, batch, None),
+            ("a", cfg, params, batch, st_cuda),
+            ("d", dataclasses.replace(cfg, lut_fuse=True), params, batch,
+             f_tables),
+            ("rwkv exact", rcfg0, rparams, rbatch, None),
+            ("rwkv j", form_config(r_plans_all, rcfg0, r_args_j), rparams,
+             rbatch, r_tables_j)):
+        logits, cache = launcher.prefill(sparams, scfg, sbatch,
                                          max_seq=T + 2, lut_tables=stab)
         tok = logits[:, -1].argmax(-1)[:, None]
-        launcher.decode_step(params, scfg, cache, tok, T, stab)
+        launcher.decode_step(sparams, scfg, cache, tok, T, stab)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            launcher.decode_step(params, scfg, cache, tok, T + 1, stab)
+            launcher.decode_step(sparams, scfg, cache, tok, T + 1, stab)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
@@ -885,20 +1355,25 @@ def main() -> int:
                         "idle_share": (1 - busy_us / 1e6 / wall) if kern
                         else None,
                         "top_kernels_us": top}
-        log(f"[10] decode step ({label}): wall {wall * 1e3:.2f} ms, "
+        log(f"[12] decode step ({label}): wall {wall * 1e3:.2f} ms, "
             f"{len(kern)} kernels, device busy {busy_us / 1e3:.2f} ms"
             + (f", idle share {steps[label]['idle_share']:.3f}" if kern
                else " (profiler saw no device events: idle not measured)"))
         for name, us in top[:5]:
             log(f"    {us:9.1f} us  {name[:90]}")
-    (OUT_DIR / "profile.txt").write_text(
-        prof.key_averages().table(sort_by="cpu_time_total", row_limit=40))
+        (OUT_DIR / f"profile_{label.replace(' ', '_')}.txt").write_text(
+            prof.key_averages().table(sort_by="cpu_time_total",
+                                      row_limit=40))
 
-    summary = {"card": smi, "exact": exact, "steps": steps, "forms": {
-        f: {k: v for k, v in r.items() if k != "plans"}
-        for f, r in results.items()}, "kernels": kernels,
-        "toolflow": {k: v for k, v in flow.items() if k != "plan_list"}}
+    summary = {"card": smi, "seconds": time.perf_counter() - t_start,
+               "exact": exact, "steps": steps, "logit_drift": drift,
+               "forms": {
+                   f: {k: v for k, v in r.items() if k != "plans"}
+                   for f, r in results.items()}, "kernels": kernels,
+               "toolflow": {k: v for k, v in flow.items()
+                            if k != "plan_list"}}
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(summary, indent=1))
+    log(f"done in {time.perf_counter() - t_start:.0f}s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

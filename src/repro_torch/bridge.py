@@ -3,9 +3,10 @@
 The inputs are plain numpy trees — ``jax.tree.map(np.asarray, tree)`` on
 the reference side — so this module imports nothing of JAX.
 
-* :func:`params_from_jax` — a reference parameter tree (dense decoder)
-  -> :class:`~repro_torch.nn.DecoderParams`; names and stacked layouts are
-  the same, so every leaf is copied without renaming (bf16 included).
+* :func:`params_from_jax` — a reference parameter tree (dense decoder or
+  RWKV6) -> :class:`~repro_torch.nn.DecoderParams` /
+  :class:`~repro_torch.nn.RWKVParams`; names and stacked layouts are the
+  same, so every leaf is copied without renaming (bf16 included).
 * :func:`tables_from_jax` — a reference ``ServingPlans.tables_for_model``
   dict -> the port's ``lut_tables`` (same structure, tensors on the
   device, backend ``"pallas"`` renamed ``"cuda"``), so both packages can
@@ -21,7 +22,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.lutnn.model import LUTNN, LUTNNConfig
-from repro_torch.nn.transformer import DecoderParams
+from repro_torch.nn.transformer import params_class
 
 _BACKENDS = {"pallas": "cuda", "gather": "gather"}
 
@@ -55,9 +56,10 @@ def _copy_named(who: str, module: torch.nn.Module, flat: dict) -> None:
             t.copy_(src)
 
 
-def params_from_jax(tree: dict, cfg, device=None) -> DecoderParams:
-    """Copy a reference parameter tree (numpy leaves) into the port."""
-    params = DecoderParams(cfg, device)
+def params_from_jax(tree: dict, cfg, device=None):
+    """Copy a reference parameter tree (numpy leaves) into the port's
+    parameter module for ``cfg``'s family."""
+    params = params_class(cfg)(cfg, device)
     flat = {k: v for k, v in tree.items() if k != "blocks"}
     flat.update({f"blocks.{k}": v for k, v in tree["blocks"].items()})
     _copy_named("params_from_jax", params, flat)

@@ -178,13 +178,16 @@ def capture_model(params, cfg, batches, *, w_in: int | None = None,
                   x_lo: float = -8.0, x_hi: float = 8.0,
                   capture: ActivationCapture | None = None,
                   ) -> ActivationCapture:
-    """Stream calibration batches through the exact (non-LUT) forward,
-    capturing every activation site's observed input bins per layer
-    (``L{i}/{site}`` keys).  Batches go to the parameters' device."""
+    """Stream calibration batches through the exact (non-LUT) forward of
+    ``cfg``'s family (dense or ssm), capturing every LUT site's observed
+    input bins per layer (``L{i}/{site}`` keys, each binned over its
+    site's domain).  Batches go to the parameters' device."""
     from repro_torch.nn.mlp import project_logits
-    from repro_torch.nn.transformer import decoder_forward
+    from repro_torch.nn.transformer import decoder_forward, rwkv_forward
 
-    if cfg.family != "dense":
+    forwards = {"dense": lambda toks: decoder_forward(params, cfg, toks),
+                "ssm": lambda toks: rwkv_forward(params, cfg, toks)}
+    if cfg.family not in forwards:
         raise NotImplementedError(
             f"capture_model: family {cfg.family!r} is not yet ported "
             f"(ROADMAP queue A, item 7)")
@@ -197,7 +200,7 @@ def capture_model(params, cfg, batches, *, w_in: int | None = None,
                 batch = {"tokens": batch}
             toks = torch.as_tensor(np.asarray(batch["tokens"], np.int32),
                                    device=dev).long()
-            out, _ = decoder_forward(params, cfg, toks)
+            out, _ = forwards[cfg.family](toks)
             # the softcap site lives past the forward (hidden states, not
             # logits): project so the network-global histogram is observed
             if sites.site_spec(sites.LOGIT_SOFTCAP).active(cfg):

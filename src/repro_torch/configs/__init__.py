@@ -1,9 +1,9 @@
 """Architecture registry of the PyTorch port (own copy of the reference's
 ``configs`` package for the architectures it serves).
 
-The port serves ``qwen3-0.6b`` (dense decoder-only); the reference's other
-architectures are listed by name so that asking for one fails with a
-clear message instead of a ``KeyError``.
+The port serves ``qwen3-0.6b`` (dense decoder-only) and ``rwkv6-3b``
+(ssm); the reference's other architectures are listed by name so that
+asking for one fails with a clear message instead of a ``KeyError``.
 """
 from __future__ import annotations
 
@@ -11,9 +11,10 @@ import dataclasses
 
 from .base import ArchConfig, MoEConfig
 
-from . import qwen3_0_6b
+from . import qwen3_0_6b, rwkv6_3b
 
-REGISTRY: dict[str, ArchConfig] = {qwen3_0_6b.CONFIG.name: qwen3_0_6b.CONFIG}
+REGISTRY: dict[str, ArchConfig] = {
+    m.CONFIG.name: m.CONFIG for m in (qwen3_0_6b, rwkv6_3b)}
 
 # Architectures of the reference the port does not serve yet, with their
 # family (ROADMAP queue A, item 7).
@@ -24,7 +25,6 @@ NOT_PORTED: dict[str, str] = {
     "deepseek-moe-16b": "moe",
     "qwen3-moe-30b-a3b": "moe",
     "phi-3-vision-4.2b": "vlm",
-    "rwkv6-3b": "ssm",
     "recurrentgemma-9b": "hybrid",
     "whisper-small": "encdec",
 }
@@ -36,7 +36,7 @@ def get_config(name: str) -> ArchConfig:
     if name in NOT_PORTED:
         raise NotImplementedError(
             f"arch {name!r} (family {NOT_PORTED[name]!r}) is not yet ported "
-            f"to repro_torch: only {ARCH_NAMES} is served (ROADMAP queue A, "
+            f"to repro_torch: it serves {ARCH_NAMES} (ROADMAP queue A, "
             f"item 7)")
     if name not in REGISTRY:
         raise KeyError(f"unknown arch {name!r}; have {sorted(REGISTRY)}")
@@ -45,7 +45,7 @@ def get_config(name: str) -> ArchConfig:
 
 def smoke_config(cfg: ArchConfig) -> ArchConfig:
     """Reduced same-family variant (2 layers, d_model 64) for CPU tests."""
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "ssm"):
         raise NotImplementedError(
             f"smoke_config: family {cfg.family!r} is not yet ported")
     kw = dict(
@@ -65,6 +65,9 @@ def smoke_config(cfg: ArchConfig) -> ArchConfig:
         rwkv_head_dim=16,
         max_seq_len=256,
     )
+    if cfg.family == "ssm":
+        kw["n_heads"] = 4
+        kw["n_kv_heads"] = 4
     return dataclasses.replace(cfg, **kw)
 
 

@@ -1,23 +1,25 @@
 """Hand-written CUDA kernels of the port, with their plain versions.
 
-K1 ``lut_act_stacked``, K2 ``lut_act`` and K3 ``fused_matmul_lut`` replace
-the reference's three Pallas kernels on the serving path; K5
-``lut_reconstruct``, K6 ``plain_lookup`` and K7 ``lutnn_layer`` the three
-of the LUT-NN toolflow.  Sources live in ``csrc/``; :mod:`.build` compiles
-them on first use (never at import).
+K1 ``lut_act_stacked``, K2 ``lut_act``, K3 ``fused_matmul_lut``, K4
+``lut_act_multi`` and K8 ``wkv`` replace the reference's five Pallas
+kernels on the serving path; K5 ``lut_reconstruct``, K6 ``plain_lookup``
+and K7 ``lutnn_layer`` the three of the LUT-NN toolflow.  Sources live in
+``csrc/``; :mod:`.build` compiles them on first use (never at import).
 """
 from .ops import (
     PlanArrays,
     fused_matmul_lut,
     launch_counts,
     lut_act,
+    lut_act_multi,
     lut_act_stacked,
     lut_reconstruct,
     lutnn_layer,
     plain_lookup,
     reset_launch_counts,
+    wkv,
 )
 
 __all__ = ["PlanArrays", "fused_matmul_lut", "launch_counts", "lut_act",
-           "lut_act_stacked", "lut_reconstruct", "lutnn_layer",
-           "plain_lookup", "reset_launch_counts"]
+           "lut_act_multi", "lut_act_stacked", "lut_reconstruct",
+           "lutnn_layer", "plain_lookup", "reset_launch_counts", "wkv"]

@@ -44,6 +44,9 @@ ENTRY_POINTS = {
     "rlut_smem_optin_bytes": ("lut_gather", []),
     "rlut_lutnn_layer": (
         "lutnn_layer", [_P, _P, _P, _P, _I, _I, _I, _I, _LL, _I, _P]),
+    "rlut_lut_act_multi": ("lut_act_multi", [_I, _I, _P, _P, _P, _P, _P,
+                                             _P]),
+    "rlut_wkv": ("wkv", [_P] * 8 + [_I] * 5 + [_P]),
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}   # process-wide: one load per library

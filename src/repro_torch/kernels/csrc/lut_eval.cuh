@@ -112,15 +112,22 @@ __device__ __forceinline__ LayerScalars layer_scalars(const LutArgs& a) {
 
 // Element `idx` of a (possibly bit-packed) component row.  Width 32 is the
 // raw row, so no shift by 32 ever happens; `>>` on int is arithmetic and
-// the mask drops the sign bits.
+// the mask drops the sign bits.  kClamp pins `idx` into the staged row
+// (K4, whose slab rows and pack widths come from device memory).
+template <bool kClamp = false>
 __device__ __forceinline__ int take(const int32_t* s, const CompSlab& c,
                                     int idx) {
+  if (kClamp) {
+    const int n = c.n_words * (c.width == 32 ? 1 : c.per_word);
+    idx = min(max(idx, 0), max(n - 1, 0));
+  }
   if (c.width == 32) return s[idx];
   int w = s[idx / c.per_word];
   int sh = (idx % c.per_word) * c.width;
   return ((w >> sh) & ((1 << c.width) - 1)) + c.offset;
 }
 
+template <bool kClamp = false>
 __device__ __forceinline__ float lut_eval(float x, int32_t* const s[kComps],
                                           const LutArgs& a,
                                           const LayerScalars& ls) {
@@ -130,14 +137,15 @@ __device__ __forceinline__ float lut_eval(float x, int32_t* const s[kComps],
   int m = 1 << ls.l;
   int c_hb = code >> ls.l;
   int c_lb = code & (m - 1);
-  int idx = take(s[1], a.comp[1], c_hb);
-  int val = take(s[0], a.comp[0], idx * m + c_lb);
-  val >>= take(s[2], a.comp[2], c_hb);
-  val += take(s[3], a.comp[3], c_hb);
+  int idx = take<kClamp>(s[1], a.comp[1], c_hb);
+  int val = take<kClamp>(s[0], a.comp[0], idx * m + c_lb);
+  val >>= take<kClamp>(s[2], a.comp[2], c_hb);
+  val += take<kClamp>(s[3], a.comp[3], c_hb);
   val &= static_cast<int>((1u << max(ls.w_hb, 1)) - 1u);
   if (a.any_lb && ls.w_lb > 0)  // t_lb is never read on a w_lb == 0 layer
-    val = static_cast<int>((static_cast<unsigned>(val) << ls.w_lb) |
-                           static_cast<unsigned>(take(s[4], a.comp[4], code)));
+    val = static_cast<int>(
+        (static_cast<unsigned>(val) << ls.w_lb) |
+        static_cast<unsigned>(take<kClamp>(s[4], a.comp[4], code)));
   return __fmaf_rn(__int2float_rn(val), ls.coef, ls.y_lo);
 }
 

@@ -1,4 +1,5 @@
-"""LUT-approximated activation: kernels K1 (layer-indexed) and K2 (per plan).
+"""LUT-approximated activation: kernels K1 (layer-indexed), K2 (per plan)
+and K4 (multi-site).
 
 Counterparts of the reference's ``kernels/lut_act.py``:
 
@@ -9,12 +10,17 @@ Counterparts of the reference's ``kernels/lut_act.py``:
   needs no host sync;
 * K2 ``lut_act`` replaces ``lut_act_pallas`` — the same math with the
   per-plan scalars passed as kernel arguments (shared tables, unrolled
-  execution).
+  execution);
+* K4 ``lut_act_multi`` replaces ``lut_act_multisite_pallas`` — one launch
+  over several sites' tensors against the ``(S, L, n)`` multi-site
+  super-slab, each block reading its ``(site, layer)`` slab row and every
+  scalar (plan meta, quantizer levels, pack widths) on the card.
 
-Both run one CUDA kernel (``csrc/lut_act.cu``, device function in
-``csrc/lut_eval.cuh``); each has its plain PyTorch version here, which the
-CPU tests and the on-card comparison use.  The launch wrappers that pick
-between the two by the input's device live in :mod:`.ops`.
+K1/K2 run ``csrc/lut_act.cu``, K4 ``csrc/lut_act_multi.cu``; all three
+share the device function in ``csrc/lut_eval.cuh``.  Each has its plain
+PyTorch version here, which the CPU tests and the on-card comparison use.
+The launch wrappers that pick between the two by the input's device live
+in :mod:`.ops`.
 
 Numerics contract (the reference's XLA lowering, measured bit for bit):
 
@@ -154,6 +160,20 @@ def lut_act_stacked_plain(x, stacked: dict, layer: int) -> torch.Tensor:
         x_lo=meta["x_lo"], x_hi=meta["x_hi"], pack=meta.get("pack"))
 
 
+def lut_act_multi_plain(xs: dict, entry: dict, layer: int) -> dict:
+    """Plain K4: ``{site: y}`` for ``{site: x}`` against a multi-site
+    ``entry`` (``MultiSiteSlabs.entry()``) at ``layer``.  Each site is the
+    plain K1 on its slice of the super-slab: the slice's host-rounded
+    constants (``x_lo``, ``1/x_span``, ``levels_in``, ``1/levels_out``) are
+    the ones ``meta_f``/``meta_q`` hold, so the bits are the multi-site
+    kernel's."""
+    from repro_torch.serve.stacked import multi_site_stacked_entry
+
+    return {site: lut_act_stacked_plain(
+                x, multi_site_stacked_entry(entry, site), layer)
+            for site, x in xs.items()}
+
+
 # -------------------------------------------------------------------------
 # kernel launch (C interface of csrc/lut_eval.cuh)
 # -------------------------------------------------------------------------
@@ -215,3 +235,63 @@ def launch_lut(fn, name: str, x: torch.Tensor, args) -> torch.Tensor:
                 fp.ctypes.data, ctypes.c_void_p(stream))
     check_status(name, status)
     return y
+
+
+# K4: segments per launch (csrc/lut_act_multi.cu kMaxSegs)
+MAX_SEGMENTS = 8
+
+
+def multi_launch_args(segs: list, entry: dict, layer: int):
+    """``(seg_ptrs, seg_counts, seg_sites, slab_ptrs, dims)`` host arrays
+    for one K4 launch over ``segs`` (``[(x, y, site_id), ...]``, card
+    tensors of one dtype) against a multi-site ``entry``.
+
+    ``slab_ptrs``: the five ``(S, L, W_c)`` component stacks, then
+    ``meta_i``/``meta_f``/``meta_q``/``meta_p``; ``dims``: ``S``, ``L``,
+    the five row widths ``W_c`` (in int32 words), ``any_lb`` and the
+    layer.  Every tensor must be contiguous on the card."""
+    if not 0 < len(segs) <= MAX_SEGMENTS:
+        raise ValueError(f"lut_act_multi: {len(segs)} segments; a launch "
+                         f"takes 1 to {MAX_SEGMENTS}")
+    n_sites, n_layers = entry["meta_i"].shape[:2]
+    if not 0 <= layer < n_layers:
+        raise ValueError(f"lut_act_multi: layer {layer} outside the "
+                         f"super-slab's {n_layers} layers")
+    tensors = [entry["arrays"][c] for c in COMPONENTS] + [
+        entry[k] for k in ("meta_i", "meta_f", "meta_q", "meta_p")]
+    want = [torch.int32] * 5 + [torch.int32, torch.float32, torch.float32,
+                                torch.int32]
+    for t, dt in zip(tensors, want):
+        if t.dtype != dt or not t.is_contiguous() or t.dim() < 2:
+            raise ValueError(
+                f"lut_act_multi: super-slab tensor {tuple(t.shape)} "
+                f"{t.dtype} must be a contiguous {dt} stack")
+    seg_ptrs = np.zeros(2 * MAX_SEGMENTS, np.int64)
+    seg_counts = np.zeros(MAX_SEGMENTS, np.int64)
+    seg_sites = np.zeros(MAX_SEGMENTS, np.int32)
+    for i, (x, y, sid) in enumerate(segs):
+        seg_ptrs[2 * i], seg_ptrs[2 * i + 1] = x.data_ptr(), y.data_ptr()
+        seg_counts[i] = x.numel()
+        seg_sites[i] = sid
+    slab_ptrs = np.array([t.data_ptr() for t in tensors], np.int64)
+    dims = np.array([n_sites, n_layers]
+                    + [entry["arrays"][c].shape[-1] for c in COMPONENTS]
+                    + [int(bool(entry["meta"]["any_lb"])), layer], np.int32)
+    return seg_ptrs, seg_counts, seg_sites, slab_ptrs, dims
+
+
+def lut_act_multi_cuda(segs: list, entry: dict, layer: int) -> None:
+    """Launch K4 over ``segs`` (``[(x, y, site_id), ...]``, contiguous card
+    tensors of one dtype; the wrapper in :mod:`.ops` validates), writing
+    each ``y``."""
+    from . import build
+
+    seg_ptrs, counts, site_ids, slab_ptrs, dims = multi_launch_args(
+        segs, entry, layer)
+    x0 = segs[0][0]
+    stream = torch.cuda.current_stream(x0.device).cuda_stream
+    status = build.entry("rlut_lut_act_multi")(
+        len(segs), DTYPE_CODES[x0.dtype], seg_ptrs.ctypes.data,
+        counts.ctypes.data, site_ids.ctypes.data, slab_ptrs.ctypes.data,
+        dims.ctypes.data, ctypes.c_void_p(stream))
+    check_status("lut_act_multi", status)

@@ -6,9 +6,10 @@ Counterpart of the reference's ``kernels/ops.py``:
   to 128 entries exactly as the reference pads them, so the slabs (raw or
   bit-packed) are byte-identical across the two packages;
 * :func:`lut_act` (K2), :func:`lut_act_stacked` (K1),
-  :func:`fused_matmul_lut` (K3), :func:`lut_reconstruct` (K5, or K6
-  through :func:`plain_lookup` for a plain plan) and :func:`lutnn_layer`
-  (K7) — the launch wrappers.  A tensor on the CPU goes to the kernel's
+  :func:`fused_matmul_lut` (K3), :func:`lut_act_multi` (K4),
+  :func:`lut_reconstruct` (K5, or K6 through :func:`plain_lookup` for a
+  plain plan), :func:`lutnn_layer` (K7) and :func:`wkv` (K8) — the launch
+  wrappers.  A tensor on the CPU goes to the kernel's
   plain version; a tensor on the card goes to the kernel, or the wrapper
   raises.  Each wrapper counts its kernel launches in a plain integer
   attribute (``lut_act_stacked.launches``), so a run can show that it went
@@ -28,6 +29,8 @@ from .fused_matmul_lut import fused_matmul_lut_cuda, fused_matmul_lut_plain
 from .lut_act import (
     DTYPE_CODES,
     launch_lut,
+    lut_act_multi_cuda,
+    lut_act_multi_plain,
     lut_act_plain,
     lut_act_stacked_plain,
     lut_launch_args,
@@ -44,6 +47,7 @@ from .lutnn_layer import (
     lutnn_layer_plain,
 )
 from .packing import COMPONENTS, pack_component_dict
+from .wkv import wkv_chunked_plain, wkv_cuda
 
 LANES = 128
 
@@ -174,6 +178,39 @@ def lut_act_stacked(x: torch.Tensor, stacked: dict, layer: int
                    xc, args)
     lut_act_stacked.launches += 1
     return y.view(x.shape)
+
+
+def lut_act_multi(xs: dict, entry: dict, layer: int) -> dict:
+    """K4: ``{site: y}`` for ``{site: x}`` (each any shape) against a
+    multi-site entry (``MultiSiteSlabs.entry()``) at ``layer`` (a Python
+    int), in ONE launch: each non-empty tensor is one segment, at most
+    ``MAX_SEGMENTS``.  All tensors on the CPU go to the plain version;
+    on the card they must share one dtype (float32 or bfloat16) — a mix
+    is refused, not converted."""
+    order = entry["meta"]["sites"]
+    for site in xs:
+        if site not in order:
+            raise KeyError(f"lut_act_multi: site {site!r} is not in the "
+                           f"super-slab {order}")
+    if all(x.device.type == "cpu" for x in xs.values()):
+        return lut_act_multi_plain(xs, entry, layer)
+    dtypes = {x.dtype for x in xs.values()}
+    if len(dtypes) != 1:
+        raise ValueError(f"lut_act_multi: one launch takes one dtype, got "
+                         f"{sorted(map(str, dtypes))}")
+    tables = [*entry["arrays"].values()] + [
+        entry[k] for k in ("meta_i", "meta_f", "meta_q", "meta_p")]
+    out, segs = {}, []
+    for site, x in xs.items():
+        xc = _kernel_operands("lut_act_multi", x, tables)
+        y = torch.empty_like(xc)
+        out[site] = y.view(x.shape)
+        if xc.numel():
+            segs.append((xc, y, order.index(site)))
+    if segs:
+        lut_act_multi_cuda(segs, entry, layer)
+        lut_act_multi.launches += 1
+    return out
 
 
 def fused_matmul_lut(x: torch.Tensor, w: torch.Tensor, tab: dict, *,
@@ -310,10 +347,42 @@ def lutnn_layer(codes: torch.Tensor, conn: torch.Tensor,
     return out
 
 
+def wkv(q, k, v, log_w, u, *, chunk: int = 16, state=None):
+    """K8: chunked RWKV6 WKV.  ``q``/``k``/``v``/``log_w`` ``(B, T, H,
+    N)`` (any float dtype; the kernel computes in float32), ``u`` ``(H,
+    N)``, ``state`` ``(B, H, N, N)`` or ``None`` (zeros).  Returns ``(y
+    (B, T, H, N), final state (B, H, N, N))``, both float32."""
+    b, t, h, n = q.shape
+    for name, a in (("k", k), ("v", v), ("log_w", log_w)):
+        if a.shape != q.shape:
+            raise ValueError(f"wkv: {name} {tuple(a.shape)} != q "
+                             f"{tuple(q.shape)}")
+    if u.shape != (h, n) or chunk < 1 or (
+            state is not None and state.shape != (b, h, n, n)):
+        raise ValueError(
+            f"wkv: u {tuple(u.shape)} must be ({h}, {n}), chunk {chunk} "
+            f">= 1, state (B, H, N, N) or None")
+    if q.device.type == "cpu":
+        return wkv_chunked_plain(q, k, v, log_w, u, chunk=chunk,
+                                 state=state)
+    if q.device.type != "cuda":
+        raise ValueError(f"wkv: input on {q.device}")
+    f32 = lambda a: a.to(device=q.device, dtype=torch.float32).contiguous()
+    for a in (k, v, log_w, u) + (() if state is None else (state,)):
+        if a.device != q.device:
+            raise ValueError(f"wkv: tensor on {a.device}, q on {q.device}")
+    y, s = wkv_cuda(f32(q), f32(k), f32(v), f32(log_w), f32(u), chunk,
+                    None if state is None else f32(state))
+    wkv.launches += 1
+    return y, s
+
+
 WRAPPERS = {"lut_act_stacked": lut_act_stacked, "lut_act": lut_act,
             "fused_matmul_lut": fused_matmul_lut,
+            "lut_act_multi": lut_act_multi,
             "lut_reconstruct": lut_reconstruct,
-            "plain_lookup": plain_lookup, "lutnn_layer": lutnn_layer}
+            "plain_lookup": plain_lookup, "lutnn_layer": lutnn_layer,
+            "wkv": wkv}
 for _fn in WRAPPERS.values():
     _fn.launches = 0
 

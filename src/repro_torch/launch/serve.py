@@ -1,22 +1,27 @@
 """Serving launcher of the port: batched prefill + greedy decode with
-ReducedLUT-compressed MLP activations (counterpart of the reference's
+ReducedLUT-compressed activations (counterpart of the reference's
 ``launch/serve.py`` on one device).
 
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \\
-      --full --batch 4 --prompt-len 64 --new-tokens 16 --lut-act \\
-      --calib-steps 2 [--plan-exec stacked|unrolled] [--lut-fuse] \\
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch qwen3-0.6b|rwkv6-3b --full --batch 4 --prompt-len 64 \\
+      --new-tokens 16 --lut-act --calib-steps 2 [--lut-sites act|all] \\
+      [--logit-softcap S] [--plan-exec stacked|unrolled] [--lut-fuse] \\
       [--lut-backend cuda|gather] [--device cuda|cpu]
 
-``--lut-act`` serves engine-selected plans for every activation site;
+``--lut-act`` serves engine-selected plans for every LUT site in scope:
+the activation sites by default, every registered site (softmax exp,
+norm rsqrt, rope sine, logit softcap) under ``--lut-sites all``;
 ``--calib-steps N`` streams N batches through the exact model and gives
 every (layer, site) its own don't-care mask and table (by default served
 as one stacked ``(L, …)`` family, ``--plan-exec stacked``).  Without it
 all layers share one table built from a synthetic calibration sample.
 ``--lut-backend cuda`` runs the LUT through the hand-written kernels,
 ``gather`` through the plain PyTorch form; ``--lut-fuse`` applies the LUT
-in the up-projection's GEMM epilogue (kernel K3 on ``cuda``).  The run
-uses the card unless ``--device cpu`` is given, and the backend follows
-the device unless named: ``cuda`` on the card, ``gather`` on the CPU.
+in the up-projection's GEMM epilogue (kernel K3 on ``cuda``) and serves
+the other per-layer sites out of one multi-site super-slab (kernel K4).
+The run uses the card unless ``--device cpu`` is given, and the backend
+follows the device unless named: ``cuda`` on the card, ``gather`` on the
+CPU.
 """
 from __future__ import annotations
 
@@ -66,7 +71,16 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--lut-fuse", action="store_true",
                     help="apply the LUT activation in the MLP up-"
                          "projection's GEMM epilogue (kernel K3 on the cuda "
-                         "backend, its plain version on gather)")
+                         "backend, its plain version on gather) and, with "
+                         "--plan-exec stacked, serve every per-layer site "
+                         "from one multi-site super-slab (kernel K4)")
+    ap.add_argument("--lut-sites", choices=("act", "all"), default="act",
+                    help="LUT site scope: act (the activation sites only, "
+                         "the default) or all (every registered site — "
+                         "softmax exp, norm rsqrt, logit softcap, rope)")
+    ap.add_argument("--logit-softcap", type=float, default=None,
+                    help="tanh soft-cap the final logits at this scale "
+                         "(enables the network-global softcap LUT site)")
     ap.add_argument("--calib-steps", type=int, default=0,
                     help="capture N batches for per-site don't-care masks "
                          "(0 = shared synthetic calibration)")
@@ -105,8 +119,11 @@ def setup(args):
     cfg = get_config(args.arch)
     if not args.full:
         cfg = smoke_config(cfg)
-    if args.lut_fuse:
-        cfg = dataclasses.replace(cfg, lut_fuse=True)
+    if (args.lut_sites != "act" or args.logit_softcap is not None
+            or args.lut_fuse):
+        cfg = dataclasses.replace(cfg, lut_sites=args.lut_sites,
+                                  logit_softcap=args.logit_softcap,
+                                  lut_fuse=args.lut_fuse)
     params = init_params(cfg, seed=0, device=dev)
     rng = np.random.default_rng(0)
     tokens = model_batch(cfg, rng, args.batch, args.prompt_len)["tokens"]
@@ -137,8 +154,8 @@ def build_plans(args, cfg, params, rng, log=print):
 
 
 def serving_tables(args, plans, device, log=print) -> dict:
-    kernel = ("fused" if args.lut_fuse and args.lut_backend == "cuda"
-              and args.plan_exec == "stacked" else None)
+    kernel = ("fused" if args.lut_fuse and args.plan_exec == "stacked"
+              else None)
     tables = plans.tables_for_model(backend=args.lut_backend,
                                     plan_exec=args.plan_exec, kernel=kernel,
                                     device=device)

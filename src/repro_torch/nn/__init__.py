@@ -1,5 +1,5 @@
 """Model substrate of the port: layers, attention, LUT activation, dense
-decoder."""
-from .transformer import DecoderParams, init_params, param_defs
+decoder, RWKV6."""
+from .transformer import DecoderParams, RWKVParams, init_params, param_defs
 
-__all__ = ["DecoderParams", "init_params", "param_defs"]
+__all__ = ["DecoderParams", "RWKVParams", "init_params", "param_defs"]

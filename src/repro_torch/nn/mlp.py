@@ -24,7 +24,11 @@ from repro_torch import sites
 from repro_torch.calib import capture as calib_capture
 from repro_torch.kernels import ops
 from repro_torch.kernels.fused_matmul_lut import fused_matmul_lut_plain
-from repro_torch.kernels.lut_act import lut_act_plain, lut_act_stacked_plain
+from repro_torch.kernels.lut_act import (
+    lut_act_multi_plain,
+    lut_act_plain,
+    lut_act_stacked_plain,
+)
 
 from .layers import activation_fn, is_gated, logits_projection
 
@@ -74,15 +78,15 @@ def apply_lut_act(x: torch.Tensor, tab: dict, backend: str = "gather"
     """Evaluate one compressed-table activation entry on ``x``.
 
     ``"gather"`` runs the plain functions, ``"cuda"`` the kernels (K1 for
-    stacked entries, K2 for per-plan ones); both compute the same bits.
+    stacked entries, K2 for per-plan ones, K4 for a site served out of the
+    multi-site super-slab); both compute the same bits.
     The backend is the one named at the top of ``lut_tables``."""
     _check_backend(backend, x)
     if "multi_entry" in tab:
-        raise NotImplementedError(
-            "apply_lut_act: a site served from the multi-site super-slab "
-            "outside the fused matmul needs the multi-site kernel, which is "
-            "not ported yet (ROADMAP queue B4); build tables with "
-            "kernel='isolated'")
+        site = tab["site"]
+        multi = ops.lut_act_multi if backend == "cuda" else \
+            lut_act_multi_plain
+        return multi({site: x}, tab["multi_entry"], tab["layer"])[site]
     if "stacked" in tab:
         if backend == "cuda":
             return ops.lut_act_stacked(x, tab["stacked"], tab["layer"])
@@ -113,6 +117,20 @@ def fused_matmul_tab(cfg, lut_tables: dict | None, site: str,
     if not spec.active(cfg):
         return None
     return site_tables(lut_tables, site, layer if spec.per_layer else None)
+
+
+def fused_act_matmul(x: torch.Tensor, w: torch.Tensor, ftab: dict,
+                     lut_tables: dict, *, gated: bool) -> torch.Tensor:
+    """``act(x @ w)`` (or the gated form) through the matmul-epilogue
+    fusion: kernel K3 on the ``"cuda"`` backend, its plain version on
+    ``"gather"``."""
+    backend = lut_tables.get("backend", "gather")
+    _check_backend(backend, x)
+    if backend == "cuda":
+        return ops.fused_matmul_lut(x, w, ftab, gated=gated)
+    k = x.shape[-1]
+    h = fused_matmul_lut_plain(x.reshape(-1, k), w, ftab, gated=gated)
+    return h.reshape(*x.shape[:-1], h.shape[-1])
 
 
 def make_activation(cfg, lut_tables: dict | None, site: str | None = None,
@@ -186,15 +204,7 @@ def mlp_block(p: dict, x: torch.Tensor, cfg, lut_tables=None,
     gated = is_gated(cfg.activation)
     ftab = fused_matmul_tab(cfg, lut_tables, sites.MLP, layer)
     if ftab is not None:
-        backend = lut_tables.get("backend", "gather")
-        _check_backend(backend, x)
-        if backend == "cuda":
-            h = ops.fused_matmul_lut(x, p["w_in"], ftab, gated=gated)
-        else:
-            k = x.shape[-1]
-            h = fused_matmul_lut_plain(x.reshape(-1, k), p["w_in"], ftab,
-                                       gated=gated)
-            h = h.reshape(*x.shape[:-1], h.shape[-1])
+        h = fused_act_matmul(x, p["w_in"], ftab, lut_tables, gated=gated)
         return torch.matmul(h, p["w_out"])
     act = make_activation(cfg, lut_tables, layer=layer)
     if gated:

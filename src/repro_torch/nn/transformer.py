@@ -1,12 +1,12 @@
-"""Dense decoder-only model (PyTorch port of the dense path of the
-reference's ``nn/transformer.py``).
+"""Dense decoder-only model and RWKV6 (PyTorch port of the dense and ssm
+paths of the reference's ``nn/transformer.py``).
 
-:class:`DecoderParams` holds the parameters under the reference's names
-and stacked ``(L, …)`` layouts (``embed``, ``final_norm``, ``lm_head`` and
-``blocks.{wq, wk, wv, wo, q_norm, k_norm, ln1, ln2, w_in, w_out}``), so a
-reference parameter tree copies in without renaming
-(:func:`repro_torch.bridge.params_from_jax`).  The forward runs an eager
-Python loop over layers with a Python-int layer id.
+:class:`DecoderParams` and :class:`RWKVParams` hold the parameters under
+the reference's names and stacked ``(L, …)`` layouts (``embed``,
+``final_norm``, ``lm_head`` and ``blocks.{…}``), so a reference parameter
+tree copies in without renaming (:func:`repro_torch.bridge.
+params_from_jax`).  Each forward runs an eager Python loop over layers
+with a Python-int layer id.
 """
 from __future__ import annotations
 
@@ -24,6 +24,7 @@ from .attention import decode_attend, mha
 from .layers import embed_lookup, is_gated, rms_norm
 from .mlp import mlp_block, site_act
 from .rope import apply_rope
+from .ssm import rwkv_channel_mix, rwkv_time_mix
 
 
 @dataclasses.dataclass(frozen=True)
@@ -32,14 +33,46 @@ class ParamDef:
     scale: float = 1.0
 
 
+def _rwkv_defs(cfg: ArchConfig) -> dict:
+    """RWKV6 block parameters (the reference's ``_rwkv_defs``)."""
+    L, d, ff = cfg.n_layers, cfg.d_model, cfg.d_ff
+    vec = lambda scale=1.0: ParamDef((L, d), scale)
+    mat = lambda m, n: ParamDef((L, m, n))
+    defs = {
+        "ln1": vec(0.0), "ln2": vec(0.0), "ln_x": vec(0.0),
+        "lora_a": ParamDef((L, d, 32)),
+        "decay_a": ParamDef((L, d, 64)),
+        "decay_b": ParamDef((L, 64, d), 0.1),
+        "decay_base": vec(0.5),
+        "bonus": vec(0.5),
+        "mu_ffn_k": vec(0.5), "mu_ffn_r": vec(0.5),
+        "w_r": mat(d, d), "w_k": mat(d, d), "w_v": mat(d, d),
+        "w_g": mat(d, d), "w_o": mat(d, d),
+        "w_ffn_k": mat(d, ff),
+        "w_ffn_v": mat(ff, d),
+        "w_ffn_r": mat(d, d),
+    }
+    for nm in ("r", "k", "v", "w", "g"):
+        defs[f"mu_{nm}"] = vec(0.5)
+        defs[f"lora_b_{nm}"] = ParamDef((L, 32, d), 0.1)
+    return defs
+
+
 def param_defs(cfg: ArchConfig) -> dict:
-    """Names and shapes of the dense decoder's parameters (the reference's
-    ``param_defs`` for ``family == "dense"``)."""
+    """Names and shapes of the model's parameters (the reference's
+    ``param_defs`` for the dense and ssm families)."""
+    L, d = cfg.n_layers, cfg.d_model
+    head = {
+        "embed": ParamDef((cfg.vocab_size, d)),
+        "final_norm": ParamDef((d,), 0.0),
+        "lm_head": ParamDef((d, cfg.vocab_size)),
+    }
+    if cfg.family == "ssm":
+        return dict(head, blocks=_rwkv_defs(cfg))
     if cfg.family != "dense" or cfg.moe:
         raise NotImplementedError(
             f"param_defs: family {cfg.family!r} is not yet ported "
             f"(ROADMAP queue A, item 7)")
-    L, d = cfg.n_layers, cfg.d_model
     ff_in = 2 * cfg.d_ff if is_gated(cfg.activation) else cfg.d_ff
     blocks = {
         "wq": ParamDef((L, d, cfg.q_dim)),
@@ -54,12 +87,7 @@ def param_defs(cfg: ArchConfig) -> dict:
     blocks["ln2"] = ParamDef((L, d), 0.0)
     blocks["w_in"] = ParamDef((L, d, ff_in))
     blocks["w_out"] = ParamDef((L, cfg.d_ff, d))
-    return {
-        "embed": ParamDef((cfg.vocab_size, d)),
-        "final_norm": ParamDef((d,), 0.0),
-        "lm_head": ParamDef((d, cfg.vocab_size)),
-        "blocks": blocks,
-    }
+    return dict(head, blocks=blocks)
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -71,8 +99,9 @@ def _param(shape, dtype, device) -> nn.Parameter:
                         requires_grad=False)
 
 
-class DecoderParams(nn.Module):
-    """Dense decoder parameters (serving: no gradients)."""
+class _StackedParams(nn.Module):
+    """Parameters of :func:`param_defs` (serving: no gradients): the head
+    tensors as attributes, the ``(L, …)`` block stacks in ``blocks``."""
 
     def __init__(self, cfg: ArchConfig, device=None):
         super().__init__()
@@ -90,15 +119,27 @@ class DecoderParams(nn.Module):
         return {k: v[i] for k, v in self.blocks.items()}
 
 
+class DecoderParams(_StackedParams):
+    """Dense decoder parameters."""
+
+
+class RWKVParams(_StackedParams):
+    """RWKV6 parameters (the ssm family)."""
+
+
+def params_class(cfg: ArchConfig) -> type:
+    return RWKVParams if cfg.family == "ssm" else DecoderParams
+
+
 def init_params(cfg: ArchConfig, seed: int = 0, device=None
-                ) -> DecoderParams:
+                ) -> _StackedParams:
     """Random parameters from ``seed`` with the reference's distributions:
     zeros for scale-0 vectors, ``N(0, 0.02 * scale)`` for vectors and
     narrow matrices, and a normal truncated at +-2 scaled by
     ``scale / sqrt(fan_in)`` otherwise.  The bits differ from the
     reference's (another generator); :mod:`repro_torch.bridge` copies
     reference parameters in exactly."""
-    params = DecoderParams(cfg, device)
+    params = params_class(cfg)(cfg, device)
     dev = params.embed.device
     gen = torch.Generator(device=dev).manual_seed(seed)
     defs = param_defs(cfg)
@@ -203,3 +244,38 @@ def decoder_forward(params: DecoderParams, cfg: ArchConfig,
             kvs.append((k, v))
     x = rms_norm(x, params.final_norm, cfg.norm_eps)
     return x, kvs
+
+
+# =========================================================================
+# RWKV6 forward (ssm)
+# =========================================================================
+def rwkv_forward(params: RWKVParams, cfg: ArchConfig, tokens: torch.Tensor,
+                 states: dict | None = None, lut_tables=None):
+    """Returns ``(hidden (B, T, d), states)``.
+
+    ``states`` is the per-layer recurrent state ``{"att_x": (L, B, 1, d),
+    "ffn_x": (L, B, 1, d), "wkv": (L, B, H, N, N) f32}``
+    (:func:`repro_torch.serve.kvcache.init_cache`): the segment starts from
+    it and each layer's segment-final state is written back into it in
+    place (the reference returns new stacks).  A zero state is the
+    reference's fresh prefill, bit for bit; ``None`` runs the segment
+    from zeros and keeps no state (calibration capture)."""
+    x = embed_lookup(params.embed, tokens)
+    for i in range(cfg.n_layers):
+        p = params.layer(i)
+        rs = site_act(cfg, lut_tables, sites.NORM_RSQRT, i)
+        st = {k: v[i] for k, v in states.items()} if states else {}
+        h, (ax, wkv) = rwkv_time_mix(
+            p, rms_norm(x, p["ln1"], cfg.norm_eps, rs), cfg,
+            x_last=st.get("att_x"), wkv_state=st.get("wkv"))
+        x = x + h
+        h, fx = rwkv_channel_mix(
+            p, rms_norm(x, p["ln2"], cfg.norm_eps, rs), cfg,
+            x_last=st.get("ffn_x"), lut_tables=lut_tables, layer=i)
+        x = x + h
+        if st:
+            st["att_x"].copy_(ax)
+            st["ffn_x"].copy_(fx)
+            st["wkv"].copy_(wkv)
+    x = rms_norm(x, params.final_norm, cfg.norm_eps)
+    return x, states

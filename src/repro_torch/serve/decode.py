@@ -1,11 +1,13 @@
-"""Prefill and single-token decode (PyTorch port of the dense path of the
-reference's ``serve/decode.py``).
+"""Prefill and single-token decode (PyTorch port of the dense and ssm
+paths of the reference's ``serve/decode.py``).
 
-``prefill(params, cfg, batch)`` -> (last-token logits, KV cache)
+``prefill(params, cfg, batch)`` -> (last-token logits, decode state)
 ``decode_step(params, cfg, cache, tokens, pos)`` -> (logits, cache)
 
-``pos`` is a Python int.  ``decode_step`` writes the new K/V entries into
-``cache`` in place and returns the same dict.
+``pos`` is a Python int.  ``decode_step`` updates ``cache`` in place (the
+new K/V entries, or the recurrent state) and returns the same dict.  The
+family picks the functions, as the reference's ``PREFILL_FNS`` /
+``DECODE_FNS`` do.
 """
 from __future__ import annotations
 
@@ -15,25 +17,21 @@ from repro_torch import sites
 from repro_torch.configs.base import ArchConfig
 from repro_torch.nn.layers import embed_lookup, rms_norm
 from repro_torch.nn.mlp import mlp_block, project_logits, site_act
-from repro_torch.nn.transformer import _decode_attn, decoder_forward
+from repro_torch.nn.transformer import (
+    _decode_attn,
+    decoder_forward,
+    rwkv_forward,
+)
 
 from .kvcache import init_cache
 
 
-def _require_dense(cfg: ArchConfig, what: str) -> None:
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"{what}: family {cfg.family!r} is not yet ported to "
-            f"repro_torch (ROADMAP queue A, item 7)")
-
-
 @torch.no_grad()
-def prefill(params, cfg: ArchConfig, batch: dict, max_seq: int | None = None,
-            lut_tables=None):
+def decoder_prefill(params, cfg: ArchConfig, batch: dict,
+                    max_seq: int | None = None, lut_tables=None):
     """Run the prompt ``batch["tokens"]`` (B, T); the cache holds
     ``max_seq`` positions (default T) in the model dtype, as the
     reference's padded prefill cache does."""
-    _require_dense(cfg, "prefill")
     tokens = batch["tokens"]
     b, t = tokens.shape
     cache = init_cache(cfg, b, max(max_seq or t, t),
@@ -50,10 +48,9 @@ def prefill(params, cfg: ArchConfig, batch: dict, max_seq: int | None = None,
 
 
 @torch.no_grad()
-def decode_step(params, cfg: ArchConfig, cache: dict, tokens: torch.Tensor,
-                pos: int, lut_tables=None):
+def decoder_decode_step(params, cfg: ArchConfig, cache: dict,
+                        tokens: torch.Tensor, pos: int, lut_tables=None):
     """One greedy-decode step for tokens (B, 1) at position ``pos``."""
-    _require_dense(cfg, "decode_step")
     if "k_scale" in cache:
         raise NotImplementedError(
             "decode_step: the int8 KV cache (and prefill_replay) is not "
@@ -69,3 +66,55 @@ def decode_step(params, cfg: ArchConfig, cache: dict, tokens: torch.Tensor,
         x = x + mlp_block(p, hin, cfg, lut_tables, layer=i)
     x = rms_norm(x, params.final_norm, cfg.norm_eps)
     return project_logits(x, params.lm_head, cfg, lut_tables), cache
+
+
+@torch.no_grad()
+def rwkv_prefill(params, cfg: ArchConfig, batch: dict,
+                 max_seq: int | None = None, lut_tables=None):
+    """Run the prompt through RWKV6 from a zero state; returns the
+    last-token logits and the segment-final state (att_x / ffn_x in the
+    model dtype, wkv in float32)."""
+    tokens = batch["tokens"]
+    state = init_cache(cfg, tokens.shape[0], 1, dtype=params.embed.dtype,
+                       device=tokens.device)
+    x, state = rwkv_forward(params, cfg, tokens, states=state,
+                            lut_tables=lut_tables)
+    logits = project_logits(x[:, -1:], params.lm_head, cfg, lut_tables)
+    return logits, state
+
+
+@torch.no_grad()
+def rwkv_decode_step(params, cfg: ArchConfig, cache: dict,
+                     tokens: torch.Tensor, pos: int, lut_tables=None):
+    """One RWKV6 decode step for tokens (B, 1); ``pos`` is not needed."""
+    x, cache = rwkv_forward(params, cfg, tokens, states=cache,
+                            lut_tables=lut_tables)
+    return project_logits(x, params.lm_head, cfg, lut_tables), cache
+
+
+PREFILL_FNS = {"dense": decoder_prefill, "ssm": rwkv_prefill}
+DECODE_FNS = {"dense": decoder_decode_step, "ssm": rwkv_decode_step}
+
+
+def _family_fn(table: dict, cfg: ArchConfig, what: str):
+    fn = table.get(cfg.family)
+    if fn is None:
+        raise NotImplementedError(
+            f"{what}: family {cfg.family!r} is not yet ported to "
+            f"repro_torch (ROADMAP queue A, item 7)")
+    return fn
+
+
+def prefill(params, cfg: ArchConfig, batch: dict, max_seq: int | None = None,
+            lut_tables=None):
+    """Run the prompt ``batch["tokens"]`` (B, T) through the family's
+    prefill: ``(last-token logits, decode state)``."""
+    return _family_fn(PREFILL_FNS, cfg, "prefill")(
+        params, cfg, batch, max_seq, lut_tables=lut_tables)
+
+
+def decode_step(params, cfg: ArchConfig, cache: dict, tokens: torch.Tensor,
+                pos: int, lut_tables=None):
+    """One greedy-decode step for tokens (B, 1) at position ``pos``."""
+    return _family_fn(DECODE_FNS, cfg, "decode_step")(
+        params, cfg, cache, tokens, pos, lut_tables=lut_tables)

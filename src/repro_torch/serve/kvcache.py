@@ -1,5 +1,6 @@
 """Decode-state construction (PyTorch port of the reference's
-``serve/kvcache.py``, dense family, bf16 cache)."""
+``serve/kvcache.py``: the dense family's bf16 KV cache and the ssm
+family's recurrent state)."""
 from __future__ import annotations
 
 import torch
@@ -10,13 +11,25 @@ from repro_torch.device import resolve_device
 
 def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
                dtype: torch.dtype = torch.bfloat16, device=None) -> dict:
-    """Zero-initialized ``{"k", "v"}`` cache, layout ``(L, B, Tmax, KV,
-    Dh)``, bf16 by default as the reference's."""
+    """Zero-initialized decode state, ``dtype`` bf16 by default as the
+    reference's.  Dense: ``{"k", "v"}``, layout ``(L, B, Tmax, KV, Dh)``.
+    Ssm (RWKV6): ``{"att_x", "ffn_x"}`` ``(L, B, 1, d)`` in ``dtype`` and
+    ``"wkv"`` ``(L, B, H, N, N)`` in float32; ``max_seq`` does not size
+    it."""
+    dev = resolve_device(device)
+    L = cfg.n_layers
+    if cfg.family == "ssm":
+        d, n = cfg.d_model, cfg.rwkv_head_dim
+        return {
+            "att_x": torch.zeros((L, batch, 1, d), dtype=dtype, device=dev),
+            "ffn_x": torch.zeros((L, batch, 1, d), dtype=dtype, device=dev),
+            "wkv": torch.zeros((L, batch, d // n, n, n),
+                               dtype=torch.float32, device=dev),
+        }
     if cfg.family != "dense":
         raise NotImplementedError(
             f"init_cache: family {cfg.family!r} is not yet ported "
             f"(ROADMAP queue A, item 7)")
-    dev = resolve_device(device)
-    shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.d_head)
+    shape = (L, batch, max_seq, cfg.n_kv_heads, cfg.d_head)
     return {n: torch.zeros(shape, dtype=dtype, device=dev)
             for n in ("k", "v")}

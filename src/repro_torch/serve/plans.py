@@ -51,8 +51,8 @@ from repro_torch.nn.lut_act import (
 DEFAULT_COMPRESS = dict(exiguity=250, m_candidates=(8, 16, 32, 64),
                         lb_candidates=(0, 1, 2, 3))
 
-# Families whose layer loops serve per-layer tables (the port: dense).
-PER_LAYER_FAMILIES = ("dense",)
+# Families whose layer loops serve per-layer tables (the port: dense, ssm).
+PER_LAYER_FAMILIES = ("dense", "ssm")
 
 BACKENDS = ("gather", "cuda")
 
@@ -152,8 +152,9 @@ class ServingPlans:
         gather evaluators take raw int32).  ``kernel="fused"`` builds every
         per-layer site family into one bit-packed ``(S, L, n)``
         :class:`~repro_torch.serve.stacked.MultiSiteSlabs` super-slab,
-        which kernel K3 slices statically under ``cfg.lut_fuse``; it needs
-        the ``"cuda"`` backend and stacked execution."""
+        served by the multi-site kernel K4 (and sliced statically by K3
+        under ``cfg.lut_fuse``) on ``"cuda"``, and by their plain versions
+        on ``"gather"``; it needs stacked execution."""
         exec_ = plan_exec or self.plan_exec
         if exec_ not in self._FORMS:
             raise ValueError(
@@ -174,11 +175,10 @@ class ServingPlans:
             raise ValueError(
                 "tables_for_model: packed slabs are for the cuda backend — "
                 "the gather evaluators consume raw int32 arrays")
-        if kernel == "fused" and (backend != "cuda" or exec_ != "stacked"):
+        if kernel == "fused" and exec_ != "stacked":
             raise ValueError(
-                "tables_for_model: kernel='fused' needs backend='cuda' and "
-                "plan_exec='stacked' (the super-slab is layer-indexed and "
-                "read by the CUDA kernels)")
+                "tables_for_model: kernel='fused' needs plan_exec='stacked' "
+                "(the super-slab is layer-indexed)")
         dev = resolve_device(device)
         form = self._FORMS[exec_]
         tables = {
