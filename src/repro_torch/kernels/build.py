@@ -37,7 +37,7 @@ ENTRY_POINTS = {
     "rlut_lut_act": ("lut_act", [_P, _P, _LL, _I, _P, _P, _P, _P]),
     "rlut_fused_matmul_lut": (
         "fused_matmul_lut",
-        [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P]),
+        [_P, _P, _P] + [_I] * 9 + [_P, _P, _P, _P]),
     "rlut_lut_reconstruct": (
         "lut_gather", [_P, _P, _LL] + [_P, _I] * 5 + [_I, _I, _I, _P]),
     "rlut_plain_lookup": ("lut_gather", [_P, _P, _LL, _P, _I, _P]),

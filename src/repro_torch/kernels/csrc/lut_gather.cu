@@ -2,22 +2,31 @@
 // at integer addresses.
 //
 // Replaces: src/repro/kernels/lut_gather.py::lut_reconstruct_pallas (K5)
-//           and ::plain_lookup_pallas (K6).
+//           and ::plain_lookup_pallas (K6, its `_plain_kernel`).
 // Bound on Hopper: device-memory bytes.  Each address is read once and
-//   each output written once (4 bytes each way); the tables are read once
-//   per block and the work per address is a few integer operations and
-//   four or five dependent table loads.
-// Design: one thread per address in a grid-stride loop, neighbouring
+//   each output written once (4 bytes each way); a table is read once and
+//   the work per address is a few integer operations and (K5) four or five
+//   dependent table loads.
+// K6 design: no staging.  The table is read through the read-only cache
+//   (__ldg): a 16 KB table stays in L1 after its first touch, and a block
+//   starts on its addresses at once instead of first copying the whole
+//   table into shared memory.  Each thread takes 4 consecutive addresses as
+//   one 16-byte load and writes 4 outputs as one 16-byte store when both
+//   pointers are 16-byte aligned; an unaligned pointer (a view such as
+//   x[1:]) and the tail of a count that is not a multiple of 4 take scalar
+//   accesses in the same kernel.  A grid of ceil(count / 1024) blocks of
+//   256 threads, capped at 8 per SM, with a grid-stride loop.
+// K5 design: one thread per address in a grid-stride loop, neighbouring
 //   threads on neighbouring addresses (coalesced).  The tables are staged
 //   in dynamic shared memory once per block when they fit (opted in up to
 //   the card's per-block limit, about 227 KB on an H100), the Pallas
 //   kernel's VMEM staging; a larger set (a 16-bit plain table is 256 KB)
 //   is read through the read-only cache (__ldg) instead.  Both branches
-//   are one kernel, chosen per launch.  The flat address count is passed
-//   and the tail masked, so no (rows, 128) pad copy is made.  Every table
-//   index is clamped into its array: an address outside [0, 2^w_in) gives
-//   a wrong value, never a fault.  t_lb is neither staged nor read on a
-//   w_lb == 0 plan.
+//   are one kernel, chosen per launch.
+// Both take the flat address count and mask the tail, so no (rows, 128)
+// pad copy is made.  Every table index is clamped into its array: an
+// address outside [0, 2^w_in) gives a wrong value, never a fault.  t_lb is
+// neither staged nor read on a w_lb == 0 plan.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -83,17 +92,29 @@ __global__ void __launch_bounds__(kThreads)
 __global__ void __launch_bounds__(kThreads)
     plain_lookup_kernel(const int32_t* __restrict__ x,
                         int32_t* __restrict__ out, long long count,
-                        Tables tab, int staged) {
-  extern __shared__ int32_t smem[];
-  if (staged) {
-    stage(tab, smem);
-    __syncthreads();
-  }
+                        const int32_t* __restrict__ table, int n,
+                        int vec) {
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-       i < count; i += stride)
-    out[i] = load(tab.t[0], tab.n[0], x[i], staged);
+  const long long tid =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  long long done = 0;
+  if (vec) {
+    const long long n4 = count / 4;
+    const int4* x4 = reinterpret_cast<const int4*>(x);
+    int4* o4 = reinterpret_cast<int4*>(out);
+    for (long long i = tid; i < n4; i += stride) {
+      const int4 a = __ldg(x4 + i);
+      int4 r;
+      r.x = load(table, n, a.x, false);
+      r.y = load(table, n, a.y, false);
+      r.z = load(table, n, a.z, false);
+      r.w = load(table, n, a.w, false);
+      o4[i] = r;
+    }
+    done = 4 * n4;
+  }
+  for (long long i = done + tid; i < count; i += stride)
+    out[i] = load(table, n, __ldg(x + i), false);
 }
 
 static int smem_optin() {
@@ -155,13 +176,19 @@ extern "C" int rlut_lut_reconstruct(
 extern "C" int rlut_plain_lookup(const int32_t* x, int32_t* out,
                                  long long count, const int32_t* table,
                                  int n_table, void* stream) {
-  rlut::Tables tab = {{table, nullptr, nullptr, nullptr, nullptr},
-                      {n_table, 0, 0, 0, 0}};
-  if (n_table < 1) return static_cast<int>(cudaErrorInvalidValue);
-  return rlut::launch(rlut::plain_lookup_kernel, count, tab,
-                      static_cast<cudaStream_t>(stream), x, out);
+  if (n_table < 1 || table == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (count == 0) return 0;
+  const int vec = reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                  reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  long long blocks = (count + 4 * rlut::kThreads - 1) / (4 * rlut::kThreads);
+  if (blocks > rlut::kMaxBlocks) blocks = rlut::kMaxBlocks;
+  rlut::plain_lookup_kernel<<<static_cast<int>(blocks), rlut::kThreads, 0,
+                              static_cast<cudaStream_t>(stream)>>>(
+      x, out, count, table, n_table, vec);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // Bytes of dynamic shared memory one block may opt in to on the current
-// device: K5/K6 stage their tables when they need no more.
+// device: K5 stages its tables when they need no more.
 extern "C" int rlut_smem_optin_bytes(void) { return rlut::smem_optin(); }

@@ -11,10 +11,12 @@ Counterparts of the reference's ``kernels/lut_gather.py``:
 
 Both kernels live in ``csrc/lut_gather.cu``.  They take the flat address
 count and mask the tail, so the addresses need no ``(rows, 128)`` pad
-copy; they stage the tables in shared memory when they fit and read them
-through the read-only cache otherwise.  The launch wrappers that pick
-between kernel and plain version by the input's device live in
-:mod:`.ops`.
+copy.  K5 stages its tables in shared memory when they fit and reads them
+through the read-only cache otherwise; K6 never stages: it reads its one
+table through the read-only cache and moves addresses and outputs 16
+bytes at a time where both pointers are 16-byte aligned.  The launch
+wrappers that pick between kernel and plain version by the input's device
+live in :mod:`.ops`.
 """
 from __future__ import annotations
 
@@ -87,7 +89,7 @@ def plain_lookup_cuda(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
 
 
 def smem_optin_bytes() -> int:
-    """The most dynamic shared memory one block of K5/K6 may stage on the
+    """The most dynamic shared memory one block of K5 may stage on the
     current card: tables of more bytes are read from device memory."""
     from . import build
 
