@@ -8,7 +8,7 @@ Phases (any failure exits non-zero; nothing is caught):
   2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
      ``nvcc`` per source, all started together); ``cuobjdump -sass`` on
      K3's library must show HGMMA (wgmma) and UTMALDG (TMA loads) in every
-     bf16 kernel;
+     bf16 kernel, and on K8's HMMA (its TF32 mma.sync);
   3. full-width ``qwen3-0.6b`` (28 layers, bf16, random weights from seed
      0): capture 2 calibration batches, compress per-(layer, site) tables
      for the MLP site, for every site (``--lut-sites all``) and for every
@@ -22,7 +22,12 @@ Phases (any failure exits non-zero; nothing is caught):
      ragged M (1, 3, 5, 67, 257), F = 1000 and K = 1032, and on the f32
      route at one shape; K4 bit for bit against its
      plain version and, per site, against K1 on the all-sites super-slab
-     (every layer, every site in one launch, f32 and bf16);
+     (every layer, every site in one launch, f32 and bf16); K1/K2 again on
+     the ``gate`` and ``up`` halves of a ``[gate|up]`` product (row stride
+     2 x 3072, read in place: K1 there launches one kernel and no copy),
+     a start 2 / 4 bytes past a 16-byte boundary and counts 1, 7 and
+     8003, on every site's stack of the all-sites plans (every pack width
+     their plans produce) and on per-layer plans;
   5. qwen3-0.6b served through the launcher's entry points, 4 requests x
      64 prompt tokens x 16 new tokens: (a) stacked + cuda, (b) unrolled +
      cuda, (c) shared tables + cuda, (e) ``--lut-sites all`` stacked +
@@ -48,9 +53,10 @@ Phases (any failure exits non-zero; nothing is caught):
      0): plans for the ``ffn`` site and for every site; K3 non-gated at the
      ``ffn`` shape and around it (ragged M, N = 1000, K = 1032, per-plan
      tables) as in phase 4; K4 on
-     its super-slab; K8 within ``rtol = atol = 1e-4`` of its plain version
-     (layer 0's inputs of a real prefill, strong and weak decay, a ragged
-     T, chunk 16, a given initial state);
+     its super-slab; K8 within ``rtol = atol = 1e-4`` of its plain version,
+     finite and two launches bit-identical (layer 0's inputs of a real
+     prefill, strong and weak decay, ``log_w = -e`` and ``-30`` on every
+     step, ragged T, chunk 16, a given initial state);
   10. rwkv6-3b served in the same sizes: (x) exact (K8 only), (h)
      ``--lut-act`` stacked + cuda and (i) ``--lut-sites all``, each
      token-identical to gather, (j) ``--lut-sites all --lut-fuse`` (K3 + K4
@@ -62,9 +68,11 @@ Phases (any failure exits non-zero; nothing is caught):
      CUDA graph of the launches), the bound from bytes and operations, the
      plain versions' times, and the library yardstick where one PyTorch
      call computes the same function (K3: cuBLAS GEMM followed by K1, also
-     from a CUDA graph; K6: ``torch.take``); K4 and K8 have none;
+     from a CUDA graph; K6: ``torch.take``); K4 and K8 have none; K1 and K2
+     on the served input (the ``gate`` view) and on a contiguous copy;
   12. one profiled decode step (qwen3-0.6b exact, form (a), form (d);
-     rwkv6-3b exact and form (j)): wall time, kernels launched, device
+     rwkv6-3b exact and form (j)): wall time, kernels launched (copies
+     among them: form (a) must launch as many as the exact step), device
      busy time and idle share.
 The last lines are the kernel JSON, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.  Long logs go to ``chiprun_out/`` (every
@@ -75,6 +83,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -84,10 +93,11 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 OUT_DIR = ROOT / "chiprun_out"
 
-# H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s, bf16 tensor-core
-# and f32 CUDA-core FLOP/s.
+# H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s, bf16 and TF32
+# tensor-core and f32 CUDA-core FLOP/s.
 PEAK_BYTES_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_F32_FLOPS = 67e12
 
 B, T, NEW = 4, 64, 16
@@ -156,9 +166,35 @@ def graph_ms(fn, n: int = 50, reps: int = 5) -> float:
     return statistics.median(per)
 
 
-def bound(nbytes: float, flops: float, peak_flops: float):
-    tb, tf = nbytes / PEAK_BYTES_S, flops / peak_flops
+def bound(nbytes: float, flops: float, peak_flops: float, more=()):
+    """(least time in ms, what bounds it): the larger of the bytes over the
+    memory rate and the operations over their peak.  ``more``: (operations,
+    peak) of further units that run beside the first (tensor cores beside
+    the CUDA cores); the operation time is the largest of them."""
+    tb = nbytes / PEAK_BYTES_S
+    tf = max([flops / peak_flops] + [o / p for o, p in more])
     return max(tb, tf) * 1e3, ("bytes" if tb >= tf else "operations")
+
+
+def k8_work(c: int, n: int, sub: int = 16) -> tuple[int, int]:
+    """(f32 CUDA-core operations, TF32 tensor-core operations) of K8 for
+    one (batch, head) and one chunk of ``c`` steps at head size ``n``, as
+    ``csrc/wkv.cu`` computes it: the cumsum and its shift (2 a value);
+    diagonal sub-chunk blocks direct (a pair: sub, exp, two multiplies,
+    add; the u bonus: two multiplies, add); off-diagonal blocks as the
+    product of q and k pre-scaled from the anchor row (sub, exp, multiply
+    a value, then 2 a multiply-add); the decay of q (exp, multiply) and
+    of k (sub, exp, multiply); the state's decay (multiply, add); and on
+    the tensor cores y's triangle ``a @ v``, ``q~ @ S`` and the update
+    ``k~^T v``, each three TF32 products (3xTF32)."""
+    lens = [min(sub, c - s) for s in range(0, c, sub)]
+    f32 = 2 * c * n + 5 * c * n + 2 * n * n + n
+    for i, li in enumerate(lens):
+        f32 += li * (li - 1) // 2 * n * 5 + li * n * 3
+        for lj in lens[:i]:
+            f32 += (li + lj) * n * 3 + 2 * li * lj * n
+    tc = 3 * (c * (c + 1) * n + 4 * c * n * n)
+    return f32, tc
 
 
 def edge_values(torch, dtype, dev, w_in=10, x_lo=-8.0, x_hi=8.0):
@@ -212,6 +248,122 @@ def k3_sass_counts(build, lib) -> dict:
     # k3_tc_kernel<8> ... : the template argument is the token tile
     return {"tok" + n.split("kernelILi")[1].split("E")[0]: c
             for n, c in sorted(counts.items())}
+
+
+def k1_layouts(torch, rows, dtype, dev, gen):
+    """The inputs K1 / K2 meet, as ``{label: tensor}``: the ``gate`` and
+    ``up`` halves of a ``(rows, 2 x 3072)`` ``[gate|up]`` product (row
+    stride 6144, no copy), a flat view one element past a 16-byte
+    boundary, and counts 1, 7 and 8k + 3; edge values first in each."""
+    x = torch.cat([kernel_inputs(torch, rows, dtype, dev, gen),
+                   kernel_inputs(torch, rows, dtype, dev, gen)], dim=-1)
+    gate, up = x.chunk(2, dim=-1)
+    flat = kernel_inputs(torch, 3, dtype, dev, gen).reshape(-1)
+    out = {"gate view": gate, "up view": up, "misaligned": flat[1:8004]}
+    for n in (1, 7, 8 * 1000 + 3):
+        out[f"count {n}"] = flat[:n]
+    if out["misaligned"].data_ptr() % 16 == 0 or gate.is_contiguous():
+        raise AssertionError("the strided / misaligned K1 inputs are not")
+    return out
+
+
+def check_k1_layouts(dev, stacks, luts, gen) -> tuple[int, dict]:
+    """K1 and K2 bit for bit against their plain versions on
+    :func:`k1_layouts`' inputs, f32 and bf16, every layer of every stack
+    in ``stacks`` (``{label: stacked entry}``) and every plan in ``luts``
+    (``{label: LUTActivation}``) raw and packed.  Returns (cases, the pack
+    widths covered per component)."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.lut_act import (
+        lut_act_plain,
+        lut_act_stacked_plain,
+    )
+    from repro_torch.kernels.packing import COMPONENTS
+
+    widths = {c: set() for c in COMPONENTS}
+    cases = 0
+    for rows in (B, B * T):
+        for dtype in (torch.bfloat16, torch.float32):
+            for label, x in k1_layouts(torch, rows, dtype, dev, gen).items():
+                if rows == B * T and label.startswith(("count", "mis")):
+                    continue   # the same inputs as at rows = B
+                for name, st in stacks.items():
+                    for c, p in (st["meta"].get("pack") or {}).items():
+                        widths[c].add(p["width"])
+                    for layer in range(st["meta"]["n_layers"]):
+                        yk = ops.lut_act_stacked(x, st, layer)
+                        yp = lut_act_stacked_plain(x, st, layer)
+                        if yk.shape != x.shape or not bits_equal(torch, yk,
+                                                                 yp):
+                            raise AssertionError(
+                                f"K1 differs from its plain version on "
+                                f"{label} {tuple(x.shape)}: {name} layer "
+                                f"{layer} {dtype}")
+                        cases += 1
+                for name, lut in luts.items():
+                    for packed in (False, True):
+                        pa = lut.plan_arrays(packed=packed, device=dev)
+                        for c, p in (pa.pack or {}).items():
+                            widths[c].add(p["width"])
+                        kw = dict(x_lo=lut.x_lo, x_hi=lut.x_hi,
+                                  y_lo=lut.y_lo, y_hi=lut.y_hi)
+                        yk = ops.lut_act(x, pa, **kw)
+                        yp = lut_act_plain(
+                            x, pa.arrays, l=pa.l, w_lb=pa.w_lb, w_hb=pa.w_hb,
+                            w_in=pa.w_in, w_out=pa.w_out, pack=pa.pack, **kw)
+                        if yk.shape != x.shape or not bits_equal(torch, yk,
+                                                                 yp):
+                            raise AssertionError(
+                                f"K2 differs from its plain version on "
+                                f"{label} {tuple(x.shape)}: {name} "
+                                f"packed={packed} {dtype}")
+                        cases += 1
+    torch.cuda.synchronize()
+    return cases, {c: sorted(w) for c, w in widths.items()}
+
+
+def kernels_of(fn) -> list:
+    """Names of the CUDA kernels one call of ``fn`` launches, from the
+    profiler (CPU and CUDA activity, as phase 12 traces).  A first trace
+    can miss the device's activity while CUPTI starts, so a trace that
+    saw no device event at all is taken again, up to three times."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA]
+        if names:
+            return names
+    raise AssertionError("the profiler saw no device activity in three "
+                         "traces")
+
+
+def k8_hmma_count(build, lib) -> int:
+    """HMMA instructions (tensor-core mma.sync) in K8's kernel, from the
+    built library's SASS; raises if there are none: y and the state update
+    really run on the tensor cores."""
+    cuobjdump = Path(build.nvcc_path()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], check=True,
+                          capture_output=True, text=True).stdout
+    n, inside = 0, False
+    for line in sass.splitlines():
+        if "Function :" in line:
+            inside = "wkv_kernel" in line
+        elif inside:
+            n += "HMMA" in line
+    if n == 0:
+        raise AssertionError("K8's kernel has no HMMA in its SASS")
+    return n
 
 
 # -------------------------------------------------------------------------
@@ -621,7 +773,8 @@ def check_multisite(dev, entry, gen) -> tuple[float, int]:
 def wkv_cases(torch, dev, gen, layer0):
     """K8's comparison cases at rwkv6-3b's prefill shape: layer 0's inputs
     from the real prefill, random inputs with strong and with weak decay,
-    a ragged T, chunk 16, and a given initial state."""
+    ``log_w`` at the model's bound ``-e`` and at ``-30`` on every step, a
+    ragged T, chunk 16, and a given initial state."""
     q0, k0, v0, lw0, u0 = layer0
     b, t, h, n = q0.shape
 
@@ -634,12 +787,17 @@ def wkv_cases(torch, dev, gen, layer0):
 
     strong, weak = rnd(0.7), rnd(-1.0)   # log_w = -exp(U(-3, hi))
     s0 = torch.randn(b, h, n, n, generator=gen, device=dev) * 0.1
+    at = lambda lw: strong[:3] + (torch.full_like(strong[3], lw), strong[4])
     return {
         "layer-0 prefill": ((q0, k0, v0, lw0, u0), 64, None),
         "strong decay": (strong, 64, None),
         "weak decay": (weak, 64, None),
+        "log_w = -e": (at(-math.e), 64, None),
+        "log_w = -30, initial state": (at(-30.0), 64, s0),
         "ragged T 48": (tuple(a[:, :48] for a in strong[:4])
                         + (strong[4],), 64, None),
+        "ragged T 37, chunk 16, initial state": (
+            tuple(a[:, :37] for a in strong[:4]) + (strong[4],), 16, s0),
         "chunk 16": (strong, 16, None),
         "initial state": (weak, 64, s0),
     }
@@ -647,25 +805,32 @@ def wkv_cases(torch, dev, gen, layer0):
 
 def check_wkv(dev, cases) -> float:
     """K8 against its plain version on the card, ``rtol = atol = 1e-4`` on
-    y and on the final state.  Returns the largest absolute difference."""
+    y and on the final state, finite, and two launches bit-identical.
+    Returns the largest absolute difference."""
     import torch
 
     from repro_torch.kernels import ops
-    from repro_torch.kernels.wkv import wkv_chunked_plain
+    from repro_torch.kernels.wkv import k8_plan, wkv_chunked_plain
 
     worst = 0.0
     for name, (args, chunk, s0) in cases.items():
         yk, sk = ops.wkv(*args, chunk=chunk, state=s0)
+        y2, s2 = ops.wkv(*args, chunk=chunk, state=s0)
         yp, sp = wkv_chunked_plain(*args, chunk=chunk, state=s0)
         torch.cuda.synchronize()
+        if not (torch.equal(yk, y2) and torch.equal(sk, s2)):
+            raise AssertionError(f"K8 {name}: two launches differ")
+        if not (torch.isfinite(yk).all() and torch.isfinite(sk).all()):
+            raise AssertionError(f"K8 {name}: inf or nan")
         ey = float((yk - yp).abs().max())
         es = float((sk - sp).abs().max())
         worst = max(worst, ey, es)
         ok = (torch.allclose(yk, yp, rtol=1e-4, atol=1e-4)
               and torch.allclose(sk, sp, rtol=1e-4, atol=1e-4))
-        log(f"    K8 {name} {tuple(args[0].shape)} chunk {chunk}: max |y - "
-            f"plain| {ey:.3e}, max |state - plain| {es:.3e} (|y| <= "
-            f"{float(yp.abs().max()):.3g})")
+        log(f"    K8 {name} {tuple(args[0].shape)} chunk {chunk} "
+            f"({k8_plan(*args[0].shape, chunk)}): max |y - plain| {ey:.3e}, "
+            f"max |state - plain| {es:.3e} (|y| <= "
+            f"{float(yp.abs().max()):.3g}); two launches bit-identical")
         if not ok:
             raise AssertionError(f"K8 differs from its plain version beyond "
                                  f"rtol = atol = 1e-4: {name}")
@@ -942,7 +1107,9 @@ def main() -> int:
     sass = k3_sass_counts(build, built["fused_matmul_lut"]["path"])
     log(f"[2] K3's bf16 kernels in SASS (cuobjdump -sass): "
         + ", ".join(f"{k}: {v['HGMMA']} HGMMA, {v['UTMALDG']} UTMALDG"
-                    for k, v in sass.items()))
+                    for k, v in sass.items())
+        + f"; K8: {k8_hmma_count(build, built['wkv']['path'])} HMMA "
+          f"(TF32 mma.sync)")
 
     # ---- 3. model, calibration, plans ------------------------------------
     common = ["--arch", "qwen3-0.6b", "--full", "--batch", str(B),
@@ -1045,6 +1212,32 @@ def main() -> int:
     torch.cuda.synchronize()
     log(f"[4] {stamp()} K1/K2 bit-exact against their plain versions on "
         f"{checked} (slab, layer, shape, dtype) cases")
+    # the layouts the serving path gives K1 / K2, on every site's stack of
+    # the all-sites plans and the mixed stack, and K2 on per-layer plans
+    site_stacks = plans_all.tables_for_model(backend="cuda", device=dev)
+    lay_stacks = {f"{site} packed": e["stacked"]
+                  for site, e in site_stacks["sites"].items()
+                  if "stacked" in e}
+    lay_stacks["mixed-packed"] = stacks["mixed-packed"]
+    lay_stacks["mixed-raw"] = stacks["mixed-raw"]
+    lay_luts = {"shared": shared.sites["mlp"].lut, "w_lb0": mixed[0],
+                "w_lb2": mixed[1]}
+    lay_luts.update({f"{site} layer {i}": sp.luts[i]
+                     for site, sp in plans_all.sites.items() if sp.per_layer
+                     for i in (0, cfg.n_layers - 1)})
+    lay_cases, lay_widths = check_k1_layouts(dev, lay_stacks, lay_luts, gen)
+    gate = k1_layouts(torch, B, torch.bfloat16, dev, gen)["gate view"]
+    k1_kernels = kernels_of(
+        lambda: ops.lut_act_stacked(gate, stacks["packed"], 0))
+    if len(k1_kernels) != 1:
+        raise AssertionError(f"K1 on the gate view launched {k1_kernels}, "
+                             f"not one kernel")
+    log(f"[4] {stamp()} K1/K2 bit-exact on {lay_cases} more cases: the gate "
+        f"and up halves of [gate|up] (row stride 6144), a start 2 / 4 bytes "
+        f"past a 16-byte boundary, counts 1, 7 and 8003, stacks "
+        f"{sorted(lay_stacks)} (any_lb with a w_lb == 0 layer: mixed), pack "
+        f"widths {lay_widths}; K1 on the gate view launches one kernel "
+        f"({k1_kernels[0][:60]}) and no copy")
 
     f_tables = plans.tables_for_model(backend="cuda", kernel="fused",
                                       device=dev)
@@ -1267,16 +1460,27 @@ def main() -> int:
                  "replaces": replaces, "launches": totals[name],
                  "max_abs_err": max_err[name]}
         for shape_name, rows in (("decode", B), ("prefill", B * T)):
-            x = kernel_inputs(torch, rows, torch.bfloat16, dev, gen)
+            # the served input: the gate half of the [gate|up] product, a
+            # (rows, 3072) view with row stride 6144 that K1 reads in place
+            x = k1_layouts(torch, rows, torch.bfloat16, dev, gen)["gate view"]
+            xc = x.contiguous()
             if name == "lut_act_stacked":
                 kfn = lambda: ops.lut_act_stacked(x, st, L // 2)
+                cfn = lambda: ops.lut_act_stacked(xc, st, L // 2)
                 pfn = lambda: lut_act_stacked_plain(x, st, L // 2)
             else:
+                # the served form: an unrolled layer's entry and the record
+                # built with it; "per_call_record_ms" builds it per call
                 lut = plans.sites["mlp"].luts[L // 2]
                 pa = lut.plan_arrays(packed=True, device=dev)
                 kw = dict(x_lo=lut.x_lo, x_hi=lut.x_hi, y_lo=lut.y_lo,
                           y_hi=lut.y_hi)
-                kfn = lambda: ops.lut_act(x, pa, **kw)
+                rec = plans.sites["mlp"].entry(
+                    form="layers", packed=True,
+                    device=dev)["layers"][L // 2]["k1_record"]
+                kfn = lambda: ops.lut_act(x, pa, **kw, record=rec)
+                cfn = lambda: ops.lut_act(xc, pa, **kw, record=rec)
+                rfn = lambda: ops.lut_act(x, pa, **kw)
                 pfn = lambda: lut_act_plain(
                     x, pa.arrays, l=pa.l, w_lb=pa.w_lb, w_hb=pa.w_hb,
                     w_in=pa.w_in, w_out=pa.w_out, pack=pa.pack, **kw)
@@ -1284,8 +1488,12 @@ def main() -> int:
             bms, by = bound(2 * n * 2 + slab_bytes + 20, 5 * n,
                             PEAK_F32_FLOPS)
             t = {"ms": timed_ms(kfn), "graph_ms": graph_ms(kfn),
+                 "contiguous_ms": timed_ms(cfn),
+                 "contiguous_graph_ms": graph_ms(cfn),
                  "plain_ms": timed_ms(pfn), "bound_ms": bms,
-                 "bound_by": by}
+                 "bound_by": by, "input": "gate view, row stride 6144"}
+            if name == "lut_act":
+                t["per_call_record_ms"] = timed_ms(rfn)
             if shape_name == "decode":
                 entry.update(t, library_ms=None, shape=[rows, 3072])
             else:
@@ -1403,11 +1611,10 @@ def main() -> int:
     n_chunks = -(-tt // chunk)
     cc = min(chunk, tt)
     wkv_bytes = 4 * (5 * bsz * tt * hh * nn + hh * nn + bsz * hh * nn * nn)
-    per_chunk = (cc * (cc - 1) // 2 * nn * 5 + cc * nn * 3 + 2 * cc * nn * 3
-                 + cc * (cc + 1) // 2 * nn * 2 + 2 * cc * nn * nn
-                 + 2 * nn * nn * cc + 2 * nn * nn)
-    bms, by = bound(wkv_bytes, bsz * hh * n_chunks * per_chunk,
-                    PEAK_F32_FLOPS)
+    f32_ops, tc_ops = k8_work(cc, nn)
+    per = bsz * hh * n_chunks
+    bms, by = bound(wkv_bytes, per * f32_ops, PEAK_F32_FLOPS,
+                    more=[(per * tc_ops, PEAK_TF32_FLOPS)])
     entry = {"name": "wkv", "route": "cuda",
              "source": "src/repro_torch/kernels/csrc/wkv.cu",
              "replaces": "src/repro/kernels/wkv.py:68",
@@ -1428,6 +1635,16 @@ def main() -> int:
                      f"{k['prefill']['graph_ms'] * 1e3:.2f}), bound "
                      f"{k['prefill']['bound_ms'] * 1e3:.3f} us, plain "
                      f"{k['prefill']['plain_ms'] * 1e3:.2f} us")
+        if "contiguous_ms" in k:
+            line += (f"; input {k['input']}; on a contiguous copy "
+                     f"{k['contiguous_ms'] * 1e3:.2f} us (graph "
+                     f"{k['contiguous_graph_ms'] * 1e3:.2f}), prefill "
+                     f"{k['prefill']['contiguous_ms'] * 1e3:.2f} us (graph "
+                     f"{k['prefill']['contiguous_graph_ms'] * 1e3:.2f})")
+        if "per_call_record_ms" in k:
+            line += (f"; record built per call "
+                     f"{k['per_call_record_ms'] * 1e3:.2f} us, prefill "
+                     f"{k['prefill']['per_call_record_ms'] * 1e3:.2f} us")
         if k.get("library_ms") is not None:
             line += (f"; library {k['library_ms'] * 1e3:.2f} us (graph "
                      f"{k['library_graph_ms'] * 1e3:.2f}), prefill "
@@ -1483,13 +1700,16 @@ def main() -> int:
             by_name[e.name] = by_name.get(e.name, 0.0) + \
                 e.time_range.elapsed_us()
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+        copies = sum("copy" in e.name for e in kern)
         steps[label] = {"wall_ms": wall * 1e3, "kernels": len(kern),
+                        "copy_kernels": copies,
                         "device_busy_ms": busy_us / 1e3,
                         "idle_share": (1 - busy_us / 1e6 / wall) if kern
                         else None,
                         "top_kernels_us": top}
         log(f"[12] decode step ({label}): wall {wall * 1e3:.2f} ms, "
-            f"{len(kern)} kernels, device busy {busy_us / 1e3:.2f} ms"
+            f"{len(kern)} kernels ({copies} copies), device busy "
+            f"{busy_us / 1e3:.2f} ms"
             + (f", idle share {steps[label]['idle_share']:.3f}" if kern
                else " (profiler saw no device events: idle not measured)"))
         for name, us in top[:5]:
@@ -1497,6 +1717,17 @@ def main() -> int:
         (OUT_DIR / f"profile_{label.replace(' ', '_')}.txt").write_text(
             prof.key_averages().table(sort_by="cpu_time_total",
                                       row_limit=40))
+
+    # K1 reads the gate half in place: form (a) launches what the exact
+    # activation does (one kernel for the activation, one for the product)
+    if (steps["a"]["kernels"], steps["a"]["copy_kernels"]) != (
+            steps["exact"]["kernels"], steps["exact"]["copy_kernels"]):
+        raise AssertionError(
+            f"decode step (a) launched {steps['a']['kernels']} kernels "
+            f"({steps['a']['copy_kernels']} copies), the exact step "
+            f"{steps['exact']['kernels']} ({steps['exact']['copy_kernels']})")
+    log(f"[12] form (a) launches as many kernels per step as the exact "
+        f"model, copies included: K1 takes the gate view without a copy")
 
     summary = {"card": smi, "seconds": time.perf_counter() - t_start,
                "exact": exact, "steps": steps, "logit_drift": drift,

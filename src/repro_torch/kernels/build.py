@@ -33,11 +33,16 @@ NVCC_FLAGS = (
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C entry point -> (source stem, argtypes)
 ENTRY_POINTS = {
-    "rlut_lut_act_stacked": ("lut_act", [_P, _P, _LL, _I, _P, _P, _P, _P]),
-    "rlut_lut_act": ("lut_act", [_P, _P, _LL, _I, _P, _P, _P, _P]),
+    # (record, layer, x, y, rows, cols, ld, dtype, threads, grid_x, grid_y,
+    #  vec, stream)
+    "rlut_lut_act_stacked": ("lut_act", [_P, _I, _P, _P, _LL, _LL, _LL]
+                             + [_I] * 5 + [_P]),
+    "rlut_lut_act": ("lut_act", [_P, _I, _P, _P, _LL, _LL, _LL] + [_I] * 5
+                     + [_P]),
+    # (x, w, out, M, K, N, gated, epilogue, dtype, tok_tile, splits,
+    #  stages, record, layer, stream)
     "rlut_fused_matmul_lut": (
-        "fused_matmul_lut",
-        [_P, _P, _P] + [_I] * 9 + [_P, _P, _P, _P]),
+        "fused_matmul_lut", [_P, _P, _P] + [_I] * 9 + [_P, _I, _P]),
     "rlut_lut_reconstruct": (
         "lut_gather", [_P, _P, _LL] + [_P, _I] * 5 + [_I, _I, _I, _P]),
     "rlut_plain_lookup": ("lut_gather", [_P, _P, _LL, _P, _I, _P]),
@@ -46,7 +51,7 @@ ENTRY_POINTS = {
         "lutnn_layer", [_P, _P, _P, _P, _I, _I, _I, _I, _LL, _I, _P]),
     "rlut_lut_act_multi": ("lut_act_multi", [_I, _I, _P, _P, _P, _P, _P,
                                              _P]),
-    "rlut_wkv": ("wkv", [_P] * 8 + [_I] * 5 + [_P]),
+    "rlut_wkv": ("wkv", [_P] * 8 + [_I] * 7 + [_P]),
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}   # process-wide: one load per library

@@ -586,21 +586,28 @@ static int dispatch(const void* x, const void* w, void* out, int M, int K,
 }  // namespace rlut
 
 // x (M, K), w (K, N) row-major in the model dtype; out (M, N/2 if gated
-// else N) with the epilogue, (M, N) without.  The LUT arguments follow
-// lut_act.cu: ptrs[5], ptrs[6] are the layer's meta rows, or null with the
-// per-plan scalars in ip / fp.  dtype 1 (bf16) takes the tensor-core route
-// with the plan (tok_tile, splits, stages) of
+// else N) with the epilogue, (M, N) without.  The LUT is layer `layer` of
+// the launch record `r` (lut_eval.cuh::LutRecord, the one K1 and K2 take),
+// which may be null without the epilogue.  dtype 1 (bf16) takes the
+// tensor-core route with the plan (tok_tile, splits, stages) of
 // kernels/fused_matmul_lut.py::k3_plan; dtype 0 (f32) the CUDA-core route,
 // which ignores the plan.
 extern "C" int rlut_fused_matmul_lut(const void* x, const void* w, void* out,
                                      int M, int K, int N, int gated,
                                      int epilogue, int dtype, int tok_tile,
                                      int splits, int stages,
-                                     const long long* ptrs, const int* ip,
-                                     const float* fp, void* stream) {
+                                     const rlut::LutRecord* r, int layer,
+                                     void* stream) {
   if (gated && (N % 2)) return static_cast<int>(cudaErrorInvalidValue);
+  if (epilogue && (r == nullptr || layer < 0 || layer >= r->n_layers))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (M == 0 || N == 0) return 0;
-  rlut::LutArgs a = rlut::make_lut_args(ptrs, ip, fp);
+  rlut::LutArgs a = {};
+  if (epilogue) {
+    rlut::RowStrides st;
+    rlut::record_args(*r, &a, &st);
+    a = rlut::at_layer(a, st, layer);
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return rlut::f32r::dispatch<float>(x, w, out, M, K, N, gated, epilogue,

@@ -3,79 +3,185 @@
 // Replaces: src/repro/kernels/lut_act.py::lut_act_stacked_pallas (K1) and
 //           ::lut_act_pallas (K2).
 // Bound on Hopper: device-memory bytes.  Each element is read once and
-//   written once (2 or 4 bytes each way) and costs a handful of integer
-//   operations and shared-memory lookups; the component slab is a few KB.
-// Design: every CTA stages its layer's component slab into shared memory
-//   once (the Pallas kernel's VMEM staging), then walks the flattened
-//   elements with a grid-stride loop, so neighbouring threads touch
-//   neighbouring elements (coalesced).  K1 reads the layer's scalars from
-//   the (L, 3)/(L, 2) meta rows in device memory, so the host never waits
-//   on the card; K2 takes the per-plan scalars as kernel arguments.  One
-//   device function (lut_eval.cuh) serves both.
+//   written once (2 or 4 bytes each way) and costs a few dozen integer
+//   operations and five table reads; the component rows are a few KB.
+// Design:
+//   - No staging.  A thread reads the component rows through the read-only
+//     cache (`__ldg`), so no block waits at a barrier for a slab copy
+//     before its first lookup.  Every index is clamped into its row, so no
+//     read leaves it.
+//   - The launch record (lut_eval.cuh::LutRecord) is built once on the
+//     host with each table entry: the bases of the five (L, W_c) stacks
+//     and of meta_i / meta_f, their row strides, the pack widths, the
+//     divmod constants of each pack (lut_eval.cuh: no runtime division),
+//     any_lb and the host-rounded quantizer constants.  The kernel forms
+//     the layer's row pointers from the plain `layer` argument and reads
+//     its scalars from the meta rows on the card, so the host never waits
+//     on the card.  K2 uses the same entry with layer 0, row strides of 0
+//     and its per-plan scalars in the record; K3 takes the same record.
+//   - The input is a (rows, cols) view with a row stride `ld` (the `gate`
+//     half of the fused [gate|up] product goes in without a copy); the
+//     output is contiguous.  Where the elements are many (prefill) each
+//     thread loads and stores 16 bytes (8 bf16 or 4 f32) and evaluates
+//     their elements as independent chains; the elements before a row's
+//     first 16-byte boundary (head) and after its last whole vector (tail)
+//     run one at a time.  Units of a row: its vectors first, then its head
+//     and tail elements.  Where they are few (decode: 4 x 3072), a unit is
+//     one element, so that the launch spreads over the SMs.  blockIdx.x
+//     strides over a row's units, blockIdx.y over the rows; the grid and
+//     the mode come from kernels/lut_act.py::k1_plan.
+#include <stdint.h>
+
 #include "lut_eval.cuh"
 
 namespace rlut {
 
-constexpr int kThreads = 256;
-constexpr int kMaxBlocks = 132 * 8;  // 8 CTAs per SM of an H100
+constexpr int kMaxThreads = 256;
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    lut_act_kernel(const T* __restrict__ x, T* __restrict__ y, long long n,
-                   LutArgs a) {
-  extern __shared__ int32_t smem[];
-  int32_t* s[kComps];
-  stage_slabs(a, smem, s);
+struct Vec;
+template <>
+struct Vec<float> {
+  static constexpr int kN = 4;
+  __device__ static float get(const unsigned (&w)[4], int i) {
+    return __uint_as_float(w[i]);
+  }
+  __device__ static void put(unsigned (&w)[4], int i, float v) {
+    w[i] = __float_as_uint(v);
+  }
+};
+template <>
+struct Vec<__nv_bfloat16> {
+  static constexpr int kN = 8;
+  // bf16 -> f32 is exact: the 16 bits become the high half
+  __device__ static float get(const unsigned (&w)[4], int i) {
+    const unsigned h = (i & 1) ? (w[i >> 1] >> 16) : (w[i >> 1] & 0xffffu);
+    return __uint_as_float(h << 16);
+  }
+  __device__ static void put(unsigned (&w)[4], int i, float v) {
+    const unsigned h = __bfloat16_as_ushort(__float2bfloat16_rn(v));
+    w[i >> 1] = (i & 1) ? ((w[i >> 1] & 0xffffu) | (h << 16))
+                        : ((w[i >> 1] & 0xffff0000u) | h);
+  }
+};
+
+template <typename T, bool kVec>
+__global__ void __launch_bounds__(kMaxThreads)
+    lut_act_kernel(const T* __restrict__ x, T* __restrict__ y,
+                   long long rows, long long cols, long long ld, int layer,
+                   LutArgs a, const RowStrides st) {
+  a = at_layer(a, st, layer);
+  const int32_t* s[kComps];
+#pragma unroll
+  for (int c = 0; c < kComps; ++c) s[c] = a.comp[c].words;
   const LayerScalars ls = layer_scalars(a);
-  __syncthreads();
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-       i < n; i += stride)
-    y[i] = from_f32<T>(lut_eval(to_f32<T>(x[i]), s, a, ls));
+  constexpr int V = Vec<T>::kN;
+  const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long r = blockIdx.y; r < rows; r += gridDim.y) {
+    const T* xr = x + r * ld;
+    T* yr = y + r * cols;
+    long long head = 0, nv = 0;
+    if (kVec) {
+      head = ((16 - (reinterpret_cast<uintptr_t>(xr) & 15)) & 15) / sizeof(T);
+      if (head > cols) head = cols;
+      nv = (cols - head) / V;
+    }
+    const long long body_end = head + nv * V;
+    const long long units = nv + (cols - nv * V);
+    const bool vec_store =
+        (reinterpret_cast<uintptr_t>(yr + head) & 15) == 0;
+    for (long long k = static_cast<long long>(blockIdx.x) * blockDim.x +
+                       threadIdx.x;
+         k < units; k += step) {
+      if (kVec && k < nv) {
+        const long long e = head + k * V;
+        const uint4 in = __ldg(reinterpret_cast<const uint4*>(xr + e));
+        const unsigned w[4] = {in.x, in.y, in.z, in.w};
+        unsigned o[4];
+#pragma unroll
+        for (int i = 0; i < V; ++i)
+          Vec<T>::put(o, i, lut_eval<true, true>(Vec<T>::get(w, i), s, a,
+                                                 ls));
+        if (vec_store) {
+          *reinterpret_cast<uint4*>(yr + e) = make_uint4(o[0], o[1], o[2],
+                                                         o[3]);
+        } else {
+#pragma unroll
+          for (int i = 0; i < V; ++i)
+            yr[e + i] = from_f32<T>(Vec<T>::get(o, i));
+        }
+      } else {
+        const long long u = k - nv;
+        const long long e = u < head ? u : body_end + (u - head);
+        yr[e] = from_f32<T>(lut_eval<true, true>(to_f32<T>(xr[e]), s, a, ls));
+      }
+    }
+  }
 }
 
 template <typename T>
-static int launch(const void* x, void* y, long long n, const LutArgs& a,
-                  cudaStream_t stream) {
-  if (n == 0) return 0;
-  size_t smem = slab_smem_bytes(a);
-  cudaError_t err = allow_smem(lut_act_kernel<T>, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  long long blocks = (n + kThreads - 1) / kThreads;
-  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
-  lut_act_kernel<T><<<static_cast<int>(blocks), kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<T*>(y), n, a);
-  return static_cast<int>(cudaGetLastError());
+static void run(const dim3& grid, int threads, bool vec, cudaStream_t s,
+                const void* x, void* y, long long rows, long long cols,
+                long long ld, int layer, const LutArgs& a,
+                const RowStrides& st) {
+  const T* xt = static_cast<const T*>(x);
+  T* yt = static_cast<T*>(y);
+  if (vec)
+    lut_act_kernel<T, true><<<grid, threads, 0, s>>>(xt, yt, rows, cols, ld,
+                                                     layer, a, st);
+  else
+    lut_act_kernel<T, false><<<grid, threads, 0, s>>>(xt, yt, rows, cols,
+                                                      ld, layer, a, st);
 }
 
-static int dispatch(const void* x, void* y, long long n, int dtype,
-                    const LutArgs& a, void* stream) {
+static int launch(const LutRecord* r, int layer, const void* x, void* y,
+                  long long rows, long long cols, long long ld, int dtype,
+                  int threads, int grid_x, int grid_y, int vec,
+                  void* stream) {
+  if (r == nullptr || layer < 0 || layer >= r->n_layers || rows < 0 ||
+      cols < 0 || ld < 0 || threads < 32 || threads > kMaxThreads ||
+      threads % 32 || grid_x < 1 || grid_y < 1 || grid_y > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (rows == 0 || cols == 0) return 0;
+  LutArgs a;
+  RowStrides st;
+  record_args(*r, &a, &st);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(x, y, n, a, s);
-  if (dtype == 1) return launch<__nv_bfloat16>(x, y, n, a, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(grid_x, grid_y);
+  if (dtype == 0 && (vec == 1 || vec == Vec<float>::kN))
+    run<float>(grid, threads, vec > 1, s, x, y, rows, cols, ld, layer, a, st);
+  else if (dtype == 1 && (vec == 1 || vec == Vec<__nv_bfloat16>::kN))
+    run<__nv_bfloat16>(grid, threads, vec > 1, s, x, y, rows, cols, ld,
+                       layer, a, st);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace rlut
 
-// K1: ptrs[5], ptrs[6] point at the layer's meta_i / meta_f rows.
-extern "C" int rlut_lut_act_stacked(const void* x, void* y, long long n,
-                                    int dtype, const long long* ptrs,
-                                    const int* ip, const float* fp,
-                                    void* stream) {
-  rlut::LutArgs a = rlut::make_lut_args(ptrs, ip, fp);
-  if (a.meta_i == nullptr || a.meta_f == nullptr)
+// K1: the record of a stacked entry (meta rows on the card), layer `layer`.
+// x: (rows, cols) with row stride ld elements; y: contiguous (rows, cols);
+// vec: elements a unit, 1 or 16 bytes' worth.
+extern "C" int rlut_lut_act_stacked(const rlut::LutRecord* r, int layer,
+                                    const void* x, void* y, long long rows,
+                                    long long cols, long long ld, int dtype,
+                                    int threads, int grid_x, int grid_y,
+                                    int vec, void* stream) {
+  if (r == nullptr || r->meta_i == 0 || r->meta_f == 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  return rlut::dispatch(x, y, n, dtype, a, stream);
+  return rlut::launch(r, layer, x, y, rows, cols, ld, dtype, threads, grid_x,
+                      grid_y, vec, stream);
 }
 
-// K2: the per-plan scalars ride in ip / fp; ptrs[5], ptrs[6] are null.
-extern "C" int rlut_lut_act(const void* x, void* y, long long n, int dtype,
-                            const long long* ptrs, const int* ip,
-                            const float* fp, void* stream) {
-  rlut::LutArgs a = rlut::make_lut_args(ptrs, ip, fp);
-  a.meta_i = nullptr;
-  a.meta_f = nullptr;
-  return rlut::dispatch(x, y, n, dtype, a, stream);
+// K2: the record of one plan (per-plan scalars in it, no meta rows).
+extern "C" int rlut_lut_act(const rlut::LutRecord* r, int layer,
+                            const void* x, void* y, long long rows,
+                            long long cols, long long ld, int dtype,
+                            int threads, int grid_x, int grid_y, int vec,
+                            void* stream) {
+  if (r == nullptr || r->meta_i != 0 || r->meta_f != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return rlut::launch(r, layer, x, y, rows, cols, ld, dtype, threads, grid_x,
+                      grid_y, vec, stream);
 }

@@ -60,7 +60,8 @@ __device__ __forceinline__ LutArgs row_args(const MultiArgs& m, int site,
     a.comp[c].n_words = (c == 4 && !m.any_lb) ? 0 : m.words[c];
     a.comp[c].width = min(max(p[0], 1), 32);
     a.comp[c].offset = p[1];
-    a.comp[c].per_word = max(p[2], 1);
+    a.comp[c].per_word = min(max(p[2], 1), 32);
+    divmod_of(a.comp[c]);
   }
   const float* mf = m.meta_f + row * 4;
   a.meta_i = m.meta_i + row * 3;

@@ -1,9 +1,10 @@
 // Shared device code of the LUT kernels: quantize -> Eq. (1) -> dequantize.
 //
 // One element of the reference's `lut_eval_traced`
-// (src/repro/kernels/lut_act.py), over component slabs staged in shared
-// memory.  Float arithmetic is spelled out with the _rn intrinsics so the
-// result does not depend on nvcc's contraction choices:
+// (src/repro/kernels/lut_act.py), over component rows staged in shared
+// memory (K3, K4) or read through the read-only cache (K1, K2).  Float
+// arithmetic is spelled out with the _rn intrinsics so the result does not
+// depend on nvcc's contraction choices:
 //   quantize   xn   = clamp((x - x_lo) * x_inv_span, 0, 1)
 //              code = rint(xn * levels_in)                (half to even)
 //   dequantize y    = fma(val, f32(inv_levels_out * span), y_lo)
@@ -22,11 +23,48 @@ constexpr int kComps = 5;  // t_ust, t_idx, t_rsh, t_bias, t_lb (COMPONENTS)
 
 struct CompSlab {
   const int32_t* words;  // this layer's (or plan's) row on the card
-  int n_words;           // words staged into shared memory
+  int n_words;           // words of the row (staged, or read in place)
   int width;             // bits per code; 32 = raw int32
   int offset;            // bias added after unpacking
   int per_word;          // codes per int32 word
+  unsigned div_mul;      // idx / per_word without a division: divmod_of()
+  int div_shift;
 };
+
+// Constants of the division by d = per_word (1..32) for 0 <= idx < 2^31
+// (Granlund and Montgomery's round-up method, as CUTLASS's FastDivmod):
+//   s = ceil(log2 d), mul = floor(2^32 (2^s - d) / d) + 1,
+//   idx / d = (umulhi(idx, mul) + idx) >> s
+// The sum stays under 2^32 because umulhi(idx, mul) <= idx < 2^31.
+// kernels/lut_act.py::fast_divmod is the same arithmetic, held against //
+// and % on the CPU.
+struct DivTable {
+  unsigned mul[33];
+  int shift[33];
+};
+
+constexpr DivTable make_div_table() {
+  DivTable t{};
+  for (int d = 1; d <= 32; ++d) {
+    int s = 0;
+    while ((1 << s) < d) ++s;
+    t.shift[d] = s;
+    t.mul[d] = static_cast<unsigned>(
+        ((1ull << 32) * ((1ull << s) - static_cast<unsigned>(d))) /
+            static_cast<unsigned>(d) +
+        1ull);
+  }
+  return t;
+}
+
+// Read on the card by K4, which finds its codes per word in device
+// memory; K1-K3 take the constants from their launch record.
+__constant__ DivTable kDivDevice = make_div_table();
+
+__device__ inline void divmod_of(CompSlab& c) {
+  c.div_mul = kDivDevice.mul[c.per_word];
+  c.div_shift = kDivDevice.shift[c.per_word];
+}
 
 struct LutArgs {
   CompSlab comp[kComps];
@@ -43,30 +81,68 @@ struct LayerScalars {
   float y_lo, coef;
 };
 
-// Host-side decoding of the flat parameter arrays the Python wrappers pass
-// (ptrs[7], ip[24], fp[6]; layout in kernels/lut_act.py::lut_launch_args).
-inline LutArgs make_lut_args(const long long* ptrs, const int* ip,
-                             const float* fp) {
-  LutArgs a;
+// The launch record of K1, K2 and K3, built once on the host per table
+// entry (kernels/lut_act.py::LutRecord mirrors it field for field): the
+// bases of the five (L, W_c) component stacks (or of one plan's rows), of
+// the (L, .) meta tables, their row strides, the unpack parameters and
+// divmod constants of each component, and the host-rounded constants.
+struct LutRecord {
+  long long base[kComps];  // component stacks, or one plan's rows
+  long long meta_i;        // (L, meta_i_ld) int32 [l, w_lb, w_hb], or 0
+  long long meta_f;        // (L, meta_f_ld) f32 [y_lo, span], or 0
+  int row_words[kComps];   // words from one layer's row to the next
+  int n_words[kComps];     // words of one row (t_lb: 0 unless any_lb)
+  int width[kComps], offset[kComps], per_word[kComps];
+  unsigned div_mul[kComps];
+  int div_shift[kComps];
+  int meta_i_ld, meta_f_ld, n_layers, any_lb;
+  int l, w_lb, w_hb;  // per-plan scalars (no meta tables)
+  float x_lo, x_inv_span, levels_in, inv_levels_out;
+  float y_lo, span;  // per-plan scalars (no meta tables)
+};
+
+struct RowStrides {
+  int words[kComps];
+  int meta_i, meta_f;
+};
+
+// The record's arguments at layer 0 and its row strides.
+inline void record_args(const LutRecord& r, LutArgs* a, RowStrides* st) {
   for (int c = 0; c < kComps; ++c) {
-    a.comp[c].words = reinterpret_cast<const int32_t*>(ptrs[c]);
-    a.comp[c].n_words = ip[c];
-    a.comp[c].width = ip[5 + c];
-    a.comp[c].offset = ip[10 + c];
-    a.comp[c].per_word = ip[15 + c];
+    a->comp[c].words = reinterpret_cast<const int32_t*>(r.base[c]);
+    a->comp[c].n_words = r.n_words[c];
+    a->comp[c].width = r.width[c];
+    a->comp[c].offset = r.offset[c];
+    a->comp[c].per_word = r.per_word[c];
+    a->comp[c].div_mul = r.div_mul[c];
+    a->comp[c].div_shift = r.div_shift[c];
+    st->words[c] = r.row_words[c];
   }
-  a.meta_i = reinterpret_cast<const int32_t*>(ptrs[5]);
-  a.meta_f = reinterpret_cast<const float*>(ptrs[6]);
-  a.l = ip[20];
-  a.w_lb = ip[21];
-  a.w_hb = ip[22];
-  a.any_lb = ip[23];
-  a.x_lo = fp[0];
-  a.x_inv_span = fp[1];
-  a.levels_in = fp[2];
-  a.inv_levels_out = fp[3];
-  a.y_lo = fp[4];
-  a.span = fp[5];
+  a->meta_i = reinterpret_cast<const int32_t*>(r.meta_i);
+  a->meta_f = reinterpret_cast<const float*>(r.meta_f);
+  st->meta_i = r.meta_i_ld;
+  st->meta_f = r.meta_f_ld;
+  a->l = r.l;
+  a->w_lb = r.w_lb;
+  a->w_hb = r.w_hb;
+  a->any_lb = r.any_lb;
+  a->x_lo = r.x_lo;
+  a->x_inv_span = r.x_inv_span;
+  a->levels_in = r.levels_in;
+  a->inv_levels_out = r.inv_levels_out;
+  a->y_lo = r.y_lo;
+  a->span = r.span;
+}
+
+// The arguments of layer `layer`: each row pointer moved by its stride.
+__host__ __device__ inline LutArgs at_layer(LutArgs a, const RowStrides& st,
+                                            int layer) {
+  for (int c = 0; c < kComps; ++c)
+    a.comp[c].words += static_cast<long long>(layer) * st.words[c];
+  if (a.meta_i != nullptr) {
+    a.meta_i += static_cast<long long>(layer) * st.meta_i;
+    a.meta_f += static_cast<long long>(layer) * st.meta_f;
+  }
   return a;
 }
 
@@ -110,25 +186,35 @@ __device__ __forceinline__ LayerScalars layer_scalars(const LutArgs& a) {
   return ls;
 }
 
+template <bool kLdg>
+__device__ __forceinline__ int load_word(const int32_t* p) {
+  if (kLdg) return __ldg(p);
+  return *p;
+}
+
 // Element `idx` of a (possibly bit-packed) component row.  Width 32 is the
 // raw row, so no shift by 32 ever happens; `>>` on int is arithmetic and
-// the mask drops the sign bits.  kClamp pins `idx` into the staged row
-// (K4, whose slab rows and pack widths come from device memory).
-template <bool kClamp = false>
+// the mask drops the sign bits.  kClamp pins `idx` into the row (K1, K2,
+// K4); kLdg reads a row in device memory through the read-only cache (K1,
+// K2), else the row is staged in shared memory.
+template <bool kClamp = false, bool kLdg = false>
 __device__ __forceinline__ int take(const int32_t* s, const CompSlab& c,
                                     int idx) {
   if (kClamp) {
     const int n = c.n_words * (c.width == 32 ? 1 : c.per_word);
     idx = min(max(idx, 0), max(n - 1, 0));
   }
-  if (c.width == 32) return s[idx];
-  int w = s[idx / c.per_word];
-  int sh = (idx % c.per_word) * c.width;
+  if (c.width == 32) return load_word<kLdg>(s + idx);
+  const unsigned u = static_cast<unsigned>(idx);
+  const unsigned q = (__umulhi(u, c.div_mul) + u) >> c.div_shift;
+  const int w = load_word<kLdg>(s + q);
+  const int sh = (idx - static_cast<int>(q) * c.per_word) * c.width;
   return ((w >> sh) & ((1 << c.width) - 1)) + c.offset;
 }
 
-template <bool kClamp = false>
-__device__ __forceinline__ float lut_eval(float x, int32_t* const s[kComps],
+template <bool kClamp = false, bool kLdg = false>
+__device__ __forceinline__ float lut_eval(float x,
+                                          const int32_t* const s[kComps],
                                           const LutArgs& a,
                                           const LayerScalars& ls) {
   float xn = __fmul_rn(__fsub_rn(x, a.x_lo), a.x_inv_span);
@@ -137,15 +223,15 @@ __device__ __forceinline__ float lut_eval(float x, int32_t* const s[kComps],
   int m = 1 << ls.l;
   int c_hb = code >> ls.l;
   int c_lb = code & (m - 1);
-  int idx = take<kClamp>(s[1], a.comp[1], c_hb);
-  int val = take<kClamp>(s[0], a.comp[0], idx * m + c_lb);
-  val >>= take<kClamp>(s[2], a.comp[2], c_hb);
-  val += take<kClamp>(s[3], a.comp[3], c_hb);
+  int idx = take<kClamp, kLdg>(s[1], a.comp[1], c_hb);
+  int val = take<kClamp, kLdg>(s[0], a.comp[0], idx * m + c_lb);
+  val >>= take<kClamp, kLdg>(s[2], a.comp[2], c_hb);
+  val += take<kClamp, kLdg>(s[3], a.comp[3], c_hb);
   val &= static_cast<int>((1u << max(ls.w_hb, 1)) - 1u);
   if (a.any_lb && ls.w_lb > 0)  // t_lb is never read on a w_lb == 0 layer
     val = static_cast<int>(
         (static_cast<unsigned>(val) << ls.w_lb) |
-        static_cast<unsigned>(take<kClamp>(s[4], a.comp[4], code)));
+        static_cast<unsigned>(take<kClamp, kLdg>(s[4], a.comp[4], code)));
   return __fmaf_rn(__int2float_rn(val), ls.coef, ls.y_lo);
 }
 

@@ -28,17 +28,16 @@ import ctypes
 import dataclasses
 import functools
 
-import numpy as np
 import torch
 
 from .lut_act import (
     DTYPE_CODES,
     check_status,
+    entry_plan_record,
     lut_act_plain,
     lut_act_stacked_plain,
-    lut_launch_args,
+    sm_count,
 )
-from .packing import COMPONENTS
 
 
 def stacked_parts(tab: dict):
@@ -49,7 +48,8 @@ def stacked_parts(tab: dict):
     multi-site marker (statically sliced out of the shared super-slab) and
     the shared/unrolled per-plan form — the last as a one-layer stack at
     layer 0 with ``meta_i``/``meta_f`` ``None``: its scalars ride in
-    ``statics`` and reach the kernel as arguments."""
+    ``statics``.  The plain version evaluates these parts; the kernel
+    takes the entry's launch record (:func:`lut_record`)."""
     if "multi_entry" in tab:
         from repro_torch.serve.stacked import multi_site_stacked_entry
 
@@ -63,6 +63,29 @@ def stacked_parts(tab: dict):
     meta, arrays = tab["meta"], tab["arrays"]
     statics = dict(meta, any_lb=meta["w_lb"] > 0)
     return {c: a[None] for c, a in arrays.items()}, None, None, 0, statics
+
+
+def lut_record(tab: dict):
+    """``(record, layer)`` of K3's epilogue for a resolved site entry: the
+    record a stacked entry or a multi-site entry was built with (a missing
+    one raises), or a per-plan entry's (``SitePlan.entry`` builds it; an
+    entry made without one gets it per call, as K2's direct call does)."""
+    if "multi_entry" in tab:
+        recs = tab["multi_entry"].get("site_records")
+        if recs is None:
+            raise ValueError("fused_matmul_lut: the multi-site entry carries "
+                             "no launch records; build it with "
+                             "MultiSiteSlabs.entry()")
+        return recs[tab["site"]], tab["layer"]
+    if "stacked" in tab:
+        rec = tab["stacked"].get("k1_record")
+        if rec is None:
+            raise ValueError("fused_matmul_lut: the stacked entry carries no "
+                             "launch record; build it with "
+                             "StackedPlanArrays.entry()")
+        return rec, tab["layer"]
+    rec = tab.get("k1_record")
+    return (entry_plan_record(tab) if rec is None else rec), 0
 
 
 def _lut_plain(h, parts):
@@ -203,11 +226,6 @@ def k3_plan(m: int, k: int, n: int, *, gated: bool, dtype: torch.dtype,
     return plan
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
 def k3_launch(m: int, k: int, n: int, *, gated: bool, epilogue: bool,
               dtype: torch.dtype, sm_count: int
               ) -> tuple[K3Plan | None, tuple[int, int]]:
@@ -231,7 +249,7 @@ def fused_matmul_lut_cuda(x2d, w, tab, *, gated: bool,
     m, k = x2d.shape
     n = w.shape[1]
     plan, shape = k3_launch(m, k, n, gated=gated, epilogue=epilogue,
-                            dtype=x2d.dtype, sm_count=_sm_count(x2d.device))
+                            dtype=x2d.dtype, sm_count=sm_count(x2d.device))
     tile = (0, 0, 0)
     if plan is not None:
         for name, t in (("x", x2d), ("w", w)):
@@ -239,28 +257,16 @@ def fused_matmul_lut_cuda(x2d, w, tab, *, gated: bool,
                 raise ValueError(f"fused_matmul_lut: {name}'s data pointer "
                                  f"is not 16-byte aligned (TMA needs it)")
         tile = (plan.tok_tile, plan.splits, plan.stages)
+    rec, layer = lut_record(tab) if epilogue else (None, 0)
+    if rec is not None and rec.device != x2d.device:
+        raise ValueError(f"fused_matmul_lut: tables on {rec.device}, input "
+                         f"on {x2d.device} — tables must live on the "
+                         f"input's card")
     out = torch.empty(shape, dtype=x2d.dtype, device=x2d.device)
-    if epilogue:
-        arrays, meta_i, meta_f, layer, st = stacked_parts(tab)
-        rows = {c: arrays[c][layer] for c in COMPONENTS}
-        scal = {} if meta_i is not None else dict(
-            l=st["l"], w_lb=st["w_lb"], w_hb=st["w_hb"], y_lo=st["y_lo"],
-            y_hi=st["y_hi"])
-        ptrs, ip, fp = lut_launch_args(
-            rows, st.get("pack"), any_lb=st["any_lb"], w_in=st["w_in"],
-            w_out=st["w_out"], x_lo=st["x_lo"], x_hi=st["x_hi"],
-            meta_i=None if meta_i is None else meta_i[layer],
-            meta_f=None if meta_f is None else meta_f[layer], **scal)
-    else:
-        ptrs = np.zeros(7, np.int64)
-        ip = np.zeros(24, np.int32)
-        ip[5:10] = 32
-        ip[15:20] = 1
-        fp = np.zeros(6, np.float32)
     stream = torch.cuda.current_stream(x2d.device).cuda_stream
     status = build.entry("rlut_fused_matmul_lut")(
         x2d.data_ptr(), w.data_ptr(), out.data_ptr(), m, k, n, int(gated),
-        int(epilogue), DTYPE_CODES[x2d.dtype], *tile, ptrs.ctypes.data,
-        ip.ctypes.data, fp.ctypes.data, ctypes.c_void_p(stream))
+        int(epilogue), DTYPE_CODES[x2d.dtype], *tile,
+        None if rec is None else rec.addr, layer, ctypes.c_void_p(stream))
     check_status("fused_matmul_lut", status)
     return out

@@ -37,6 +37,7 @@ A NaN input maps to code 0 in both the kernel and the plain version.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -50,6 +51,7 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # -------------------------------------------------------------------------
 # host-rounded float32 constants (shared by the plain versions and kernels)
 # -------------------------------------------------------------------------
+@functools.lru_cache(maxsize=256)   # pure; on every K2 launch's path
 def quant_constants(w_in: int, x_lo: float, x_hi: float):
     """``(f32(x_lo), f32(1/f32(x_hi - x_lo)), f32(2^w_in - 1))``."""
     return (np.float32(x_lo),
@@ -57,6 +59,7 @@ def quant_constants(w_in: int, x_lo: float, x_hi: float):
             np.float32((1 << w_in) - 1))
 
 
+@functools.lru_cache(maxsize=64)
 def inv_levels_out(w_out: int) -> np.float32:
     return np.float32(1.0) / np.float32((1 << w_out) - 1)
 
@@ -177,47 +180,6 @@ def lut_act_multi_plain(xs: dict, entry: dict, layer: int) -> dict:
 # -------------------------------------------------------------------------
 # kernel launch (C interface of csrc/lut_eval.cuh)
 # -------------------------------------------------------------------------
-def lut_launch_args(rows: dict, pack: dict | None, *, any_lb, w_in, w_out,
-                    x_lo, x_hi, meta_i=None, meta_f=None, l=0, w_lb=0,
-                    w_hb=0, y_lo=0.0, y_hi=0.0):
-    """``(ptrs, iparams, fparams)`` host arrays for one launch.
-
-    ``rows`` are one layer's (or plan's) contiguous int32 component rows on
-    the card.  With ``meta_i``/``meta_f`` (that layer's meta rows) the
-    kernel reads the per-layer scalars from device memory; otherwise the
-    per-plan scalars ride in ``iparams``/``fparams``, host-rounded to f32.
-    """
-    ptrs = np.zeros(7, np.int64)
-    ip = np.zeros(24, np.int32)
-    for c, comp in enumerate(COMPONENTS):
-        row = rows[comp]
-        if row.dtype != torch.int32 or not row.is_contiguous():
-            raise ValueError(
-                f"lut kernel: component {comp} must be a contiguous int32 "
-                f"row, got {row.dtype} (contiguous={row.is_contiguous()})")
-        p = (pack or {}).get(comp)
-        width, offset, per_word = ((p["width"], p["offset"], p["per_word"])
-                                   if p else (32, 0, 1))
-        n_words = row.numel()
-        if comp == "t_lb" and not any_lb:
-            n_words = 0   # never read: skip staging it
-        ptrs[c] = row.data_ptr()
-        ip[c], ip[5 + c], ip[10 + c], ip[15 + c] = (
-            n_words, width, offset, per_word)
-    if meta_i is not None:
-        if (meta_i.dtype != torch.int32 or meta_f.dtype != torch.float32
-                or not (meta_i.is_contiguous() and meta_f.is_contiguous())):
-            raise ValueError(
-                "lut kernel: meta rows must be contiguous int32 [l, w_lb, "
-                "w_hb] and float32 [y_lo, span]")
-        ptrs[5], ptrs[6] = meta_i.data_ptr(), meta_f.data_ptr()
-    ip[20:24] = (l, w_lb, w_hb, int(bool(any_lb)))
-    x_lo32, inv_span32, levels_in32 = quant_constants(w_in, x_lo, x_hi)
-    fp = np.array([x_lo32, inv_span32, levels_in32, inv_levels_out(w_out),
-                   np.float32(y_lo), np.float32(y_hi - y_lo)], np.float32)
-    return ptrs, ip, fp
-
-
 def check_status(name: str, status: int) -> None:
     """Raise on a non-zero ``cudaGetLastError()`` returned by a launch."""
     if status != 0:
@@ -225,15 +187,249 @@ def check_status(name: str, status: int) -> None:
             f"{name}: CUDA kernel launch failed (cudaError {status})")
 
 
-def launch_lut(fn, name: str, x: torch.Tensor, args) -> torch.Tensor:
-    """Run K1/K2 (``fn`` is the bound C entry point) over ``x``."""
-    ptrs, ip, fp = args
-    y = torch.empty_like(x)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    status = fn(x.data_ptr(), y.data_ptr(), ctypes.c_longlong(x.numel()),
-                DTYPE_CODES[x.dtype], ptrs.ctypes.data, ip.ctypes.data,
-                fp.ctypes.data, ctypes.c_void_p(stream))
-    check_status(name, status)
+# -------------------------------------------------------------------------
+# K1 / K2 / K3: the launch record, and the launch of K1 / K2 (C interface
+# of csrc/lut_act.cu)
+# -------------------------------------------------------------------------
+_I5 = ctypes.c_int * 5
+
+
+class LutRecord(ctypes.Structure):
+    """``LutRecord`` of ``csrc/lut_eval.cuh``, field for field."""
+
+    _fields_ = [
+        ("base", ctypes.c_longlong * 5), ("meta_i", ctypes.c_longlong),
+        ("meta_f", ctypes.c_longlong), ("row_words", _I5),
+        ("n_words", _I5), ("width", _I5), ("offset", _I5),
+        ("per_word", _I5), ("div_mul", ctypes.c_uint * 5),
+        ("div_shift", _I5), ("meta_i_ld", ctypes.c_int),
+        ("meta_f_ld", ctypes.c_int), ("n_layers", ctypes.c_int),
+        ("any_lb", ctypes.c_int), ("l", ctypes.c_int), ("w_lb", ctypes.c_int),
+        ("w_hb", ctypes.c_int), ("x_lo", ctypes.c_float),
+        ("x_inv_span", ctypes.c_float), ("levels_in", ctypes.c_float),
+        ("inv_levels_out", ctypes.c_float), ("y_lo", ctypes.c_float),
+        ("span", ctypes.c_float)]
+
+
+@functools.lru_cache(maxsize=None)
+def fast_divmod(d: int) -> tuple[int, int]:
+    """``(mul, shift)`` with ``idx // d == (umulhi(idx, mul) + idx) >>
+    shift`` for ``0 <= idx < 2^31`` and ``d`` in 1..32: the constants
+    ``csrc/lut_eval.cuh::divmod_of`` computes for ``take()``, which then
+    divides by the codes per word without a division instruction."""
+    if not 1 <= d <= 32:
+        raise ValueError(f"fast_divmod: divisor {d} outside 1..32")
+    shift = (d - 1).bit_length()   # ceil(log2 d)
+    return ((1 << 32) * ((1 << shift) - d)) // d + 1, shift
+
+
+def _unpack_params(comp: str, pack: dict | None) -> tuple[int, int, int]:
+    p = (pack or {}).get(comp)
+    return (p["width"], p["offset"], p["per_word"]) if p else (32, 0, 1)
+
+
+class LutLaunch:
+    """A K1 / K2 / K3 launch record on one device: the C struct, the layer
+    count, the card's SM count (0 off the card), and the tensors the
+    record points at — held, so that the record never outlives them.
+    The table entries carry theirs, built with the entry
+    (``StackedPlanArrays.entry``, ``MultiSiteSlabs.entry``,
+    ``SitePlan.entry``)."""
+
+    def __init__(self, rec: LutRecord, device: torch.device, tensors):
+        self.rec = rec
+        self.addr = ctypes.addressof(rec)
+        self.device = device
+        self.n_layers = rec.n_layers
+        self.tensors = tuple(tensors)
+        self.sm_count = sm_count(device) if device.type == "cuda" else 0
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a card."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _record(rows: list, pack, *, any_lb, w_in, w_out, x_lo, x_hi,
+            row_words=(0,) * 5, meta=(None, None), n_layers=1, l=0, w_lb=0,
+            w_hb=0, y_lo=0.0, span=0.0) -> LutRecord:
+    """A ``LutRecord`` for the five components' tensors ``rows`` (a
+    stack's ``(L, W)`` or one plan's row, in :data:`COMPONENTS` order)
+    and the meta tables ``meta`` (``(None, None)`` for one plan)."""
+    params = [_unpack_params(c, pack) for c in COMPONENTS]
+    divs = [fast_divmod(p[2]) for p in params]
+    mi, mf = meta
+    x_lo32, inv_span32, levels_in32 = quant_constants(w_in, x_lo, x_hi)
+    return LutRecord(
+        base=tuple(t.data_ptr() for t in rows),
+        meta_i=0 if mi is None else mi.data_ptr(),
+        meta_f=0 if mf is None else mf.data_ptr(),
+        row_words=tuple(row_words),
+        n_words=tuple(0 if c == "t_lb" and not any_lb else t.shape[-1]
+                      for c, t in zip(COMPONENTS, rows)),
+        width=tuple(p[0] for p in params),
+        offset=tuple(p[1] for p in params),
+        per_word=tuple(p[2] for p in params),
+        div_mul=tuple(d[0] for d in divs),
+        div_shift=tuple(d[1] for d in divs),
+        meta_i_ld=0 if mi is None else mi.stride(0),
+        meta_f_ld=0 if mf is None else mf.stride(0),
+        n_layers=n_layers, any_lb=int(bool(any_lb)), l=l, w_lb=w_lb,
+        w_hb=w_hb, x_lo=x_lo32, x_inv_span=inv_span32,
+        levels_in=levels_in32, inv_levels_out=inv_levels_out(w_out),
+        y_lo=np.float32(y_lo), span=np.float32(span))
+
+
+def _check_record_tensors(name: str, tensors: list, device) -> None:
+    for t in tensors:
+        if t.device != device or t.stride(-1) != 1:
+            raise ValueError(
+                f"{name}: every table tensor must lie on {device} with "
+                f"contiguous rows; got {tuple(t.shape)} on {t.device}, "
+                f"strides {t.stride()}")
+
+
+def stacked_record(stacked: dict) -> LutLaunch:
+    """K1's record of a stacked entry (``StackedPlanArrays.entry()`` or a
+    site's slice of the multi-site super-slab), validated once: the five
+    ``(L, W_c)`` int32 stacks and the ``(L, 3)`` / ``(L, 2)`` meta tables
+    on one card, each with contiguous rows."""
+    meta = stacked["meta"]
+    stacks = [stacked["arrays"][c] for c in COMPONENTS]
+    mi, mf = stacked["meta_i"], stacked["meta_f"]
+    n_layers = mi.shape[0]
+    for t in stacks:
+        if t.dtype != torch.int32 or t.dim() != 2 or t.shape[0] != n_layers:
+            raise ValueError(f"lut_act_stacked: component stack "
+                             f"{tuple(t.shape)} {t.dtype} is not an "
+                             f"({n_layers}, W) int32 stack")
+    if (mi.dtype != torch.int32 or mf.dtype != torch.float32
+            or mi.dim() != 2 or mf.dim() != 2 or mi.shape[1] < 3
+            or mf.shape[1] < 2 or mf.shape[0] != n_layers):
+        raise ValueError("lut_act_stacked: meta tables must be (L, 3) int32 "
+                         "[l, w_lb, w_hb] and (L, 2) float32 [y_lo, span]")
+    _check_record_tensors("lut_act_stacked", stacks + [mi, mf], mi.device)
+    rec = _record(stacks, meta.get("pack"), any_lb=meta["any_lb"],
+                  w_in=meta["w_in"], w_out=meta["w_out"], x_lo=meta["x_lo"],
+                  x_hi=meta["x_hi"],
+                  row_words=[t.stride(0) for t in stacks], meta=(mi, mf),
+                  n_layers=n_layers)
+    return LutLaunch(rec, mi.device, stacks + [mi, mf])
+
+
+def plan_record(arrays: dict, pack: dict | None, *, l, w_lb, w_hb, w_in,
+                w_out, x_lo, x_hi, y_lo, y_hi) -> LutLaunch:
+    """K2's record of one plan: its five int32 rows on one card, the
+    per-plan scalars in the record (host-rounded to f32), row strides 0."""
+    rows = [arrays[c] for c in COMPONENTS]
+    for t in rows:
+        if t.dtype != torch.int32 or t.dim() != 1:
+            raise ValueError(f"lut_act: component row {tuple(t.shape)} "
+                             f"{t.dtype} is not a 1-D int32 row")
+    _check_record_tensors("lut_act", rows, rows[0].device)
+    rec = _record(rows, pack, any_lb=w_lb > 0, w_in=w_in, w_out=w_out,
+                  x_lo=x_lo, x_hi=x_hi, l=l, w_lb=w_lb, w_hb=w_hb,
+                  y_lo=y_lo, span=y_hi - y_lo)
+    return LutLaunch(rec, rows[0].device, rows)
+
+
+def entry_plan_record(entry: dict) -> LutLaunch:
+    """K2's record of a per-plan site entry ``{"meta", "arrays"}``."""
+    m = entry["meta"]
+    return plan_record(entry["arrays"], m.get("pack"), l=m["l"],
+                       w_lb=m["w_lb"], w_hb=m["w_hb"], w_in=m["w_in"],
+                       w_out=m["w_out"], x_lo=m["x_lo"], x_hi=m["x_hi"],
+                       y_lo=m["y_lo"], y_hi=m["y_hi"])
+
+
+# threads per block
+K1_THREADS = 128
+K1_BLOCKS_PER_SM = 2048 // K1_THREADS
+
+
+def k1_units(cols: int, head: int, vec: int) -> int:
+    """Work units of one row: its whole ``vec``-element vectors after
+    ``head`` leading elements, then the head and tail elements one each."""
+    nv = (cols - head) // vec
+    return nv + cols - nv * vec
+
+
+@functools.lru_cache(maxsize=1024)   # pure: one plan per shape, cached
+def k1_plan(rows: int, cols: int, dtype: torch.dtype, *, sm_count: int,
+            aligned: bool = True) -> tuple[int, int, int, int]:
+    """``(threads, grid_x, grid_y, vec)`` of a K1 / K2 launch over a
+    ``(rows, cols)`` view.  ``vec``: elements a thread loads and stores at
+    once — 16 bytes where that still gives every SM a block (prefill),
+    else 1, so that a decode step's few thousand elements spread over the
+    SMs instead of a dozen blocks.  ``grid_x`` blocks over a row's units
+    (one unit a thread where the card holds them all at once), ``grid_y``
+    over the rows, together at most a full card of resident blocks; each
+    dimension strides over what it does not cover.  ``aligned``: every row
+    starts on a 16-byte boundary (else the plan allows for the worst
+    head)."""
+    vec = 16 // dtype.itemsize
+    units = k1_units(cols, 0, vec) if aligned else max(
+        k1_units(cols, min(h, cols), vec) for h in range(vec))
+    if rows * units < sm_count * K1_THREADS:
+        vec, units = 1, cols
+    cap = max(1, sm_count) * K1_BLOCKS_PER_SM
+    grid_x = min(max(1, -(-units // K1_THREADS)), cap)
+    grid_y = min(max(1, rows), max(1, cap // grid_x), 65535)
+    return K1_THREADS, grid_x, grid_y, vec
+
+
+def k1_view(x: torch.Tensor) -> tuple[int, int, int]:
+    """``(rows, cols, ld)`` of ``x`` read in place: a contiguous tensor as
+    one row of all its elements, else a ``(rows, cols)`` view with unit
+    column stride and row stride ``ld`` where the leading dimensions
+    collapse into one (the ``gate`` half of a ``[gate|up]`` product does);
+    ``None`` where they do not."""
+    if x.is_contiguous():
+        return 1, x.numel(), x.numel()
+    cols = x.shape[-1]
+    lead = [(n, s) for n, s in zip(x.shape[:-1], x.stride()[:-1]) if n != 1]
+    if x.stride(-1) != 1 and cols != 1:
+        return None
+    if not lead:
+        return 1, cols, cols
+    if any(s != s2 * n2 for (_, s), (n2, s2) in zip(lead, lead[1:])):
+        return None
+    return x.numel() // cols, cols, lead[-1][1]
+
+
+def launch_lut(fn, name: str, x: torch.Tensor, rec: LutLaunch,
+               layer: int) -> torch.Tensor:
+    """Run K1 / K2 (``fn`` is the bound C entry point) over ``x`` (any
+    shape and strides on the record's card) at ``layer``; the output is
+    contiguous, of ``x``'s shape."""
+    if x.device != rec.device:
+        raise ValueError(f"{name}: input on {x.device}, tables on "
+                         f"{rec.device} — the kernel runs on the tables' "
+                         f"card and the plain version on the CPU")
+    code = DTYPE_CODES.get(x.dtype)
+    if code is None:
+        raise ValueError(
+            f"{name}: dtype {x.dtype} not supported (float32, bfloat16)")
+    if not 0 <= layer < rec.n_layers:
+        raise ValueError(f"{name}: layer {layer} outside the record's "
+                         f"{rec.n_layers} layers")
+    view = k1_view(x)
+    if view is None:   # leading dimensions that do not collapse: copy
+        x = x.contiguous()
+        view = k1_view(x)
+    rows, cols, ld = view
+    y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    ptr = x.data_ptr()
+    aligned = ptr % 16 == 0 and (rows == 1 or ld * x.element_size() % 16
+                                 == 0)
+    plan = k1_plan(rows, cols, x.dtype, sm_count=rec.sm_count,
+                   aligned=aligned)
+    # the raw handle of PyTorch's current stream, without building a
+    # torch.cuda.Stream object per launch
+    stream = torch._C._cuda_getCurrentRawStream(x.device.index)
+    check_status(name, fn(rec.addr, layer, ptr, y.data_ptr(), rows, cols,
+                          ld, code, *plan, stream))
     return y
 
 

@@ -33,7 +33,7 @@ from .lut_act import (
     lut_act_multi_plain,
     lut_act_plain,
     lut_act_stacked_plain,
-    lut_launch_args,
+    plan_record,
 )
 from .lut_gather import (
     lut_reconstruct_cuda,
@@ -139,8 +139,12 @@ def _kernel_operands(name: str, x: torch.Tensor, tables) -> torch.Tensor:
 
 
 def lut_act(x: torch.Tensor, pa: PlanArrays, *, x_lo: float, x_hi: float,
-            y_lo: float, y_hi: float) -> torch.Tensor:
-    """K2: one plan's LUT activation over a float tensor of any shape."""
+            y_lo: float, y_hi: float, record=None) -> torch.Tensor:
+    """K2: one plan's LUT activation over a float tensor of any shape and
+    strides (the kernel reads a strided view in place).  ``record``: the
+    launch record of the plan's site entry (``SitePlan.entry`` builds it
+    with the entry); without one it is built per call
+    (:func:`.lut_act.plan_record`)."""
     if pa.kind != "decomposed":
         raise ValueError("lut_act expects a decomposed plan")
     kw = dict(l=pa.l, w_lb=pa.w_lb, w_hb=pa.w_hb, w_in=pa.w_in,
@@ -148,36 +152,39 @@ def lut_act(x: torch.Tensor, pa: PlanArrays, *, x_lo: float, x_hi: float,
     if x.device.type == "cpu":
         return lut_act_plain(x, pa.arrays, y_lo=y_lo, y_hi=y_hi,
                              pack=pa.pack, **kw)
-    xc = _kernel_operands("lut_act", x, pa.arrays.values())
-    from . import build
-
-    args = lut_launch_args(pa.arrays, pa.pack, any_lb=pa.w_lb > 0,
-                           y_lo=y_lo, y_hi=y_hi, **kw)
-    y = launch_lut(build.entry("rlut_lut_act"), "lut_act", xc, args)
-    lut_act.launches += 1
-    return y.view(x.shape)
+    if record is None:
+        record = plan_record(pa.arrays, pa.pack, y_lo=y_lo, y_hi=y_hi, **kw)
+    return _launch_k1k2(lut_act, "rlut_lut_act", x, record, 0)
 
 
 def lut_act_stacked(x: torch.Tensor, stacked: dict, layer: int
                     ) -> torch.Tensor:
     """K1: layer ``layer`` (a Python int) of a stacked entry
-    (``StackedPlanArrays.entry()``) over a float tensor of any shape."""
+    (``StackedPlanArrays.entry()``, or a site's slice of the multi-site
+    entry) over a float tensor of any shape and strides.  The launch
+    record is the entry's own (``stacked["k1_record"]``), built with the
+    entry; this only reads it."""
     if x.device.type == "cpu":
         return lut_act_stacked_plain(x, stacked, layer)
-    meta = stacked["meta"]
-    rows = {c: stacked["arrays"][c][layer] for c in COMPONENTS}
-    mi, mf = stacked["meta_i"][layer], stacked["meta_f"][layer]
-    xc = _kernel_operands("lut_act_stacked", x, [*rows.values(), mi, mf])
+    rec = stacked.get("k1_record")
+    if rec is None:
+        raise ValueError(
+            "lut_act_stacked: the entry carries no launch record "
+            "('k1_record'); build it with StackedPlanArrays.entry() or "
+            "multi_site_stacked_entry() of a MultiSiteSlabs.entry()")
+    return _launch_k1k2(lut_act_stacked, "rlut_lut_act_stacked", x, rec,
+                        layer)
+
+
+def _launch_k1k2(wrapper, entry: str, x: torch.Tensor, rec,
+                 layer: int) -> torch.Tensor:
     from . import build
 
-    args = lut_launch_args(
-        rows, meta.get("pack"), any_lb=meta["any_lb"], w_in=meta["w_in"],
-        w_out=meta["w_out"], x_lo=meta["x_lo"], x_hi=meta["x_hi"],
-        meta_i=mi, meta_f=mf)
-    y = launch_lut(build.entry("rlut_lut_act_stacked"), "lut_act_stacked",
-                   xc, args)
-    lut_act_stacked.launches += 1
-    return y.view(x.shape)
+    if x.numel() == 0:
+        return torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    y = launch_lut(build.entry(entry), wrapper.__name__, x, rec, layer)
+    wrapper.launches += 1
+    return y
 
 
 def lut_act_multi(xs: dict, entry: dict, layer: int) -> dict:
@@ -235,24 +242,11 @@ def fused_matmul_lut(x: torch.Tensor, w: torch.Tensor, tab: dict, *,
                          f"{x.dtype}")
     if k == 0:
         raise ValueError("fused_matmul_lut: empty contraction (K = 0)")
-    tables = [w]
-    if epilogue:
-        tables += [t for t in _tab_tensors(tab)]
-    x2d = _kernel_operands("fused_matmul_lut", x2d, tables)
+    x2d = _kernel_operands("fused_matmul_lut", x2d, [w])
     out = fused_matmul_lut_cuda(x2d, w.contiguous(), tab, gated=gated,
                                 epilogue=epilogue)
     fused_matmul_lut.launches += 1
     return out.reshape(*lead, out.shape[-1])
-
-
-def _tab_tensors(tab: dict):
-    from .fused_matmul_lut import stacked_parts
-
-    arrays, meta_i, meta_f, _, _ = stacked_parts(tab)
-    yield from arrays.values()
-    if meta_i is not None:
-        yield meta_i
-        yield meta_f
 
 
 def _int_operands(name: str, x: torch.Tensor, tables) -> torch.Tensor:
@@ -367,7 +361,9 @@ def wkv(q, k, v, log_w, u, *, chunk: int = 16, state=None):
                                  state=state)
     if q.device.type != "cuda":
         raise ValueError(f"wkv: input on {q.device}")
-    f32 = lambda a: a.to(device=q.device, dtype=torch.float32).contiguous()
+    def f32(a):
+        a = a.to(device=q.device, dtype=torch.float32).contiguous()
+        return a.clone() if a.data_ptr() % 16 else a   # 16-byte loads
     for a in (k, v, log_w, u) + (() if state is None else (state,)):
         if a.device != q.device:
             raise ValueError(f"wkv: tensor on {a.device}, q on {q.device}")

@@ -11,14 +11,17 @@ chunk of ``C`` steps, with ``Lc`` the inclusive cumsum of ``log_w`` and
 
 :func:`wkv_chunked_plain` is the reference's ``wkv_chunked`` written in
 PyTorch (it builds the ``(B, C, C, H, N)`` pairwise-decay tensor, as the
-reference does); :func:`wkv_cuda` launches ``csrc/wkv.cu``, which keeps
-the state in shared memory and sums the pairwise terms directly.  The
-launch wrapper that picks between them by the input's device is
-:func:`repro_torch.kernels.ops.wkv`.
+reference does); :func:`wkv_cuda` launches ``csrc/wkv.cu`` with the plan
+of :func:`k8_plan`: a thread-block cluster per (batch, head), each CTA
+with a share of the value columns and its slice of the state in shared
+memory, the pairwise matrix computed once per cluster in 16-step
+sub-chunks with bounded decay.  The launch wrapper that picks between
+them by the input's device is :func:`repro_torch.kernels.ops.wkv`.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
@@ -69,19 +72,104 @@ def wkv_chunked_plain(q, k, v, log_w, u, chunk: int = 16, state=None):
     return y[:, :t_orig], s
 
 
+# sub-chunk length (csrc/wkv.cu kSub), threads per CTA, and the shared
+# memory a CTA of an H100 may take (227 KB) and an SM holds (228 KB, 1 KB
+# of it reserved per CTA)
+K8_SUB = 16
+K8_THREADS = 256
+K8_CLUSTER = 2
+K8_SMEM_LIMIT = 232448
+SM_SMEM = 233472
+
+
+def _round4(x: int) -> int:
+    return (x + 3) & ~3
+
+
+def k8_col_stride(cols: int) -> int:
+    """Row stride of the v and state slices in shared memory: 8 mod 32
+    floats (``csrc/wkv.cu::col_stride``)."""
+    return cols + ((8 - cols % 32) + 32) % 32
+
+
+def k8_smem_bytes(n: int, chunk: int, cols: int) -> int:
+    """Shared memory of one CTA (``csrc/wkv.cu::wkv_smem_floats``): the
+    cumsum and its shift (``chunk x (n + 4)`` each, later the decayed k
+    and q, which the kernel reads from device memory), the pairwise
+    matrix, the state slice, one region for the pairwise blocks' scratch
+    (pre-scaled q and k, or a diagonal block's partial sums) and then the
+    chunk's v slice, u and the cumsum's last row."""
+    cs = k8_col_stride(cols)
+    scratch = max(K8_SUB * (n + 4) + _round4(n * (K8_SUB + 1)),
+                  K8_SUB * (K8_SUB + 1) // 2 * (n // 4 + 1))
+    region = max(scratch, chunk * cs)
+    return 4 * (2 * chunk * (n + 4) + chunk * (_round4(chunk) + 4)
+                + n * cs + _round4(region) + 2 * n)
+
+
+@dataclasses.dataclass(frozen=True)
+class K8Plan:
+    """One K8 launch: ``cluster`` CTAs per (batch, head), each with
+    ``cols`` value columns (starting at ``rank * cols``) and its slice of
+    the state; chunks of ``chunk`` steps in ``K8_SUB``-step sub-chunks."""
+
+    cluster: int
+    cols: int
+    chunk: int
+    smem_bytes: int
+    grid: int
+    threads: int = K8_THREADS
+
+    def col_ranges(self) -> list[tuple[int, int]]:
+        return [(r * self.cols, (r + 1) * self.cols)
+                for r in range(self.cluster)]
+
+    def ctas_per_sm(self) -> int:
+        """CTAs an SM holds by shared memory and threads."""
+        return min(SM_SMEM // (self.smem_bytes + 1024),
+                   2048 // self.threads)
+
+
+def k8_plan(b: int, t: int, h: int, n: int, chunk: int) -> K8Plan:
+    """The launch plan of K8 for ``(B, T, H, N)`` inputs and chunk length
+    ``chunk``.  The chunk is at most T (padding rows change nothing); a
+    cluster of ``K8_CLUSTER`` CTAs per (batch, head), each with half the
+    value columns (32 at rwkv6-3b's N = 64: 320 CTAs of 73.2 KB at its
+    prefill, three to an SM, one wave).  On an H100 four CTAs of 16
+    columns ran slower at that shape when q and k were staged (640 CTAs
+    of 104 KB took three waves), and so did one CTA of 64 columns (one to
+    an SM, every pairwise block in one CTA).  Raises where the kernel cannot run: N not
+    a multiple of 16 (whole mma tiles) or over 256 (a thread a column in
+    its loops), or more shared memory than a CTA may take."""
+    if min(b, t, h, n, chunk) < 1 or n % 16 or n > K8_THREADS:
+        raise ValueError(f"wkv: K8 needs B, T, H, chunk >= 1 and N a "
+                         f"multiple of 16 up to {K8_THREADS}, got "
+                         f"{(b, t, h, n)}, chunk {chunk}")
+    c = min(chunk, t)
+    cols = n // K8_CLUSTER
+    smem = k8_smem_bytes(n, c, cols)
+    if smem > K8_SMEM_LIMIT:
+        raise ValueError(f"wkv: K8 at N {n}, chunk {c} needs {smem} bytes "
+                         f"of shared memory a CTA (at most {K8_SMEM_LIMIT})")
+    return K8Plan(cluster=K8_CLUSTER, cols=cols, chunk=c, smem_bytes=smem,
+                  grid=b * h * K8_CLUSTER)
+
+
 def wkv_cuda(q, k, v, log_w, u, chunk: int, state=None):
-    """Launch K8 on contiguous float32 card tensors (the wrapper in
-    :mod:`.ops` validates); returns ``(y, final state)``."""
+    """Launch K8 on contiguous, 16-byte aligned float32 card tensors (the
+    wrapper in :mod:`.ops` validates) with :func:`k8_plan`'s plan;
+    returns ``(y, final state)``."""
     from . import build
 
     b, t, h, n = q.shape
+    p = k8_plan(b, t, h, n, chunk)
     y = torch.empty((b, t, h, n), dtype=torch.float32, device=q.device)
     s = torch.empty((b, h, n, n), dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     status = build.entry("rlut_wkv")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), log_w.data_ptr(),
         u.data_ptr(), None if state is None else state.data_ptr(),
-        y.data_ptr(), s.data_ptr(), b, t, h, n, chunk,
-        ctypes.c_void_p(stream))
+        y.data_ptr(), s.data_ptr(), b, t, h, n, p.chunk, p.cluster,
+        p.smem_bytes, ctypes.c_void_p(stream))
     check_status("wkv", status)
     return y, s

@@ -98,7 +98,8 @@ def apply_lut_act(x: torch.Tensor, tab: dict, backend: str = "gather"
             l=meta["l"], w_lb=meta["w_lb"], w_hb=meta["w_hb"],
             arrays=arrays, pack=meta.get("pack"))
         return ops.lut_act(x, pa, x_lo=meta["x_lo"], x_hi=meta["x_hi"],
-                           y_lo=meta["y_lo"], y_hi=meta["y_hi"])
+                           y_lo=meta["y_lo"], y_hi=meta["y_hi"],
+                           record=tab.get("k1_record"))
     return lut_act_plain(x, arrays, **meta)
 
 

@@ -41,6 +41,7 @@ from repro_torch.core import (
 from repro_torch.core.table import TableSpec
 from repro_torch.device import resolve_device
 from repro_torch.kernels import PlanArrays
+from repro_torch.kernels.lut_act import entry_plan_record
 from repro_torch.nn.lut_act import (
     LUTActivation,
     activation_table,
@@ -86,7 +87,9 @@ class SitePlan:
         """The site entry the nn layer consumes, as tensors on ``device``:
         ``{"meta", "arrays"}`` (shared), ``{"layers": [...]}`` (per layer,
         unrolled) or ``{"stacked": {...}}`` (per layer, ``(L, …)``
-        stacks).  Memoized per ``(form, packed, device)``."""
+        stacks), off the CPU each with the LUT kernels' launch record of
+        its tensors (``"k1_record"``).  Memoized per ``(form, packed,
+        device)``."""
         dev = resolve_device(device)
         key = (form, packed, str(dev))
         cache = self.__dict__.setdefault("_entry_cache", {})
@@ -98,7 +101,10 @@ class SitePlan:
             meta = lut.meta()
             if pa.pack is not None:
                 meta = dict(meta, pack=pa.pack)
-            return {"meta": meta, "arrays": pa.arrays}
+            out = {"meta": meta, "arrays": pa.arrays}
+            if dev.type != "cpu":
+                out["k1_record"] = entry_plan_record(out)
+            return out
         if not self.per_layer:
             out = one(self.lut)
         elif form == "stacked":

@@ -91,7 +91,12 @@ class StackedPlanArrays:
         """The plain-dict form the runtime consumes, as tensors on
         ``device``.  ``packed=True`` bit-packs each ``(L, n)`` stack along
         its last axis at one width per component, with the unpack
-        parameters in ``meta["pack"]`` (the kernel backend's form)."""
+        parameters in ``meta["pack"]`` (the kernel backend's form).
+        Off the CPU (where the kernels run) ``"k1_record"`` is the LUT
+        kernels' launch record of these tensors, built and validated here,
+        once per entry."""
+        from repro_torch.kernels.lut_act import stacked_record
+
         dev = resolve_device(device)
         meta = {"w_in": self.w_in, "w_out": self.w_out,
                 "x_lo": self.x_lo, "x_hi": self.x_hi,
@@ -100,12 +105,15 @@ class StackedPlanArrays:
         if packed:
             arrays, pack = self.packed_arrays()
             meta["pack"] = pack
-        return {
+        out = {
             "meta": meta,
             "arrays": {c: _to(a, dev) for c, a in arrays.items()},
             "meta_i": _to(self.meta_i, dev),
             "meta_f": _to(self.meta_f, dev),
         }
+        if dev.type != "cpu":
+            out["k1_record"] = stacked_record(out)
+        return out
 
     def packed_arrays(self) -> tuple[dict, dict]:
         """Bit-packed ``(L, n_words)`` host stacks + unpack meta, memoized
@@ -206,9 +214,14 @@ class MultiSiteSlabs:
             meta_p=meta_p, site_meta=site_meta)
 
     def entry(self, device=None) -> dict:
-        """The plain-dict form the runtime consumes, tensors on ``device``."""
+        """The plain-dict form the runtime consumes, tensors on ``device``;
+        off the CPU with ``"site_records"``: each site's launch record of
+        the LUT kernels over its slice (K1 and K3 serve a site through
+        it), built here, once per entry."""
+        from repro_torch.kernels.lut_act import stacked_record
+
         dev = resolve_device(device)
-        return {
+        out = {
             "meta": {"sites": self.sites, "n_layers": self.n_layers,
                      "any_lb": self.any_lb, "site_meta": self.site_meta},
             "arrays": {c: _to(a, dev) for c, a in self.arrays.items()},
@@ -217,17 +230,23 @@ class MultiSiteSlabs:
             "meta_q": _to(self.meta_q, dev),
             "meta_p": _to(self.meta_p, dev),
         }
+        if dev.type != "cpu":
+            out["site_records"] = {
+                s: stacked_record(multi_site_stacked_entry(out, s))
+                for s in self.sites}
+        return out
 
 
 def multi_site_stacked_entry(entry: dict, site: str) -> dict:
     """One site's slice of a multi-site ``entry()`` as a packed stacked
     entry — views into the shared super-slab, no copy.  Its ``meta_f`` is
     the ``(L, 2)`` column slice ``[y_lo, y_span]``, whose rows stay
-    contiguous for the kernels."""
+    contiguous for the kernels.  Carries the site's launch record where
+    the entry has one."""
     meta = entry["meta"]
     sid = meta["sites"].index(site)
     sm = meta["site_meta"][site]
-    return {
+    out = {
         "meta": {"w_in": sm["w_in"], "w_out": sm["w_out"],
                  "x_lo": sm["x_lo"], "x_hi": sm["x_hi"],
                  "any_lb": sm["any_lb"], "n_layers": sm["n_layers"],
@@ -236,6 +255,9 @@ def multi_site_stacked_entry(entry: dict, site: str) -> dict:
         "meta_i": entry["meta_i"][sid],
         "meta_f": entry["meta_f"][sid, :, :2],
     }
+    if "site_records" in entry:
+        out["k1_record"] = entry["site_records"][site]
+    return out
 
 
 def tables_nbytes(lut_tables) -> int:
