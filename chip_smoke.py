@@ -22,7 +22,10 @@ Phases (any failure exits non-zero; nothing is caught):
      ragged M (1, 3, 5, 67, 257), F = 1000 and K = 1032, and on the f32
      route at one shape; K4 bit for bit against its
      plain version and, per site, against K1 on the all-sites super-slab
-     (every layer, every site in one launch, f32 and bf16); K1/K2 again on
+     (every layer, every site in one launch, f32 and bf16, a segment past
+     its block cap), two launches bit-identical, single-site and
+     all-sites calls replayed from a CUDA graph with eager's bits, and an
+     entry without its launch record refused; K1/K2 again on
      the ``gate`` and ``up`` halves of a ``[gate|up]`` product (row stride
      2 x 3072, read in place: K1 there launches one kernel and no copy),
      a start 2 / 4 bytes past a 16-byte boundary and counts 1, 7 and
@@ -40,8 +43,8 @@ Phases (any failure exits non-zero; nothing is caught):
      against their plain versions and ``plan.reconstruct()``: w_in 5-16,
      several M and w_lb, plain plans, odd query shapes, address counts of
      every residue mod 4, a view 4 bytes past a 16-byte alignment, tables
-     under and over a block's shared memory (K5 stages the first and reads
-     the second from device memory; K6 stages neither);
+     under and over a block's shared-memory limit (neither kernel stages:
+     a small table stays in L1, a large one does not);
   7. K7 (one LUT-NN layer) bit for bit against its plain version: ragged
      B x N x F x bits, and the paper models' layer shapes;
   8. the paper's LUT-NN toolflow on jsc-2l at full paper width through
@@ -69,11 +72,13 @@ Phases (any failure exits non-zero; nothing is caught):
      plain versions' times, and the library yardstick where one PyTorch
      call computes the same function (K3: cuBLAS GEMM followed by K1, also
      from a CUDA graph; K6: ``torch.take``); K4 and K8 have none; K1 and K2
-     on the served input (the ``gate`` view) and on a contiguous copy;
-  12. one profiled decode step (qwen3-0.6b exact, form (a), form (d);
+     on the served input (the ``gate`` view) and on a contiguous copy; K4
+     at the shapes form (f) hands it in a prefill and a decode step,
+     recorded from the served calls;
+  12. one profiled decode step (qwen3-0.6b exact, forms (a), (d) and (f);
      rwkv6-3b exact and form (j)): wall time, kernels launched (copies
      among them: form (a) must launch as many as the exact step), device
-     busy time and idle share.
+     busy time, idle share and the wrappers' launches in the step.
 The last lines are the kernel JSON, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.  Long logs go to ``chiprun_out/`` (every
 logged line to ``chiprun_out/chip_smoke.log``).
@@ -431,20 +436,20 @@ def table_bytes(pa) -> int:
 
 def check_gather_kernels(dev) -> dict:
     """K5 and K6 bit for bit against their plain versions (and the plan's
-    own reconstruction).  K5 in both its shared- and its global-memory
-    branch; K6, which has one branch, on a table under and one over a
-    block's shared memory (the old staging limit); both on address counts
-    of every residue mod 4 and on a view whose data pointer is 4 but not 16
-    bytes aligned (K6's scalar path).  Returns each kernel's largest
-    difference from its plain version."""
+    own reconstruction), each on tables under and over a block's
+    shared-memory limit (neither stages them, but a small table stays in
+    L1 and a large one does not), on address counts of every residue mod 4
+    and on a view whose data pointer is 4 but not 16 bytes aligned (the
+    scalar path).  Returns each kernel's largest difference from its plain
+    version."""
     import numpy as np
     import torch
 
     from repro_torch.core import PlainPlan, TableSpec
     from repro_torch.kernels import PlanArrays, lut_reconstruct
-    from repro_torch.kernels.lut_gather import smem_optin_bytes
 
-    limit = smem_optin_bytes()
+    limit = torch.cuda.get_device_properties(
+        dev).shared_memory_per_block_optin
     plans = [decomposed_plan(*g, seed=sum(g)) for g in GATHER_DECOMPOSED]
     plans += [PlainPlan(TableSpec.random(w, o, 0.0, 2).values, w, o)
               for w, o in GATHER_PLAIN]
@@ -483,8 +488,7 @@ def check_gather_kernels(dev) -> dict:
             raise AssertionError(f"{pa.kind} plan w_in {plan.w_in}: kernel "
                                  f"differs from plan.reconstruct()")
     torch.cuda.synchronize()
-    # K5 stages its tables when they fit (limit) and reads them from device
-    # memory when they do not; K6 never stages, but is held on a table of
+    # neither kernel stages its tables, but each is held on tables of
     # either size
     for kind, seen in covered.items():
         if seen != {"under", "over"}:
@@ -492,8 +496,8 @@ def check_gather_kernels(dev) -> dict:
                                  f"the {limit}-byte limit")
     log(f"[6] K5/K6 bit-exact against their plain versions and "
         f"plan.reconstruct() on {cases} (plan, query) cases: tables under "
-        f"and over {limit} bytes (K5's staged and device-memory branches), "
-        f"address counts 4k+1, 4k+2, 4k+3 and a view 4 bytes past a 16-byte "
+        f"and over a block's {limit}-byte shared-memory limit, address "
+        f"counts 4k+1, 4k+2, 4k+3 and a view 4 bytes past a 16-byte "
         f"alignment")
     return errors
 
@@ -715,8 +719,16 @@ def time_toolflow_kernels(dev, flow, errors) -> list:
 # the multi-site kernel K4 (lut_act_multi.cu) and the WKV kernel K8 (wkv.cu)
 # -------------------------------------------------------------------------
 # K4 segment lengths: one per per-layer site, different, one not a multiple
-# of the 256-thread block, one past the per-segment block cap (grid stride)
-MULTI_LENGTHS = (B * 3072, (1 << 20) + 3, 4, 5120 + 37)
+# of a block's elements, one past the per-segment block cap in both dtypes
+# (a full card of resident threads at 16 bytes a thread: the kernel strides;
+# kernels/lut_act.py::k4_plan)
+MULTI_LENGTHS = (B * 3072, (1 << 22) + 3, 4, 5120 + 37)
+# the element counts qwen3-0.6b form (f) hands K4 one site a call, at B
+# requests of T tokens and a cache of T + NEW: decode attn_exp (4, 8, 2, 1,
+# 80), norm_rsqrt (4, 1, 1), rope_table (1, 64); prefill (4, 8, 2, 64, 64),
+# (4, 64, 1), (64, 64).  Phase 11 requires that the served calls have no
+# other count.
+SERVED_K4 = (5120, 4, 64, 262144, 256, 4096)
 
 
 def site_edge_inputs(torch, entry, site, n, dtype, dev, gen):
@@ -735,37 +747,105 @@ def site_edge_inputs(torch, entry, site, n, dtype, dev, gen):
     return x
 
 
+def k4_held(torch, yk, yp, y1, what) -> None:
+    """Fail unless K4's ``yk`` equals the plain K4's ``yp`` and K1's ``y1``
+    bit for bit."""
+    if not (bits_equal(torch, yk, yp) and bits_equal(torch, yk, y1)):
+        raise AssertionError(
+            f"K4 differs from its plain version or from K1: {what} "
+            f"({int((yk != yp).sum())} / {int((yk != y1).sum())} elements)")
+
+
 def check_multisite(dev, entry, gen) -> tuple[float, int]:
     """K4 bit for bit against its plain version and, per site, against K1
-    on that site's slice of the super-slab: every layer, every per-layer
-    site in one launch, f32 and bf16.  Returns (largest difference, cases)."""
+    on that site's slice of the super-slab, f32 and bf16, every layer:
+    every per-layer site in one launch (the 8-segment entry, 16 bytes a
+    thread), and each site alone (the served call's entry) at every count
+    of ``SERVED_K4``, at the start of a buffer and one element past it,
+    in both of its modes (one element a thread, 16 bytes a thread); two
+    launches bit-identical; at the middle layer a single-site call and the
+    all-sites call captured in a CUDA graph and replayed give eager's
+    bits; an entry without its launch record is refused before anything
+    launches.  Returns (largest difference, cases)."""
     import torch
 
     from repro_torch.kernels import ops
-    from repro_torch.kernels.lut_act import lut_act_multi_plain
+    from repro_torch.kernels.lut_act import k4_plan, lut_act_multi_plain
     from repro_torch.serve.stacked import multi_site_stacked_entry
 
     sites = entry["meta"]["sites"]
     slices = {s: multi_site_stacked_entry(entry, s) for s in sites}
-    err, cases = 0.0, 0
+    n_layers = entry["meta"]["n_layers"]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    err, cases, modes = 0.0, 0, set()
+
+    def same(a, b) -> bool:
+        return all(bits_equal(torch, a[s], b[s]) for s in a)
+
     for dtype in (torch.float32, torch.bfloat16):
         xs = {s: site_edge_inputs(torch, entry, s, n, dtype, dev, gen)
               for s, n in zip(sites, MULTI_LENGTHS)}
-        for layer in range(entry["meta"]["n_layers"]):
+        threads, vec, blocks = k4_plan(tuple(x.numel() for x in xs.values()),
+                                       dtype, sm_count=sms)
+        if max(blocks) < sms * 2048 // threads and len(sites) > 1:
+            raise AssertionError(f"no segment of {MULTI_LENGTHS[:len(sites)]}"
+                                 f" is past its block cap: {blocks}")
+        for layer in range(n_layers):
             yk = ops.lut_act_multi(xs, entry, layer)
             yp = lut_act_multi_plain(xs, entry, layer)
+            if not same(yk, ops.lut_act_multi(xs, entry, layer)):
+                raise AssertionError(f"K4: two launches differ at layer "
+                                     f"{layer} {dtype}")
             for s, x in xs.items():
-                y1 = ops.lut_act_stacked(x, slices[s], layer)
                 err = max(err, float((yk[s].float() - yp[s].float()).abs()
                                      .max()))
-                if not (bits_equal(torch, yk[s], yp[s])
-                        and bits_equal(torch, yk[s], y1)):
-                    raise AssertionError(
-                        f"K4 differs from its plain version or from K1: "
-                        f"site {s} layer {layer} {dtype} "
-                        f"({int((yk[s] != yp[s]).sum())} / "
-                        f"{int((yk[s] != y1).sum())} elements)")
+                k4_held(torch, yk[s], yp[s],
+                        ops.lut_act_stacked(x, slices[s], layer),
+                        f"all sites, site {s} layer {layer} {dtype}")
                 cases += 1
+        for s in sites:
+            for n in SERVED_K4:
+                buf = site_edge_inputs(torch, entry, s, n + 1, dtype, dev,
+                                       gen)
+                modes.add(k4_plan((n,), dtype, sm_count=sms)[1])
+                for off, x in ((0, buf[:n]), (1, buf[1:])):
+                    for layer in range(n_layers):
+                        yk = ops.lut_act_multi({s: x}, entry, layer)[s]
+                        yp = lut_act_multi_plain({s: x}, entry, layer)[s]
+                        err = max(err, float((yk.float() - yp.float())
+                                             .abs().max()))
+                        k4_held(torch, yk, yp,
+                                ops.lut_act_stacked(x, slices[s], layer),
+                                f"site {s} alone, {n} elements at offset "
+                                f"{off}, layer {layer} {dtype}")
+                        cases += 1
+        mid = n_layers // 2
+        for group in [{s: xs[s][:5120]} for s in sites] + [xs]:
+            eager = ops.lut_act_multi(group, entry, mid)
+            torch.cuda.synchronize()
+            g = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(g):
+                replayed = ops.lut_act_multi(group, entry, mid)
+            g.replay()
+            torch.cuda.synchronize()
+            if not same(replayed, eager):
+                raise AssertionError(f"K4 replayed from a CUDA graph differs "
+                                     f"from eager: {sorted(group)} {dtype}")
+    if not (1 in modes and max(modes) > 1):
+        raise AssertionError(f"K4's single-site checks ran in modes {modes}"
+                             f" (elements a thread); both 1 and 16 bytes' "
+                             f"worth are served")
+    bare = {k: v for k, v in entry.items() if k != "k4_record"}
+    before = ops.lut_act_multi.launches
+    try:
+        ops.lut_act_multi(xs, bare, 0)
+    except ValueError as e:
+        if "launch record" not in str(e):
+            raise
+    else:
+        raise AssertionError("K4 ran on an entry without its launch record")
+    if ops.lut_act_multi.launches != before:
+        raise AssertionError("K4 launched on an entry without its record")
     torch.cuda.synchronize()
     return err, cases
 
@@ -947,6 +1027,68 @@ def check_fused_case(x, w, tab, lut_fn, *, gated, label):
     return float((yk.float() - yp.float()).abs().max()), share
 
 
+def served_k4_shapes(launcher, params, cfg, batch, tables) -> dict:
+    """``{"prefill": {site: [shape, ...]}, "decode": {...}}``: the input
+    shapes the served form hands K4 (``ops.lut_act_multi``, seen where it
+    calls ``k4_call``) in one prefill of ``batch`` and one decode step
+    after it.  Every call of the two steps is held bit for bit against the
+    plain K4 and K1 on its own inputs, and the calls must have used both
+    of K4's modes (one element a thread, 16 bytes a thread)."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.lut_act import k4_plan, lut_act_multi_plain
+    from repro_torch.serve.stacked import multi_site_stacked_entry
+
+    entry = tables["multi"]
+    seen = {"prefill": {}, "decode": {}}
+    calls = []
+    step = ["prefill"]
+    orig = ops.k4_call
+
+    def spy(xs, rec, layer):
+        if rec is not entry["k4_record"]:
+            raise AssertionError("K4 served from another entry's record")
+        for s, x in xs.items():
+            shapes = seen[step[0]].setdefault(s, [])
+            if tuple(x.shape) not in shapes:
+                shapes.append(tuple(x.shape))
+        out, call = orig(xs, rec, layer)
+        calls.append(({s: x.clone() for s, x in xs.items()}, layer, out,
+                      None if call is None else k4_plan(
+                          tuple(x.numel() for x in xs.values()),
+                          next(iter(xs.values())).dtype,
+                          sm_count=rec.sm_count)[1]))
+        return out, call
+
+    ops.k4_call = spy
+    try:
+        logits, cache = launcher.prefill(params, cfg, batch, max_seq=T + NEW,
+                                         lut_tables=tables)
+        step[0] = "decode"
+        launcher.decode_step(params, cfg, cache,
+                             logits[:, -1].argmax(-1)[:, None], T, tables)
+        torch.cuda.synchronize()
+    finally:
+        ops.k4_call = orig
+    if not seen["prefill"] or not seen["decode"]:
+        raise AssertionError(f"the form served no site through K4: {seen}")
+    slices = {}
+    for xs, layer, out, _ in calls:
+        yp = lut_act_multi_plain(xs, entry, layer)
+        for s, x in xs.items():
+            sl = slices.setdefault(s, multi_site_stacked_entry(entry, s))
+            k4_held(torch, out[s], yp[s], ops.lut_act_stacked(x, sl, layer),
+                    f"served call, site {s} {tuple(x.shape)} layer {layer}")
+    modes = {m for *_, m in calls if m is not None}
+    if not (1 in modes and max(modes) > 1):
+        raise AssertionError(f"the served K4 calls ran in modes {modes}")
+    log(f"[11] {len(calls)} served K4 calls of one prefill and one decode "
+        f"step equal the plain K4 and K1 bit for bit (modes {sorted(modes)}"
+        f" elements a thread)")
+    return seen
+
+
 def form_config(plans, cfg0, args):
     """The served config of a launcher form: the plans' patched config with
     the form's flags, as ``launch.serve.setup`` applies them."""
@@ -1061,7 +1203,12 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     import numpy as np
 
-    from repro_torch.kernels import build, launch_counts, ops
+    from repro_torch.kernels import (
+        build,
+        launch_counts,
+        ops,
+        reset_launch_counts,
+    )
     from repro_torch.kernels.fused_matmul_lut import fused_matmul_lut_plain
     from repro_torch.kernels.lut_act import (
         lut_act_multi_plain,
@@ -1300,9 +1447,14 @@ def main() -> int:
     k4_err, k4_cases = check_multisite(dev, a_multi, gen)
     max_err["lut_act_multi"] = k4_err
     log(f"[4] {stamp()} K4 bit-exact against its plain version and against "
-        f"K1 per site on {k4_cases} (site, layer, dtype) cases: sites "
-        f"{a_multi['meta']['sites']} in one launch per layer, segment "
-        f"lengths {MULTI_LENGTHS}, f32 and bf16, bin edges +-1 ulp")
+        f"K1 per site on {k4_cases} (site, layer, dtype, launch) cases: "
+        f"sites {a_multi['meta']['sites']} in one launch per layer, segment"
+        f" lengths {MULTI_LENGTHS}, and each site alone at {SERVED_K4} "
+        f"elements, aligned and one element past, both modes; f32 and "
+        f"bf16, bin edges +-1 ulp; two "
+        f"launches bit-identical; single-site and all-sites calls replayed "
+        f"from a CUDA graph give eager's bits; an entry without its launch "
+        f"record is refused")
 
     # ---- 5. the serving path, qwen3-0.6b (path A: forms e-g) --------------
     results = {}
@@ -1388,8 +1540,9 @@ def main() -> int:
     k4_err, k4_cases = check_multisite(dev, r_multi, gen)
     max_err["lut_act_multi"] = max(max_err["lut_act_multi"], k4_err)
     log(f"[9] K4 bit-exact on rwkv6-3b's super-slab "
-        f"({r_multi['meta']['sites']}), {k4_cases} (site, layer, dtype) "
-        f"cases")
+        f"({r_multi['meta']['sites']}), {k4_cases} (site, layer, dtype, "
+        f"launch) cases as in [4]; repeat launches, graph replays and the "
+        f"refusal as in [4]")
     # layer 0's WKV inputs of a real full-width prefill
     seen = []
     orig_wkv = ssm_mod.wkv_chunked
@@ -1562,11 +1715,18 @@ def main() -> int:
                 x, rws[next(it) % RL], rtab, gated=False), n=20)}
     kernels.append(entry)
 
-    # K4 at each site's decode shape (form (f)) and one multi-segment launch
-    dshapes = {"attn_exp": (B, cfg.n_kv_heads,
-                            cfg.n_heads // cfg.n_kv_heads, 1, T + NEW),
-               "norm_rsqrt": (B, 1, 1), "rope_table": (1, cfg.d_head // 2)}
-    meta_bytes = 4 * (3 + 4 + 2 + 15)
+    # K4 at the shapes form (f) hands it, per site, in a prefill and a
+    # decode step, and the decode shapes in one multi-segment launch
+    f_cfg = form_config(plans_all, cfg0, args_f)
+    f_tabs = launcher.serving_tables(args_f, plans_all, dev, log=quiet)
+    served = served_k4_shapes(launcher, params, f_cfg, batch, f_tabs)
+    log(f"[11] K4's inputs in form (f) (site: shapes): {served}")
+    counts = {math.prod(sh) for step in served.values()
+              for shapes in step.values() for sh in shapes}
+    if not counts <= set(SERVED_K4):
+        raise AssertionError(f"form (f) hands K4 counts {sorted(counts)}; "
+                             f"phases 4 and 9 check only {SERVED_K4}")
+    meta_bytes = 4 * (3 + 2)   # a layer's meta_i and [y_lo, span] rows
 
     def multi_work(xs):
         nbytes = sum(2 * x.numel() * x.element_size() for x in xs.values())
@@ -1583,13 +1743,23 @@ def main() -> int:
              "launches": totals["lut_act_multi"],
              "max_abs_err": max_err["lut_act_multi"], "library_ms": None,
              "shapes": {}}
+    # the largest site first (attn_exp): its decode time heads the entry
+    dshapes = dict(sorted(((s, max(sh, key=math.prod))
+                           for s, sh in served["decode"].items()),
+                          key=lambda kv: -math.prod(kv[1])))
     groups = {s: {s: sh} for s, sh in dshapes.items()}
     groups["multi-segment"] = dshapes
+    groups.update({f"{s} prefill": {s: max(sh, key=math.prod)}
+                   for s, sh in served["prefill"].items()})
     for label, group in groups.items():
-        xs = {s: site_edge_inputs(torch, a_multi, s, int(np.prod(sh)),
+        xs = {s: site_edge_inputs(torch, a_multi, s, math.prod(sh),
                                   torch.float32, dev, gen).view(sh)
               for s, sh in group.items()}
         kfn = lambda: ops.lut_act_multi(xs, a_multi, L // 2)
+        yk, yp = kfn(), lut_act_multi_plain(xs, a_multi, L // 2)
+        if not all(bits_equal(torch, yk[s], yp[s]) for s in xs):
+            raise AssertionError(f"K4 {label}: differs from its plain "
+                                 f"version at the timed inputs")
         nbytes, ops_ = multi_work(xs)
         bms, by = bound(nbytes, ops_, PEAK_F32_FLOPS)
         t = {"shape": {s: list(sh) for s, sh in group.items()},
@@ -1600,6 +1770,8 @@ def main() -> int:
         if not entry["shapes"]:
             entry.update({k: v for k, v in t.items() if k != "shape"},
                          shape=t["shape"])
+        if label == "attn_exp prefill":
+            entry["prefill"] = t
         entry["shapes"][label] = t
     kernels.append(entry)
 
@@ -1679,6 +1851,7 @@ def main() -> int:
             ("a", cfg, params, batch, st_cuda),
             ("d", dataclasses.replace(cfg, lut_fuse=True), params, batch,
              f_tables),
+            ("f", f_cfg, params, batch, f_tabs),
             ("rwkv exact", rcfg0, rparams, rbatch, None),
             ("rwkv j", form_config(r_plans_all, rcfg0, r_args_j), rparams,
              rbatch, r_tables_j)):
@@ -1687,12 +1860,14 @@ def main() -> int:
         tok = logits[:, -1].argmax(-1)[:, None]
         launcher.decode_step(sparams, scfg, cache, tok, T, stab)
         torch.cuda.synchronize()
+        reset_launch_counts()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             launcher.decode_step(sparams, scfg, cache, tok, T + 1, stab)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
+        step_launches = {k: v for k, v in launch_counts().items() if v}
         kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
         busy_us = sum(e.time_range.elapsed_us() for e in kern)
         by_name = {}
@@ -1706,12 +1881,14 @@ def main() -> int:
                         "device_busy_ms": busy_us / 1e3,
                         "idle_share": (1 - busy_us / 1e6 / wall) if kern
                         else None,
+                        "launches": step_launches,
                         "top_kernels_us": top}
         log(f"[12] decode step ({label}): wall {wall * 1e3:.2f} ms, "
             f"{len(kern)} kernels ({copies} copies), device busy "
             f"{busy_us / 1e3:.2f} ms"
             + (f", idle share {steps[label]['idle_share']:.3f}" if kern
-               else " (profiler saw no device events: idle not measured)"))
+               else " (profiler saw no device events: idle not measured)")
+            + f"; launches {step_launches}")
         for name, us in top[:5]:
             log(f"    {us:9.1f} us  {name[:90]}")
         (OUT_DIR / f"profile_{label.replace(' ', '_')}.txt").write_text(
@@ -1728,6 +1905,9 @@ def main() -> int:
             f"{steps['exact']['kernels']} ({steps['exact']['copy_kernels']})")
     log(f"[12] form (a) launches as many kernels per step as the exact "
         f"model, copies included: K1 takes the gate view without a copy")
+    if not steps["f"]["launches"].get("lut_act_multi"):
+        raise AssertionError(f"form (f)'s decode step launched no K4: "
+                             f"{steps['f']['launches']}")
 
     summary = {"card": smi, "seconds": time.perf_counter() - t_start,
                "exact": exact, "steps": steps, "logit_drift": drift,

@@ -46,11 +46,16 @@ ENTRY_POINTS = {
     "rlut_lut_reconstruct": (
         "lut_gather", [_P, _P, _LL] + [_P, _I] * 5 + [_I, _I, _I, _P]),
     "rlut_plain_lookup": ("lut_gather", [_P, _P, _LL, _P, _I, _P]),
-    "rlut_smem_optin_bytes": ("lut_gather", []),
     "rlut_lutnn_layer": (
         "lutnn_layer", [_P, _P, _P, _P, _I, _I, _I, _I, _LL, _I, _P]),
-    "rlut_lut_act_multi": ("lut_act_multi", [_I, _I, _P, _P, _P, _P, _P,
-                                             _P]),
+    # (records, n_records, layer, x, y, n, site, dtype, threads, blocks,
+    #  vec, stream)
+    "rlut_lut_act_multi": ("lut_act_multi", [_P, _I, _I, _P, _P, _LL]
+                           + [_I] * 5 + [_P]),
+    # (records, n_records, layer, segments, n_segs, dtype, threads, vec,
+    #  stream)
+    "rlut_lut_act_multi_segs": ("lut_act_multi", [_P, _I, _I, _P]
+                                + [_I] * 4 + [_P]),
     "rlut_wkv": ("wkv", [_P] * 8 + [_I] * 7 + [_P]),
 }
 

@@ -29,7 +29,8 @@
 //     and tail elements.  Where they are few (decode: 4 x 3072), a unit is
 //     one element, so that the launch spreads over the SMs.  blockIdx.x
 //     strides over a row's units, blockIdx.y over the rows; the grid and
-//     the mode come from kernels/lut_act.py::k1_plan.
+//     the mode come from kernels/lut_act.py::k1_plan.  The walk over a
+//     row's units is lut_eval.cuh::eval_span, which K4 shares.
 #include <stdint.h>
 
 #include "lut_eval.cuh"
@@ -37,33 +38,6 @@
 namespace rlut {
 
 constexpr int kMaxThreads = 256;
-
-template <typename T>
-struct Vec;
-template <>
-struct Vec<float> {
-  static constexpr int kN = 4;
-  __device__ static float get(const unsigned (&w)[4], int i) {
-    return __uint_as_float(w[i]);
-  }
-  __device__ static void put(unsigned (&w)[4], int i, float v) {
-    w[i] = __float_as_uint(v);
-  }
-};
-template <>
-struct Vec<__nv_bfloat16> {
-  static constexpr int kN = 8;
-  // bf16 -> f32 is exact: the 16 bits become the high half
-  __device__ static float get(const unsigned (&w)[4], int i) {
-    const unsigned h = (i & 1) ? (w[i >> 1] >> 16) : (w[i >> 1] & 0xffffu);
-    return __uint_as_float(h << 16);
-  }
-  __device__ static void put(unsigned (&w)[4], int i, float v) {
-    const unsigned h = __bfloat16_as_ushort(__float2bfloat16_rn(v));
-    w[i >> 1] = (i & 1) ? ((w[i >> 1] & 0xffffu) | (h << 16))
-                        : ((w[i >> 1] & 0xffff0000u) | h);
-  }
-};
 
 template <typename T, bool kVec>
 __global__ void __launch_bounds__(kMaxThreads)
@@ -75,48 +49,11 @@ __global__ void __launch_bounds__(kMaxThreads)
 #pragma unroll
   for (int c = 0; c < kComps; ++c) s[c] = a.comp[c].words;
   const LayerScalars ls = layer_scalars(a);
-  constexpr int V = Vec<T>::kN;
-  const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long r = blockIdx.y; r < rows; r += gridDim.y) {
-    const T* xr = x + r * ld;
-    T* yr = y + r * cols;
-    long long head = 0, nv = 0;
-    if (kVec) {
-      head = ((16 - (reinterpret_cast<uintptr_t>(xr) & 15)) & 15) / sizeof(T);
-      if (head > cols) head = cols;
-      nv = (cols - head) / V;
-    }
-    const long long body_end = head + nv * V;
-    const long long units = nv + (cols - nv * V);
-    const bool vec_store =
-        (reinterpret_cast<uintptr_t>(yr + head) & 15) == 0;
-    for (long long k = static_cast<long long>(blockIdx.x) * blockDim.x +
+  const long long k0 = static_cast<long long>(blockIdx.x) * blockDim.x +
                        threadIdx.x;
-         k < units; k += step) {
-      if (kVec && k < nv) {
-        const long long e = head + k * V;
-        const uint4 in = __ldg(reinterpret_cast<const uint4*>(xr + e));
-        const unsigned w[4] = {in.x, in.y, in.z, in.w};
-        unsigned o[4];
-#pragma unroll
-        for (int i = 0; i < V; ++i)
-          Vec<T>::put(o, i, lut_eval<true, true>(Vec<T>::get(w, i), s, a,
-                                                 ls));
-        if (vec_store) {
-          *reinterpret_cast<uint4*>(yr + e) = make_uint4(o[0], o[1], o[2],
-                                                         o[3]);
-        } else {
-#pragma unroll
-          for (int i = 0; i < V; ++i)
-            yr[e + i] = from_f32<T>(Vec<T>::get(o, i));
-        }
-      } else {
-        const long long u = k - nv;
-        const long long e = u < head ? u : body_end + (u - head);
-        yr[e] = from_f32<T>(lut_eval<true, true>(to_f32<T>(xr[e]), s, a, ls));
-      }
-    }
-  }
+  const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long r = blockIdx.y; r < rows; r += gridDim.y)
+    eval_span<T, kVec>(x + r * ld, y + r * cols, cols, k0, step, s, a, ls);
 }
 
 template <typename T>

@@ -2,7 +2,7 @@
 //
 // One element of the reference's `lut_eval_traced`
 // (src/repro/kernels/lut_act.py), over component rows staged in shared
-// memory (K3, K4) or read through the read-only cache (K1, K2).  Float
+// memory (K3) or read through the read-only cache (K1, K2, K4).  Float
 // arithmetic is spelled out with the _rn intrinsics so the result does not
 // depend on nvcc's contraction choices:
 //   quantize   xn   = clamp((x - x_lo) * x_inv_span, 0, 1)
@@ -27,44 +27,9 @@ struct CompSlab {
   int width;             // bits per code; 32 = raw int32
   int offset;            // bias added after unpacking
   int per_word;          // codes per int32 word
-  unsigned div_mul;      // idx / per_word without a division: divmod_of()
+  unsigned div_mul;      // idx / per_word without a division (below)
   int div_shift;
 };
-
-// Constants of the division by d = per_word (1..32) for 0 <= idx < 2^31
-// (Granlund and Montgomery's round-up method, as CUTLASS's FastDivmod):
-//   s = ceil(log2 d), mul = floor(2^32 (2^s - d) / d) + 1,
-//   idx / d = (umulhi(idx, mul) + idx) >> s
-// The sum stays under 2^32 because umulhi(idx, mul) <= idx < 2^31.
-// kernels/lut_act.py::fast_divmod is the same arithmetic, held against //
-// and % on the CPU.
-struct DivTable {
-  unsigned mul[33];
-  int shift[33];
-};
-
-constexpr DivTable make_div_table() {
-  DivTable t{};
-  for (int d = 1; d <= 32; ++d) {
-    int s = 0;
-    while ((1 << s) < d) ++s;
-    t.shift[d] = s;
-    t.mul[d] = static_cast<unsigned>(
-        ((1ull << 32) * ((1ull << s) - static_cast<unsigned>(d))) /
-            static_cast<unsigned>(d) +
-        1ull);
-  }
-  return t;
-}
-
-// Read on the card by K4, which finds its codes per word in device
-// memory; K1-K3 take the constants from their launch record.
-__constant__ DivTable kDivDevice = make_div_table();
-
-__device__ inline void divmod_of(CompSlab& c) {
-  c.div_mul = kDivDevice.mul[c.per_word];
-  c.div_shift = kDivDevice.shift[c.per_word];
-}
 
 struct LutArgs {
   CompSlab comp[kComps];
@@ -106,8 +71,11 @@ struct RowStrides {
   int meta_i, meta_f;
 };
 
-// The record's arguments at layer 0 and its row strides.
-inline void record_args(const LutRecord& r, LutArgs* a, RowStrides* st) {
+// The record's arguments at layer 0 and its row strides (on the host for
+// K1-K3, which pass them as kernel arguments; on the card for K4, which
+// finds its segment's record in its parameters).
+__host__ __device__ inline void record_args(const LutRecord& r, LutArgs* a,
+                                            RowStrides* st) {
   for (int c = 0; c < kComps; ++c) {
     a->comp[c].words = reinterpret_cast<const int32_t*>(r.base[c]);
     a->comp[c].n_words = r.n_words[c];
@@ -196,7 +164,14 @@ __device__ __forceinline__ int load_word(const int32_t* p) {
 // raw row, so no shift by 32 ever happens; `>>` on int is arithmetic and
 // the mask drops the sign bits.  kClamp pins `idx` into the row (K1, K2,
 // K4); kLdg reads a row in device memory through the read-only cache (K1,
-// K2), else the row is staged in shared memory.
+// K2, K4), else the row is staged in shared memory.
+// The division by d = per_word (1..32) takes the host-computed constants
+// of the record (Granlund and Montgomery's round-up method, as CUTLASS's
+// FastDivmod): s = ceil(log2 d), mul = floor(2^32 (2^s - d) / d) + 1,
+//   idx / d = (umulhi(idx, mul) + idx) >> s    for 0 <= idx < 2^31;
+// the sum stays under 2^32 because umulhi(idx, mul) <= idx < 2^31.
+// kernels/lut_act.py::fast_divmod computes them and is held against // and
+// % on the CPU.
 template <bool kClamp = false, bool kLdg = false>
 __device__ __forceinline__ int take(const int32_t* s, const CompSlab& c,
                                     int idx) {
@@ -253,14 +228,83 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
 }
 
-// Raise a kernel's dynamic shared memory limit when the slab needs more
-// than the default 48 KB.
-template <typename K>
-inline cudaError_t allow_smem(K kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes));
+// 16 bytes of x or y as four 32-bit words: 4 f32 or 8 bf16 elements.
+template <typename T>
+struct Vec;
+template <>
+struct Vec<float> {
+  static constexpr int kN = 4;
+  __device__ static float get(const unsigned (&w)[4], int i) {
+    return __uint_as_float(w[i]);
+  }
+  __device__ static void put(unsigned (&w)[4], int i, float v) {
+    w[i] = __float_as_uint(v);
+  }
+};
+template <>
+struct Vec<__nv_bfloat16> {
+  static constexpr int kN = 8;
+  // bf16 -> f32 is exact: the 16 bits become the high half
+  __device__ static float get(const unsigned (&w)[4], int i) {
+    const unsigned h = (i & 1) ? (w[i >> 1] >> 16) : (w[i >> 1] & 0xffffu);
+    return __uint_as_float(h << 16);
+  }
+  __device__ static void put(unsigned (&w)[4], int i, float v) {
+    const unsigned h = __bfloat16_as_ushort(__float2bfloat16_rn(v));
+    w[i >> 1] = (i & 1) ? ((w[i >> 1] & 0xffffu) | (h << 16))
+                        : ((w[i >> 1] & 0xffff0000u) | h);
+  }
+};
+
+// The LUT over one span of `cols` elements, x (any element-aligned
+// start) to y: this thread's units k0, k0 + step, ...  With kVec a unit is one
+// of the span's whole 16-byte vectors after its `head` leading elements
+// (up to x's first 16-byte boundary), evaluated as independent chains,
+// and the head and tail elements are the units after the vectors, one
+// element each; without it every element is a unit.  K1 walks each row of
+// its (rows, cols) view with it, K4 each segment (kernels/lut_act.py
+// k1_plan / k4_plan count the units the same way).
+template <typename T, bool kVec>
+__device__ __forceinline__ void eval_span(const T* __restrict__ xr,
+                                          T* __restrict__ yr, long long cols,
+                                          long long k0, long long step,
+                                          const int32_t* const s[kComps],
+                                          const LutArgs& a,
+                                          const LayerScalars& ls) {
+  constexpr int V = Vec<T>::kN;
+  long long head = 0, nv = 0;
+  if (kVec) {
+    head = ((16 - (reinterpret_cast<uintptr_t>(xr) & 15)) & 15) / sizeof(T);
+    if (head > cols) head = cols;
+    nv = (cols - head) / V;
+  }
+  const long long body_end = head + nv * V;
+  const long long units = nv + (cols - nv * V);
+  const bool vec_store =
+      (reinterpret_cast<uintptr_t>(yr + head) & 15) == 0;
+  for (long long k = k0; k < units; k += step) {
+    if (kVec && k < nv) {
+      const long long e = head + k * V;
+      const uint4 in = __ldg(reinterpret_cast<const uint4*>(xr + e));
+      const unsigned w[4] = {in.x, in.y, in.z, in.w};
+      unsigned o[4];
+#pragma unroll
+      for (int i = 0; i < V; ++i)
+        Vec<T>::put(o, i, lut_eval<true, true>(Vec<T>::get(w, i), s, a, ls));
+      if (vec_store) {
+        *reinterpret_cast<uint4*>(yr + e) = make_uint4(o[0], o[1], o[2],
+                                                       o[3]);
+      } else {
+#pragma unroll
+        for (int i = 0; i < V; ++i)
+          yr[e + i] = from_f32<T>(Vec<T>::get(o, i));
+      }
+    } else {
+      const long long u = k - nv;
+      const long long e = u < head ? u : body_end + (u - head);
+      yr[e] = from_f32<T>(lut_eval<true, true>(to_f32<T>(xr[e]), s, a, ls));
+    }
+  }
 }
 
 }  // namespace rlut

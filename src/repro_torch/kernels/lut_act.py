@@ -13,8 +13,9 @@ Counterparts of the reference's ``kernels/lut_act.py``:
   execution);
 * K4 ``lut_act_multi`` replaces ``lut_act_multisite_pallas`` — one launch
   over several sites' tensors against the ``(S, L, n)`` multi-site
-  super-slab, each block reading its ``(site, layer)`` slab row and every
-  scalar (plan meta, quantizer levels, pack widths) on the card.
+  super-slab, through a launch record built with the entry
+  (:class:`MultiLaunch`: the sites' K1 records in super-slab order) and a
+  plan per segment counts (:func:`k4_plan`).
 
 K1/K2 run ``csrc/lut_act.cu``, K4 ``csrc/lut_act_multi.cu``; all three
 share the device function in ``csrc/lut_eval.cuh``.  Each has its plain
@@ -214,8 +215,8 @@ class LutRecord(ctypes.Structure):
 @functools.lru_cache(maxsize=None)
 def fast_divmod(d: int) -> tuple[int, int]:
     """``(mul, shift)`` with ``idx // d == (umulhi(idx, mul) + idx) >>
-    shift`` for ``0 <= idx < 2^31`` and ``d`` in 1..32: the constants
-    ``csrc/lut_eval.cuh::divmod_of`` computes for ``take()``, which then
+    shift`` for ``0 <= idx < 2^31`` and ``d`` in 1..32: the constants a
+    launch record carries for ``csrc/lut_eval.cuh::take()``, which then
     divides by the codes per word without a division instruction."""
     if not 1 <= d <= 32:
         raise ValueError(f"fast_divmod: divisor {d} outside 1..32")
@@ -433,61 +434,125 @@ def launch_lut(fn, name: str, x: torch.Tensor, rec: LutLaunch,
     return y
 
 
-# K4: segments per launch (csrc/lut_act_multi.cu kMaxSegs)
-MAX_SEGMENTS = 8
+# -------------------------------------------------------------------------
+# K4: the launch record of a multi-site entry, the plan and the per-call
+# arguments (C interface of csrc/lut_act_multi.cu)
+# -------------------------------------------------------------------------
+MAX_SEGMENTS = 8    # segments per launch (kMaxSegs)
+K4_THREADS = 128    # threads per block at most (kMaxThreads)
 
 
-def multi_launch_args(segs: list, entry: dict, layer: int):
-    """``(seg_ptrs, seg_counts, seg_sites, slab_ptrs, dims)`` host arrays
-    for one K4 launch over ``segs`` (``[(x, y, site_id), ...]``, card
-    tensors of one dtype) against a multi-site ``entry``.
+class K4Segment(ctypes.Structure):
+    """``Segment`` of ``csrc/lut_act_multi.cu``, field for field."""
 
-    ``slab_ptrs``: the five ``(S, L, W_c)`` component stacks, then
-    ``meta_i``/``meta_f``/``meta_q``/``meta_p``; ``dims``: ``S``, ``L``,
-    the five row widths ``W_c`` (in int32 words), ``any_lb`` and the
-    layer.  Every tensor must be contiguous on the card."""
-    if not 0 < len(segs) <= MAX_SEGMENTS:
+    _fields_ = [("x", ctypes.c_longlong), ("y", ctypes.c_longlong),
+                ("n", ctypes.c_longlong), ("site", ctypes.c_int),
+                ("block0", ctypes.c_int), ("blocks", ctypes.c_int)]
+
+
+class MultiLaunch:
+    """K4's launch record of a multi-site entry, built from its sites' K1
+    records (``{site: LutLaunch}``, each over its slice of the super-slab)
+    in the order ``sites``: copied into one contiguous ``LutRecord`` array,
+    whose address and length the C entries take, and held themselves, so
+    that the array never outlives the tensors it points at."""
+
+    def __init__(self, site_records: dict, sites):
+        self.site_ids = {s: i for i, s in enumerate(sites)}
+        self.records = tuple(site_records[s] for s in sites)
+        first = self.records[0]
+        for r in self.records:
+            if r.device != first.device or r.n_layers != first.n_layers:
+                raise ValueError(
+                    "lut_act_multi: the sites' records disagree on the "
+                    "device or the layer count")
+        self.recs = (LutRecord * len(sites))(*(r.rec for r in self.records))
+        self.addr = ctypes.addressof(self.recs)
+        self.device, self.sm_count = first.device, first.sm_count
+        self.n_layers = first.n_layers
+
+
+@functools.lru_cache(maxsize=1024)   # pure: one plan per segment counts
+def k4_plan(counts: tuple, dtype: torch.dtype, *, sm_count: int
+            ) -> tuple[int, int, tuple]:
+    """``(threads, vec, blocks)`` of a K4 launch over segments of
+    ``counts`` elements.  ``vec``: elements a thread loads and stores at
+    once — 16 bytes where the launch's units still fill the card's SMs
+    with full blocks (prefill), else 1, with blocks of 32 to 128 threads
+    so that a decode launch (5120 attention scores) gives every SM a
+    block.  ``blocks``: each segment's blocks, one unit a thread (a
+    segment's units counted for the worst 16-byte misalignment of its
+    start), capped at a full card of resident threads; the kernel strides
+    over what a segment's blocks do not cover."""
+    vec = 16 // dtype.itemsize
+    units = [max(k1_units(n, min(h, n), vec) for h in range(vec))
+             for n in counts]
+    threads = K4_THREADS
+    if sum(units) < sm_count * K4_THREADS:
+        vec, units = 1, list(counts)
+        threads = min(K4_THREADS, max(32, sum(counts) // sm_count // 32 * 32))
+    cap = max(1, sm_count) * (2048 // threads)
+    return threads, vec, tuple(min(max(1, -(-u // threads)), cap)
+                               for u in units)
+
+
+def k4_call(xs: dict, rec: MultiLaunch, layer: int):
+    """The per-call half of a K4 launch over ``{site: x}`` (each on the
+    record's card, all of one dtype) at ``layer``: ``(out, call)`` with
+    ``out`` the outputs ``{site: y}`` (contiguous, of ``x``'s shape) and
+    ``call`` the C entry point's name, its arguments up to the stream, and
+    the inputs they point at (held until the launch), or ``None`` when
+    every input is empty.  One segment (every served call) goes by scalar
+    arguments; several by a segment table made for the call."""
+    if not 0 <= layer < rec.n_layers:
+        raise ValueError(f"lut_act_multi: layer {layer} outside the "
+                         f"super-slab's {rec.n_layers} layers")
+    dtypes = {x.dtype for x in xs.values()}
+    if len(dtypes) != 1:
+        raise ValueError(f"lut_act_multi: one launch takes one dtype, got "
+                         f"{sorted(map(str, dtypes))}")
+    dtype = dtypes.pop()
+    code = DTYPE_CODES.get(dtype)
+    if code is None:
+        raise ValueError(
+            f"lut_act_multi: dtype {dtype} not supported (float32, bfloat16)")
+    out, segs = {}, []
+    for site, x in xs.items():
+        sid = rec.site_ids[site]
+        if x.device != rec.device:
+            raise ValueError(f"lut_act_multi: input on {x.device}, tables on "
+                             f"{rec.device}")
+        x = x.contiguous()
+        out[site] = y = torch.empty(x.shape, dtype=dtype, device=x.device)
+        if x.numel():
+            segs.append((x, y, sid))
+    if len(segs) > MAX_SEGMENTS:
         raise ValueError(f"lut_act_multi: {len(segs)} segments; a launch "
                          f"takes 1 to {MAX_SEGMENTS}")
-    n_sites, n_layers = entry["meta_i"].shape[:2]
-    if not 0 <= layer < n_layers:
-        raise ValueError(f"lut_act_multi: layer {layer} outside the "
-                         f"super-slab's {n_layers} layers")
-    tensors = [entry["arrays"][c] for c in COMPONENTS] + [
-        entry[k] for k in ("meta_i", "meta_f", "meta_q", "meta_p")]
-    want = [torch.int32] * 5 + [torch.int32, torch.float32, torch.float32,
-                                torch.int32]
-    for t, dt in zip(tensors, want):
-        if t.dtype != dt or not t.is_contiguous() or t.dim() < 2:
-            raise ValueError(
-                f"lut_act_multi: super-slab tensor {tuple(t.shape)} "
-                f"{t.dtype} must be a contiguous {dt} stack")
-    seg_ptrs = np.zeros(2 * MAX_SEGMENTS, np.int64)
-    seg_counts = np.zeros(MAX_SEGMENTS, np.int64)
-    seg_sites = np.zeros(MAX_SEGMENTS, np.int32)
-    for i, (x, y, sid) in enumerate(segs):
-        seg_ptrs[2 * i], seg_ptrs[2 * i + 1] = x.data_ptr(), y.data_ptr()
-        seg_counts[i] = x.numel()
-        seg_sites[i] = sid
-    slab_ptrs = np.array([t.data_ptr() for t in tensors], np.int64)
-    dims = np.array([n_sites, n_layers]
-                    + [entry["arrays"][c].shape[-1] for c in COMPONENTS]
-                    + [int(bool(entry["meta"]["any_lb"])), layer], np.int32)
-    return seg_ptrs, seg_counts, seg_sites, slab_ptrs, dims
+    if not segs:
+        return out, None
+    threads, vec, blocks = k4_plan(tuple(x.numel() for x, _, _ in segs),
+                                   dtype, sm_count=rec.sm_count)
+    held = tuple(x for x, _, _ in segs)
+    if len(segs) == 1:
+        (x, y, sid), = segs
+        return out, ("rlut_lut_act_multi",
+                     (rec.addr, len(rec.recs), layer, x.data_ptr(),
+                      y.data_ptr(), x.numel(), sid, code, threads, blocks[0],
+                      vec), held)
+    table = (K4Segment * len(segs))(*(
+        K4Segment(x.data_ptr(), y.data_ptr(), x.numel(), sid, 0, b)
+        for (x, y, sid), b in zip(segs, blocks)))
+    return out, ("rlut_lut_act_multi_segs",
+                 (rec.addr, len(rec.recs), layer, ctypes.addressof(table),
+                  len(segs), code, threads, vec), held + (table,))
 
 
-def lut_act_multi_cuda(segs: list, entry: dict, layer: int) -> None:
-    """Launch K4 over ``segs`` (``[(x, y, site_id), ...]``, contiguous card
-    tensors of one dtype; the wrapper in :mod:`.ops` validates), writing
-    each ``y``."""
+def launch_multi(call, rec: MultiLaunch) -> None:
+    """Launch K4 on PyTorch's current stream: ``call`` from
+    :func:`k4_call`."""
     from . import build
 
-    seg_ptrs, counts, site_ids, slab_ptrs, dims = multi_launch_args(
-        segs, entry, layer)
-    x0 = segs[0][0]
-    stream = torch.cuda.current_stream(x0.device).cuda_stream
-    status = build.entry("rlut_lut_act_multi")(
-        len(segs), DTYPE_CODES[x0.dtype], seg_ptrs.ctypes.data,
-        counts.ctypes.data, site_ids.ctypes.data, slab_ptrs.ctypes.data,
-        dims.ctypes.data, ctypes.c_void_p(stream))
-    check_status("lut_act_multi", status)
+    name, args, _ = call
+    stream = torch._C._cuda_getCurrentRawStream(rec.device.index)
+    check_status("lut_act_multi", build.entry(name)(*args, stream))

@@ -11,16 +11,13 @@ Counterparts of the reference's ``kernels/lut_gather.py``:
 
 Both kernels live in ``csrc/lut_gather.cu``.  They take the flat address
 count and mask the tail, so the addresses need no ``(rows, 128)`` pad
-copy.  K5 stages its tables in shared memory when they fit and reads them
-through the read-only cache otherwise; K6 never stages: it reads its one
-table through the read-only cache and moves addresses and outputs 16
-bytes at a time where both pointers are 16-byte aligned.  The launch
+copy.  Neither stages its tables: both read them through the read-only
+cache and move addresses and outputs 16 bytes at a time where both
+pointers are 16-byte aligned (scalar accesses otherwise).  The launch
 wrappers that pick between kernel and plain version by the input's device
 live in :mod:`.ops`.
 """
 from __future__ import annotations
-
-import ctypes
 
 import torch
 
@@ -54,8 +51,10 @@ def plain_lookup_plain(x, table) -> torch.Tensor:
 # -------------------------------------------------------------------------
 # kernel launches (C interface of csrc/lut_gather.cu)
 # -------------------------------------------------------------------------
-def _stream(x: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream)
+def _stream(x: torch.Tensor) -> int:
+    """The raw handle of PyTorch's current stream on ``x``'s card, without
+    building a ``torch.cuda.Stream`` object per launch."""
+    return torch._C._cuda_getCurrentRawStream(x.device.index)
 
 
 def lut_reconstruct_cuda(x: torch.Tensor, arrays: dict, *, l: int,
@@ -68,7 +67,7 @@ def lut_reconstruct_cuda(x: torch.Tensor, arrays: dict, *, l: int,
     args = []
     for comp in COMPONENTS:
         t = arrays[comp]
-        # t_lb is never read on a w_lb == 0 plan: stage and pass nothing
+        # t_lb is never read on a w_lb == 0 plan: pass no entries
         n = 0 if comp == "t_lb" and w_lb == 0 else t.numel()
         args += [t.data_ptr(), n]
     check_status("lut_reconstruct", build.entry("rlut_lut_reconstruct")(
@@ -87,10 +86,3 @@ def plain_lookup_cuda(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
         table.numel(), _stream(x)))
     return out
 
-
-def smem_optin_bytes() -> int:
-    """The most dynamic shared memory one block of K5 may stage on the
-    current card: tables of more bytes are read from device memory."""
-    from . import build
-
-    return int(build.entry("rlut_smem_optin_bytes")())

@@ -28,8 +28,9 @@ from repro_torch.device import resolve_device
 from .fused_matmul_lut import fused_matmul_lut_cuda, fused_matmul_lut_plain
 from .lut_act import (
     DTYPE_CODES,
+    k4_call,
     launch_lut,
-    lut_act_multi_cuda,
+    launch_multi,
     lut_act_multi_plain,
     lut_act_plain,
     lut_act_stacked_plain,
@@ -193,7 +194,8 @@ def lut_act_multi(xs: dict, entry: dict, layer: int) -> dict:
     int), in ONE launch: each non-empty tensor is one segment, at most
     ``MAX_SEGMENTS``.  All tensors on the CPU go to the plain version;
     on the card they must share one dtype (float32 or bfloat16) — a mix
-    is refused, not converted."""
+    is refused, not converted.  The launch record is the entry's own
+    (``entry["k4_record"]``), built with the entry; this only reads it."""
     order = entry["meta"]["sites"]
     for site in xs:
         if site not in order:
@@ -201,21 +203,14 @@ def lut_act_multi(xs: dict, entry: dict, layer: int) -> dict:
                            f"super-slab {order}")
     if all(x.device.type == "cpu" for x in xs.values()):
         return lut_act_multi_plain(xs, entry, layer)
-    dtypes = {x.dtype for x in xs.values()}
-    if len(dtypes) != 1:
-        raise ValueError(f"lut_act_multi: one launch takes one dtype, got "
-                         f"{sorted(map(str, dtypes))}")
-    tables = [*entry["arrays"].values()] + [
-        entry[k] for k in ("meta_i", "meta_f", "meta_q", "meta_p")]
-    out, segs = {}, []
-    for site, x in xs.items():
-        xc = _kernel_operands("lut_act_multi", x, tables)
-        y = torch.empty_like(xc)
-        out[site] = y.view(x.shape)
-        if xc.numel():
-            segs.append((xc, y, order.index(site)))
-    if segs:
-        lut_act_multi_cuda(segs, entry, layer)
+    rec = entry.get("k4_record")
+    if rec is None:
+        raise ValueError(
+            "lut_act_multi: the entry carries no launch record "
+            "('k4_record'); build it with MultiSiteSlabs.entry()")
+    out, call = k4_call(xs, rec, layer)
+    if call is not None:
+        launch_multi(call, rec)
         lut_act_multi.launches += 1
     return out
 

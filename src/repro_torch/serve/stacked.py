@@ -142,9 +142,9 @@ class MultiSiteSlabs:
     * ``meta_p`` ``(S, C, 3)`` int32 — width/offset/per_word per (site,
       component).
 
-    The port serves a site out of it through K3's static slice
-    (:func:`multi_site_stacked_entry`); the single-grid multi-site kernel
-    that reads the whole super-slab is not ported yet (ROADMAP queue B4).
+    The port serves a site out of it through K4, which reads the whole
+    super-slab, and through K1 and K3 on the site's static slice
+    (:func:`multi_site_stacked_entry`).
     """
 
     sites: tuple
@@ -215,10 +215,11 @@ class MultiSiteSlabs:
 
     def entry(self, device=None) -> dict:
         """The plain-dict form the runtime consumes, tensors on ``device``;
-        off the CPU with ``"site_records"``: each site's launch record of
+        off the CPU with ``"site_records"``, each site's launch record of
         the LUT kernels over its slice (K1 and K3 serve a site through
-        it), built here, once per entry."""
-        from repro_torch.kernels.lut_act import stacked_record
+        it), and ``"k4_record"``, the multi-site kernel's record over all
+        of them, built here, once per entry."""
+        from repro_torch.kernels.lut_act import MultiLaunch, stacked_record
 
         dev = resolve_device(device)
         out = {
@@ -234,6 +235,7 @@ class MultiSiteSlabs:
             out["site_records"] = {
                 s: stacked_record(multi_site_stacked_entry(out, s))
                 for s in self.sites}
+            out["k4_record"] = MultiLaunch(out["site_records"], self.sites)
         return out
 
 

@@ -13,6 +13,7 @@ within ``LUT_ATOL`` and greedy tokens must be identical.  Calibration
 histograms may move a sample across a bin edge for the same reason (at
 most ``HIST_MOVE_FRAC`` of a key's samples).
 """
+import ctypes
 import dataclasses
 
 import jax
@@ -143,22 +144,27 @@ def test_multi_plain_matches_reference_kernel(superslab, dtype):
     assert launch_counts()["lut_act_multi"] == before
 
 
+def _port_stacks(stacks_j) -> dict:
+    """The port's ``StackedPlanArrays`` of the reference's site stacks."""
+    from repro_torch.serve.stacked import StackedPlanArrays
+
+    return {site: StackedPlanArrays(
+                n_layers=st.n_layers, w_in=st.w_in, w_out=st.w_out,
+                x_lo=st.x_lo, x_hi=st.x_hi, any_lb=st.any_lb,
+                arrays={c: np.array(a) for c, a in st.arrays.items()},
+                meta_i=np.array(st.meta_i), meta_f=np.array(st.meta_f),
+                lens=dict(st.lens))
+            for site, st in stacks_j.items()}
+
+
 def test_multi_plain_equals_per_site_stacked(superslab):
     """Each site of the plain K4 equals the plain K1 on that site's own
     packed stack (the port's super-slab, built from the reference's
     stacks)."""
     from repro_torch.kernels.lut_act import lut_act_stacked_plain
-    from repro_torch.serve.stacked import StackedPlanArrays
 
     _, stacks_j = superslab
-    stacks_t = {}
-    for site, st in stacks_j.items():
-        stacks_t[site] = StackedPlanArrays(
-            n_layers=st.n_layers, w_in=st.w_in, w_out=st.w_out,
-            x_lo=st.x_lo, x_hi=st.x_hi, any_lb=st.any_lb,
-            arrays={c: np.array(a) for c, a in st.arrays.items()},
-            meta_i=np.array(st.meta_i), meta_f=np.array(st.meta_f),
-            lens=dict(st.lens))
+    stacks_t = _port_stacks(stacks_j)
     entry = TMultiSiteSlabs.from_stacks(stacks_t).entry(device="cpu")
     xs = {s: torch.from_numpy(x) for s, x in _site_inputs(
         entry["meta"], np.random.default_rng(3), rows=[4, 1, 6]).items()}
@@ -172,26 +178,63 @@ def test_multi_plain_equals_per_site_stacked(superslab):
 
 
 def test_multi_launch_arguments(superslab):
-    """The host side of a K4 launch: segment table, slab pointers and
-    dims in the layout ``csrc/lut_act_multi.cu`` reads; unknown sites,
-    too many segments and a layer outside the slab are refused."""
-    from repro_torch.kernels.lut_act import MAX_SEGMENTS, multi_launch_args
+    """The host side of a K4 launch (``k4_call``, against the entry's
+    record): one segment as scalar arguments, several through a segment
+    table of the call's own in the layout ``csrc/lut_act_multi.cu`` reads,
+    each output of its input's shape, the plan of ``k4_plan``, no launch
+    for empty inputs; unknown sites, too many segments, a layer outside
+    the slab and mixed dtypes are refused."""
+    from repro_torch.kernels.lut_act import (
+        DTYPE_CODES,
+        MAX_SEGMENTS,
+        MultiLaunch,
+        k4_call,
+        k4_plan,
+        stacked_record,
+    )
+    from repro_torch.serve.stacked import multi_site_stacked_entry
 
-    ms, _ = superslab
+    def multi_record(entry):
+        sites = entry["meta"]["sites"]
+        return MultiLaunch({s: stacked_record(multi_site_stacked_entry(
+            entry, s)) for s in sites}, sites)
+
+    ms, stacks_j = superslab
     entry = tables_from_jax(to_np(ms.entry()), device="cpu")
-    x = torch.zeros(5)
-    segs = [(x, x, 1), (x, x, 3)]
-    ptrs, counts, sids, slab, dims = multi_launch_args(segs, entry, 1)
-    assert list(counts[:2]) == [5, 5] and list(sids[:2]) == [1, 3]
-    assert list(dims[:2]) == [len(ALL_SITES), ms.n_layers]
-    assert list(dims[2:7]) == [entry["arrays"][c].shape[-1] for c in (
-        "t_ust", "t_idx", "t_rsh", "t_bias", "t_lb")]
-    assert list(dims[7:]) == [int(ms.any_lb), 1]
-    assert slab[5] == entry["meta_i"].data_ptr()
+    rec = multi_record(entry)
+    sites = entry["meta"]["sites"]
+    f32 = DTYPE_CODES[torch.float32]
+    x, x2 = torch.zeros(5), torch.zeros(3, 7)
+    out, (name, args, held) = k4_call({sites[1]: x}, rec, 1)
+    threads, vec, blocks = k4_plan((5,), torch.float32, sm_count=0)
+    assert name == "rlut_lut_act_multi" and held == (x,)
+    n_recs = len(sites)
+    assert args == (rec.addr, n_recs, 1, x.data_ptr(),
+                    out[sites[1]].data_ptr(), 5, 1, f32, threads, blocks[0],
+                    vec)
+    out, (name, args, held) = k4_call({sites[1]: x, sites[3]: x2}, rec, 1)
+    threads, vec, blocks = k4_plan((5, 21), torch.float32, sm_count=0)
+    table = held[-1]
+    assert name == "rlut_lut_act_multi_segs" and held[:2] == (x, x2)
+    assert args == (rec.addr, n_recs, 1, ctypes.addressof(table), 2, f32,
+                    threads, vec)
+    assert [(s.x, s.y, s.n, s.site, s.blocks) for s in table] == [
+        (x.data_ptr(), out[sites[1]].data_ptr(), 5, 1, blocks[0]),
+        (x2.data_ptr(), out[sites[3]].data_ptr(), 21, 3, blocks[1])]
+    assert out[sites[3]].shape == x2.shape and out[sites[3]].is_contiguous()
+    out, call = k4_call({sites[0]: torch.zeros(0, 4)}, rec, 0)
+    assert call is None and out[sites[0]].shape == (0, 4)
+    # nine sites of one stack: more segments than a launch takes
+    one = _port_stacks(stacks_j)[sites[0]]
+    nine = TMultiSiteSlabs.from_stacks(
+        {f"s{i}": one for i in range(MAX_SEGMENTS + 1)}).entry(device="cpu")
     with pytest.raises(ValueError, match="segments"):
-        multi_launch_args(segs * MAX_SEGMENTS, entry, 0)
+        k4_call({s: x for s in nine["meta"]["sites"]}, multi_record(nine),
+                0)
     with pytest.raises(ValueError, match="layer"):
-        multi_launch_args(segs, entry, ms.n_layers)
+        k4_call({sites[1]: x}, rec, ms.n_layers)
+    with pytest.raises(ValueError, match="one dtype"):
+        k4_call({sites[1]: x, sites[3]: x2.bfloat16()}, rec, 0)
     with pytest.raises(KeyError, match="not in the super-slab"):
         tops.lut_act_multi({"no_such_site": x}, entry, 0)
 
