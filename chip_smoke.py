@@ -46,12 +46,21 @@ Phases (any failure exits non-zero; nothing is caught):
      under and over a block's shared-memory limit (neither kernel stages:
      a small table stays in L1, a large one does not);
   7. K7 (one LUT-NN layer) bit for bit against its plain version: ragged
-     B x N x F x bits, and the paper models' layer shapes;
-  8. the paper's LUT-NN toolflow on jsc-2l at full paper width through
+     B x N x F x bits, the paper models' layer shapes, a case on each of
+     ``k7_plan``'s routes (codes staged one byte each, staged as int32 at
+     bits 9, unstaged where one row of codes does not fit a block's shared
+     memory and where a row holds at most 16 codes), ragged last tiles;
+     two launches and a CUDA-graph replay bit-identical on each route, and
+     each launching its route's kernel (at the paper shapes the narrowed
+     one, or the unstaged one where a row holds 16 codes);
+  8. the paper's LUT-NN toolflow at full paper width through
      ``repro_torch.launch.lutnn``'s functions (train, extract, don't cares,
      CompressedLUT / ReducedLUT, reconstruction through K5/K6, accuracy
-     through K7, Verilog), then the quickstart; launch counts zeroed
-     before each and read after it;
+     through K7, Verilog): jsc-2l, the quickstart, then jsc-5l (100000 /
+     20000 samples) and mnist (30000 / 5000), the reference benchmarks'
+     paper scale; launch counts zeroed before each and read after it (K5
+     / K6 once per plan, K7 once per chunk, layer and pass), every K7
+     call's shape recorded;
   9. full-width ``rwkv6-3b`` (32 layers, bf16, random weights from seed
      0): plans for the ``ffn`` site and for every site; K3 non-gated at the
      ``ffn`` shape and around it (ragged M, N = 1000, K = 1032, per-plan
@@ -74,7 +83,11 @@ Phases (any failure exits non-zero; nothing is caught):
      from a CUDA graph; K6: ``torch.take``); K4 and K8 have none; K1 and K2
      on the served input (the ``gate`` view) and on a contiguous copy; K4
      at the shapes form (f) hands it in a prefill and a decode step,
-     recorded from the served calls;
+     recorded from the served calls; K7 at the paper models' layer shapes
+     and at every (layer, shape) the three toolflows handed it, on their
+     own inputs, each held bit for bit against its plain version, beside
+     its bound and beside the route ``k7_plan`` did not choose (timed
+     too, and summed over the path's launches);
   12. one profiled decode step (qwen3-0.6b exact, forms (a), (d) and (f);
      rwkv6-3b exact and form (j)): wall time, kernels launched (copies
      among them: form (a) must launch as many as the exact step), device
@@ -87,6 +100,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import json
 import math
 import statistics
@@ -330,10 +344,11 @@ def check_k1_layouts(dev, stacks, luts, gen) -> tuple[int, dict]:
 
 
 def kernels_of(fn) -> list:
-    """Names of the CUDA kernels one call of ``fn`` launches, from the
-    profiler (CPU and CUDA activity, as phase 12 traces).  A first trace
-    can miss the device's activity while CUPTI starts, so a trace that
-    saw no device event at all is taken again, up to three times."""
+    """Names of the CUDA kernels one call of ``fn`` launches, in the order
+    they ran, from the profiler (CPU and CUDA activity, as phase 12
+    traces).  A first trace can miss the device's activity while CUPTI
+    starts, so a trace that saw no device event at all is taken again, up
+    to three times."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -345,8 +360,9 @@ def kernels_of(fn) -> list:
                                  ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
-        names = [e.name for e in prof.events()
-                 if e.device_type == DeviceType.CUDA]
+        names = [e.name for e in sorted(
+            (e for e in prof.events() if e.device_type == DeviceType.CUDA),
+            key=lambda e: e.time_range.start)]
         if names:
             return names
     raise AssertionError("the profiler saw no device activity in three "
@@ -386,6 +402,9 @@ LUTNN_SHAPES = {"jsc-2l L0": (3000, 16, 32, 3, 4),
                 "jsc-2l L1": (3000, 32, 5, 3, 4),
                 "jsc-5l L0": (20000, 16, 128, 2, 7),
                 "mnist L0": (5000, 784, 256, 6, 2)}
+# the route k7_plan takes at each: unstaged where a row holds 16 codes
+LUTNN_ROUTES = {"jsc-2l L0": "unstaged", "jsc-2l L1": "narrow",
+                "jsc-5l L0": "unstaged", "mnist L0": "narrow"}
 # 32-bit integer ALU work is counted at the f32 CUDA-core peak: an H100 SM
 # issues int32 no faster than f32, so the operation bound stays a lower
 # bound on the time
@@ -512,23 +531,61 @@ def lutnn_inputs(dev, rng, b, p, n, f, bits):
             as_t(rng.integers(0, 1 << bits, (n, 1 << (bits * f)))))
 
 
+# the kernel each K7 route launches, as the profiler names it
+K7_KERNELS = {"narrow": "lutnn_tile_kernel<unsigned char>",
+              "int32": "lutnn_tile_kernel<unsigned int>",
+              "unstaged": "lutnn_unstaged_kernel"}
+
+
+def k7_route(dev, b, p, n, f, bits):
+    """K7's plan for a shape on ``dev`` (kernels/lutnn_layer.py)."""
+    from repro_torch.kernels.lut_act import sm_count
+    from repro_torch.kernels.lutnn_layer import k7_plan, smem_optin
+
+    return k7_plan(b, p, n, f, bits, 1 << (bits * f), sm_count=sm_count(dev),
+                   smem_limit=smem_optin(dev))
+
+
 def check_lutnn_layer(dev) -> int:
-    """K7 bit for bit against its plain version: a sweep of ragged sizes
-    and the paper models' layer shapes.  Returns the largest difference
-    from the plain version."""
+    """K7 bit for bit against its plain version: a sweep of ragged sizes,
+    the paper models' layer shapes, a case on each route (codes staged one
+    byte each, staged as int32 at bits 9, unstaged where one row of codes
+    does not fit a block's shared memory and where a row holds at most 16
+    codes), row counts that leave a ragged last tile on every staged
+    route, a tile past the 48 KB a block takes without opting in, two
+    launches bit-identical and a CUDA-graph replay equal to eager on each
+    route, and the profiler's kernel names: at the paper shapes the kernel
+    of the route ``LUTNN_ROUTES`` names, each route's own kernel on its
+    case.  Returns the largest difference from the plain version."""
     import numpy as np
     import torch
 
     from repro_torch.kernels import lutnn_layer
-    from repro_torch.kernels.lutnn_layer import lutnn_layer_plain
+    from repro_torch.kernels.lutnn_layer import lutnn_layer_plain, smem_optin
 
     rng = np.random.default_rng(4)
     shapes = [(b, 50, n, f, bits) for b in (1, 7, 300) for n in (1, 13, 40)
               for f in range(2, 7) for bits in range(1, 8)
               if bits * f <= 14]
     shapes += list(LUTNN_SHAPES.values())
+    # one row of codes past what a block can stage beside the wiring
+    p_over = smem_optin(dev) + 1
+    routes = {"narrow": (5000, 784, 256, 6, 2),
+              "int32": (301, 50, 13, 2, 9),
+              "unstaged": (5, p_over, 40, 3, 4)}
+    ragged = [(b + 1, p, n, f, bits)
+              for b, p, n, f, bits in LUTNN_SHAPES.values()]
+    # a tile of three rows of 60000 codes: past the 48 KB a block takes
+    # without opting in
+    big = (500, 60000, 40, 3, 4)
+    if k7_route(dev, *big).smem <= 48 * 1024:
+        raise AssertionError(f"K7 at {big} stays under 48 KB")
+    ragged += [(1697, 16, 128, 2, 7), (4099, 50, 40, 2, 9), big]
+    shapes += list(routes.values()) + ragged
     err = 0
+    seen = {}
     for b, p, n, f, bits in shapes:
+        plan = k7_route(dev, b, p, n, f, bits)
         codes, conn, tables = lutnn_inputs(dev, rng, b, p, n, f, bits)
         yk = lutnn_layer(codes, conn, tables, bits=bits)
         yp = lutnn_layer_plain(codes, conn, tables, bits=bits)
@@ -536,49 +593,146 @@ def check_lutnn_layer(dev) -> int:
         if yk.shape != (b, n) or not torch.equal(yk, yp):
             raise AssertionError(
                 f"K7 differs from its plain version at B {b}, P {p}, N {n}, "
-                f"F {f}, bits {bits}")
+                f"F {f}, bits {bits} ({plan})")
+        if plan.route != "unstaged" and b % plan.rows:
+            seen.setdefault(plan.route, []).append((b, plan.rows))
+    if set(seen) != {"narrow", "int32"}:
+        raise AssertionError(f"ragged last tiles seen only on {seen}")
+    repeat = dict(LUTNN_SHAPES, int32=routes["int32"],
+                  unstaged=routes["unstaged"], **{"past 48 KB": big})
+    fns, want = {}, {}
+    for label, (b, p, n, f, bits) in repeat.items():
+        want[label] = LUTNN_ROUTES.get(
+            label, label if label in routes else "narrow")
+        route = k7_route(dev, b, p, n, f, bits).route
+        if route != want[label]:
+            raise AssertionError(f"K7 at {label} {(b, p, n, f, bits)} "
+                                 f"plans the {route} route, not "
+                                 f"{want[label]}")
+        codes, conn, tables = lutnn_inputs(dev, rng, b, p, n, f, bits)
+        fns[label] = functools.partial(lutnn_layer, codes, conn, tables,
+                                       bits=bits)
+    names = {}
+    for label, fn in fns.items():
+        # 16 launches a trace: the profiler can miss the first launches
+        # of a trace while CUPTI starts
+        seen_names = set(kernels_of(lambda: [fn() for _ in range(16)]))
+        names[label] = seen_names.pop()
+        if seen_names or K7_KERNELS[want[label]] not in names[label]:
+            raise AssertionError(f"K7 at {label} launched {names[label]} "
+                                 f"and {seen_names}, not its "
+                                 f"{want[label]} kernel")
+        y1, y2 = fn(), fn()
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            yg = fn()
+        yg.fill_(-1)
+        g.replay()
+        torch.cuda.synchronize()
+        if not (torch.equal(y1, y2) and torch.equal(y1, yg)):
+            raise AssertionError(f"K7 at {label} {repeat[label]}: two "
+                                 f"launches or a graph replay differ")
     torch.cuda.synchronize()
     log(f"[7] K7 bit-exact against its plain version on {len(shapes)} "
         f"shapes (B 1/7/300 x N 1/13/40 x F 2-6 x bits 1-7 with "
-        f"bits*F <= 14, and {', '.join(LUTNN_SHAPES)})")
+        f"bits*F <= 14, {', '.join(LUTNN_SHAPES)}, each route: "
+        + ", ".join(f"{r} {s}" for r, s in routes.items())
+        + f"; ragged last tiles (B, rows per tile): {seen}); two launches "
+        f"and a graph replay bit-identical, and each launches its route's "
+        f"kernel: " + ", ".join(f"{k} {v[:48]}" for k, v in names.items()))
     return err
 
 
-def run_toolflow(dev) -> dict:
-    """The paper's LUT-NN toolflow on jsc-2l at full paper width through
-    the launcher's functions, then the quickstart; launch counts zeroed
-    before each and read after it."""
+# the toolflows of phase 8: paper width (model.py::paper_model), jsc-2l at
+# the launcher's data sizes, jsc-5l and mnist at the reference benchmarks'
+# "paper" scale (benchmarks/common.py); every run 12 epochs
+TOOLFLOWS = {"jsc-2l": [],
+             "jsc-5l": ["--n-train", "100000", "--n-test", "20000"],
+             "mnist": ["--n-train", "30000", "--n-test", "5000"]}
+
+
+def run_lutnn(dev, model: str, extra: list) -> dict:
+    """One toolflow through ``repro_torch.launch.lutnn.run`` on the card,
+    launch counts zeroed before it and read after it: K5 / K6 once per
+    decomposed / plain plan, K7 once per chunk, layer and table-network
+    pass (the don't-care marking on the training set, then test and
+    training accuracy before and after).  Records every K7 call's (B, P,
+    N, F, bits) by layer, with the first such call's inputs and the number
+    of such calls, as ``"k7_calls"``: ``{(layer, shape): ((codes, conn,
+    tables), calls)}``."""
     import torch
 
-    from repro_torch.kernels import launch_counts, reset_launch_counts
-    from repro_torch.launch import lutnn, quickstart
+    from repro_torch.kernels import launch_counts, ops, reset_launch_counts
+    from repro_torch.launch import lutnn
+    from repro_torch.lutnn.inference import CHUNK
 
-    args = lutnn.parse_args(["--model", "jsc-2l", "--verilog-out",
-                             str(OUT_DIR / "jsc2l_reducedlut.v")])
+    argv = ["--model", model, *extra]
+    if model == "jsc-2l":
+        argv += ["--verilog-out", str(OUT_DIR / "jsc2l_reducedlut.v")]
+    args = lutnn.parse_args(argv)
+    calls, layers = {}, {}
+    orig = ops.lutnn_layer_cuda
+
+    def spy(codes, conn, tables, *, bits):
+        # every pass hands a layer the same wiring tensor, and the first
+        # chunk of the first pass meets the layers in order
+        layer = layers.setdefault(conn.data_ptr(), len(layers))
+        shape = (*codes.shape, *conn.shape, bits)
+        inputs, seen = calls.get((layer, shape), ((codes, conn, tables), 0))
+        calls[layer, shape] = (inputs, seen + 1)
+        return orig(codes, conn, tables, bits=bits)
+
+    ops.lutnn_layer_cuda = spy
     reset_launch_counts()
-    out = lutnn.run(args, log=lambda m: log("    " + m))
-    torch.cuda.synchronize()
+    try:
+        out = lutnn.run(args, log=lambda m: log("    " + m))
+        torch.cuda.synchronize()
+    finally:
+        ops.lutnn_layer_cuda = orig
     counts = launch_counts()
     if not out["device"].startswith("cuda"):
         raise AssertionError(f"the toolflow ran on {out['device']}")
+    chunks = {k: -(-v // CHUNK) for k, v in out["samples"].items()}
     want = {"lut_reconstruct": out["plans"]["decomposed"],
-            "plain_lookup": out["plans"]["plain"]}
+            "plain_lookup": out["plans"]["plain"],
+            "lutnn_layer": out["layers"] * (3 * chunks["train"]
+                                            + 2 * chunks["test"])}
     for name, n in want.items():
         if counts[name] != n:
-            raise AssertionError(f"{name} launched {counts[name]} times for "
-                                 f"{n} plans: {counts}")
-    if counts["lut_reconstruct"] == 0 or counts["lutnn_layer"] == 0:
-        raise AssertionError(f"the toolflow did not launch K5 and K7: "
+            raise AssertionError(f"{model}: {name} launched {counts[name]} "
+                                 f"times, not {n}: {counts}")
+    if counts["lut_reconstruct"] == 0:
+        raise AssertionError(f"{model}: the toolflow did not launch K5: "
                              f"{counts}")
+    if sum(c for _, c in calls.values()) != counts["lutnn_layer"]:
+        raise AssertionError(f"{model}: {counts['lutnn_layer']} K7 launches"
+                             f" counted, {calls.values()} recorded")
     acc, pl = out["accuracy"], out["pluts"]
-    log(f"[8] toolflow {out['model']} on {out['device']}: P-LUTs baseline "
+    log(f"[8] toolflow {out['model']} on {out['device']} ({out['samples']} "
+        f"samples, {args.epochs} epochs): P-LUTs baseline "
         f"{pl['baseline']}, CompressedLUT {pl['compressedlut']}, "
         f"ReducedLUT {pl['reducedlut']}; train acc {acc['train_before']:.4f}"
         f" -> {acc['train_after']:.4f} (equal), test acc "
         f"{acc['test_before']:.4f} -> {acc['test_after']:.4f}; seconds "
         + ", ".join(f"{k} {v:.3f}" for k, v in out["seconds"].items())
-        + f"; launches {counts}")
+        + f"; launches {counts}; K7 (layer, (B, P, N, F, bits)): calls "
+        + ", ".join(f"{k} {c}" for k, (_, c) in sorted(calls.items())))
     out["launches"] = counts
+    out["k7_calls"] = calls
+    return out
+
+
+def run_toolflow(dev) -> dict:
+    """The paper's LUT-NN toolflow at full paper width through the
+    launcher's functions: jsc-2l, the quickstart, then jsc-5l and mnist
+    at the reference's paper data scale; launch counts zeroed before each
+    and read after it."""
+    import torch
+
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import quickstart
+
+    flows = {"jsc-2l": run_lutnn(dev, "jsc-2l", TOOLFLOWS["jsc-2l"])}
     reset_launch_counts()
     q = quickstart.run(log=lambda m: log("    " + m))
     torch.cuda.synchronize()
@@ -590,10 +744,13 @@ def run_toolflow(dev) -> dict:
     log(f"[8] quickstart: CompressedLUT {q['compressedlut']}, ReducedLUT "
         f"{q['reducedlut_20']} / {q['reducedlut_250']} P-LUTs (ex 20 / 250),"
         f" care-exact {q['care_exact']}; launches {qcounts}")
-    out["quickstart"] = dict(q, launches=qcounts)
-    # the slice's main path: both entry points
-    out["main_launches"] = {k: counts[k] + qcounts[k] for k in counts}
-    return out
+    for model in ("jsc-5l", "mnist"):
+        flows[model] = run_lutnn(dev, model, TOOLFLOWS[model])
+    # the slice's main path: every entry point
+    return {"flows": flows, "quickstart": dict(q, launches=qcounts),
+            "main_launches": {
+                k: qcounts[k] + sum(f["launches"][k] for f in flows.values())
+                for k in qcounts}}
 
 
 def n_unique(t) -> int:
@@ -637,6 +794,33 @@ def lutnn_work(codes, conn, tables, bits):
     return nbytes, b * n * (3 * f + 2)
 
 
+def k7_other_route(dev, codes, conn, tables, bits):
+    """``(plan, launch)`` of K7 on the route ``k7_plan`` does not take
+    for this shape (staged where it plans unstaged, where a row fits;
+    else unstaged), through ``lutnn_layer_cuda`` with that plan; ``(None,
+    None)`` where no other route fits.  The yardstick of the plan's
+    choice in the same run; not a wrapper launch, so it is not counted."""
+    from repro_torch.kernels.lut_act import sm_count
+    from repro_torch.kernels.lutnn_layer import (
+        k7_staged_plan,
+        k7_unstaged_plan,
+        lutnn_layer_cuda,
+        smem_optin,
+    )
+
+    b, p = codes.shape
+    n, f = conn.shape
+    if k7_route(dev, b, p, n, f, bits).route != "unstaged":
+        plan = k7_unstaged_plan(b)
+    else:
+        plan = k7_staged_plan(b, p, n, f, bits, sm_count=sm_count(dev),
+                              smem_limit=smem_optin(dev))
+    if plan is None:
+        return None, None
+    return plan, functools.partial(lutnn_layer_cuda, codes, conn, tables,
+                                   bits=bits, plan=plan)
+
+
 def time_toolflow_kernels(dev, flow, errors) -> list:
     """Per-kernel times of K5, K6 and K7 at the toolflow's shapes."""
     import numpy as np
@@ -646,7 +830,8 @@ def time_toolflow_kernels(dev, flow, errors) -> list:
     from repro_torch.kernels import PlanArrays, lut_reconstruct, lutnn_layer
     from repro_torch.kernels.lutnn_layer import lutnn_layer_plain
 
-    plan = next(p for p in flow["plan_list"] if p.kind == "decomposed")
+    plan = next(p for p in flow["flows"]["jsc-2l"]["plan_list"]
+                if p.kind == "decomposed")
     plain = PlainPlan(plan.reconstruct(), plan.w_in, plan.w_out)
     rng = np.random.default_rng(5)
     size = 1 << plan.w_in
@@ -688,19 +873,56 @@ def time_toolflow_kernels(dev, flow, errors) -> list:
              "replaces": "src/repro/kernels/lutnn_layer.py:40",
              "launches": flow["main_launches"]["lutnn_layer"],
              "max_abs_err": errors["lutnn_layer"], "shapes": {}}
-    for label, (b, p, n, f, bits) in LUTNN_SHAPES.items():
-        codes, conn, tables = lutnn_inputs(dev, rng, b, p, n, f, bits)
+    # the paper models' layer shapes on random in-range codes, then every
+    # (layer, shape) the three toolflows handed K7, on their own inputs;
+    # each held bit for bit against the plain version and against the
+    # other route, which is timed beside it
+    cases = {label: (lutnn_inputs(dev, rng, *shape), shape[-1], 50, 0)
+             for label, shape in LUTNN_SHAPES.items()}
+    for model, fl in flow["flows"].items():
+        for (layer, shape), (inputs, calls) in sorted(
+                fl["k7_calls"].items()):
+            cases[f"{model} toolflow L{layer} B {shape[0]}"] = (
+                inputs, shape[-1], 10, calls)
+    path = {"calls": 0, "plan_ms": 0.0, "other_ms": 0.0}
+    for label, ((codes, conn, tables), bits, n_plain, calls) in \
+            cases.items():
+        shape = [*codes.shape, *conn.shape, bits]
         kfn = lambda: lutnn_layer(codes, conn, tables, bits=bits)
+        want = lutnn_layer_plain(codes, conn, tables, bits=bits)
+        other, ofn = k7_other_route(dev, codes, conn, tables, bits)
+        if not torch.equal(kfn(), want) or (
+                ofn is not None and not torch.equal(ofn(), want)):
+            raise AssertionError(f"K7 differs from its plain version at "
+                                 f"{label} {shape}")
         nbytes, ops_ = lutnn_work(codes, conn, tables, bits)
         bms, by = bound(nbytes, ops_, PEAK_INT32_OPS)
-        t = {"shape": [b, p, n, f, bits], "ms": timed_ms(kfn),
-             "graph_ms": graph_ms(kfn),
+        t = {"shape": shape, "ms": timed_ms(kfn), "graph_ms": graph_ms(kfn),
              "plain_ms": timed_ms(lambda: lutnn_layer_plain(
-                 codes, conn, tables, bits=bits)),
-             "bound_ms": bms, "bound_by": by, "library_ms": None}
+                 codes, conn, tables, bits=bits), n=n_plain),
+             "bound_ms": bms, "bound_by": by, "library_ms": None,
+             "plan": list(k7_route(dev, *shape)), "calls": calls,
+             "other_plan": None if other is None else list(other),
+             "other_graph_ms": None if ofn is None else graph_ms(ofn)}
+        if calls and ofn is not None:
+            path["calls"] += calls
+            path["plan_ms"] += calls * t["graph_ms"]
+            path["other_ms"] += calls * t["other_graph_ms"]
         if not entry["shapes"]:
             entry.update(t)
         entry["shapes"][label] = t
+    recorded = sum(1 for t in entry["shapes"].values() if t["calls"])
+    if path["calls"] != flow["main_launches"]["lutnn_layer"]:
+        raise AssertionError(f"K7's recorded calls {path} are not the "
+                             f"path's {flow['main_launches']['lutnn_layer']}"
+                             f" launches")
+    entry["path"] = path
+    log(f"[11] K7 bit-exact against its plain version and its other route "
+        f"at {len(cases)} shapes, {recorded} of them the (layer, shape) "
+        f"cases the toolflows recorded; over the path's {path['calls']} "
+        f"launches, from a graph: the plan's routes "
+        f"{path['plan_ms'] * 1e3:.2f} us, the other routes "
+        f"{path['other_ms'] * 1e3:.2f} us")
     kernels.append(entry)
     for k in kernels:
         for label, t in k["shapes"].items():
@@ -711,7 +933,12 @@ def time_toolflow_kernels(dev, flow, errors) -> list:
                 + ("" if t["library_ms"] is None else
                    f", library {t['library_ms'] * 1e3:.2f} us (graph "
                    f"{t['library_graph_ms'] * 1e3:.2f} us)")
-                + f"; launches {k['launches']} (toolflow + quickstart)")
+                + (f"; plan {t['plan']}" if "plan" in t else "")
+                + (f"; other route {t['other_plan']} "
+                   f"{t['other_graph_ms'] * 1e3:.2f} us (graph); "
+                   f"{t['calls']} calls on the path"
+                   if t.get("other_graph_ms") is not None else "")
+                + f"; launches {k['launches']} (toolflows + quickstart)")
     return kernels
 
 
@@ -1504,7 +1731,7 @@ def main() -> int:
     errors = check_gather_kernels(dev)
     errors["lutnn_layer"] = check_lutnn_layer(dev)
 
-    # ---- 8. the LUT-NN toolflow (jsc-2l, full paper width), quickstart ----
+    # ---- 8. the LUT-NN toolflows (paper width), quickstart ---------------
     log(f"[8] {stamp()}")
     flow = run_toolflow(dev)
 
@@ -1914,8 +2141,12 @@ def main() -> int:
                "forms": {
                    f: {k: v for k, v in r.items() if k != "plans"}
                    for f, r in results.items()}, "kernels": kernels,
-               "toolflow": {k: v for k, v in flow.items()
-                            if k != "plan_list"}}
+               "toolflow": dict(flow, flows={
+                   m: dict({k: v for k, v in f.items()
+                            if k not in ("plan_list", "k7_calls")},
+                           k7_calls=[[*k, c] for k, (_, c) in sorted(
+                               f["k7_calls"].items())])
+                   for m, f in flow["flows"].items()})}
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(summary, indent=1))
     log(f"done in {time.perf_counter() - t_start:.0f}s")
     print(json.dumps({"kernels": kernels}), flush=True)

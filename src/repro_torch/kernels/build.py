@@ -46,8 +46,10 @@ ENTRY_POINTS = {
     "rlut_lut_reconstruct": (
         "lut_gather", [_P, _P, _LL] + [_P, _I] * 5 + [_I, _I, _I, _P]),
     "rlut_plain_lookup": ("lut_gather", [_P, _P, _LL, _P, _I, _P]),
+    # (codes, conn, tables, out, B, P, N, F, T, bits, route, rows,
+    #  threads, blocks, stream)
     "rlut_lutnn_layer": (
-        "lutnn_layer", [_P, _P, _P, _P, _I, _I, _I, _I, _LL, _I, _P]),
+        "lutnn_layer", [_P] * 4 + [_I] * 4 + [_LL] + [_I] * 5 + [_P]),
     # (records, n_records, layer, x, y, n, site, dtype, threads, blocks,
     #  vec, stream)
     "rlut_lut_act_multi": ("lut_act_multi", [_P, _I, _I, _P, _P, _LL]

@@ -108,7 +108,9 @@ def run(args, log=print) -> dict:
     xtr, ytr, xte, yte = make(args.n_train or n_train,
                               args.n_test or n_test)
     seconds = {}
-    out = {"model": cfg.name, "device": str(dev), "seconds": seconds}
+    out = {"model": cfg.name, "device": str(dev), "seconds": seconds,
+           "samples": {"train": len(xtr), "test": len(xte)},
+           "layers": len(cfg.layer_sizes)}
     last = time.perf_counter()
 
     def step(name):

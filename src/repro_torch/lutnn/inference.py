@@ -17,6 +17,8 @@ from repro_torch.kernels.lutnn_layer import pack_addresses
 
 from .model import LUTNNConfig, device_tables, first_argmax
 
+CHUNK = 32768   # samples a layer call of table_forward takes at most
+
 
 def quantize_input(x: np.ndarray, bits: int) -> np.ndarray:
     """Float features in [0,1] -> integer codes on the 2^bits grid."""
@@ -55,7 +57,7 @@ def table_forward(
     conn: list[torch.Tensor],
     cfg: LUTNNConfig,
     x_codes: torch.Tensor,
-    chunk: int = 32768,
+    chunk: int = CHUNK,
     observers: list[torch.Tensor] | None = None,
 ) -> torch.Tensor:
     """Evaluate the network of truth tables on the tables' device.
