@@ -32,13 +32,17 @@ Phases (any failure exits non-zero; nothing is caught):
      8003, on every site's stack of the all-sites plans (every pack width
      their plans produce) and on per-layer plans;
   5. qwen3-0.6b served through the launcher's entry points, 4 requests x
-     64 prompt tokens x 16 new tokens: (a) stacked + cuda, (b) unrolled +
-     cuda, (c) shared tables + cuda, (e) ``--lut-sites all`` stacked +
-     cuda, (g) ``--lut-sites all --logit-softcap 30``, each token-identical
-     to the gather backend on the same tables, and (d) ``--lut-fuse``, (f)
-     ``--lut-sites all --lut-fuse`` (K3 + K4), with their agreement with
-     (a) and (e); launch counts are zeroed before each form and read after
-     it;
+     64 prompt tokens x 16 new tokens, decoding through the step captured
+     in a CUDA graph: (a) stacked + cuda, (b) unrolled + cuda, (c) shared
+     tables + cuda, (e) ``--lut-sites all`` stacked + cuda, (g)
+     ``--lut-sites all --logit-softcap 30``, each token-identical to the
+     gather backend on the same tables, and (d) ``--lut-fuse``, (f)
+     ``--lut-sites all --lut-fuse`` (K3 + K4), (k) ``--kv-int8`` (the
+     prompt replayed into an int8 cache), with their agreement with (a)
+     and (e); launch counts are zeroed before each form and read after
+     it; every form also decodes eagerly, with the captured run's tokens,
+     and each replayed step's logits and the caches equal eager's bit for
+     bit, with eager's launch counts;
   6. K5 (Eq. (1) at integer addresses) and K6 (plain lookup) bit for bit
      against their plain versions and ``plan.reconstruct()``: w_in 5-16,
      several M and w_lb, plain plans, odd query shapes, address counts of
@@ -69,7 +73,8 @@ Phases (any failure exits non-zero; nothing is caught):
      finite and two launches bit-identical (layer 0's inputs of a real
      prefill, strong and weak decay, ``log_w = -e`` and ``-30`` on every
      step, ragged T, chunk 16, a given initial state);
-  10. rwkv6-3b served in the same sizes: (x) exact (K8 only), (h)
+  10. rwkv6-3b served in the same sizes, captured and eager as in
+     phase 5: (x) exact (K8 only), (h)
      ``--lut-act`` stacked + cuda and (i) ``--lut-sites all``, each
      token-identical to gather, (j) ``--lut-sites all --lut-fuse`` (K3 + K4
      + K8) with its agreement with (i); each form must launch K8 once per
@@ -91,7 +96,23 @@ Phases (any failure exits non-zero; nothing is caught):
   12. one profiled decode step (qwen3-0.6b exact, forms (a), (d) and (f);
      rwkv6-3b exact and form (j)): wall time, kernels launched (copies
      among them: form (a) must launch as many as the exact step), device
-     busy time, idle share and the wrappers' launches in the step.
+     busy time, idle share and the wrappers' launches in the step; then
+     the same step captured in a CUDA graph: one profiled replay (wall,
+     kernels, busy, idle share, launch counts equal to eager's) and the
+     CUDA-event time of a replay;
+  13. (run after phase 5, so that its launches count on the main path)
+     the continuous batcher, qwen3-0.6b at full width with form (a)'s
+     tables, 4 slots, 8 requests of 16-64 prompt tokens and 16 new
+     tokens, ``eos_token=-1``, bf16 and int8 caches, ``prefill="step"``
+     and ``"replay"``: replay and step serve identical tokens, no request
+     is dropped, every bf16 request's tokens equal its decode alone in
+     the pool, one ``swap_tables`` to form (e)'s tables mid-run captures
+     the step again and serves on; the replay prefill of 4 x 64 tokens,
+     bf16 and int8, timed;
+  14. (run after phase 13) artifacts through the launcher: ``--calib-path``
+     saves the captured calibration, reloads it bit for bit and serves
+     form (a)'s tokens from it; ``--save-plan`` then ``--tuned-plan`` serve
+     forms (a) and (f) token-identically to the in-process plans.
 The last lines are the kernel JSON, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.  Long logs go to ``chiprun_out/`` (every
 logged line to ``chiprun_out/chip_smoke.log``).
@@ -239,7 +260,7 @@ def kernel_inputs(torch, rows, dtype, dev, gen):
 
 
 def bits_equal(torch, a, b) -> bool:
-    ib = torch.int32 if a.dtype == torch.float32 else torch.int16
+    ib = {4: torch.int32, 2: torch.int16, 1: torch.int8}[a.element_size()]
     return a.dtype == b.dtype and torch.equal(a.view(ib), b.view(ib))
 
 
@@ -1325,10 +1346,69 @@ def form_config(plans, cfg0, args):
                                logit_softcap=args.logit_softcap)
 
 
+def check_captured(cfg, params, batch, tables, kv_int8=False) -> float:
+    """Decode ``NEW`` steps after the prompt eagerly and through a
+    :class:`CapturedStep` on a copy of the same cache, side by side: every
+    replayed step's logits and the final caches must be bit-identical to
+    eager's, and the wrappers' launch counts over the replays must be the
+    eager steps'.  ``kv_int8``: the cache is int8, filled by an eager
+    replay of the prompt.  Returns the capture's seconds."""
+    import torch
+
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serve import (
+        CapturedStep,
+        decode_step,
+        init_cache,
+        prefill,
+        prefill_replay,
+    )
+
+    toks = batch["tokens"]
+    b, t = toks.shape
+    eager = lambda c, tk, pos: decode_step(params, cfg, c, tk, pos, tables)
+    logits, cache = prefill(params, cfg, batch, max_seq=t + NEW,
+                            lut_tables=tables)
+    if kv_int8:
+        cache = init_cache(cfg, b, t + NEW, device=toks.device,
+                           kv_dtype="int8")
+        logits, cache = prefill_replay(params, cfg, cache, toks, 0, tables,
+                                       step=eager)
+    graph_cache = {k: v.clone() for k, v in cache.items()}
+    step = CapturedStep(params, cfg, tables)
+    step.capture(graph_cache, toks[:, :1])
+    tok = logits[:, -1].argmax(-1)[:, None]
+    counts = {}
+    for i in range(NEW):
+        for name, fn, c in (("eager", eager, cache),
+                            ("graph", step, graph_cache)):
+            reset_launch_counts()
+            out, _ = fn(c, tok, t + i)
+            counts[name] = launch_counts()
+            if name == "eager":
+                le = out
+        if counts["eager"] != counts["graph"]:
+            raise AssertionError(f"step {i}: a replay counted "
+                                 f"{counts['graph']}, eager {counts['eager']}")
+        if not bits_equal(torch, le, out):
+            raise AssertionError(
+                f"step {i}: the replayed logits differ from eager's "
+                f"({int((le != out).sum())} of {le.numel()} elements, max "
+                f"|diff| {float((le.float() - out.float()).abs().max())})")
+        tok = le[:, -1].argmax(-1)[:, None]
+    for k in cache:
+        if not bits_equal(torch, cache[k], graph_cache[k]):
+            raise AssertionError(f"the captured steps' cache {k!r} differs "
+                                 f"from eager's")
+    return step.capture_s
+
+
 def serve_form(launcher, dev, label, args, cfg0, params, batch, plans, uses,
                results, totals, ref=None, want=None):
     """Serve one launcher form: a warm-up run, then a counted run (launch
-    counts zeroed just before it and read just after).  ``ref`` is
+    counts zeroed just before it and read just after), both decoding
+    through the captured step; then an eager run, whose tokens must be
+    the counted run's, and :func:`check_captured`.  ``ref`` is
     ``"gather"`` (tokens must equal the gather backend's on the same
     tables) or another form's label (token agreement is reported);
     ``want`` maps kernels to the exact launch count the run must show."""
@@ -1348,6 +1428,19 @@ def serve_form(launcher, dev, label, args, cfg0, params, batch, plans, uses,
     res = launcher.serve(args, fcfg, params, batch, tables, log=quiet)
     torch.cuda.synchronize()
     counts = launch_counts()
+    if res["capture_s"] is None:
+        raise AssertionError(f"form ({label}) decoded without a captured "
+                             f"step")
+    eager = launcher.serve(args, fcfg, params, batch, tables, log=quiet,
+                           eager=True)
+    if eager["tokens"] != res["tokens"]:
+        raise AssertionError(
+            f"form ({label}) captured tokens differ from eager's: "
+            f"{res['tokens']} vs {eager['tokens']}")
+    res["eager"] = {k: eager[k] for k in ("prefill_s", "replay_s",
+                                          "decode_s", "decode_tok_s")}
+    check_captured(fcfg, params, batch, tables, kv_int8=args.kv_int8
+                   and fcfg.family == "dense")
     for k, v in counts.items():
         totals[k] += v
     for k in uses:
@@ -1360,8 +1453,15 @@ def serve_form(launcher, dev, label, args, cfg0, params, batch, plans, uses,
                                  f"times, not {n}: {counts}")
     line = (f"({label}) {fcfg.name} exec={args.plan_exec} "
             f"fuse={args.lut_fuse} sites={args.lut_sites} softcap="
-            f"{args.logit_softcap}: prefill {res['prefill_s']:.4f}s, decode "
-            f"{res['decode_tok_s']:.1f} tok/s")
+            f"{args.logit_softcap} kv_int8={args.kv_int8}: prefill "
+            f"{res['prefill_s']:.4f}s"
+            + (f", int8 replay {res['replay_s']:.4f}s (eager "
+               f"{eager['replay_s']:.4f}s)" if res["replay_s"] else "")
+            + f", capture {res['capture_s']:.4f}s, decode "
+            f"{res['decode_tok_s']:.1f} tok/s captured, "
+            f"{eager['decode_tok_s']:.1f} tok/s eager (tokens equal; "
+            f"{NEW} replayed steps' logits and caches == eager's bit for "
+            f"bit, launches as eager's)")
     if plans is not None:
         line += (f"; calib={plans.calib}, {plans.total_cost} P-LUTs, "
                  f"{launcher.tables_nbytes(tables)} table bytes")
@@ -1389,6 +1489,219 @@ def serve_form(launcher, dev, label, args, cfg0, params, batch, plans, uses,
     log(f"    request 0: {res['tokens'][0]}")
     results[label] = res
     return res
+
+
+# the batcher phase: 8 requests of 16-64 prompt tokens and 16 new tokens
+# each through 4 slots of a cache of T + NEW positions
+BATCHER_REQUESTS, BATCHER_SLOTS = 8, 4
+
+
+def batcher_run(cfg, params, tables, prompts, *, kv_dtype="bfloat16",
+                prefill="step", swap=None):
+    """Serve ``prompts`` (``NEW`` tokens each) through a
+    :class:`ContinuousBatcher`; ``swap``: ``(tick, tables, cfg)`` to swap
+    to between ticks.  Returns ``(outs by request, batcher, seconds)``;
+    with ``swap``, the batcher's ``served_before_swap`` holds each
+    request's token count at the swap."""
+    import torch
+
+    from repro_torch.serve import ContinuousBatcher, Request
+
+    b = ContinuousBatcher(cfg, params, BATCHER_SLOTS, T + NEW, eos_token=-1,
+                          kv_dtype=kv_dtype, lut_tables=tables,
+                          prefill=prefill)
+    reqs = [Request(rid=i, prompt=p, max_new=NEW)
+            for i, p in enumerate(prompts)]
+    for r in reqs:
+        b.submit(r)
+    t0 = time.perf_counter()
+    if swap is not None:
+        while b.steps < swap[0]:
+            b.step()
+        b.served_before_swap = [len(r.out) for r in reqs]
+        b.swap_tables(swap[1], cfg=swap[2])
+    done = b.run()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    return [r.out for r in sorted(done, key=lambda r: r.rid)], b, secs
+
+
+def run_batcher(launcher, dev, cfg0, params, batch, form_a, form_e,
+                totals) -> dict:
+    """Phase 13: qwen3-0.6b at full width with form (a)'s tables through
+    the continuous batcher, bf16 and int8 caches, both prefill modes
+    (launch counts zeroed before each run and read after it): replay and
+    step serve the same tokens, no request is dropped, in bf16 every
+    request's tokens equal its decode alone in the same pool; one
+    ``swap_tables`` to form (e)'s tables mid-run captures the step again
+    and serves on; and the replay prefill of the 4 x 64 prompts, bf16 and
+    int8, timed through a captured step."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serve import CapturedStep, init_cache, prefill_replay
+
+    quiet = lambda m: None
+    (args_a, plans), (args_e, plans_e) = form_a, form_e
+    cfg = form_config(plans, cfg0, args_a)
+    cfg_e = form_config(plans_e, cfg0, args_e)
+    tabs = launcher.serving_tables(args_a, plans, dev, log=quiet)
+    tabs_e = launcher.serving_tables(args_e, plans_e, dev, log=quiet)
+    rng = np.random.default_rng(13)
+    prompts = [[int(t) for t in rng.integers(1, cfg.vocab_size, int(n))]
+               for n in rng.integers(T // 4, T + 1, BATCHER_REQUESTS)]
+    out = {"prompt_lens": [len(p) for p in prompts], "runs": {}}
+    outs = {}
+    batcher_run(cfg, params, tabs, prompts[:BATCHER_SLOTS])   # warm-up
+    for kv in ("bfloat16", "int8"):
+        for mode in ("step", "replay"):
+            reset_launch_counts()
+            got, b, secs = batcher_run(cfg, params, tabs, prompts,
+                                       kv_dtype=kv, prefill=mode)
+            counts = launch_counts()
+            for k, v in counts.items():
+                totals[k] += v
+            m = b.metrics()
+            if (counts["lut_act_stacked"] == 0 or m["dropped"]
+                    or m["finished"] != len(prompts)
+                    or any(len(o) != NEW for o in got)):
+                raise AssertionError(f"batcher {kv} {mode}: launches "
+                                     f"{counts}, metrics {m}")
+            outs[kv, mode] = got
+            new_tokens = sum(len(o) for o in got)
+            out["runs"][f"{kv} {mode}"] = {
+                "seconds": secs, "tok_s": new_tokens / secs,
+                "ticks": m["ticks"], "utilization": m["utilization"],
+                "replayed_tokens": m["replayed_tokens"],
+                "captures": b._step.captures, "launches": counts,
+                "latency_p50_s": m["latency_p50_s"],
+                "ttft_p50_s": m["ttft_p50_s"]}
+            log(f"[13] batcher {kv} prefill={mode}: {len(prompts)} requests "
+                f"({sum(len(p) for p in prompts)} prompt tokens) in {secs:.3f}"
+                f"s, {new_tokens / secs:.1f} new tok/s, {m['ticks']} ticks, "
+                f"utilization {m['utilization']:.3f}, replayed "
+                f"{m['replayed_tokens']}, latency p50 {m['latency_p50_s']:.3f}"
+                f"s, ttft p50 {m['ttft_p50_s']:.3f}s, dropped 0; launches "
+                f"{ {k: v for k, v in counts.items() if v} }")
+        if outs[kv, "step"] != outs[kv, "replay"]:
+            raise AssertionError(f"batcher {kv}: replay tokens differ from "
+                                 f"step tokens")
+    alone = [batcher_run(cfg, params, tabs, [p])[0][0] for p in prompts]
+    if alone != outs["bfloat16", "step"]:
+        raise AssertionError(f"batcher bf16: a request's tokens differ from "
+                             f"its decode alone: {outs['bfloat16', 'step']} "
+                             f"vs {alone}")
+    agree = float(np.mean(np.array(outs["int8", "step"])
+                          == np.array(outs["bfloat16", "step"])))
+    out["int8_agreement_with_bf16"] = agree
+    log(f"[13] replay == step in bf16 and int8; every bf16 request's tokens "
+        f"== its decode alone in the pool; int8 token agreement with bf16 "
+        f"{agree:.4f}")
+    # swap while the first slots are mid-decode: what they served before
+    # the swap must be the unswapped run's, and the run must serve on
+    tick = T + NEW // 2
+    reset_launch_counts()
+    swapped, b, secs = batcher_run(cfg, params, tabs, prompts,
+                                   swap=(tick, tabs_e, cfg_e))
+    counts = launch_counts()
+    m = b.metrics()
+    before = b.served_before_swap
+    unswapped = outs["bfloat16", "step"]
+    if (m["table_swaps"] != 1 or m["dropped"] or b._step.captures != 1
+            or counts["lut_act_stacked"] == 0 or not sum(before)
+            or any(len(o) != NEW for o in swapped)
+            or any(o[:n] != u[:n]
+                   for o, u, n in zip(swapped, unswapped, before))):
+        raise AssertionError(f"batcher swap: metrics {m}, captures "
+                             f"{b._step.captures}, launches {counts}, "
+                             f"served before the swap {before}")
+    after = [(o[n:], u[n:]) for o, u, n in zip(swapped, unswapped, before)]
+    same = float(np.mean([x == y for o, u in after for x, y in zip(o, u)]))
+    out["swap"] = {"tick": tick, "seconds": secs,
+                   "served_before_swap": before,
+                   "agreement_after_swap_with_unswapped": same}
+    log(f"[13] swap_tables to form (e)'s tables at tick {tick}: the "
+        f"{sum(before)} tokens served before it equal the unswapped run's; "
+        f"captured again and served on ({m['finished']} finished, dropped "
+        f"0) in {secs:.3f}s; token agreement after the swap with the "
+        f"unswapped run {same:.4f}")
+    replay = {}
+    for kv in (None, "int8"):
+        cache = init_cache(cfg, B, T + NEW, device=dev, kv_dtype=kv)
+        step = CapturedStep(params, cfg, tabs)
+        step.capture(cache, batch["tokens"][:, :1])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prefill_replay(params, cfg, cache, batch["tokens"], 0, step=step)
+        torch.cuda.synchronize()
+        replay[kv or "bfloat16"] = {"seconds": time.perf_counter() - t0,
+                                    "capture_s": step.capture_s}
+    out["replay_prefill"] = replay
+    log(f"[13] replay prefill of {B} x {T} tokens through the captured "
+        f"step: " + ", ".join(f"{k} {v['seconds']:.4f}s (capture "
+                              f"{v['capture_s']:.4f}s)"
+                              for k, v in replay.items()))
+    return out
+
+
+def check_artifacts(launcher, common, results) -> None:
+    """Phase 14, through the launcher's entry points at full width:
+    ``--calib-path`` saves the captured calibration and loads it back bit
+    for bit, and serves from it the tokens of form (a); ``--save-plan``
+    then ``--tuned-plan`` serve forms (a) and (f) token-identically to the
+    in-process plans."""
+    import contextlib
+    import io
+
+    from repro_torch.calib import load_calibration
+
+    art = OUT_DIR / "artifacts"
+    art.mkdir(exist_ok=True)
+    for f in art.iterdir():
+        f.unlink()
+    quiet = lambda m: None
+
+    def main(argv):
+        with contextlib.redirect_stdout(io.StringIO()):
+            return launcher.main(argv)
+
+    calib_path = str(art / "calib")
+    args = launcher.parse_args(common + ["--calib-steps", "2",
+                                         "--calib-path", calib_path])
+    cfg, params, _, _ = launcher.setup(args)
+    captured = launcher.calibration(args, cfg, params, log=quiet)
+    loaded = load_calibration(calib_path)
+    for f in ("masks", "hists", "ranges"):
+        a, b = getattr(captured, f), getattr(loaded, f)
+        if sorted(a) != sorted(b) or any(
+                a[k].dtype != b[k].dtype or a[k].tobytes() != b[k].tobytes()
+                for k in a):
+            raise AssertionError(f"--calib-path: {f} did not reload bit for "
+                                 f"bit")
+    if (captured.w_in, captured.x_lo, captured.x_hi) != (
+            loaded.w_in, loaded.x_lo, loaded.x_hi):
+        raise AssertionError("--calib-path: the quantizer did not reload")
+    del params
+    got = main(common + ["--calib-path", calib_path])["tokens"]
+    if got != results["a"]["tokens"]:
+        raise AssertionError("--calib-path: the reloaded calibration serves "
+                             "other tokens than form (a)")
+    log(f"[14] --calib-path: {len(loaded.masks)} masks, histograms and "
+        f"ranges reload bit for bit; served from the file: tokens == (a)")
+    for label, flags in (("a", ["--calib-steps", "2"]),
+                         ("f", ["--calib-steps", "2", "--lut-sites", "all",
+                                "--lut-fuse"])):
+        path = str(art / f"plan_{label}")
+        saved = main(common + flags + ["--save-plan", path])["tokens"]
+        served = main([a for a in common if a != "--lut-act"]
+                      + flags[2:] + ["--tuned-plan", path])["tokens"]
+        if not (saved == served == results[label]["tokens"]):
+            raise AssertionError(f"--tuned-plan ({label}): {served} vs saved "
+                                 f"{saved} vs form {results[label]['tokens']}")
+        log(f"[14] --save-plan then --tuned-plan, form ({label}): tokens == "
+            f"the in-process plans' ({Path(path + '.npz').stat().st_size} "
+            f"bytes)")
 
 
 def logit_drift(launcher, dev, cfg0, params, batch, a, b) -> dict:
@@ -1444,6 +1757,7 @@ def main() -> int:
     )
     from repro_torch.kernels.wkv import wkv_chunked_plain
     from repro_torch.launch import serve as launcher
+    from repro_torch.serve import CapturedStep
     from repro_torch.nn import ssm as ssm_mod
     from repro_torch.nn.lut_act import build_lut_activation
     from repro_torch.serve import verify_backend_equivalence
@@ -1703,6 +2017,8 @@ def main() -> int:
         ("f", args_f, plans_all, ["fused_matmul_lut", "lut_act_multi"],
          "e"),
         ("g", args_g, plans_cap, ["lut_act_stacked", "lut_act"], "gather"),
+        ("k", parse(common + ["--calib-steps", "2", "--kv-int8"]), plans,
+         ["lut_act_stacked"], "a"),
     ]
     for label, args, pl, uses, ref in forms:
         log(f"[5] {stamp()}")
@@ -1726,6 +2042,14 @@ def main() -> int:
             plan_exec=exec_)
         log(f"[5] verify_backend_equivalence ({s_cfg.name}, {exec_}): "
             f"cuda == gather, request 0 {toks[0]}")
+
+    # ---- 13. the continuous batcher and 14. artifacts (run here, so that
+    # the batcher's launches count on the main path) ------------------------
+    log(f"[13] {stamp()}")
+    batcher = run_batcher(launcher, dev, cfg0, params, batch,
+                          (args_a, plans), (args_e, plans_all), totals)
+    log(f"[14] {stamp()}")
+    check_artifacts(launcher, common, results)
 
     # ---- 6. K5/K6 and 7. K7 against their plain versions on the card ------
     errors = check_gather_kernels(dev)
@@ -2121,6 +2445,51 @@ def main() -> int:
         (OUT_DIR / f"profile_{label.replace(' ', '_')}.txt").write_text(
             prof.key_averages().table(sort_by="cpu_time_total",
                                       row_limit=40))
+        # the same step captured in a CUDA graph and replayed: one profiled
+        # replay (wall, kernels, busy, idle share) and the device time per
+        # replay from CUDA events over 20 replays
+        step = CapturedStep(sparams, scfg, stab)
+        step(cache, tok, T + 1)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step(cache, tok, T + 1)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        g_launches = {k: v for k, v in launch_counts().items() if v}
+        if g_launches != step_launches:
+            raise AssertionError(f"decode step ({label}): a replay counted "
+                                 f"{g_launches}, the eager step "
+                                 f"{step_launches}")
+        kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        busy_us = sum(e.time_range.elapsed_us() for e in kern)
+        # the device's span of the replay: first kernel start to last end
+        span_us = (max(e.time_range.end for e in kern)
+                   - min(e.time_range.start for e in kern)) if kern else 0
+        replay_ms = timed_ms(lambda: step(cache, tok, T + 1), n=20,
+                             warmup=2, reps=3)
+        steps[label]["captured"] = {
+            "wall_ms": wall * 1e3, "kernels": len(kern),
+            "device_busy_ms": busy_us / 1e3,
+            "idle_share": (1 - busy_us / 1e6 / wall) if kern else None,
+            "device_span_ms": span_us / 1e3,
+            "span_idle_share": (1 - busy_us / span_us) if kern else None,
+            "replay_ms": replay_ms, "capture_s": step.capture_s}
+        c = steps[label]["captured"]
+        log(f"[12] captured step ({label}): wall {c['wall_ms']:.2f} ms, "
+            f"{len(kern)} kernels, device busy {busy_us / 1e3:.2f} ms"
+            + (f", idle share {c['idle_share']:.3f}; the device's span "
+               f"{span_us / 1e3:.2f} ms, idle {c['span_idle_share']:.3f} "
+               f"of it" if kern else
+               " (profiler saw no device events: idle not measured)")
+            + f"; {replay_ms:.3f} ms a replay back to back (CUDA events)"
+            + f"; capture {step.capture_s:.3f}s; launches as eager")
+        (OUT_DIR / f"profile_{label.replace(' ', '_')}_captured.txt"
+         ).write_text(prof.key_averages().table(sort_by="cuda_time_total",
+                                                row_limit=40))
+        del step
 
     # K1 reads the gate half in place: form (a) launches what the exact
     # activation does (one kernel for the activation, one for the product)
@@ -2138,6 +2507,7 @@ def main() -> int:
 
     summary = {"card": smi, "seconds": time.perf_counter() - t_start,
                "exact": exact, "steps": steps, "logit_drift": drift,
+               "batcher": batcher,
                "forms": {
                    f: {k: v for k, v in r.items() if k != "plans"}
                    for f, r in results.items()}, "kernels": kernels,

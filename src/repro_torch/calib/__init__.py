@@ -18,6 +18,7 @@ from .masks import (
     calibration_from_capture,
     care_mask_from_hist,
 )
+from .store import load_calibration, save_calibration
 
 
 def capture_calibration(params, cfg, batches, *, w_in=None, x_lo=-8.0,
@@ -39,7 +40,9 @@ __all__ = [
     "capture_model",
     "care_mask_from_hist",
     "current",
+    "load_calibration",
     "model_batch",
+    "save_calibration",
     "site_key",
     "synthetic_batches",
 ]

@@ -190,7 +190,7 @@ def capture_model(params, cfg, batches, *, w_in: int | None = None,
     if cfg.family not in forwards:
         raise NotImplementedError(
             f"capture_model: family {cfg.family!r} is not yet ported "
-            f"(ROADMAP queue A, item 7)")
+            f"(ROADMAP queue A, item 5)")
     dev = params.embed.device
     cap = capture or ActivationCapture(
         w_in=w_in or cfg.lut_act_bits_in, x_lo=x_lo, x_hi=x_hi)

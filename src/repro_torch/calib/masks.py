@@ -16,8 +16,8 @@ against over-aggressive don't-caring from finite calibration sets:
 
 :class:`CalibrationSet` is the unit the rest of the system consumes:
 :func:`repro_torch.serve.plans.build_serving_plans` turns it into per-site
-:class:`~repro_torch.core.TableSpec` care masks.  (Its on-disk store is
-not ported yet.)
+:class:`~repro_torch.core.TableSpec` care masks, and
+:mod:`.store` saves and loads it.
 """
 from __future__ import annotations
 

@@ -17,7 +17,7 @@ REGISTRY: dict[str, ArchConfig] = {
     m.CONFIG.name: m.CONFIG for m in (qwen3_0_6b, rwkv6_3b)}
 
 # Architectures of the reference the port does not serve yet, with their
-# family (ROADMAP queue A, item 7).
+# family (ROADMAP queue A, item 5).
 NOT_PORTED: dict[str, str] = {
     "nemotron-4-15b": "dense",
     "phi4-mini-3.8b": "dense",
@@ -37,7 +37,7 @@ def get_config(name: str) -> ArchConfig:
         raise NotImplementedError(
             f"arch {name!r} (family {NOT_PORTED[name]!r}) is not yet ported "
             f"to repro_torch: it serves {ARCH_NAMES} (ROADMAP queue A, "
-            f"item 7)")
+            f"item 5)")
     if name not in REGISTRY:
         raise KeyError(f"unknown arch {name!r}; have {sorted(REGISTRY)}")
     return REGISTRY[name]

@@ -8,6 +8,7 @@ and K7 ``lutnn_layer`` the three of the LUT-NN toolflow.  Sources live in
 """
 from .ops import (
     PlanArrays,
+    add_launch_counts,
     fused_matmul_lut,
     launch_counts,
     lut_act,
@@ -20,6 +21,7 @@ from .ops import (
     wkv,
 )
 
-__all__ = ["PlanArrays", "fused_matmul_lut", "launch_counts", "lut_act",
-           "lut_act_multi", "lut_act_stacked", "lut_reconstruct",
-           "lutnn_layer", "plain_lookup", "reset_launch_counts", "wkv"]
+__all__ = ["PlanArrays", "add_launch_counts", "fused_matmul_lut",
+           "launch_counts", "lut_act", "lut_act_multi", "lut_act_stacked",
+           "lut_reconstruct", "lutnn_layer", "plain_lookup",
+           "reset_launch_counts", "wkv"]

@@ -102,6 +102,15 @@ def _take(row: torch.Tensor, comp: str, idx: torch.Tensor,
                        per_word=p["per_word"])
 
 
+def _scalar(v, dtype: torch.dtype, dev) -> torch.Tensor:
+    """``v`` as a 0-d tensor on ``dev``: a tensor as it is, a host scalar
+    (exact in ``dtype``) filled in on the device, with no copy from the
+    host, so that the plain versions run inside a CUDA graph capture."""
+    if isinstance(v, torch.Tensor):
+        return v.to(dtype)
+    return torch.full((), v, dtype=dtype, device=dev)
+
+
 def lut_eval_plain(x, rows: dict, l, w_lb, w_hb, y_lo, span, *, any_lb,
                    w_in, w_out, x_lo, x_hi, pack=None) -> torch.Tensor:
     """Quantize -> Eq. (1) -> dequantize over one plan's component rows.
@@ -112,15 +121,14 @@ def lut_eval_plain(x, rows: dict, l, w_lb, w_hb, y_lo, span, *, any_lb,
     leaves its row."""
     dev = x.device
     x_lo32, inv_span32, levels_in32 = (
-        torch.tensor(v, device=dev) for v in quant_constants(w_in, x_lo,
-                                                              x_hi))
+        _scalar(v, torch.float32, dev)
+        for v in quant_constants(w_in, x_lo, x_hi))
     xn = torch.clamp((x.float() - x_lo32) * inv_span32, 0.0, 1.0)
     xn = torch.nan_to_num(xn, nan=0.0)
     code = torch.round(xn * levels_in32).to(torch.int32)
 
     one = torch.ones((), dtype=torch.int32, device=dev)
-    l, w_lb, w_hb = (torch.as_tensor(v, dtype=torch.int32, device=dev)
-                     for v in (l, w_lb, w_hb))
+    l, w_lb, w_hb = (_scalar(v, torch.int32, dev) for v in (l, w_lb, w_hb))
     m = one << l
     c_hb = code >> l
     c_lb = code & (m - 1)
@@ -134,7 +142,7 @@ def lut_eval_plain(x, rows: dict, l, w_lb, w_hb, y_lo, span, *, any_lb,
         lb = _take(rows["t_lb"], "t_lb",
                    torch.where(has_lb, code, torch.zeros_like(code)), pack)
         val = torch.where(has_lb, (val << w_lb) | lb, val)
-    coef = torch.tensor(inv_levels_out(w_out), device=dev) * span
+    coef = _scalar(inv_levels_out(w_out), torch.float32, dev) * span
     y = fma_f32(val.float(), coef, y_lo)
     return y.to(x.dtype)
 
@@ -146,8 +154,8 @@ def lut_act_plain(x, arrays: dict, *, l, w_lb, w_hb, w_in, w_out, x_lo,
     dev = x.device
     return lut_eval_plain(
         x, arrays, l, w_lb, w_hb,
-        torch.tensor(np.float32(y_lo), device=dev),
-        torch.tensor(np.float32(y_hi - y_lo), device=dev),
+        _scalar(np.float32(y_lo), torch.float32, dev),
+        _scalar(np.float32(y_hi - y_lo), torch.float32, dev),
         any_lb=w_lb > 0, w_in=w_in, w_out=w_out, x_lo=x_lo, x_hi=x_hi,
         pack=pack)
 

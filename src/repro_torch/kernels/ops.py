@@ -386,3 +386,11 @@ def launch_counts() -> dict[str, int]:
 def reset_launch_counts() -> None:
     for fn in WRAPPERS.values():
         fn.launches = 0
+
+
+def add_launch_counts(counts: dict[str, int]) -> None:
+    """Add ``counts`` (wrapper name -> launches, negative to take away) to
+    the wrappers' counts: a CUDA graph's replay launches the kernels its
+    capture recorded, and the capture itself launches none."""
+    for name, n in counts.items():
+        WRAPPERS[name].launches += n

@@ -6,7 +6,8 @@ ReducedLUT-compressed activations (counterpart of the reference's
       --arch qwen3-0.6b|rwkv6-3b --full --batch 4 --prompt-len 64 \\
       --new-tokens 16 --lut-act --calib-steps 2 [--lut-sites act|all] \\
       [--logit-softcap S] [--plan-exec stacked|unrolled] [--lut-fuse] \\
-      [--lut-backend cuda|gather] [--device cuda|cpu]
+      [--lut-backend cuda|gather] [--kv-int8] [--calib-path P] \\
+      [--save-plan P] [--tuned-plan P] [--device cuda|cpu]
 
 ``--lut-act`` serves engine-selected plans for every LUT site in scope:
 the activation sites by default, every registered site (softmax exp,
@@ -15,18 +16,29 @@ norm rsqrt, rope sine, logit softcap) under ``--lut-sites all``;
 every (layer, site) its own don't-care mask and table (by default served
 as one stacked ``(L, …)`` family, ``--plan-exec stacked``).  Without it
 all layers share one table built from a synthetic calibration sample.
-``--lut-backend cuda`` runs the LUT through the hand-written kernels,
-``gather`` through the plain PyTorch form; ``--lut-fuse`` applies the LUT
-in the up-projection's GEMM epilogue (kernel K3 on ``cuda``) and serves
-the other per-layer sites out of one multi-site super-slab (kernel K4).
-The run uses the card unless ``--device cpu`` is given, and the backend
-follows the device unless named: ``cuda`` on the card, ``gather`` on the
-CPU.
+``--calib-path`` loads a saved calibration artifact when present and
+saves the captured one otherwise, so restarts skip recapture;
+``--save-plan`` freezes the built plans into a tuned-plan artifact, and
+``--tuned-plan`` serves one (either package's) without capture or
+compression.  ``--lut-backend cuda`` runs the LUT through the
+hand-written kernels, ``gather`` through the plain PyTorch form;
+``--lut-fuse`` applies the LUT in the up-projection's GEMM epilogue
+(kernel K3 on ``cuda``) and serves the other per-layer sites out of one
+multi-site super-slab (kernel K4).  ``--kv-int8`` replays the prompt
+into an int8 KV cache through the decode step (the dense family; it does
+nothing for the ssm family, as in the reference).
+
+On the card the decode step is captured in a CUDA graph once, before
+the decode clock starts (its seconds are logged on their own line), and
+replayed per token; on the CPU it runs eagerly.  The run uses the card
+unless ``--device cpu`` is given, and the backend follows the device
+unless named: ``cuda`` on the card, ``gather`` on the CPU.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import sys
 import time
 
@@ -35,7 +47,9 @@ import torch
 
 from repro_torch.calib import (
     capture_calibration,
+    load_calibration,
     model_batch,
+    save_calibration,
     synthetic_batches,
 )
 from repro_torch.configs import ARCH_NAMES, get_config, smoke_config
@@ -43,10 +57,19 @@ from repro_torch.device import resolve_device, synchronize
 from repro_torch.kernels import launch_counts
 from repro_torch.nn import init_params
 from repro_torch.serve import (
+    CapturedStep,
     build_serving_plans,
+    decode_fn,
     decode_step,
+    init_cache,
     prefill,
+    prefill_replay,
     tables_nbytes,
+)
+from repro_torch.tune import (
+    load_tuned_plan,
+    save_tuned_plan,
+    tuned_plan_from_serving,
 )
 
 
@@ -84,6 +107,20 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--calib-steps", type=int, default=0,
                     help="capture N batches for per-site don't-care masks "
                          "(0 = shared synthetic calibration)")
+    ap.add_argument("--calib-path", default=None,
+                    help="calibration artifact (.npz): loaded if present, "
+                         "else saved after capture")
+    ap.add_argument("--tuned-plan", default=None,
+                    help="tuned-plan artifact (.npz, of either package): "
+                         "serve its plans directly, skipping capture and "
+                         "compression")
+    ap.add_argument("--save-plan", default=None, metavar="PATH",
+                    help="freeze the built serving plans into a tuned-plan "
+                         "artifact at PATH")
+    ap.add_argument("--kv-int8", action="store_true",
+                    help="int8 KV cache (dense family): the prompt is "
+                         "replayed into it through the decode step, which "
+                         "writes quantized entries")
     ap.add_argument("--calib-min-count", type=int, default=1,
                     help="min observations for a bin to stay care")
     ap.add_argument("--calib-smoothing", type=int, default=0,
@@ -131,18 +168,40 @@ def setup(args):
     return cfg, params, batch, rng
 
 
+def _exists(path: str) -> bool:
+    """An artifact at ``path``: the savers append ``.npz`` when it is
+    missing, so both spellings find it."""
+    return os.path.exists(path) or os.path.exists(path + ".npz")
+
+
+def calibration(args, cfg, params, log=print):
+    """The per-site calibration set: loaded from ``--calib-path`` when an
+    artifact is there, else captured over ``max(1, --calib-steps)``
+    batches (and saved to ``--calib-path`` when one is named)."""
+    if args.calib_path and _exists(args.calib_path):
+        calib = load_calibration(args.calib_path)
+        log(f"loaded calibration: {calib.summary()}")
+        return calib
+    steps = max(1, args.calib_steps)
+    batches = synthetic_batches(cfg, steps, batch_size=args.batch,
+                                seq_len=args.prompt_len, seed=1)
+    t0 = time.perf_counter()
+    calib = capture_calibration(params, cfg, batches,
+                                min_count=args.calib_min_count,
+                                smoothing=args.calib_smoothing)
+    log(f"captured {steps} calibration batches in "
+        f"{time.perf_counter() - t0:.2f}s ({len(calib.masks)} sites)")
+    if args.calib_path:
+        log(f"saved calibration -> "
+            f"{save_calibration(args.calib_path, calib)}")
+    return calib
+
+
 def build_plans(args, cfg, params, rng, log=print):
-    """Capture (``--calib-steps``) and compress the serving plans."""
-    if args.calib_steps > 0:
-        batches = synthetic_batches(cfg, args.calib_steps,
-                                    batch_size=args.batch,
-                                    seq_len=args.prompt_len, seed=1)
-        t0 = time.perf_counter()
-        calib = capture_calibration(params, cfg, batches,
-                                    min_count=args.calib_min_count,
-                                    smoothing=args.calib_smoothing)
-        log(f"captured {args.calib_steps} calibration batches in "
-            f"{time.perf_counter() - t0:.2f}s ({len(calib.masks)} sites)")
+    """Capture (``--calib-steps``) or load (``--calib-path``) the
+    calibration and compress the serving plans."""
+    if args.calib_steps > 0 or args.calib_path:
+        calib = calibration(args, cfg, params, log=log)
     else:
         calib = rng.normal(size=100000) * 3
     t0 = time.perf_counter()
@@ -153,7 +212,25 @@ def build_plans(args, cfg, params, rng, log=print):
     return plans
 
 
+def load_plan(ap, args, log=print):
+    """The ``--tuned-plan`` artifact, or a parser error naming what is
+    wrong with it (the reference's messages)."""
+    if not _exists(args.tuned_plan):
+        ap.error(f"--tuned-plan: no artifact at {args.tuned_plan!r} — "
+                 f"run launch/tune (or launch/serve --save-plan) to "
+                 f"produce one")
+    try:
+        tp = load_tuned_plan(args.tuned_plan)
+    except ValueError as e:   # includes ArtifactError (corrupt file)
+        ap.error(f"--tuned-plan: {e}")
+    log(f"{tp.summary()} (loaded from {args.tuned_plan} — no "
+        f"recapture/recompression)")
+    return tp
+
+
 def serving_tables(args, plans, device, log=print) -> dict:
+    """The ``lut_tables`` of ``plans`` (built :class:`ServingPlans` or a
+    loaded :class:`~repro_torch.tune.TunedPlan`) in the flags' form."""
     kernel = ("fused" if args.lut_fuse and args.plan_exec == "stacked"
               else None)
     tables = plans.tables_for_model(backend=args.lut_backend,
@@ -164,10 +241,15 @@ def serving_tables(args, plans, device, log=print) -> dict:
     return tables
 
 
-def serve(args, cfg, params, batch, lut_tables, log=print) -> dict:
-    """Prefill the prompts and decode ``--new-tokens`` greedy tokens.
-    Returns the tokens (B, n_new), the prefill seconds and decode tok/s
-    (host clock around synchronised work)."""
+def serve(args, cfg, params, batch, lut_tables, log=print, *,
+          eager: bool = False) -> dict:
+    """Prefill the prompts (``--kv-int8``: then replay them into an int8
+    cache) and decode ``--new-tokens`` greedy tokens.  On the card the
+    step is captured in a CUDA graph before the decode clock starts;
+    ``eager=True`` decodes through the eager step instead (the yardstick
+    the captured step is held against).  Returns the tokens (B, n_new),
+    the prefill, capture and replay seconds and decode tok/s (host clock
+    around synchronised work)."""
     dev = batch["tokens"].device
     b, t = batch["tokens"].shape
     max_seq = t + args.new_tokens
@@ -178,14 +260,37 @@ def serve(args, cfg, params, batch, lut_tables, log=print) -> dict:
     synchronize(dev)
     prefill_s = time.perf_counter() - t0
     log(f"prefill {b}x{t}: {prefill_s:.4f}s")
+    if eager:
+        step = lambda c, tk, pos: decode_step(params, cfg, c, tk, pos,
+                                              lut_tables)
+    else:
+        step = decode_fn(params, cfg, lut_tables)
+    out = {"prefill_s": prefill_s, "capture_s": None, "replay_s": None}
+    int8 = args.kv_int8 and cfg.family == "dense"
+    if int8:
+        # the decode write path quantizes: replay the prompt into an int8
+        # cache through the step the decode then runs
+        cache = init_cache(cfg, b, max_seq, device=dev, kv_dtype="int8")
+        log("int8 KV cache enabled (decode writes quantized entries)")
+    if isinstance(step, CapturedStep):
+        step.capture(cache, batch["tokens"][:, :1])
+        out["capture_s"] = step.capture_s
+        log(f"decode step captured in a CUDA graph: {step.capture_s:.4f}s")
+    if int8:
+        t0 = time.perf_counter()
+        logits, cache = prefill_replay(params, cfg, cache, batch["tokens"],
+                                       0, lut_tables, step=step)
+        synchronize(dev)
+        out["replay_s"] = time.perf_counter() - t0
+        log(f"prefill replay {b}x{t} into the int8 cache: "
+            f"{out['replay_s']:.4f}s")
     tok = logits[:, -1].argmax(-1)[:, None]
     toks = []
     synchronize(dev)
     t0 = time.perf_counter()
     for i in range(args.new_tokens):
         toks.append(tok)
-        logits, cache = decode_step(params, cfg, cache, tok, t + i,
-                                    lut_tables=lut_tables)
+        logits, cache = step(cache, tok, t + i)
         tok = logits[:, -1].argmax(-1)[:, None]
     synchronize(dev)
     dt = time.perf_counter() - t0
@@ -194,8 +299,7 @@ def serve(args, cfg, params, batch, lut_tables, log=print) -> dict:
     log(f"decode {args.new_tokens} tokens x {b} requests: {dt:.4f}s "
         f"({tok_s:.1f} tok/s)")
     log(f"request 0: {tokens[0]}")
-    return {"tokens": tokens, "prefill_s": prefill_s, "decode_s": dt,
-            "decode_tok_s": tok_s}
+    return dict(out, tokens=tokens, decode_s=dt, decode_tok_s=tok_s)
 
 
 def main(argv=None) -> dict:
@@ -205,9 +309,19 @@ def main(argv=None) -> dict:
         cfg, params, batch, rng = setup(args)
     except (RuntimeError, ValueError) as e:
         ap.error(str(e))
-    lut_tables = None
-    if args.lut_act:
+    lut_tables = plans = None
+    if args.tuned_plan:
+        plans = load_plan(ap, args)
+    elif args.lut_act:
         plans = build_plans(args, cfg, params, rng)
+    if args.save_plan:
+        if plans is None or args.tuned_plan:
+            ap.error("--save-plan needs --lut-act plans built in-process "
+                     "(a --tuned-plan artifact already is one)")
+        frozen = save_tuned_plan(args.save_plan,
+                                 tuned_plan_from_serving(cfg, plans))
+        print(f"saved tuned plan -> {frozen} (reload-ready)")
+    if plans is not None:
         cfg = plans.patched_config(cfg)
         lut_tables = serving_tables(args, plans, params.embed.device)
     out = serve(args, cfg, params, batch, lut_tables)

@@ -62,14 +62,22 @@ def mha(q, k, v, *, causal: bool = True, q_offset: int = 0,
     return out.reshape(b, tq, h, dh)
 
 
-def decode_attend(q, k_cache, v_cache, pos: int, exp_fn=None
-                  ) -> torch.Tensor:
+def decode_attend(q, k_cache, v_cache, pos, exp_fn=None, k_scale=None,
+                  v_scale=None) -> torch.Tensor:
     """Single-token decode against a full cache (entries > pos masked).
-    q: (B, 1, H, Dh); caches (B, Tmax, KV, Dh)."""
+    q: (B, 1, H, Dh); caches (B, Tmax, KV, Dh); ``pos`` a Python int or a
+    0-d integer tensor on the cache's device (compared on the device, no
+    host read).  An int8 cache (``k_scale`` / ``v_scale`` ``(B, Tmax,
+    KV)`` given) is dequantized at the read, as the reference does: values
+    and scales cast to ``q``'s dtype and multiplied there (rounded in
+    ``q``'s dtype), then contracted in float32 as the other caches are."""
     b, tmax, kvh, dh = k_cache.shape
     h = q.shape[2]
     g = h // kvh
     qg = q.reshape(b, 1, kvh, g, dh)
+    if k_scale is not None:
+        k_cache = k_cache.to(q.dtype) * k_scale[..., None].to(q.dtype)
+        v_cache = v_cache.to(q.dtype) * v_scale[..., None].to(q.dtype)
     s = torch.einsum("bqkgd,btkd->bkgqt", qg.float(), k_cache.float())
     s = s * (dh ** -0.5)
     valid = torch.arange(tmax, device=q.device)[None] <= pos

@@ -72,7 +72,7 @@ def param_defs(cfg: ArchConfig) -> dict:
     if cfg.family != "dense" or cfg.moe:
         raise NotImplementedError(
             f"param_defs: family {cfg.family!r} is not yet ported "
-            f"(ROADMAP queue A, item 7)")
+            f"(ROADMAP queue A, item 5)")
     ff_in = 2 * cfg.d_ff if is_gated(cfg.activation) else cfg.d_ff
     blocks = {
         "wq": ParamDef((L, d, cfg.q_dim)),
@@ -192,22 +192,56 @@ def _attn_apply(p, x, cfg, *, pos_offset: int = 0, lut_tables=None,
     return out, (k, v)
 
 
-def _decode_attn(p, x, cfg, k_cache, v_cache, pos: int, *, lut_tables=None,
-                 layer: int | None = None):
+def _quantize_kv(x: torch.Tensor):
+    """(B, 1, KV, Dh) -> (int8 values, (B, 1, KV) float32 scales), as the
+    reference's ``_quantize_kv``: a symmetric per-(position, head) scale,
+    ``round`` half to even on both sides, and a true division."""
+    xf = x.float()
+    scale = torch.amax(torch.abs(xf), dim=-1) / 127.0 + 1e-8
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def _position_index(pos, device) -> torch.Tensor:
+    """``pos`` (a Python int or a 0-d integer tensor) as a 1-element int64
+    tensor on ``device``, without a host read: what RoPE and the cache
+    write take, so that a step captured in a CUDA graph reads the position
+    from a buffer instead of baking it in."""
+    if isinstance(pos, torch.Tensor):
+        return pos.reshape(1).to(device=device, dtype=torch.long)
+    return torch.full((1,), pos, dtype=torch.long, device=device)
+
+
+def _decode_attn(p, x, cfg, k_cache, v_cache, pos, *, scales=None,
+                 lut_tables=None, layer: int | None = None):
     """Single-token attention against one layer's cache ``(B, Tmax, KV,
-    Dh)``.  The new entry is written into the cache in place (the
-    reference returns an updated copy; in place saves the copy)."""
+    Dh)`` at position ``pos`` (a Python int or a 0-d integer tensor on the
+    cache's device; both give the same bits).  The new entry is written
+    into the cache in place (the reference returns an updated copy; in
+    place saves the copy).  ``scales``: the layer's ``(k_scale, v_scale)``
+    ``(B, Tmax, KV)`` of an int8 cache, quantized at the write and
+    dequantized at the read."""
     b = x.shape[0]
     q, k, v = _qkv(p, x, cfg)
-    pos_arr = torch.full((1,), pos, device=x.device)
+    pos_arr = _position_index(pos, x.device)
     sin_fn = site_act(cfg, lut_tables, sites.ROPE, layer)
     q = apply_rope(q, pos_arr, cfg.rope_theta, sin_fn=sin_fn)
     k = apply_rope(k, pos_arr, cfg.rope_theta, sin_fn=sin_fn)
-    k_cache[:, pos] = k[:, 0].to(k_cache.dtype)
-    v_cache[:, pos] = v[:, 0].to(v_cache.dtype)
-    out = decode_attend(q, k_cache, v_cache, pos,
-                        exp_fn=site_act(cfg, lut_tables, sites.ATTN_EXP,
-                                        layer))
+    exp_fn = site_act(cfg, lut_tables, sites.ATTN_EXP, layer)
+    if scales is not None:
+        k_scale, v_scale = scales
+        kq, ks = _quantize_kv(k)
+        vq, vs = _quantize_kv(v)
+        k_cache.index_copy_(1, pos_arr, kq)
+        v_cache.index_copy_(1, pos_arr, vq)
+        k_scale.index_copy_(1, pos_arr, ks.to(k_scale.dtype))
+        v_scale.index_copy_(1, pos_arr, vs.to(v_scale.dtype))
+        out = decode_attend(q, k_cache, v_cache, pos, exp_fn=exp_fn,
+                            k_scale=k_scale, v_scale=v_scale)
+    else:
+        k_cache.index_copy_(1, pos_arr, k.to(k_cache.dtype))
+        v_cache.index_copy_(1, pos_arr, v.to(v_cache.dtype))
+        out = decode_attend(q, k_cache, v_cache, pos, exp_fn=exp_fn)
     return torch.matmul(out.reshape(b, 1, cfg.q_dim), p["wo"])
 
 

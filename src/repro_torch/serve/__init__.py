@@ -1,6 +1,9 @@
-"""Serving runtime of the port: prefill, decode, KV cache, and the
-compressed-activation serving plans."""
-from .decode import decode_step, prefill
+"""Serving runtime of the port: prefill, decode, prefill replay, the KV
+cache, the decode step captured in a CUDA graph, the continuous batcher,
+and the compressed-activation serving plans."""
+from .batching import ContinuousBatcher, Request
+from .decode import decode_step, prefill, prefill_replay
+from .graphs import CapturedStep, decode_fn
 from .kvcache import init_cache
 from .plans import (
     ServingPlans,
@@ -11,7 +14,8 @@ from .plans import (
 )
 from .stacked import MultiSiteSlabs, StackedPlanArrays, tables_nbytes
 
-__all__ = ["prefill", "decode_step", "init_cache", "ServingPlans",
-           "SitePlan", "build_serving_plans",
+__all__ = ["prefill", "decode_step", "prefill_replay", "init_cache",
+           "CapturedStep", "decode_fn", "ContinuousBatcher", "Request",
+           "ServingPlans", "SitePlan", "build_serving_plans",
            "greedy_decode", "verify_backend_equivalence", "MultiSiteSlabs",
            "StackedPlanArrays", "tables_nbytes"]

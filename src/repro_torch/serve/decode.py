@@ -3,11 +3,16 @@ paths of the reference's ``serve/decode.py``).
 
 ``prefill(params, cfg, batch)`` -> (last-token logits, decode state)
 ``decode_step(params, cfg, cache, tokens, pos)`` -> (logits, cache)
+``prefill_replay(params, cfg, cache, tokens, start_pos)`` -> (last-token
+logits, cache)
 
-``pos`` is a Python int.  ``decode_step`` updates ``cache`` in place (the
-new K/V entries, or the recurrent state) and returns the same dict.  The
-family picks the functions, as the reference's ``PREFILL_FNS`` /
-``DECODE_FNS`` do.
+``pos`` is a Python int or a 0-d integer tensor on the cache's device
+(the form a step captured in a CUDA graph reads, :mod:`.graphs`); both
+give the same bits, and nothing in a decode step reads a tensor back to
+the host.  ``decode_step`` updates ``cache`` in place (the new K/V
+entries, quantized for an int8 cache, or the recurrent state) and returns
+the same dict.  The family picks the functions, as the reference's
+``PREFILL_FNS`` / ``DECODE_FNS`` do.
 """
 from __future__ import annotations
 
@@ -49,19 +54,19 @@ def decoder_prefill(params, cfg: ArchConfig, batch: dict,
 
 @torch.no_grad()
 def decoder_decode_step(params, cfg: ArchConfig, cache: dict,
-                        tokens: torch.Tensor, pos: int, lut_tables=None):
-    """One greedy-decode step for tokens (B, 1) at position ``pos``."""
-    if "k_scale" in cache:
-        raise NotImplementedError(
-            "decode_step: the int8 KV cache (and prefill_replay) is not "
-            "yet ported (ROADMAP queue A, item 4)")
+                        tokens: torch.Tensor, pos, lut_tables=None):
+    """One greedy-decode step for tokens (B, 1) at position ``pos``; an
+    int8 cache (``"k_scale"`` in it) is written quantized and read
+    dequantized."""
+    int8 = "k_scale" in cache
     x = embed_lookup(params.embed, tokens)
     for i in range(cfg.n_layers):
         p = params.layer(i)
         rs = site_act(cfg, lut_tables, sites.NORM_RSQRT, i)
+        scales = (cache["k_scale"][i], cache["v_scale"][i]) if int8 else None
         x = x + _decode_attn(p, rms_norm(x, p["ln1"], cfg.norm_eps, rs),
                              cfg, cache["k"][i], cache["v"][i], pos,
-                             lut_tables=lut_tables, layer=i)
+                             scales=scales, lut_tables=lut_tables, layer=i)
         hin = rms_norm(x, p["ln2"], cfg.norm_eps, rs)
         x = x + mlp_block(p, hin, cfg, lut_tables, layer=i)
     x = rms_norm(x, params.final_norm, cfg.norm_eps)
@@ -85,7 +90,7 @@ def rwkv_prefill(params, cfg: ArchConfig, batch: dict,
 
 @torch.no_grad()
 def rwkv_decode_step(params, cfg: ArchConfig, cache: dict,
-                     tokens: torch.Tensor, pos: int, lut_tables=None):
+                     tokens: torch.Tensor, pos, lut_tables=None):
     """One RWKV6 decode step for tokens (B, 1); ``pos`` is not needed."""
     x, cache = rwkv_forward(params, cfg, tokens, states=cache,
                             lut_tables=lut_tables)
@@ -101,7 +106,7 @@ def _family_fn(table: dict, cfg: ArchConfig, what: str):
     if fn is None:
         raise NotImplementedError(
             f"{what}: family {cfg.family!r} is not yet ported to "
-            f"repro_torch (ROADMAP queue A, item 7)")
+            f"repro_torch (ROADMAP queue A, item 5)")
     return fn
 
 
@@ -114,7 +119,36 @@ def prefill(params, cfg: ArchConfig, batch: dict, max_seq: int | None = None,
 
 
 def decode_step(params, cfg: ArchConfig, cache: dict, tokens: torch.Tensor,
-                pos: int, lut_tables=None):
-    """One greedy-decode step for tokens (B, 1) at position ``pos``."""
+                pos, lut_tables=None):
+    """One greedy-decode step for tokens (B, 1) at position ``pos`` (a
+    Python int or a 0-d integer tensor on the cache's device)."""
     return _family_fn(DECODE_FNS, cfg, "decode_step")(
         params, cfg, cache, tokens, pos, lut_tables=lut_tables)
+
+
+def prefill_replay(params, cfg: ArchConfig, cache: dict,
+                   tokens: torch.Tensor, start_pos: int = 0, lut_tables=None,
+                   step=None):
+    """Replay a (B, T) prompt through the single-token decode step at
+    positions ``start_pos .. start_pos + T - 1``: ``(last-token logits
+    (B, 1, V), cache)``, the cache updated in place (the reference's
+    ``prefill_replay``, which scans the step).
+
+    The decode write path quantizes, so replaying into an int8 KV cache
+    gives exactly the entries (values and scales) steady-state decode
+    writes, and the served LUT tables run during ingestion as during
+    decode.  ``step`` is the step to replay through, ``(cache, tokens,
+    pos) -> (logits, cache)``; by default :func:`.graphs.decode_fn`'s:
+    captured in a CUDA graph on the card, eager on the CPU."""
+    t = tokens.shape[1]
+    if t < 1:
+        raise ValueError("prefill_replay: the prompt has no tokens")
+    if step is None:
+        from .graphs import decode_fn
+
+        step = decode_fn(params, cfg, lut_tables)
+    for i in range(t):
+        logits, cache = step(cache, tokens[:, i:i + 1], start_pos + i)
+    # a captured step's logits are its graph's output buffer, which the
+    # next replay overwrites
+    return logits.clone(), cache

@@ -42,6 +42,7 @@ from repro_torch.core.table import TableSpec
 from repro_torch.device import resolve_device
 from repro_torch.kernels import PlanArrays
 from repro_torch.kernels.lut_act import entry_plan_record
+from repro_torch.kernels.packing import pack_component_dict
 from repro_torch.nn.lut_act import (
     LUTActivation,
     activation_table,
@@ -56,6 +57,24 @@ DEFAULT_COMPRESS = dict(exiguity=250, m_candidates=(8, 16, 32, 64),
 PER_LAYER_FAMILIES = ("dense", "ssm")
 
 BACKENDS = ("gather", "cuda")
+
+
+def plan_entry(meta: dict, arrays: dict, *, packed: bool, device) -> dict:
+    """One plan's site entry ``{"meta", "arrays"}`` from its meta and its
+    padded host component arrays (:meth:`PlanArrays.host_arrays`), as
+    tensors on ``device``: bit-packed with the unpack parameters in
+    ``meta["pack"]`` where ``packed``, and off the CPU with the LUT
+    kernels' launch record of its tensors (``"k1_record"``)."""
+    dev = resolve_device(device)
+    if packed:
+        arrays, pack = pack_component_dict(arrays)
+        meta = dict(meta, pack=pack)
+    out = {"meta": meta,
+           "arrays": {c: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                      for c, a in arrays.items()}}
+    if dev.type != "cpu":
+        out["k1_record"] = entry_plan_record(out)
+    return out
 
 
 @dataclasses.dataclass
@@ -97,14 +116,8 @@ class SitePlan:
             return cache[key]
 
         def one(lut: LUTActivation) -> dict:
-            pa = PlanArrays.from_plan(lut.plan, packed=packed, device=dev)
-            meta = lut.meta()
-            if pa.pack is not None:
-                meta = dict(meta, pack=pa.pack)
-            out = {"meta": meta, "arrays": pa.arrays}
-            if dev.type != "cpu":
-                out["k1_record"] = entry_plan_record(out)
-            return out
+            return plan_entry(lut.meta(), PlanArrays.host_arrays(lut.plan)[0],
+                              packed=packed, device=dev)
         if not self.per_layer:
             out = one(self.lut)
         elif form == "stacked":
@@ -204,6 +217,20 @@ class ServingPlans:
                 for k in grouped:
                     tables["sites"][k] = {"multi": k}
         return tables
+
+    def table_bytes(self, plan_exec: str | None = None,
+                    backend: str | None = None,
+                    packed: bool | None = None) -> int:
+        """Bytes of the serving tables in one execution form (the
+        reference's ``ServingPlans.table_bytes``): prices the stacked
+        padding against the unrolled layout and, on the ``"cuda"``
+        backend, the bit-packed slabs against raw int32.  Counted on
+        host tensors, so no card is needed."""
+        from .stacked import tables_nbytes
+
+        return tables_nbytes(self.tables_for_model(
+            backend=backend, plan_exec=plan_exec, packed=packed,
+            device="cpu"))
 
     def patched_config(self, cfg: ArchConfig) -> ArchConfig:
         return dataclasses.replace(cfg, lut_activation=True)

@@ -63,17 +63,33 @@ def _cfg():
     return smoke_config(get_config("qwen3-0.6b"))
 
 
-def _entry_points():
+def _entry_points(tmp_path):
     from repro_torch.launch import lutnn, quickstart
     from repro_torch.launch import serve as launcher
     from repro_torch.nn import init_params
-    from repro_torch.serve import build_serving_plans, init_cache
+    from repro_torch.serve import (
+        ContinuousBatcher,
+        build_serving_plans,
+        init_cache,
+    )
+    from repro_torch.tune import (
+        load_tuned_plan,
+        save_tuned_plan,
+        tuned_plan_from_serving,
+    )
 
     plans = build_serving_plans(_cfg(), np.linspace(-3, 3, 4096))
+    path = save_tuned_plan(str(tmp_path / "plan"),
+                           tuned_plan_from_serving(_cfg(), plans))
     return {
         "init_params": lambda: init_params(_cfg()),
         "init_cache": lambda: init_cache(_cfg(), 1, 8),
         "tables_for_model": lambda: plans.tables_for_model(),
+        "batcher": lambda: ContinuousBatcher(_cfg(), init_params(_cfg()),
+                                             1, 8),
+        "tuned_plan": lambda: load_tuned_plan(path).tables_for_model(),
+        "launcher --tuned-plan": lambda: launcher.main(
+            ["--tuned-plan", path]),
         "launcher": lambda: launcher.main(["--lut-act"]),
         "lutnn": lambda: lutnn.main([]),
         "quickstart": lambda: quickstart.main([]),
@@ -81,15 +97,17 @@ def _entry_points():
 
 
 @pytest.mark.parametrize("name", ["init_params", "init_cache",
-                                  "tables_for_model", "launcher", "lutnn",
+                                  "tables_for_model", "batcher",
+                                  "tuned_plan", "launcher",
+                                  "launcher --tuned-plan", "lutnn",
                                   "quickstart"])
-def test_entry_point_without_device_needs_the_card(name):
+def test_entry_point_without_device_needs_the_card(name, tmp_path):
     """Called without ``device`` on a machine with no CUDA, an entry point
     raises instead of running on the CPU."""
     if torch.cuda.is_available():
         pytest.skip("this machine has a CUDA device: the default is valid")
     with pytest.raises((RuntimeError, SystemExit)) as info:
-        _entry_points()[name]()
+        _entry_points(tmp_path)[name]()
     if info.type is SystemExit:
         assert info.value.code == 2
 
