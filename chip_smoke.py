@@ -112,7 +112,27 @@ Phases (any failure exits non-zero; nothing is caught):
   14. (run after phase 13) artifacts through the launcher: ``--calib-path``
      saves the captured calibration, reloads it bit for bit and serves
      form (a)'s tokens from it; ``--save-plan`` then ``--tuned-plan`` serve
-     forms (a) and (f) token-identically to the in-process plans.
+     forms (a) and (f) token-identically to the in-process plans;
+  15. (run last, once the earlier models are freed) the moe family at
+     full width, random weights from seed 0, bf16, the same 4 x 64 x 16:
+     ``deepseek-moe-16b`` (28 layers, 64 routed experts top-6 at d_expert
+     1408, 2 shared) in forms exact, (a) stacked + cuda (K1 twice a layer
+     a step: ``expert`` and the shared experts' ``mlp``), (b) unrolled
+     (K2), (d) ``--lut-fuse`` (K3 on the shared MLP, the expert site
+     through K4), (f) ``--lut-sites all --lut-fuse`` (K3 + K4) and (k)
+     ``--kv-int8``, then ``qwen3-moe-30b-a3b`` (48 layers, 128 experts
+     top-8 at d_expert 768, no shared expert) exact and (a); each form
+     captured and eager as in phase 5, (a) and (b) token-identical to the
+     gather backend, every form launching the LUT kernels as often as its
+     sites imply; every K1 / K2 / K4 call of a prefill and a decode step
+     in forms (a), (b) and (f) held bit for bit against its plain version
+     (K4 also against K1 per site) and timed from a CUDA graph beside its
+     bound; K1 on the expert gate view launching one kernel and no copy;
+     K4's copy of a strided expert input recorded; K3 at the shared-expert
+     shape held against its own GEMM + K1 and timed beside cuBLAS + K1;
+     the prefill's assignments dropped by capacity; parameter bytes, peak
+     memory, and one eager and one captured decode step profiled per model
+     (exact and (a)).
 The last lines are the kernel JSON, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.  Long logs go to ``chiprun_out/`` (every
 logged line to ``chiprun_out/chip_smoke.log``).
@@ -122,6 +142,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import functools
+import gc
 import json
 import math
 import statistics
@@ -158,6 +179,18 @@ def nvidia_smi() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         check=True, capture_output=True, text=True).stdout.strip()
+
+
+def sig4(o):
+    """``o`` (JSON-like) with every float rounded to 4 significant
+    digits."""
+    if isinstance(o, float):
+        return float(f"{o:.4g}")
+    if isinstance(o, dict):
+        return {k: sig4(v) for k, v in o.items()}
+    if isinstance(o, (list, tuple)):
+        return [sig4(v) for v in o]
+    return o
 
 
 def timed_ms(fn, n: int = 50, warmup: int = 5, reps: int = 5) -> float:
@@ -364,6 +397,33 @@ def check_k1_layouts(dev, stacks, luts, gen) -> tuple[int, dict]:
     return cases, {c: sorted(w) for c, w in widths.items()}
 
 
+# the PyTorch ops that copy a tensor (what a wrapper runs to make a strided
+# input contiguous)
+COPY_OPS = ("aten.clone.default", "aten.copy_.default",
+            "aten.contiguous.default")
+
+
+def torch_ops_of(fn) -> list:
+    """The PyTorch (aten) ops one call of ``fn`` runs, in order, seen by a
+    dispatch mode: a launch wrapper runs its output's allocation and, where
+    it copies its input first, that copy; its own kernel is a ``ctypes``
+    call, no op."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Record(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.ops.append(str(func))
+            return func(*args, **(kwargs or {}))
+
+    with Record() as rec:
+        fn()
+    return rec.ops
+
+
 def kernels_of(fn) -> list:
     """Names of the CUDA kernels one call of ``fn`` launches, in the order
     they ran, from the profiler (CPU and CUDA activity, as phase 12
@@ -376,6 +436,7 @@ def kernels_of(fn) -> list:
 
     fn()
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()   # leave the tracer device memory
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -388,6 +449,105 @@ def kernels_of(fn) -> list:
             return names
     raise AssertionError("the profiler saw no device activity in three "
                          "traces")
+
+
+def profile_decode_step(launcher, label, scfg, sparams, sbatch, stab,
+                        tag="12") -> dict:
+    """Where one decode step's time goes: one eager step profiled (wall,
+    kernels, copies among them, device busy, idle share, the wrappers'
+    launches), then the same step captured in a CUDA graph: one profiled
+    replay (its launch counts must be eager's) and the CUDA-event time of
+    a replay.  Writes ``chiprun_out/profile_<label>[_captured].txt``."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serve import CapturedStep
+
+    logits, cache = launcher.prefill(sparams, scfg, sbatch,
+                                     max_seq=T + 2, lut_tables=stab)
+    tok = logits[:, -1].argmax(-1)[:, None]
+    launcher.decode_step(sparams, scfg, cache, tok, T, stab)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()   # leave the tracer device memory
+    reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        launcher.decode_step(sparams, scfg, cache, tok, T + 1, stab)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    step_launches = {k: v for k, v in launch_counts().items() if v}
+    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy_us = sum(e.time_range.elapsed_us() for e in kern)
+    by_name = {}
+    for e in kern:
+        by_name[e.name] = by_name.get(e.name, 0.0) + \
+            e.time_range.elapsed_us()
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    copies = sum("copy" in e.name for e in kern)
+    out = {"wall_ms": wall * 1e3, "kernels": len(kern),
+           "copy_kernels": copies, "device_busy_ms": busy_us / 1e3,
+           "idle_share": (1 - busy_us / 1e6 / wall) if kern else None,
+           "launches": step_launches, "top_kernels_us": top}
+    log(f"[{tag}] decode step ({label}): wall {wall * 1e3:.2f} ms, "
+        f"{len(kern)} kernels ({copies} copies), device busy "
+        f"{busy_us / 1e3:.2f} ms"
+        + (f", idle share {out['idle_share']:.3f}" if kern
+           else " (profiler saw no device events: idle not measured)")
+        + f"; launches {step_launches}")
+    for name, us in top[:5]:
+        log(f"    {us:9.1f} us  {name[:90]}")
+    (OUT_DIR / f"profile_{label.replace(' ', '_')}.txt").write_text(
+        prof.key_averages().table(sort_by="cpu_time_total",
+                                  row_limit=40))
+    # the same step captured in a CUDA graph and replayed: one profiled
+    # replay (wall, kernels, busy, idle share) and the device time per
+    # replay from CUDA events over 20 replays
+    step = CapturedStep(sparams, scfg, stab)
+    step(cache, tok, T + 1)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(cache, tok, T + 1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    g_launches = {k: v for k, v in launch_counts().items() if v}
+    if g_launches != step_launches:
+        raise AssertionError(f"decode step ({label}): a replay counted "
+                             f"{g_launches}, the eager step "
+                             f"{step_launches}")
+    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy_us = sum(e.time_range.elapsed_us() for e in kern)
+    # the device's span of the replay: first kernel start to last end
+    span_us = (max(e.time_range.end for e in kern)
+               - min(e.time_range.start for e in kern)) if kern else 0
+    replay_ms = timed_ms(lambda: step(cache, tok, T + 1), n=20,
+                         warmup=2, reps=3)
+    out["captured"] = {
+        "wall_ms": wall * 1e3, "kernels": len(kern),
+        "device_busy_ms": busy_us / 1e3,
+        "idle_share": (1 - busy_us / 1e6 / wall) if kern else None,
+        "device_span_ms": span_us / 1e3,
+        "span_idle_share": (1 - busy_us / span_us) if kern else None,
+        "replay_ms": replay_ms, "capture_s": step.capture_s}
+    c = out["captured"]
+    log(f"[{tag}] captured step ({label}): wall {c['wall_ms']:.2f} ms, "
+        f"{len(kern)} kernels, device busy {busy_us / 1e3:.2f} ms"
+        + (f", idle share {c['idle_share']:.3f}; the device's span "
+           f"{span_us / 1e3:.2f} ms, idle {c['span_idle_share']:.3f} "
+           f"of it" if kern else
+           " (profiler saw no device events: idle not measured)")
+        + f"; {replay_ms:.3f} ms a replay back to back (CUDA events)"
+        + f"; capture {step.capture_s:.3f}s; launches as eager")
+    (OUT_DIR / f"profile_{label.replace(' ', '_')}_captured.txt"
+     ).write_text(prof.key_averages().table(sort_by="cuda_time_total",
+                                            row_limit=40))
+    del step
+    return out
 
 
 def k8_hmma_count(build, lib) -> int:
@@ -1275,60 +1435,42 @@ def check_fused_case(x, w, tab, lut_fn, *, gated, label):
     return float((yk.float() - yp.float()).abs().max()), share
 
 
-def served_k4_shapes(launcher, params, cfg, batch, tables) -> dict:
-    """``{"prefill": {site: [shape, ...]}, "decode": {...}}``: the input
-    shapes the served form hands K4 (``ops.lut_act_multi``, seen where it
-    calls ``k4_call``) in one prefill of ``batch`` and one decode step
-    after it.  Every call of the two steps is held bit for bit against the
-    plain K4 and K1 on its own inputs, and the calls must have used both
-    of K4's modes (one element a thread, 16 bytes a thread)."""
+def largest_storages(n: int = 6) -> list:
+    """The ``n`` largest storages on the card that Python objects still
+    hold, as ``(bytes, a tensor's shape)``: what keeps memory allocated
+    once a phase's models are deleted."""
     import torch
 
-    from repro_torch.kernels import ops
-    from repro_torch.kernels.lut_act import k4_plan, lut_act_multi_plain
-    from repro_torch.serve.stacked import multi_site_stacked_entry
+    gc.collect()
+    seen = {}
+    for o in gc.get_objects():
+        if isinstance(o, torch.Tensor) and o.is_cuda:
+            st = o.untyped_storage()
+            seen.setdefault(st.data_ptr(), (st.nbytes(), tuple(o.shape)))
+    return sorted(seen.values(), reverse=True)[:n]
 
-    entry = tables["multi"]
+
+def served_k4_shapes(launcher, params, cfg, batch, tables) -> dict:
+    """``{"prefill": {site: [shape, ...]}, "decode": {...}}``: the input
+    shapes the served form hands K4 in one prefill of ``batch`` and one
+    decode step after it (:func:`served_lut_calls`, which holds every call
+    bit for bit against the plain K4 and K1); the calls must have used
+    both of K4's modes (one element a thread, 16 bytes a thread)."""
+    from repro_torch.kernels.lut_act import k4_plan
+
+    calls = [c for c in served_lut_calls(launcher, params, cfg, batch,
+                                         tables)
+             if c["kernel"] == "lut_act_multi" and c["x"].numel()]
     seen = {"prefill": {}, "decode": {}}
-    calls = []
-    step = ["prefill"]
-    orig = ops.k4_call
-
-    def spy(xs, rec, layer):
-        if rec is not entry["k4_record"]:
-            raise AssertionError("K4 served from another entry's record")
-        for s, x in xs.items():
-            shapes = seen[step[0]].setdefault(s, [])
-            if tuple(x.shape) not in shapes:
-                shapes.append(tuple(x.shape))
-        out, call = orig(xs, rec, layer)
-        calls.append(({s: x.clone() for s, x in xs.items()}, layer, out,
-                      None if call is None else k4_plan(
-                          tuple(x.numel() for x in xs.values()),
-                          next(iter(xs.values())).dtype,
-                          sm_count=rec.sm_count)[1]))
-        return out, call
-
-    ops.k4_call = spy
-    try:
-        logits, cache = launcher.prefill(params, cfg, batch, max_seq=T + NEW,
-                                         lut_tables=tables)
-        step[0] = "decode"
-        launcher.decode_step(params, cfg, cache,
-                             logits[:, -1].argmax(-1)[:, None], T, tables)
-        torch.cuda.synchronize()
-    finally:
-        ops.k4_call = orig
+    for c in calls:
+        shapes = seen[c["step"]].setdefault(c["site"], [])
+        if tuple(c["x"].shape) not in shapes:
+            shapes.append(tuple(c["x"].shape))
     if not seen["prefill"] or not seen["decode"]:
         raise AssertionError(f"the form served no site through K4: {seen}")
-    slices = {}
-    for xs, layer, out, _ in calls:
-        yp = lut_act_multi_plain(xs, entry, layer)
-        for s, x in xs.items():
-            sl = slices.setdefault(s, multi_site_stacked_entry(entry, s))
-            k4_held(torch, out[s], yp[s], ops.lut_act_stacked(x, sl, layer),
-                    f"served call, site {s} {tuple(x.shape)} layer {layer}")
-    modes = {m for *_, m in calls if m is not None}
+    sm_count = tables["multi"]["k4_record"].sm_count
+    modes = {k4_plan((c["x"].numel(),), c["x"].dtype, sm_count=sm_count)[1]
+             for c in calls}
     if not (1 in modes and max(modes) > 1):
         raise AssertionError(f"the served K4 calls ran in modes {modes}")
     log(f"[11] {len(calls)} served K4 calls of one prefill and one decode "
@@ -1440,7 +1582,7 @@ def serve_form(launcher, dev, label, args, cfg0, params, batch, plans, uses,
     res["eager"] = {k: eager[k] for k in ("prefill_s", "replay_s",
                                           "decode_s", "decode_tok_s")}
     check_captured(fcfg, params, batch, tables, kv_int8=args.kv_int8
-                   and fcfg.family == "dense")
+                   and fcfg.family in launcher.KV_INT8_FAMILIES)
     for k, v in counts.items():
         totals[k] += v
     for k in uses:
@@ -1727,6 +1869,418 @@ def logit_drift(launcher, dev, cfg0, params, batch, a, b) -> dict:
                             la.argmax(-1) == lb.argmax(-1)]}
 
 
+# -------------------------------------------------------------------------
+# phase 15: the moe family at full width
+# -------------------------------------------------------------------------
+# the LUT kernels; phase 15's exact forms must launch none of them
+MOE_LUT = ("lut_act_stacked", "lut_act", "fused_matmul_lut", "lut_act_multi")
+# the forms phase 15 serves each moe configuration in, and the form each
+# is held against: "gather" (token-identical to the gather backend on the
+# same tables) or another form (token agreement reported)
+MOE_FORMS = {"deepseek-moe-16b": ("exact", "a", "b", "d", "f", "k"),
+             "qwen3-moe-30b-a3b": ("exact", "a")}
+MOE_REFS = {"exact": None, "a": "gather", "b": "gather", "d": "a",
+            "f": "exact", "k": "a"}
+
+
+def same_layout(x):
+    """A copy of ``x`` laid out as ``x`` is: a strided view (``rows`` rows
+    of ``cols`` elements, ``ld`` apart, as the gate half of an expert's
+    ``[gate|up]`` product) stays one, at a 16-byte aligned start."""
+    import torch
+
+    from repro_torch.kernels.lut_act import k1_view
+
+    if x.is_contiguous():
+        return x.clone()
+    rows, cols, ld = k1_view(x)
+    buf = torch.zeros((rows, ld), dtype=x.dtype, device=x.device)
+    buf[:, :cols] = x.reshape(rows, cols)
+    return buf[:, :cols].view(x.shape)
+
+
+def served_lut_calls(launcher, params, cfg, batch, tables) -> list:
+    """Every K1 / K2 / K4 call one prefill of ``batch`` and one decode step
+    after it make in a served form (seen where the wrappers launch:
+    ``launch_lut`` for K1 / K2, ``k4_call`` for K4), each with a copy of
+    its input in the served layout, its output and its site's table entry
+    as ``apply_lut_act`` takes it; every call is held bit for bit against
+    the plain version on its input (K4 also against K1 per site), and the
+    kernel on the copy against the served output."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.nn.mlp import apply_lut_act
+    from repro_torch.serve.stacked import multi_site_stacked_entry
+
+    entries = {}    # id(launch record) -> (site, entry as apply_lut_act's)
+    for site, e in tables["sites"].items():
+        if "stacked" in e:
+            entries[id(e["stacked"]["k1_record"])] = (site, e["stacked"])
+        for le in e.get("layers", ()):
+            entries[id(le["k1_record"])] = (site, le)
+    calls, step = [], ["prefill"]
+    orig_k12, orig_k4 = ops.launch_lut, ops.k4_call
+
+    def k12(fn, name, x, rec, layer):
+        y = orig_k12(fn, name, x, rec, layer)
+        site, e = entries[id(rec)]
+        tab = {"stacked": e, "layer": layer} if name == "lut_act_stacked" \
+            else e
+        calls.append(dict(kernel=name, step=step[0], site=site, layer=layer,
+                          x=same_layout(x), y=y, tab=tab))
+        return y
+
+    def k4(xs, rec, layer):
+        if rec is not tables["multi"]["k4_record"]:
+            raise AssertionError("K4 served from another entry's record")
+        out, call = orig_k4(xs, rec, layer)
+        for s, x in xs.items():
+            calls.append(dict(kernel="lut_act_multi", step=step[0], site=s,
+                              layer=layer, x=same_layout(x), y=out[s],
+                              tab={"multi_entry": tables["multi"], "site": s,
+                                   "layer": layer}))
+        return out, call
+
+    ops.launch_lut, ops.k4_call = k12, k4
+    try:
+        logits, cache = launcher.prefill(params, cfg, batch, max_seq=T + NEW,
+                                         lut_tables=tables)
+        step[0] = "decode"
+        launcher.decode_step(params, cfg, cache,
+                             logits[:, -1].argmax(-1)[:, None], T, tables)
+        torch.cuda.synchronize()
+    finally:
+        ops.launch_lut, ops.k4_call = orig_k12, orig_k4
+    slices = {}
+    for c in calls:
+        x, y, tab = c["x"], c["y"], c["tab"]
+        what = (f"{c['kernel']} {c['step']} site {c['site']} "
+                f"{tuple(x.shape)} layer {c['layer']}")
+        again = apply_lut_act(x, tab, "cuda")
+        yp = apply_lut_act(x, tab, "gather")
+        if c["kernel"] == "lut_act_multi":
+            sl = slices.setdefault(c["site"], multi_site_stacked_entry(
+                tables["multi"], c["site"]))
+            k4_held(torch, y, yp, ops.lut_act_stacked(x, sl, c["layer"]),
+                    f"served call {what}")
+        if not (bits_equal(torch, y, yp) and bits_equal(torch, y, again)):
+            raise AssertionError(
+                f"served {what}: the kernel differs from its plain version "
+                f"or from itself on a copy ({int((y != yp).sum())} / "
+                f"{int((y != again).sum())} elements)")
+    return calls
+
+
+def lut_call_timing(c, name) -> dict:
+    """One served call's kernel timed (from a CUDA graph and host-driven)
+    beside its plain version and its bound from bytes: its input read and
+    output written once, and one layer's slab of its site."""
+    from repro_torch.kernels import launch_counts
+    from repro_torch.kernels.lut_act import k1_view
+    from repro_torch.nn.mlp import apply_lut_act
+    from repro_torch.serve.stacked import multi_site_stacked_entry
+
+    x, layer, tab = c["x"], c["layer"], c["tab"]
+    kfn = lambda: apply_lut_act(x, tab, "cuda")
+    pfn = lambda: apply_lut_act(x, tab, "gather")
+    if c["kernel"] == "lut_act_stacked":
+        arrays = {k: a[layer] for k, a in tab["stacked"]["arrays"].items()}
+    elif c["kernel"] == "lut_act":
+        arrays = tab["arrays"]
+    else:
+        arrays = {k: a[layer] for k, a in multi_site_stacked_entry(
+            tab["multi_entry"], c["site"])["arrays"].items()}
+    slab = sum(int(a.numel()) * 4 for a in arrays.values())
+    n = x.numel()
+    # operations an element: phase 11's count, 5 for K1 / K2, 20 for K4
+    per = 20 if c["kernel"] == "lut_act_multi" else 5
+    bms, by = bound(2 * n * x.element_size() + slab, per * n, PEAK_F32_FLOPS)
+    before = launch_counts()[c["kernel"]]
+    ops_run = torch_ops_of(kfn)
+    launched = launch_counts()[c["kernel"]] - before
+    t = {"name": name, "kernel": c["kernel"], "site": c["site"],
+         "step": c["step"], "shape": list(x.shape),
+         "layout": "contiguous" if x.is_contiguous() else
+         f"strided view, row stride {k1_view(x)[2]}",
+         "ms": timed_ms(kfn), "graph_ms": graph_ms(kfn),
+         "plain_ms": timed_ms(pfn, n=10, warmup=2, reps=3),
+         "bound_ms": bms, "bound_by": by,
+         "launches_a_call": launched,
+         "torch_ops": ops_run, "copies": sum(o in COPY_OPS for o in ops_run)}
+    if c["kernel"] == "lut_act_multi" and not x.is_contiguous():
+        # K4 copies a strided input before its launch (k4_call): the
+        # same call on a contiguous copy shows what the copy costs
+        xc = x.contiguous()
+        cfn = lambda: apply_lut_act(xc, tab, "cuda")
+        t.update(contiguous_ms=timed_ms(cfn), contiguous_graph_ms=graph_ms(
+            cfn))
+    return t
+
+
+def moe_timings(calls, label) -> list:
+    """Time each distinct (kernel, site, step, shape) the served calls
+    show, at the middle one of its layers."""
+    groups = {}
+    for c in calls:
+        key = (c["kernel"], c["site"], c["step"], tuple(c["x"].shape),
+               c["x"].stride())
+        groups.setdefault(key, []).append(c)
+    out = []
+    for key, cs in groups.items():
+        t = lut_call_timing(cs[len(cs) // 2], label)
+        t["calls"] = len(cs)
+        out.append(t)
+        log(f"[15] {label} {t['kernel']} {t['site']} {t['step']} "
+            f"{t['shape']} ({t['layout']}, {t['calls']} calls): "
+            f"{t['graph_ms'] * 1e3:.2f} us a launch from a graph "
+            f"({t['ms'] * 1e3:.2f} host-driven), bound "
+            f"{t['bound_ms'] * 1e3:.3f} us ({t['bound_by']}), plain "
+            f"{t['plain_ms'] * 1e3:.2f} us; {t['launches_a_call']} launch "
+            f"a call, PyTorch ops around it {t['torch_ops']}"
+            + (f" (on a contiguous input {t['contiguous_graph_ms'] * 1e3:.2f}"
+               f" us from a graph)" if "contiguous_ms" in t else ""))
+    return out
+
+
+def prefill_drops(launcher, params, cfg, batch, tables) -> int:
+    """Routed assignments dropped by capacity over one prefill of
+    ``batch`` (every layer), counted where the routing computes them."""
+    import torch
+
+    from repro_torch.nn import moe as moe_mod
+
+    orig, drops = moe_mod.route, []
+
+    def spy(*a, **kw):
+        r = orig(*a, **kw)
+        drops.append(r.dropped())
+        return r
+
+    moe_mod.route = spy
+    try:
+        launcher.prefill(params, cfg, batch, max_seq=T, lut_tables=tables)
+    finally:
+        moe_mod.route = orig
+    if len(drops) != cfg.n_layers:
+        raise AssertionError(f"the prefill routed {len(drops)} times, not "
+                             f"once a layer ({cfg.n_layers})")
+    return int(torch.stack(drops).sum())
+
+
+def k3_times(x, ws, tab, sl, layer, *, gated, n=50) -> dict:
+    """K3 on ``x`` (M, K) bf16 against a stack of weights ``ws`` (L, K, N),
+    a layer's weight in turn each launch (L2-cold, as a decode step meets
+    them), from a CUDA graph and host-driven, beside its plain version,
+    cuBLAS alone and the library yardstick, cuBLAS followed by K1 (``sl``,
+    the site's stacked slice, at ``layer``) and the gated product: form
+    (a)'s unfused path.  The bound: inputs read and output written once,
+    the layer's slab, and ``2 M K N`` bf16 operations."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.fused_matmul_lut import fused_matmul_lut_plain
+
+    it = iter(range(10 ** 9))
+    w = lambda: ws[next(it) % len(ws)]
+    kfn = lambda: ops.fused_matmul_lut(x, w(), tab, gated=gated)
+    pfn = lambda: fused_matmul_lut_plain(x, w(), tab, gated=gated)
+    mfn = lambda: torch.matmul(x, w())
+
+    def lfn():
+        h = torch.matmul(x, w())
+        if not gated:
+            return ops.lut_act_stacked(h, sl, layer)
+        gate, up = h.chunk(2, dim=-1)
+        return ops.lut_act_stacked(gate, sl, layer) * up
+    (m, k), n_out = x.shape, ws[0].shape[1]
+    slab = sum(int(a[layer].numel()) * 4 for a in sl["arrays"].values())
+    bms, by = bound(2 * (m * k + k * n_out + m * (n_out // 2 if gated
+                                                   else n_out)) + slab,
+                    2 * m * k * n_out, PEAK_BF16_FLOPS)
+    return {"shape": [m, k, n_out], "ms": timed_ms(kfn, n=n),
+            "graph_ms": graph_ms(kfn, n=n), "plain_ms": timed_ms(pfn, n=10),
+            "bound_ms": bms, "bound_by": by, "library_ms": timed_ms(lfn, n=n),
+            "library_graph_ms": graph_ms(lfn, n=n),
+            "matmul_only_ms": timed_ms(mfn, n=n),
+            "matmul_only_graph_ms": graph_ms(mfn, n=n)}
+
+
+def check_shared_k3(dev, params, tables, gen) -> dict:
+    """K3 at deepseek's shared-expert shape (K = d_model, N = 2 x 2816,
+    gated) on form (d)'s super-slab: against its own GEMM + K1 and within
+    1% of the plain path, at the decode and prefill M and ragged M; timed
+    beside the plain version and cuBLAS + K1 (rotating the 28 layers'
+    weights, L2-cold)."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.serve.stacked import multi_site_stacked_entry
+
+    multi = tables["multi"]
+    sl = multi_site_stacked_entry(multi, "mlp")
+    w = params.blocks["sh_w_in"]
+    L, K = w.shape[:2]
+    tab = lambda layer: {"multi_entry": multi, "site": "mlp", "layer": layer}
+    k1 = lambda layer: (lambda g: ops.lut_act_stacked(g, sl, layer))
+    shares = {}
+    for m in (B, B * T, 67):
+        for layer in (0, L // 2, L - 1):
+            x = torch.randn(m, K, generator=gen, device=dev).to(
+                torch.bfloat16)
+            _, shares[f"M={m} layer {layer}"] = check_fused_case(
+                x, w[layer], tab(layer), k1(layer), gated=True,
+                label=f"shared expert M={m} layer {layer}")
+    out = {"mismatch_share_vs_plain": shares}
+    for shape_name, m in (("decode", B), ("prefill", B * T)):
+        x = torch.randn(m, K, generator=gen, device=dev).to(torch.bfloat16)
+        out[shape_name] = t = k3_times(x, w, tab(L // 2), sl, L // 2,
+                                       gated=True)
+        log(f"[15] K3 shared expert {shape_name} {t['shape']}: "
+            f"{t['graph_ms'] * 1e3:.2f} us from a graph ({t['ms'] * 1e3:.2f} "
+            f"host-driven), bound {t['bound_ms'] * 1e3:.3f} us "
+            f"({t['bound_by']}), plain {t['plain_ms'] * 1e3:.2f} us, cuBLAS + "
+            f"K1 {t['library_graph_ms'] * 1e3:.2f} us from a graph "
+            f"({t['library_ms'] * 1e3:.2f}), cuBLAS alone "
+            f"{t['matmul_only_graph_ms'] * 1e3:.2f} us")
+    return out
+
+
+def run_moe_model(launcher, dev, arch, totals, results, stamp) -> dict:
+    """Phase 15 for one moe configuration at full width (random weights
+    from seed 0, bf16): plans from 2 calibration batches; the served forms
+    ``MOE_FORMS[arch]`` through :func:`serve_form`, each
+    captured and eager, with the launch counts its sites imply; every
+    K1 / K2 / K4 call of a prefill and a decode step in forms (a), (b) and
+    (f) held bit for bit against its plain version and timed; K1 on the
+    expert gate view launching one kernel; the prefill's dropped
+    assignments; K3 at the shared-expert shape (form (d)); one eager and
+    one captured decode step profiled (exact and (a))."""
+    import torch
+
+    from repro_torch.nn.moe import moe_capacity
+
+    labels = MOE_FORMS[arch]
+    gen = torch.Generator(device=dev).manual_seed(15)
+    parse = launcher.parse_args
+    common = ["--arch", arch, "--full", "--batch", str(B), "--prompt-len",
+              str(T), "--new-tokens", str(NEW), "--device", "cuda"]
+    lut = common + ["--lut-act", "--calib-steps", "2"]
+    args = {"exact": parse(common), "a": parse(lut),
+            "b": parse(lut + ["--plan-exec", "unrolled"]),
+            "d": parse(lut + ["--lut-fuse"]),
+            "f": parse(lut + ["--lut-sites", "all", "--lut-fuse"]),
+            "k": parse(lut + ["--kv-int8"])}
+    torch.cuda.init()   # the allocator, before its peak is reset
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    cfg0, params, batch, rng = launcher.setup(args["exact"])
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    m = cfg0.moe
+    n_params = sum(p.numel() for p in params.parameters())
+    out = {"arch": arch, "init_s": init_s, "n_params": n_params,
+           "param_bytes": sum(p.numel() * p.element_size()
+                              for p in params.parameters()),
+           "peak_after_params": torch.cuda.max_memory_allocated(dev)}
+    log(f"[15] {cfg0.name}: {cfg0.n_layers} layers, d_model {cfg0.d_model}, "
+        f"{cfg0.n_heads}/{cfg0.n_kv_heads} heads x {cfg0.d_head}, "
+        f"{m.n_experts} experts top-{m.top_k} at d_expert {m.d_expert}, "
+        f"{m.n_shared} shared, vocab {cfg0.vocab_size}, {cfg0.dtype}; "
+        f"{launcher.param_summary(params)}; built in {init_s:.1f}s")
+    quiet = lambda msg: None
+    plans = launcher.build_plans(args["a"], cfg0, params, rng,
+                                 log=lambda msg: log("    " + msg))
+    plans_all = None
+    if "f" in labels:
+        plans_all = launcher.build_plans(
+            args["f"], form_config(None, cfg0, args["f"]), params, rng,
+            log=lambda msg: log("    " + msg))
+    plan_of = {"exact": None, "f": plans_all}
+
+    def served(label):
+        """A form's served config and tables."""
+        pl = plan_of.get(label, plans)
+        tabs = (None if pl is None else
+                launcher.serving_tables(args[label], pl, dev, log=quiet))
+        return form_config(pl, cfg0, args[label]), tabs
+
+    L, sites_a = cfg0.n_layers, len(plans.sites)
+    steps = 1 + NEW                      # the prefill and NEW replays
+    per_layer_f = 8   # expert, attn_exp, norm_rsqrt x 2, rope_table x 4
+    forms = {   # the kernels a form must launch, and how often
+        "exact": ([], {k: 0 for k in MOE_LUT}),
+        "a": (["lut_act_stacked"], {"lut_act_stacked": steps * L * sites_a}),
+        "b": (["lut_act"], {"lut_act": steps * L * sites_a}),
+        # the shared MLP through K3, the expert site out of the super-slab
+        "d": (["fused_matmul_lut", "lut_act_multi"],
+              {"fused_matmul_lut": steps * L, "lut_act_multi": steps * L}),
+        "f": (["fused_matmul_lut", "lut_act_multi"],
+              {"fused_matmul_lut": steps * L,
+               "lut_act_multi": steps * L * per_layer_f}),
+        # one prefill, T replays into the int8 cache, NEW decode replays
+        "k": (["lut_act_stacked"],
+              {"lut_act_stacked": (1 + T + NEW) * L * sites_a}),
+    }
+    tag = "ds" if m.n_shared else "q3m"
+    out["forms"] = {}
+    for label in labels:
+        uses, want = forms[label]
+        ref = MOE_REFS[label]
+        log(f"[15] {stamp()}")
+        res = serve_form(launcher, dev, f"{tag} {label}", args[label], cfg0,
+                         params, batch, plan_of.get(label, plans), uses,
+                         results, totals, ref=ref if ref in (None, "gather")
+                         else f"{tag} {ref}", want=want)
+        out["forms"][label] = {k: v for k, v in res.items()
+                               if k != "tokens"}
+    # the served K1 / K2 / K4 calls at the moe shapes
+    out["lut_calls"] = []
+    for label in [l for l in ("a", "b", "f") if l in labels]:
+        fcfg, tabs = served(label)
+        calls = served_lut_calls(launcher, params, fcfg, batch, tabs)
+        log(f"[15] form ({tag} {label}): {len(calls)} served K1/K2/K4 calls "
+            f"of one prefill and one decode step equal their plain "
+            f"versions bit for bit (K4 also K1 per site)")
+        out["lut_calls"] += moe_timings(calls, f"{tag} {label}")
+        del calls
+    # K1 reads the expert gate view in place: one launch, no copy
+    for t in out["lut_calls"]:
+        if t["kernel"] == "lut_act_stacked" and (
+                t["launches_a_call"], t["copies"]) != (1, 0):
+            raise AssertionError(
+                f"K1 at {t['shape']} ({t['layout']}): {t['launches_a_call']}"
+                f" launches a call and the PyTorch ops {t['torch_ops']}, not "
+                f"one launch and no copy")
+    drops = {}
+    for label in ("exact", "a"):
+        fcfg, tabs = served(label)
+        drops[label] = prefill_drops(launcher, params, fcfg, batch, tabs)
+    out["capacity"] = {"prefill": moe_capacity(B * T, m),
+                       "decode": moe_capacity(B, m)}
+    out["prefill_dropped"] = drops
+    log(f"[15] {tag}: capacity {out['capacity']['prefill']} slots an expert "
+        f"at prefill ({B * T} tokens x top-{m.top_k} over {m.n_experts}), "
+        f"{out['capacity']['decode']} at decode; prefill assignments "
+        f"dropped by capacity: {drops} of {B * T * m.top_k * L}")
+    if m.n_shared and "d" in labels:
+        out["shared_k3"] = check_shared_k3(dev, params, served("d")[1], gen)
+    out["steps"] = {}
+    for label in ("exact", "a"):
+        fcfg, tabs = served(label)
+        out["steps"][label] = profile_decode_step(
+            launcher, f"{tag} {label}", fcfg, params, batch, tabs, tag="15")
+    logits, _ = launcher.prefill(params, cfg0, batch, max_seq=T + 1)
+    if logits.shape != (B, 1, cfg0.vocab_size) or not torch.isfinite(
+            logits.float()).all():
+        raise AssertionError(f"{arch}: bad logits {tuple(logits.shape)}")
+    out["peak"] = torch.cuda.max_memory_allocated(dev)
+    log(f"[15] {tag}: parameters {out['param_bytes']} bytes, peak allocated "
+        f"{out['peak_after_params']} after the parameters, "
+        f"{out['peak']} over the phase")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.parse_args()
@@ -1743,13 +2297,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     import numpy as np
 
-    from repro_torch.kernels import (
-        build,
-        launch_counts,
-        ops,
-        reset_launch_counts,
-    )
-    from repro_torch.kernels.fused_matmul_lut import fused_matmul_lut_plain
+    from repro_torch.kernels import build, launch_counts, ops
     from repro_torch.kernels.lut_act import (
         lut_act_multi_plain,
         lut_act_plain,
@@ -1757,7 +2305,6 @@ def main() -> int:
     )
     from repro_torch.kernels.wkv import wkv_chunked_plain
     from repro_torch.launch import serve as launcher
-    from repro_torch.serve import CapturedStep
     from repro_torch.nn import ssm as ssm_mod
     from repro_torch.nn.lut_act import build_lut_activation
     from repro_torch.serve import verify_backend_equivalence
@@ -2211,59 +2758,25 @@ def main() -> int:
              "max_abs_err": max_err["fused_matmul_lut"],
              "mismatch_share_vs_plain": k3_mismatch,
              "mismatch_share_vs_plain_nongated": k3_ng_share}
-    K, N = cfg.d_model, 2 * cfg.d_ff
+    K = cfg.d_model
     for shape_name, m in (("decode", B), ("prefill", B * T)):
         x = torch.randn(m, K, generator=gen, device=dev).to(torch.bfloat16)
-        ws = [params.blocks["w_in"][i] for i in range(L)]   # 28 layers:
-        it = iter(range(10 ** 9))                           # L2-cold weights
-        kfn = lambda: ops.fused_matmul_lut(x, ws[next(it) % L],
-                                           ftab(L // 2), gated=True)
-        pfn = lambda: fused_matmul_lut_plain(x, ws[next(it) % L],
-                                             ftab(L // 2), gated=True)
-        mfn = lambda: torch.matmul(x, ws[next(it) % L])
-
-        def lfn():
-            # the unfused library yardstick: cuBLAS GEMM, then K1 and the
-            # gated product (form (a)'s own path)
-            gate, up = torch.matmul(x, ws[next(it) % L]).chunk(2, dim=-1)
-            return ops.lut_act_stacked(gate, f_slice, L // 2) * up
-        bms, by = bound(2 * (m * K + K * N + m * N // 2) + slab_bytes,
-                        2 * m * K * N, PEAK_BF16_FLOPS)
-        t = {"ms": timed_ms(kfn), "graph_ms": graph_ms(kfn),
-             "plain_ms": timed_ms(pfn), "bound_ms": bms, "bound_by": by,
-             "library_ms": timed_ms(lfn), "library_graph_ms": graph_ms(lfn),
-             "matmul_only_ms": timed_ms(mfn),
-             "matmul_only_graph_ms": graph_ms(mfn)}
+        t = k3_times(x, params.blocks["w_in"], ftab(L // 2), f_slice, L // 2,
+                     gated=True)
         if shape_name == "decode":
-            entry.update(t, shape=[m, K, N])
+            entry.update(t)
         else:
-            entry["prefill"] = dict(t, shape=[m, K, N])
+            entry["prefill"] = t
     # rwkv6-3b's ffn site: non-gated, K 2560 x N 8960
     rws = rparams.blocks["w_ffn_k"]
-    RL, RK, RN = rws.shape
+    RL, RK = rws.shape[:2]
     r_slice = multi_site_stacked_entry(r_multi, "ffn")
-    r_slab = sum(int(r_slice["arrays"][c][0].numel()) * 4
-                 for c in r_slice["arrays"])
     rtab = {"multi_entry": r_multi, "site": "ffn", "layer": RL // 2}
     entry["ffn_nongated"] = {}
     for shape_name, m in (("decode", B), ("prefill", B * T)):
         x = torch.randn(m, RK, generator=gen, device=dev).to(torch.bfloat16)
-        it = iter(range(10 ** 9))
-        kfn = lambda: ops.fused_matmul_lut(x, rws[next(it) % RL], rtab,
-                                           gated=False)
-
-        def lfn():
-            return ops.lut_act_stacked(torch.matmul(x, rws[next(it) % RL]),
-                                       r_slice, RL // 2)
-        bms, by = bound(2 * (m * RK + RK * RN + m * RN) + r_slab,
-                        2 * m * RK * RN, PEAK_BF16_FLOPS)
-        entry["ffn_nongated"][shape_name] = {
-            "shape": [m, RK, RN], "ms": timed_ms(kfn, n=20),
-            "graph_ms": graph_ms(kfn, n=20), "bound_ms": bms,
-            "bound_by": by, "library_ms": timed_ms(lfn, n=20),
-            "library_graph_ms": graph_ms(lfn, n=20),
-            "plain_ms": timed_ms(lambda: fused_matmul_lut_plain(
-                x, rws[next(it) % RL], rtab, gated=False), n=20)}
+        entry["ffn_nongated"][shape_name] = k3_times(
+            x, rws, rtab, r_slice, RL // 2, gated=False, n=20)
     kernels.append(entry)
 
     # K4 at the shapes form (f) hands it, per site, in a prefill and a
@@ -2390,9 +2903,6 @@ def main() -> int:
     kernels += time_toolflow_kernels(dev, flow, errors)
 
     # ---- 12. where a decode step's time goes -------------------------------
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     log(f"[12] {stamp()}")
     r_tables_j = launcher.serving_tables(r_args_j, r_plans_all, dev,
                                          log=quiet)
@@ -2406,90 +2916,8 @@ def main() -> int:
             ("rwkv exact", rcfg0, rparams, rbatch, None),
             ("rwkv j", form_config(r_plans_all, rcfg0, r_args_j), rparams,
              rbatch, r_tables_j)):
-        logits, cache = launcher.prefill(sparams, scfg, sbatch,
-                                         max_seq=T + 2, lut_tables=stab)
-        tok = logits[:, -1].argmax(-1)[:, None]
-        launcher.decode_step(sparams, scfg, cache, tok, T, stab)
-        torch.cuda.synchronize()
-        reset_launch_counts()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            launcher.decode_step(sparams, scfg, cache, tok, T + 1, stab)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        step_launches = {k: v for k, v in launch_counts().items() if v}
-        kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-        busy_us = sum(e.time_range.elapsed_us() for e in kern)
-        by_name = {}
-        for e in kern:
-            by_name[e.name] = by_name.get(e.name, 0.0) + \
-                e.time_range.elapsed_us()
-        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-        copies = sum("copy" in e.name for e in kern)
-        steps[label] = {"wall_ms": wall * 1e3, "kernels": len(kern),
-                        "copy_kernels": copies,
-                        "device_busy_ms": busy_us / 1e3,
-                        "idle_share": (1 - busy_us / 1e6 / wall) if kern
-                        else None,
-                        "launches": step_launches,
-                        "top_kernels_us": top}
-        log(f"[12] decode step ({label}): wall {wall * 1e3:.2f} ms, "
-            f"{len(kern)} kernels ({copies} copies), device busy "
-            f"{busy_us / 1e3:.2f} ms"
-            + (f", idle share {steps[label]['idle_share']:.3f}" if kern
-               else " (profiler saw no device events: idle not measured)")
-            + f"; launches {step_launches}")
-        for name, us in top[:5]:
-            log(f"    {us:9.1f} us  {name[:90]}")
-        (OUT_DIR / f"profile_{label.replace(' ', '_')}.txt").write_text(
-            prof.key_averages().table(sort_by="cpu_time_total",
-                                      row_limit=40))
-        # the same step captured in a CUDA graph and replayed: one profiled
-        # replay (wall, kernels, busy, idle share) and the device time per
-        # replay from CUDA events over 20 replays
-        step = CapturedStep(sparams, scfg, stab)
-        step(cache, tok, T + 1)
-        torch.cuda.synchronize()
-        reset_launch_counts()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            step(cache, tok, T + 1)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        g_launches = {k: v for k, v in launch_counts().items() if v}
-        if g_launches != step_launches:
-            raise AssertionError(f"decode step ({label}): a replay counted "
-                                 f"{g_launches}, the eager step "
-                                 f"{step_launches}")
-        kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-        busy_us = sum(e.time_range.elapsed_us() for e in kern)
-        # the device's span of the replay: first kernel start to last end
-        span_us = (max(e.time_range.end for e in kern)
-                   - min(e.time_range.start for e in kern)) if kern else 0
-        replay_ms = timed_ms(lambda: step(cache, tok, T + 1), n=20,
-                             warmup=2, reps=3)
-        steps[label]["captured"] = {
-            "wall_ms": wall * 1e3, "kernels": len(kern),
-            "device_busy_ms": busy_us / 1e3,
-            "idle_share": (1 - busy_us / 1e6 / wall) if kern else None,
-            "device_span_ms": span_us / 1e3,
-            "span_idle_share": (1 - busy_us / span_us) if kern else None,
-            "replay_ms": replay_ms, "capture_s": step.capture_s}
-        c = steps[label]["captured"]
-        log(f"[12] captured step ({label}): wall {c['wall_ms']:.2f} ms, "
-            f"{len(kern)} kernels, device busy {busy_us / 1e3:.2f} ms"
-            + (f", idle share {c['idle_share']:.3f}; the device's span "
-               f"{span_us / 1e3:.2f} ms, idle {c['span_idle_share']:.3f} "
-               f"of it" if kern else
-               " (profiler saw no device events: idle not measured)")
-            + f"; {replay_ms:.3f} ms a replay back to back (CUDA events)"
-            + f"; capture {step.capture_s:.3f}s; launches as eager")
-        (OUT_DIR / f"profile_{label.replace(' ', '_')}_captured.txt"
-         ).write_text(prof.key_averages().table(sort_by="cuda_time_total",
-                                                row_limit=40))
-        del step
+        steps[label] = profile_decode_step(launcher, label, scfg, sparams,
+                                           sbatch, stab)
 
     # K1 reads the gate half in place: form (a) launches what the exact
     # activation does (one kernel for the activation, one for the product)
@@ -2505,9 +2933,40 @@ def main() -> int:
         raise AssertionError(f"form (f)'s decode step launched no K4: "
                              f"{steps['f']['launches']}")
 
+    # ---- 15. the moe family, after the others (their models freed first)
+    log(f"[15] {stamp()}")
+    del (params, rparams, sparams, s_params, cases, w_in, rws, st, stacks)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[15] after freeing the earlier models: "
+        f"{torch.cuda.memory_allocated(dev)} bytes allocated; the largest "
+        f"live storages (bytes, a tensor's shape): {largest_storages()}")
+    moe_totals = {k: 0 for k in launch_counts()}
+    moe = {}
+    for arch in MOE_FORMS:
+        moe[arch] = run_moe_model(launcher, dev, arch, moe_totals, results,
+                                  stamp)
+        gc.collect()
+        torch.cuda.empty_cache()
+    # the kernels' launches on the main path include phase 15's forms; the
+    # moe shapes join their entries
+    for k in kernels:
+        k["launches"] += moe_totals.get(k["name"], 0)
+        shapes = {f"{t['name']} {t['site']} {t['step']}": {
+            f: t[f] for f in t if f not in ("name", "kernel")}
+            for r in moe.values() for t in r["lut_calls"]
+            if t["kernel"] == k["name"]}
+        if shapes:
+            k["moe"] = shapes
+        if k["name"] == "fused_matmul_lut":
+            k["shared_expert"] = {
+                n: v for n, v in moe["deepseek-moe-16b"]["shared_k3"].items()
+                if n != "mismatch_share_vs_plain"}
+    log(f"[15] phase 15's launches: {moe_totals}")
+
     summary = {"card": smi, "seconds": time.perf_counter() - t_start,
                "exact": exact, "steps": steps, "logit_drift": drift,
-               "batcher": batcher,
+               "batcher": batcher, "moe": moe,
                "forms": {
                    f: {k: v for k, v in r.items() if k != "plans"}
                    for f, r in results.items()}, "kernels": kernels,
@@ -2519,7 +2978,10 @@ def main() -> int:
                    for m, f in flow["flows"].items()})}
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(summary, indent=1))
     log(f"done in {time.perf_counter() - t_start:.0f}s")
-    print(json.dumps({"kernels": kernels}), flush=True)
+    # four significant digits and no spaces keep this line short (about
+    # 21 KB); chip_smoke.json keeps every digit
+    print(json.dumps({"kernels": sig4(kernels)}, separators=(",", ":")),
+          flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -179,13 +179,16 @@ def capture_model(params, cfg, batches, *, w_in: int | None = None,
                   capture: ActivationCapture | None = None,
                   ) -> ActivationCapture:
     """Stream calibration batches through the exact (non-LUT) forward of
-    ``cfg``'s family (dense or ssm), capturing every LUT site's observed
-    input bins per layer (``L{i}/{site}`` keys, each binned over its
-    site's domain).  Batches go to the parameters' device."""
+    ``cfg``'s family (dense, moe or ssm), capturing every LUT site's
+    observed input bins per layer (``L{i}/{site}`` keys, each binned over
+    its site's domain; a moe layer's ``expert`` key sees every capacity
+    slot, empty ones included, as in the reference).  Batches go to the
+    parameters' device."""
     from repro_torch.nn.mlp import project_logits
     from repro_torch.nn.transformer import decoder_forward, rwkv_forward
 
     forwards = {"dense": lambda toks: decoder_forward(params, cfg, toks),
+                "moe": lambda toks: decoder_forward(params, cfg, toks),
                 "ssm": lambda toks: rwkv_forward(params, cfg, toks)}
     if cfg.family not in forwards:
         raise NotImplementedError(

@@ -1,9 +1,10 @@
 """Architecture registry of the PyTorch port (own copy of the reference's
 ``configs`` package for the architectures it serves).
 
-The port serves ``qwen3-0.6b`` (dense decoder-only) and ``rwkv6-3b``
-(ssm); the reference's other architectures are listed by name so that
-asking for one fails with a clear message instead of a ``KeyError``.
+The port serves ``qwen3-0.6b`` (dense decoder-only), ``rwkv6-3b`` (ssm)
+and ``deepseek-moe-16b`` and ``qwen3-moe-30b-a3b`` (moe); the
+reference's six other architectures are listed by name so that asking
+for one fails with a clear message instead of a ``KeyError``.
 """
 from __future__ import annotations
 
@@ -11,10 +12,13 @@ import dataclasses
 
 from .base import ArchConfig, MoEConfig
 
-from . import qwen3_0_6b, rwkv6_3b
+from . import deepseek_moe_16b, qwen3_0_6b, qwen3_moe_30b_a3b, rwkv6_3b
 
 REGISTRY: dict[str, ArchConfig] = {
-    m.CONFIG.name: m.CONFIG for m in (qwen3_0_6b, rwkv6_3b)}
+    m.CONFIG.name: m.CONFIG
+    for m in (qwen3_0_6b, deepseek_moe_16b, qwen3_moe_30b_a3b, rwkv6_3b)}
+
+PORTED_FAMILIES = ("dense", "moe", "ssm")
 
 # Architectures of the reference the port does not serve yet, with their
 # family (ROADMAP queue A, item 5).
@@ -22,8 +26,6 @@ NOT_PORTED: dict[str, str] = {
     "nemotron-4-15b": "dense",
     "phi4-mini-3.8b": "dense",
     "deepseek-67b": "dense",
-    "deepseek-moe-16b": "moe",
-    "qwen3-moe-30b-a3b": "moe",
     "phi-3-vision-4.2b": "vlm",
     "recurrentgemma-9b": "hybrid",
     "whisper-small": "encdec",
@@ -36,18 +38,21 @@ def get_config(name: str) -> ArchConfig:
     if name in NOT_PORTED:
         raise NotImplementedError(
             f"arch {name!r} (family {NOT_PORTED[name]!r}) is not yet ported "
-            f"to repro_torch: it serves {ARCH_NAMES} (ROADMAP queue A, "
-            f"item 5)")
+            f"to repro_torch: it serves {ARCH_NAMES}; the six still "
+            f"waiting are {sorted(NOT_PORTED)} (ROADMAP queue A, item 5)")
     if name not in REGISTRY:
         raise KeyError(f"unknown arch {name!r}; have {sorted(REGISTRY)}")
     return REGISTRY[name]
 
 
 def smoke_config(cfg: ArchConfig) -> ArchConfig:
-    """Reduced same-family variant (2 layers, d_model 64) for CPU tests."""
-    if cfg.family not in ("dense", "ssm"):
+    """Reduced same-family variant (2 layers, d_model 64; moe: 8 experts
+    top-2 at d_expert 32) for CPU tests."""
+    if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
-            f"smoke_config: family {cfg.family!r} is not yet ported")
+            f"smoke_config: family {cfg.family!r} is not yet ported; the "
+            f"six architectures still waiting are {sorted(NOT_PORTED)} "
+            f"(ROADMAP queue A, item 5)")
     kw = dict(
         name=cfg.name + "-smoke",
         n_layers=2,
@@ -68,6 +73,13 @@ def smoke_config(cfg: ArchConfig) -> ArchConfig:
     if cfg.family == "ssm":
         kw["n_heads"] = 4
         kw["n_kv_heads"] = 4
+    if cfg.moe:
+        kw["moe"] = MoEConfig(
+            n_experts=8, top_k=2, d_expert=32,
+            n_shared=min(cfg.moe.n_shared, 1),
+            # effectively dropless at smoke scale so decode == forward
+            capacity_factor=8.0,
+        )
     return dataclasses.replace(cfg, **kw)
 
 

@@ -3,8 +3,9 @@ ReducedLUT-compressed activations (counterpart of the reference's
 ``launch/serve.py`` on one device).
 
   PYTHONPATH=src python -m repro_torch.launch.serve \\
-      --arch qwen3-0.6b|rwkv6-3b --full --batch 4 --prompt-len 64 \\
-      --new-tokens 16 --lut-act --calib-steps 2 [--lut-sites act|all] \\
+      --arch qwen3-0.6b|deepseek-moe-16b|qwen3-moe-30b-a3b|rwkv6-3b \\
+      --full --batch 4 --prompt-len 64 --new-tokens 16 --lut-act \\
+      --calib-steps 2 [--lut-sites act|all] \\
       [--logit-softcap S] [--plan-exec stacked|unrolled] [--lut-fuse] \\
       [--lut-backend cuda|gather] [--kv-int8] [--calib-path P] \\
       [--save-plan P] [--tuned-plan P] [--device cuda|cpu]
@@ -25,8 +26,8 @@ hand-written kernels, ``gather`` through the plain PyTorch form;
 ``--lut-fuse`` applies the LUT in the up-projection's GEMM epilogue
 (kernel K3 on ``cuda``) and serves the other per-layer sites out of one
 multi-site super-slab (kernel K4).  ``--kv-int8`` replays the prompt
-into an int8 KV cache through the decode step (the dense family; it does
-nothing for the ssm family, as in the reference).
+into an int8 KV cache through the decode step (the dense and moe
+families; it does nothing for the ssm family, as in the reference).
 
 On the card the decode step is captured in a CUDA graph once, before
 the decode clock starts (its seconds are logged on their own line), and
@@ -71,6 +72,10 @@ from repro_torch.tune import (
     save_tuned_plan,
     tuned_plan_from_serving,
 )
+
+
+# the families whose decode state is a KV cache that --kv-int8 quantizes
+KV_INT8_FAMILIES = ("dense", "moe")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -118,9 +123,9 @@ def build_parser() -> argparse.ArgumentParser:
                     help="freeze the built serving plans into a tuned-plan "
                          "artifact at PATH")
     ap.add_argument("--kv-int8", action="store_true",
-                    help="int8 KV cache (dense family): the prompt is "
-                         "replayed into it through the decode step, which "
-                         "writes quantized entries")
+                    help="int8 KV cache (dense and moe families): the "
+                         "prompt is replayed into it through the decode "
+                         "step, which writes quantized entries")
     ap.add_argument("--calib-min-count", type=int, default=1,
                     help="min observations for a bin to stay care")
     ap.add_argument("--calib-smoothing", type=int, default=0,
@@ -166,6 +171,17 @@ def setup(args):
     tokens = model_batch(cfg, rng, args.batch, args.prompt_len)["tokens"]
     batch = {"tokens": torch.as_tensor(tokens, device=dev).long()}
     return cfg, params, batch, rng
+
+
+def param_summary(params) -> str:
+    """The parameters' count and bytes and, on the card, the peak memory
+    the process has allocated so far."""
+    n = sum(p.numel() for p in params.parameters())
+    nbytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    dev = params.embed.device
+    peak = (f", peak allocated {torch.cuda.max_memory_allocated(dev)} bytes"
+            if dev.type == "cuda" else "")
+    return f"parameters: {n} ({nbytes} bytes){peak}"
 
 
 def _exists(path: str) -> bool:
@@ -266,7 +282,7 @@ def serve(args, cfg, params, batch, lut_tables, log=print, *,
     else:
         step = decode_fn(params, cfg, lut_tables)
     out = {"prefill_s": prefill_s, "capture_s": None, "replay_s": None}
-    int8 = args.kv_int8 and cfg.family == "dense"
+    int8 = args.kv_int8 and cfg.family in KV_INT8_FAMILIES
     if int8:
         # the decode write path quantizes: replay the prompt into an int8
         # cache through the step the decode then runs
@@ -309,6 +325,7 @@ def main(argv=None) -> dict:
         cfg, params, batch, rng = setup(args)
     except (RuntimeError, ValueError) as e:
         ap.error(str(e))
+    print(f"{cfg.name}: {param_summary(params)}")
     lut_tables = plans = None
     if args.tuned_plan:
         plans = load_plan(ap, args)

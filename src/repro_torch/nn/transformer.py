@@ -1,5 +1,5 @@
-"""Dense decoder-only model and RWKV6 (PyTorch port of the dense and ssm
-paths of the reference's ``nn/transformer.py``).
+"""Decoder-only model (dense and moe) and RWKV6 (PyTorch port of the
+dense, moe and ssm paths of the reference's ``nn/transformer.py``).
 
 :class:`DecoderParams` and :class:`RWKVParams` hold the parameters under
 the reference's names and stacked ``(L, …)`` layouts (``embed``,
@@ -23,6 +23,7 @@ from repro_torch.device import resolve_device
 from .attention import decode_attend, mha
 from .layers import embed_lookup, is_gated, rms_norm
 from .mlp import mlp_block, site_act
+from .moe import moe_block
 from .rope import apply_rope
 from .ssm import rwkv_channel_mix, rwkv_time_mix
 
@@ -60,7 +61,7 @@ def _rwkv_defs(cfg: ArchConfig) -> dict:
 
 def param_defs(cfg: ArchConfig) -> dict:
     """Names and shapes of the model's parameters (the reference's
-    ``param_defs`` for the dense and ssm families)."""
+    ``param_defs`` for the dense, moe and ssm families)."""
     L, d = cfg.n_layers, cfg.d_model
     head = {
         "embed": ParamDef((cfg.vocab_size, d)),
@@ -69,11 +70,10 @@ def param_defs(cfg: ArchConfig) -> dict:
     }
     if cfg.family == "ssm":
         return dict(head, blocks=_rwkv_defs(cfg))
-    if cfg.family != "dense" or cfg.moe:
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
             f"param_defs: family {cfg.family!r} is not yet ported "
             f"(ROADMAP queue A, item 5)")
-    ff_in = 2 * cfg.d_ff if is_gated(cfg.activation) else cfg.d_ff
     blocks = {
         "wq": ParamDef((L, d, cfg.q_dim)),
         "wk": ParamDef((L, d, cfg.kv_dim)),
@@ -85,6 +85,16 @@ def param_defs(cfg: ArchConfig) -> dict:
         blocks["k_norm"] = ParamDef((L, cfg.d_head), 0.0)
     blocks["ln1"] = ParamDef((L, d), 0.0)
     blocks["ln2"] = ParamDef((L, d), 0.0)
+    if cfg.moe:
+        m = cfg.moe
+        blocks["router"] = ParamDef((L, d, m.n_experts))
+        blocks["moe_w_in"] = ParamDef((L, m.n_experts, d, 2 * m.d_expert))
+        blocks["moe_w_out"] = ParamDef((L, m.n_experts, m.d_expert, d))
+        if m.n_shared:
+            blocks["sh_w_in"] = ParamDef((L, d, 2 * m.d_expert * m.n_shared))
+            blocks["sh_w_out"] = ParamDef((L, m.d_expert * m.n_shared, d))
+        return dict(head, blocks=blocks)
+    ff_in = 2 * cfg.d_ff if is_gated(cfg.activation) else cfg.d_ff
     blocks["w_in"] = ParamDef((L, d, ff_in))
     blocks["w_out"] = ParamDef((L, cfg.d_ff, d))
     return dict(head, blocks=blocks)
@@ -120,7 +130,7 @@ class _StackedParams(nn.Module):
 
 
 class DecoderParams(_StackedParams):
-    """Dense decoder parameters."""
+    """Decoder parameters (the dense and moe families)."""
 
 
 class RWKVParams(_StackedParams):
@@ -136,30 +146,37 @@ def init_params(cfg: ArchConfig, seed: int = 0, device=None
     """Random parameters from ``seed`` with the reference's distributions:
     zeros for scale-0 vectors, ``N(0, 0.02 * scale)`` for vectors and
     narrow matrices, and a normal truncated at +-2 scaled by
-    ``scale / sqrt(fan_in)`` otherwise.  The bits differ from the
-    reference's (another generator); :mod:`repro_torch.bridge` copies
-    reference parameters in exactly."""
+    ``scale / sqrt(fan_in)`` otherwise (the distribution is chosen by the
+    whole stack's shape, as the reference chooses it).  A ``(L, …)``
+    stack is drawn one layer at a time, so the float32 draw never holds
+    more than one layer (deepseek-moe-16b's ``moe_w_in`` whole would take
+    41 GB).  The bits differ from the reference's (another generator);
+    :mod:`repro_torch.bridge` copies reference parameters in exactly."""
     params = params_class(cfg)(cfg, device)
     dev = params.embed.device
     gen = torch.Generator(device=dev).manual_seed(seed)
     defs = param_defs(cfg)
-    flat = [(n, d) for n, d in defs.items() if n != "blocks"]
-    flat += [(f"blocks.{n}", d) for n, d in defs["blocks"].items()]
+    flat = [(n, d, False) for n, d in defs.items() if n != "blocks"]
+    flat += [(f"blocks.{n}", d, True) for n, d in defs["blocks"].items()]
     named = dict(params.named_parameters())
     with torch.no_grad():
-        for name, d in flat:
+        for name, d, stacked in flat:
             t = named[name]
             if d.scale == 0.0:
                 t.zero_()
                 continue
-            v = torch.empty(d.shape, dtype=torch.float32, device=dev)
-            if len(d.shape) == 1 or (d.shape[-1] <= 64 and len(d.shape) == 2):
-                v.normal_(0.0, 0.02 * d.scale, generator=gen)
-            else:
-                fan_in = d.shape[-2]
-                nn.init.trunc_normal_(v, 0.0, 1.0, -2.0, 2.0, generator=gen)
-                v.mul_(d.scale / math.sqrt(fan_in))
-            t.copy_(v)
+            narrow = len(d.shape) == 1 or (d.shape[-1] <= 64
+                                           and len(d.shape) == 2)
+            for part in (t.unbind(0) if stacked else (t,)):
+                v = torch.empty(part.shape, dtype=torch.float32, device=dev)
+                if narrow:
+                    v.normal_(0.0, 0.02 * d.scale, generator=gen)
+                else:
+                    nn.init.trunc_normal_(v, 0.0, 1.0, -2.0, 2.0,
+                                          generator=gen)
+                    v.mul_(d.scale / math.sqrt(d.shape[-2]))
+                part.copy_(v)
+                del v   # before the next layer's draw is allocated
     return params
 
 
@@ -246,8 +263,26 @@ def _decode_attn(p, x, cfg, k_cache, v_cache, pos, *, scales=None,
 
 
 # =========================================================================
-# decoder-only forward (dense)
+# decoder-only forward (dense, moe)
 # =========================================================================
+def feed_forward(p, x, cfg, lut_tables, layer: int | None = None):
+    """A decoder layer's feed-forward part on its normed input: the MLP
+    (dense), or the routed experts plus the shared experts' MLP (moe; the
+    router's auxiliary loss is discarded, as serving does).  Prefill,
+    decode and replay all go through here."""
+    if not cfg.moe:
+        return mlp_block(p, x, cfg, lut_tables, layer=layer)
+    shared = None
+    if cfg.moe.n_shared:
+        shared = lambda z: mlp_block(
+            {"w_in": p["sh_w_in"], "w_out": p["sh_w_out"]}, z, cfg,
+            lut_tables, layer=layer)
+    y, _ = moe_block({"router": p["router"], "w_in": p["moe_w_in"],
+                      "w_out": p["moe_w_out"]}, x, cfg, shared_mlp=shared,
+                     lut_tables=lut_tables, layer=layer)
+    return y
+
+
 def _decoder_block(p, x, cfg, lut_tables, *, pos_offset: int = 0,
                    layer: int | None = None):
     rs = site_act(cfg, lut_tables, sites.NORM_RSQRT, layer)
@@ -256,7 +291,7 @@ def _decoder_block(p, x, cfg, lut_tables, *, pos_offset: int = 0,
                         layer=layer)
     x = x + h
     hin = rms_norm(x, p["ln2"], cfg.norm_eps, rs)
-    x = x + mlp_block(p, hin, cfg, lut_tables, layer=layer)
+    x = x + feed_forward(p, hin, cfg, lut_tables, layer=layer)
     return x, kv
 
 

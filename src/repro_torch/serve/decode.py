@@ -1,5 +1,5 @@
-"""Prefill and single-token decode (PyTorch port of the dense and ssm
-paths of the reference's ``serve/decode.py``).
+"""Prefill and single-token decode (PyTorch port of the dense, moe and
+ssm paths of the reference's ``serve/decode.py``).
 
 ``prefill(params, cfg, batch)`` -> (last-token logits, decode state)
 ``decode_step(params, cfg, cache, tokens, pos)`` -> (logits, cache)
@@ -21,10 +21,11 @@ import torch
 from repro_torch import sites
 from repro_torch.configs.base import ArchConfig
 from repro_torch.nn.layers import embed_lookup, rms_norm
-from repro_torch.nn.mlp import mlp_block, project_logits, site_act
+from repro_torch.nn.mlp import project_logits, site_act
 from repro_torch.nn.transformer import (
     _decode_attn,
     decoder_forward,
+    feed_forward,
     rwkv_forward,
 )
 
@@ -68,7 +69,7 @@ def decoder_decode_step(params, cfg: ArchConfig, cache: dict,
                              cfg, cache["k"][i], cache["v"][i], pos,
                              scales=scales, lut_tables=lut_tables, layer=i)
         hin = rms_norm(x, p["ln2"], cfg.norm_eps, rs)
-        x = x + mlp_block(p, hin, cfg, lut_tables, layer=i)
+        x = x + feed_forward(p, hin, cfg, lut_tables, layer=i)
     x = rms_norm(x, params.final_norm, cfg.norm_eps)
     return project_logits(x, params.lm_head, cfg, lut_tables), cache
 
@@ -97,8 +98,10 @@ def rwkv_decode_step(params, cfg: ArchConfig, cache: dict,
     return project_logits(x, params.lm_head, cfg, lut_tables), cache
 
 
-PREFILL_FNS = {"dense": decoder_prefill, "ssm": rwkv_prefill}
-DECODE_FNS = {"dense": decoder_decode_step, "ssm": rwkv_decode_step}
+PREFILL_FNS = {"dense": decoder_prefill, "moe": decoder_prefill,
+               "ssm": rwkv_prefill}
+DECODE_FNS = {"dense": decoder_decode_step, "moe": decoder_decode_step,
+              "ssm": rwkv_decode_step}
 
 
 def _family_fn(table: dict, cfg: ArchConfig, what: str):

@@ -1,6 +1,6 @@
 """Decode-state construction (PyTorch port of the reference's
-``serve/kvcache.py``: the dense family's bf16 and int8 KV caches and
-the ssm family's recurrent state)."""
+``serve/kvcache.py``: the decoder families' (dense, moe) bf16 and int8
+KV caches and the ssm family's recurrent state)."""
 from __future__ import annotations
 
 import torch
@@ -13,7 +13,7 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
                dtype: torch.dtype = torch.bfloat16, device=None,
                kv_dtype: str | None = None) -> dict:
     """Zero-initialized decode state, ``dtype`` bf16 by default as the
-    reference's.  Dense: ``{"k", "v"}``, layout ``(L, B, Tmax, KV, Dh)``;
+    reference's.  Dense and moe: ``{"k", "v"}``, layout ``(L, B, Tmax, KV, Dh)``;
     with ``kv_dtype="int8"`` (the reference's quantized KV cache) ``k`` and
     ``v`` are int8 and ``{"k_scale", "v_scale"}`` ``(L, B, Tmax, KV)``
     float32 hold their per-(position, head) scales.  Ssm (RWKV6):
@@ -33,7 +33,7 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
             "wkv": torch.zeros((L, batch, d // n, n, n),
                                dtype=torch.float32, device=dev),
         }
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
             f"init_cache: family {cfg.family!r} is not yet ported "
             f"(ROADMAP queue A, item 5)")

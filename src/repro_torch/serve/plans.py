@@ -53,8 +53,9 @@ from repro_torch.nn.lut_act import (
 DEFAULT_COMPRESS = dict(exiguity=250, m_candidates=(8, 16, 32, 64),
                         lb_candidates=(0, 1, 2, 3))
 
-# Families whose layer loops serve per-layer tables (the port: dense, ssm).
-PER_LAYER_FAMILIES = ("dense", "ssm")
+# Families whose layer loops serve per-layer tables (the port: dense, moe,
+# ssm).
+PER_LAYER_FAMILIES = ("dense", "moe", "ssm")
 
 BACKENDS = ("gather", "cuda")
 
