@@ -132,6 +132,29 @@ Phases (any failure exits non-zero; nothing is caught):
      shape held against its own GEMM + K1 and timed beside cuBLAS + K1;
      the prefill's assignments dropped by capacity; parameter bytes, peak
      memory, and one eager and one captured decode step profiled per model
+     (exact and (a));
+  16. (run after phase 15, once the moe models are freed) the vlm and
+     hybrid families at full width, random weights from seed 0, bf16, the
+     same 4 x 64 x 16: ``phi-3-vision-4.2b`` (32 layers, d_model 3072, 32
+     heads x 96, d_ff 8192 swiglu, 256 patch embeddings from
+     ``model_batch`` before each prompt, so decoding starts at position
+     256 + 64) in forms exact, (a), (b), (e) ``--lut-sites all`` (every
+     site through K1) and (f) ``--lut-sites all --lut-fuse`` (K3 + K4),
+     then ``recurrentgemma-9b`` (38 layers: 12 groups of (rec, rec, attn)
+     and a 2-layer rec tail, d_model = d_rnn 4096, 16 heads x 256 with one
+     KV head, window 2048, d_ff 12288 geglu) in forms exact, (a), (b), (d)
+     ``--lut-fuse`` (K3 with the gelu table) and (f); each form captured
+     and eager as in phase 5 (the hybrid's nested state compared tensor by
+     tensor), (a), (b) and (e) token-identical to the gather backend, every
+     form launching the LUT kernels as often as its sites imply; one
+     recurrentgemma request of 2048 + 64 prompt tokens in form (a), the
+     ring wrapped, captured and eager equal; every K1 / K2 / K4 call of a
+     prefill and a decode step in forms (a), (b) and (f) held bit for bit
+     against its plain version (K4 also against K1 per site) and timed
+     from a CUDA graph beside its bound; K1 on the gated MLP's gate view
+     one kernel and no copy; K3 at each model's MLP shape held against its
+     own GEMM + K1 and timed beside cuBLAS + K1; parameter bytes, peak
+     memory, and one eager and one captured decode step profiled per model
      (exact and (a)).
 The last lines are the kernel JSON, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.  Long logs go to ``chiprun_out/`` (every
@@ -465,17 +488,18 @@ def profile_decode_step(launcher, label, scfg, sparams, sbatch, stab,
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.serve import CapturedStep
 
+    start = launcher.decode_start(scfg, sbatch)
     logits, cache = launcher.prefill(sparams, scfg, sbatch,
-                                     max_seq=T + 2, lut_tables=stab)
+                                     max_seq=start + 2, lut_tables=stab)
     tok = logits[:, -1].argmax(-1)[:, None]
-    launcher.decode_step(sparams, scfg, cache, tok, T, stab)
+    launcher.decode_step(sparams, scfg, cache, tok, start, stab)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()   # leave the tracer device memory
     reset_launch_counts()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        launcher.decode_step(sparams, scfg, cache, tok, T + 1, stab)
+        launcher.decode_step(sparams, scfg, cache, tok, start + 1, stab)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     step_launches = {k: v for k, v in launch_counts().items() if v}
@@ -506,13 +530,13 @@ def profile_decode_step(launcher, label, scfg, sparams, sbatch, stab,
     # replay (wall, kernels, busy, idle share) and the device time per
     # replay from CUDA events over 20 replays
     step = CapturedStep(sparams, scfg, stab)
-    step(cache, tok, T + 1)
+    step(cache, tok, start + 1)
     torch.cuda.synchronize()
     reset_launch_counts()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        step(cache, tok, T + 1)
+        step(cache, tok, start + 1)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     g_launches = {k: v for k, v in launch_counts().items() if v}
@@ -525,7 +549,7 @@ def profile_decode_step(launcher, label, scfg, sparams, sbatch, stab,
     # the device's span of the replay: first kernel start to last end
     span_us = (max(e.time_range.end for e in kern)
                - min(e.time_range.start for e in kern)) if kern else 0
-    replay_ms = timed_ms(lambda: step(cache, tok, T + 1), n=20,
+    replay_ms = timed_ms(lambda: step(cache, tok, start + 1), n=20,
                          warmup=2, reps=3)
     out["captured"] = {
         "wall_ms": wall * 1e3, "kernels": len(kern),
@@ -1494,20 +1518,26 @@ def check_captured(cfg, params, batch, tables, kv_int8=False) -> float:
     replayed step's logits and the final caches must be bit-identical to
     eager's, and the wrappers' launch counts over the replays must be the
     eager steps'.  ``kv_int8``: the cache is int8, filled by an eager
-    replay of the prompt.  Returns the capture's seconds."""
+    replay of the prompt.  Decoding starts at ``decode_start`` (after a
+    vlm's patches); a nested state (hybrid) is compared tensor by tensor.
+    Returns the capture's seconds."""
     import torch
 
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.serve import (
         CapturedStep,
+        clone_state,
+        decode_start,
         decode_step,
         init_cache,
         prefill,
         prefill_replay,
+        state_leaves,
     )
 
     toks = batch["tokens"]
-    b, t = toks.shape
+    b = toks.shape[0]
+    t = decode_start(cfg, batch)
     eager = lambda c, tk, pos: decode_step(params, cfg, c, tk, pos, tables)
     logits, cache = prefill(params, cfg, batch, max_seq=t + NEW,
                             lut_tables=tables)
@@ -1516,7 +1546,7 @@ def check_captured(cfg, params, batch, tables, kv_int8=False) -> float:
                            kv_dtype="int8")
         logits, cache = prefill_replay(params, cfg, cache, toks, 0, tables,
                                        step=eager)
-    graph_cache = {k: v.clone() for k, v in cache.items()}
+    graph_cache = clone_state(cache)
     step = CapturedStep(params, cfg, tables)
     step.capture(graph_cache, toks[:, :1])
     tok = logits[:, -1].argmax(-1)[:, None]
@@ -1538,8 +1568,9 @@ def check_captured(cfg, params, batch, tables, kv_int8=False) -> float:
                 f"({int((le != out).sum())} of {le.numel()} elements, max "
                 f"|diff| {float((le.float() - out.float()).abs().max())})")
         tok = le[:, -1].argmax(-1)[:, None]
-    for k in cache:
-        if not bits_equal(torch, cache[k], graph_cache[k]):
+    graph_leaves = dict(state_leaves(graph_cache))
+    for k, v in state_leaves(cache):
+        if not bits_equal(torch, v, graph_leaves[k]):
             raise AssertionError(f"the captured steps' cache {k!r} differs "
                                  f"from eager's")
     return step.capture_s
@@ -1942,13 +1973,16 @@ def served_lut_calls(launcher, params, cfg, batch, tables) -> list:
                                    "layer": layer}))
         return out, call
 
+    start = launcher.decode_start(cfg, batch)
     ops.launch_lut, ops.k4_call = k12, k4
     try:
-        logits, cache = launcher.prefill(params, cfg, batch, max_seq=T + NEW,
+        logits, cache = launcher.prefill(params, cfg, batch,
+                                         max_seq=start + NEW,
                                          lut_tables=tables)
         step[0] = "decode"
         launcher.decode_step(params, cfg, cache,
-                             logits[:, -1].argmax(-1)[:, None], T, tables)
+                             logits[:, -1].argmax(-1)[:, None], start,
+                             tables)
         torch.cuda.synchronize()
     finally:
         ops.launch_lut, ops.k4_call = orig_k12, orig_k4
@@ -2018,7 +2052,7 @@ def lut_call_timing(c, name) -> dict:
     return t
 
 
-def moe_timings(calls, label) -> list:
+def served_timings(calls, label, phase="15") -> list:
     """Time each distinct (kernel, site, step, shape) the served calls
     show, at the middle one of its layers."""
     groups = {}
@@ -2031,7 +2065,7 @@ def moe_timings(calls, label) -> list:
         t = lut_call_timing(cs[len(cs) // 2], label)
         t["calls"] = len(cs)
         out.append(t)
-        log(f"[15] {label} {t['kernel']} {t['site']} {t['step']} "
+        log(f"[{phase}] {label} {t['kernel']} {t['site']} {t['step']} "
             f"{t['shape']} ({t['layout']}, {t['calls']} calls): "
             f"{t['graph_ms'] * 1e3:.2f} us a launch from a graph "
             f"({t['ms'] * 1e3:.2f} host-driven), bound "
@@ -2041,6 +2075,18 @@ def moe_timings(calls, label) -> list:
             + (f" (on a contiguous input {t['contiguous_graph_ms'] * 1e3:.2f}"
                f" us from a graph)" if "contiguous_ms" in t else ""))
     return out
+
+
+def k1_in_place(timings) -> None:
+    """Every timed K1 call (a gate view read in place) launched one kernel
+    and ran no PyTorch copy."""
+    for t in timings:
+        if t["kernel"] == "lut_act_stacked" and (
+                t["launches_a_call"], t["copies"]) != (1, 0):
+            raise AssertionError(
+                f"K1 at {t['shape']} ({t['layout']}): {t['launches_a_call']}"
+                f" launches a call and the PyTorch ops {t['torch_ops']}, not "
+                f"one launch and no copy")
 
 
 def prefill_drops(launcher, params, cfg, batch, tables) -> int:
@@ -2242,16 +2288,10 @@ def run_moe_model(launcher, dev, arch, totals, results, stamp) -> dict:
         log(f"[15] form ({tag} {label}): {len(calls)} served K1/K2/K4 calls "
             f"of one prefill and one decode step equal their plain "
             f"versions bit for bit (K4 also K1 per site)")
-        out["lut_calls"] += moe_timings(calls, f"{tag} {label}")
+        out["lut_calls"] += served_timings(calls, f"{tag} {label}")
         del calls
     # K1 reads the expert gate view in place: one launch, no copy
-    for t in out["lut_calls"]:
-        if t["kernel"] == "lut_act_stacked" and (
-                t["launches_a_call"], t["copies"]) != (1, 0):
-            raise AssertionError(
-                f"K1 at {t['shape']} ({t['layout']}): {t['launches_a_call']}"
-                f" launches a call and the PyTorch ops {t['torch_ops']}, not "
-                f"one launch and no copy")
+    k1_in_place(out["lut_calls"])
     drops = {}
     for label in ("exact", "a"):
         fcfg, tabs = served(label)
@@ -2279,6 +2319,271 @@ def run_moe_model(launcher, dev, arch, totals, results, stamp) -> dict:
         f"{out['peak_after_params']} after the parameters, "
         f"{out['peak']} over the phase")
     return out
+
+# -------------------------------------------------------------------------
+# phase 16: the vlm and hybrid families at full width
+# -------------------------------------------------------------------------
+# the forms phase 16 serves each configuration in, and what each is held
+# against, as MOE_FORMS / MOE_REFS
+FAMILY_FORMS = {"phi-3-vision-4.2b": ("exact", "a", "b", "e", "f"),
+                "recurrentgemma-9b": ("exact", "a", "b", "d", "f")}
+FAMILY_REFS = {"exact": None, "a": "gather", "b": "gather", "e": "gather",
+               "d": "a", "f": "exact"}
+# LUT calls a layer makes under --lut-sites all: vlm: mlp, attn_exp,
+# norm_rsqrt twice (the two norms), rope_table four times (sine and cosine
+# of q and of k); hybrid: mlp and norm_rsqrt twice (the temporal block's
+# norm and the MLP's; sites.py hosts no attention site on hybrid)
+ALL_SITE_CALLS = {"vlm": 8, "hybrid": 3}
+# the wrapped-ring request: local_window + RING_EXTRA prompt tokens
+RING_EXTRA = 64
+# calibration flags of the all-sites plans per family: at full width with
+# random weights every recurrentgemma L0 norm input (embeddings of std
+# 0.0017, plus a small recurrent output) falls into the first bin of the
+# rsqrt table's domain [1e-3, 64]; one care bin, which calibration refuses
+# (calib/masks.py), so the neighbouring bin is kept as care too
+ALL_SITE_CALIB = {"vlm": [], "hybrid": ["--calib-smoothing", "1"]}
+
+
+def mlp_weights(params, cfg) -> list:
+    """``[(layer id, w_in (d, 2 d_ff))]`` of every layer's MLP, with the
+    layer ids the served tables use (hybrid: ``group * len(pattern) + i``,
+    then the tail's)."""
+    if cfg.family != "hybrid":
+        w = params.blocks["w_in"]
+        return [(l, w[l]) for l in range(cfg.n_layers)]
+    from repro_torch.nn.transformer import block_pattern, hybrid_layout
+
+    unit = len(block_pattern(cfg))
+    n_groups, n_tail = hybrid_layout(cfg)
+    out = [(g * unit + i, params.group(g)[f"m{i}"]["w_in"])
+           for g in range(n_groups) for i in range(unit)]
+    out += [(n_groups * unit + i, params.tail_layer(i)["m"]["w_in"])
+            for i in range(n_tail)]
+    return sorted(out, key=lambda lw: lw[0])
+
+
+def check_mlp_k3(dev, params, cfg, tables, m_prefill, gen, tag) -> dict:
+    """K3 at the model's gated MLP shape (K = d_model, N = 2 d_ff) on form
+    (f)'s super-slab: against its own GEMM + K1 and within 1% of the plain
+    path at the decode and prefill M and a ragged M, at the first, middle
+    and last layers; timed beside the plain version and cuBLAS + K1,
+    rotating every layer's weights (L2-cold)."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.serve.stacked import multi_site_stacked_entry
+
+    multi = tables["multi"]
+    sl = multi_site_stacked_entry(multi, "mlp")
+    layers = mlp_weights(params, cfg)
+    tab = lambda layer: {"multi_entry": multi, "site": "mlp", "layer": layer}
+    k1 = lambda layer: (lambda g: ops.lut_act_stacked(g, sl, layer))
+    k = layers[0][1].shape[0]
+    shares = {}
+    for m in (B, m_prefill, 67):
+        for layer, w in (layers[0], layers[len(layers) // 2], layers[-1]):
+            x = torch.randn(m, k, generator=gen, device=dev).to(
+                torch.bfloat16)
+            _, shares[f"M={m} layer {layer}"] = check_fused_case(
+                x, w, tab(layer), k1(layer), gated=True,
+                label=f"{tag} mlp M={m} layer {layer}")
+    out = {"mismatch_share_vs_plain": shares}
+    mid = layers[len(layers) // 2][0]
+    for shape_name, m in (("decode", B), ("prefill", m_prefill)):
+        x = torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
+        out[shape_name] = t = k3_times(x, [w for _, w in layers], tab(mid),
+                                       sl, mid, gated=True)
+        log(f"[16] K3 {tag} mlp {shape_name} {t['shape']}: "
+            f"{t['graph_ms'] * 1e3:.2f} us from a graph ({t['ms'] * 1e3:.2f} "
+            f"host-driven), bound {t['bound_ms'] * 1e3:.3f} us "
+            f"({t['bound_by']}), plain {t['plain_ms'] * 1e3:.2f} us, cuBLAS + "
+            f"K1 {t['library_graph_ms'] * 1e3:.2f} us from a graph "
+            f"({t['library_ms'] * 1e3:.2f}), cuBLAS alone "
+            f"{t['matmul_only_graph_ms'] * 1e3:.2f} us")
+    return out
+
+
+def wrapped_ring(launcher, dev, cfg0, params, args, plans, totals) -> dict:
+    """One request of ``local_window + RING_EXTRA`` prompt tokens in form
+    (a), decoding ``NEW`` tokens: the ring wraps and the window mask cuts
+    at full width.  Served through the captured step (K1 once a layer a
+    step, counted) and eagerly (tokens equal), then
+    :func:`check_captured` (every replayed step and the state bit for bit
+    against eager's)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    quiet = lambda m: None
+    n = cfg0.local_window + RING_EXTRA
+    toks = np.random.default_rng(16).integers(1, cfg0.vocab_size, (1, n))
+    batch = {"tokens": torch.as_tensor(toks, device=dev).long()}
+    fcfg = form_config(plans, cfg0, args)
+    tables = launcher.serving_tables(args, plans, dev, log=quiet)
+    reset_launch_counts()
+    res = launcher.serve(args, fcfg, params, batch, tables, log=quiet)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    want = (1 + NEW) * cfg0.n_layers
+    if counts["lut_act_stacked"] != want:
+        raise AssertionError(f"the wrapped ring launched K1 "
+                             f"{counts['lut_act_stacked']} times, not {want}")
+    eager = launcher.serve(args, fcfg, params, batch, tables, log=quiet,
+                           eager=True)
+    if eager["tokens"] != res["tokens"]:
+        raise AssertionError(f"the wrapped ring's captured tokens differ "
+                             f"from eager's: {res['tokens']} vs "
+                             f"{eager['tokens']}")
+    capture_s = check_captured(fcfg, params, batch, tables)
+    for k, v in counts.items():
+        totals[k] += v
+    out = {"prompt": n, "prefill_s": res["prefill_s"],
+           "capture_s": capture_s, "decode_tok_s": res["decode_tok_s"],
+           "eager_decode_tok_s": eager["decode_tok_s"], "launches": counts,
+           "tokens": res["tokens"][0]}
+    log(f"[16] wrapped ring: 1 x {n} prompt tokens (window "
+        f"{cfg0.local_window}), form (a): prefill {res['prefill_s']:.4f}s, "
+        f"decode {res['decode_tok_s']:.1f} tok/s captured, "
+        f"{eager['decode_tok_s']:.1f} eager (tokens equal; {NEW} replayed "
+        f"steps' logits and state == eager's bit for bit); K1 {want} "
+        f"launches; tokens {res['tokens'][0]}")
+    return out
+
+
+def run_family_model(launcher, dev, arch, totals, results, stamp) -> dict:
+    """Phase 16 for one configuration at full width (random weights from
+    seed 0, bf16): plans from 2 calibration batches (``mlp``; every site
+    for (e) / (f)); the forms ``FAMILY_FORMS[arch]`` through
+    :func:`serve_form`, each captured and eager, with the launch counts
+    its sites imply (vlm decoding from ``n_patches + T``); the wrapped
+    ring (hybrid); every K1 / K2 / K4 call of a prefill and a decode step
+    in forms (a), (b) and (f) held bit for bit against its plain version
+    and timed; K1 on the gate view one kernel; K3 at the MLP shape; one
+    eager and one captured decode step profiled (exact and (a))."""
+    import torch
+
+    labels = FAMILY_FORMS[arch]
+    gen = torch.Generator(device=dev).manual_seed(16)
+    parse = launcher.parse_args
+    common = ["--arch", arch, "--full", "--batch", str(B), "--prompt-len",
+              str(T), "--new-tokens", str(NEW), "--device", "cuda"]
+    lut = common + ["--lut-act", "--calib-steps", "2"]
+    lut_all = lut + ["--lut-sites", "all"] + ALL_SITE_CALIB[
+        launcher.get_config(arch).family]
+    args = {"exact": parse(common), "a": parse(lut),
+            "b": parse(lut + ["--plan-exec", "unrolled"]),
+            "d": parse(lut + ["--lut-fuse"]), "e": parse(lut_all),
+            "f": parse(lut_all + ["--lut-fuse"])}
+    torch.cuda.init()   # the allocator, before its peak is reset
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    cfg0, params, batch, rng = launcher.setup(args["exact"])
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    vlm = cfg0.family == "vlm"
+    start = launcher.decode_start(cfg0, batch)
+    if start != T + cfg0.n_patches:
+        raise AssertionError(f"{arch}: decoding would start at {start}, not "
+                             f"{T + cfg0.n_patches}")
+    out = {"arch": arch, "init_s": init_s, "decode_start": start,
+           "n_params": sum(p.numel() for p in params.parameters()),
+           "param_bytes": sum(p.numel() * p.element_size()
+                              for p in params.parameters()),
+           "peak_after_params": torch.cuda.max_memory_allocated(dev)}
+    shape = (f"{cfg0.n_patches} patches of d_model before the prompt "
+             f"(decoding from {start})" if vlm else
+             f"pattern {cfg0.block_pattern}, d_rnn {cfg0.d_rnn}, window "
+             f"{cfg0.local_window}")
+    log(f"[16] {cfg0.name}: {cfg0.n_layers} layers, d_model {cfg0.d_model}, "
+        f"{cfg0.n_heads}/{cfg0.n_kv_heads} heads x {cfg0.d_head}, d_ff "
+        f"{cfg0.d_ff} {cfg0.activation}, vocab {cfg0.vocab_size}, "
+        f"{cfg0.dtype}; {shape}; {launcher.param_summary(params)}; built "
+        f"in {init_s:.1f}s")
+    quiet = lambda msg: None
+    plans = launcher.build_plans(args["a"], cfg0, params, rng,
+                                 log=lambda msg: log("    " + msg))
+    plans_all = launcher.build_plans(
+        args["f"], form_config(None, cfg0, args["f"]), params, rng,
+        log=lambda msg: log("    " + msg))
+    plan_of = {"exact": None, "e": plans_all, "f": plans_all}
+
+    def served(label):
+        """A form's served config and tables."""
+        pl = plan_of.get(label, plans)
+        tabs = (None if pl is None else
+                launcher.serving_tables(args[label], pl, dev, log=quiet))
+        return form_config(pl, cfg0, args[label]), tabs
+
+    L, steps = cfg0.n_layers, 1 + NEW    # the prefill and NEW replays
+    per_all = ALL_SITE_CALLS[cfg0.family]
+    forms = {   # the kernels a form must launch, and how often
+        "exact": ([], {k: 0 for k in MOE_LUT}),
+        "a": (["lut_act_stacked"], {"lut_act_stacked": steps * L}),
+        "b": (["lut_act"], {"lut_act": steps * L}),
+        "d": (["fused_matmul_lut"], {"fused_matmul_lut": steps * L,
+                                     "lut_act_multi": 0}),
+        "e": (["lut_act_stacked"], {"lut_act_stacked": steps * L * per_all}),
+        "f": (["fused_matmul_lut", "lut_act_multi"],
+              {"fused_matmul_lut": steps * L,
+               "lut_act_multi": steps * L * (per_all - 1)}),
+    }
+    tag = "vlm" if vlm else "hyb"
+    out["forms"] = {}
+    for label in labels:
+        uses, want = forms[label]
+        ref = FAMILY_REFS[label]
+        log(f"[16] {stamp()}")
+        res = serve_form(launcher, dev, f"{tag} {label}", args[label], cfg0,
+                         params, batch, plan_of.get(label, plans), uses,
+                         results, totals, ref=ref if ref in (None, "gather")
+                         else f"{tag} {ref}", want=want)
+        if res["start"] != start:
+            raise AssertionError(f"form ({tag} {label}) decoded from "
+                                 f"{res['start']}, not {start}")
+        out["forms"][label] = {k: v for k, v in res.items()
+                               if k != "tokens"}
+    if vlm:
+        log(f"[16] vlm: every form decoded from position {start} = "
+            f"{cfg0.n_patches} patches + {T} prompt tokens")
+    else:
+        log(f"[16] {stamp()}")
+        out["ring"] = wrapped_ring(launcher, dev, cfg0, params, args["a"],
+                                   plans, totals)
+    # the served K1 / K2 / K4 calls at the new shapes
+    out["lut_calls"] = []
+    for label in ("a", "b", "f"):
+        fcfg, tabs = served(label)
+        calls = served_lut_calls(launcher, params, fcfg, batch, tabs)
+        log(f"[16] form ({tag} {label}): {len(calls)} served K1/K2/K4 calls "
+            f"of one prefill and one decode step equal their plain "
+            f"versions bit for bit (K4 also K1 per site)")
+        out["lut_calls"] += served_timings(calls, f"{tag} {label}", "16")
+        del calls
+    k1_in_place(out["lut_calls"])
+    out["k3"] = check_mlp_k3(dev, params, cfg0, served("f")[1], B * start,
+                             gen, tag)
+    out["steps"] = {}
+    for label in ("exact", "a"):
+        fcfg, tabs = served(label)
+        out["steps"][label] = profile_decode_step(
+            launcher, f"{tag} {label}", fcfg, params, batch, tabs, tag="16")
+    logits, _ = launcher.prefill(params, cfg0, batch, max_seq=start + 1)
+    if logits.shape != (B, 1, cfg0.vocab_size) or not torch.isfinite(
+            logits.float()).all():
+        raise AssertionError(f"{arch}: bad logits {tuple(logits.shape)}")
+    out["peak"] = torch.cuda.max_memory_allocated(dev)
+    log(f"[16] {tag}: parameters {out['param_bytes']} bytes, peak allocated "
+        f"{out['peak_after_params']} after the parameters, "
+        f"{out['peak']} over the phase")
+    return out
+
+
+def compact(t) -> dict:
+    """A timed call's numbers for the kernel JSON line (``chip_smoke.json``
+    keeps them all)."""
+    return {k: t[k] for k in ("shape", "graph_ms", "plain_ms", "bound_ms",
+                              "library_graph_ms") if k in t}
 
 
 def main() -> int:
@@ -2952,10 +3257,9 @@ def main() -> int:
     # moe shapes join their entries
     for k in kernels:
         k["launches"] += moe_totals.get(k["name"], 0)
-        shapes = {f"{t['name']} {t['site']} {t['step']}": {
-            f: t[f] for f in t if f not in ("name", "kernel")}
-            for r in moe.values() for t in r["lut_calls"]
-            if t["kernel"] == k["name"]}
+        shapes = {f"{t['name']} {t['site']} {t['step']}": compact(t)
+                  for r in moe.values() for t in r["lut_calls"]
+                  if t["kernel"] == k["name"]}
         if shapes:
             k["moe"] = shapes
         if k["name"] == "fused_matmul_lut":
@@ -2964,9 +3268,32 @@ def main() -> int:
                 if n != "mismatch_share_vs_plain"}
     log(f"[15] phase 15's launches: {moe_totals}")
 
+    # ---- 16. the vlm and hybrid families, after the moe models are freed
+    log(f"[16] {stamp()}")
+    fam_totals = {k: 0 for k in launch_counts()}
+    fam = {}
+    for arch in FAMILY_FORMS:
+        fam[arch] = run_family_model(launcher, dev, arch, fam_totals,
+                                     results, stamp)
+        gc.collect()
+        torch.cuda.empty_cache()
+    for k in kernels:
+        k["launches"] += fam_totals.get(k["name"], 0)
+        for key, arch in (("vlm", "phi-3-vision-4.2b"),
+                          ("hybrid", "recurrentgemma-9b")):
+            shapes = {f"{t['name']} {t['site']} {t['step']}": compact(t)
+                      for t in fam[arch]["lut_calls"]
+                      if t["kernel"] == k["name"]}
+            if shapes:
+                k[key] = shapes
+            if k["name"] == "fused_matmul_lut":
+                k[f"{key}_mlp"] = {n: compact(fam[arch]["k3"][n])
+                                   for n in ("decode", "prefill")}
+    log(f"[16] phase 16's launches: {fam_totals}")
+
     summary = {"card": smi, "seconds": time.perf_counter() - t_start,
                "exact": exact, "steps": steps, "logit_drift": drift,
-               "batcher": batcher, "moe": moe,
+               "batcher": batcher, "moe": moe, "families": fam,
                "forms": {
                    f: {k: v for k, v in r.items() if k != "plans"}
                    for f, r in results.items()}, "kernels": kernels,
@@ -2978,8 +3305,9 @@ def main() -> int:
                    for m, f in flow["flows"].items()})}
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(summary, indent=1))
     log(f"done in {time.perf_counter() - t_start:.0f}s")
-    # four significant digits and no spaces keep this line short (about
-    # 21 KB); chip_smoke.json keeps every digit
+    # four significant digits, no spaces and compact() entries for the
+    # served shapes keep this line short (about 20 KB); chip_smoke.json
+    # keeps every digit and field
     print(json.dumps({"kernels": sig4(kernels)}, separators=(",", ":")),
           flush=True)
     print(smi, flush=True)

@@ -3,10 +3,12 @@
 The inputs are plain numpy trees — ``jax.tree.map(np.asarray, tree)`` on
 the reference side — so this module imports nothing of JAX.
 
-* :func:`params_from_jax` — a reference parameter tree (dense decoder or
-  RWKV6) -> :class:`~repro_torch.nn.DecoderParams` /
-  :class:`~repro_torch.nn.RWKVParams`; names and stacked layouts are the
-  same, so every leaf is copied without renaming (bf16 included).
+* :func:`params_from_jax` — a reference parameter tree (decoder, RWKV6
+  or hybrid) -> :class:`~repro_torch.nn.DecoderParams` /
+  :class:`~repro_torch.nn.RWKVParams` / :class:`~repro_torch.nn.
+  HybridParams`; names and stacked layouts are the same (the hybrid's
+  nested ``groups`` / ``tail`` trees, vlm's ``patch_proj``), so every
+  leaf is copied without renaming (bf16 included).
 * :func:`tables_from_jax` — a reference ``ServingPlans.tables_for_model``
   dict -> the port's ``lut_tables`` (same structure, tensors on the
   device, backend ``"pallas"`` renamed ``"cuda"``), so both packages can
@@ -56,13 +58,22 @@ def _copy_named(who: str, module: torch.nn.Module, flat: dict) -> None:
             t.copy_(src)
 
 
+def _flatten(tree: dict, prefix: str = "") -> dict:
+    """``{dotted name: leaf}`` of a nested dict."""
+    flat = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            flat.update(_flatten(v, f"{prefix}{k}."))
+        else:
+            flat[prefix + k] = v
+    return flat
+
+
 def params_from_jax(tree: dict, cfg, device=None):
     """Copy a reference parameter tree (numpy leaves) into the port's
     parameter module for ``cfg``'s family."""
     params = params_class(cfg)(cfg, device)
-    flat = {k: v for k, v in tree.items() if k != "blocks"}
-    flat.update({f"blocks.{k}": v for k, v in tree["blocks"].items()})
-    _copy_named("params_from_jax", params, flat)
+    _copy_named("params_from_jax", params, _flatten(tree))
     return params
 
 

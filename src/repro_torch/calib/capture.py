@@ -159,11 +159,18 @@ class ActivationCapture:
 
 
 def model_batch(cfg, rng, batch_size: int, seq_len: int) -> dict:
-    """One family-shaped random batch (tokens [+patches/frames]) — the
-    single source of the batch-shaping convention shared by calibration
-    capture, the serving launcher and the serving bench."""
-    return {"tokens": np.asarray(
+    """One family-shaped random batch (tokens, and a vlm's patch
+    embeddings) — the single source of the batch-shaping convention shared
+    by calibration capture and the serving launcher.  The draws are the
+    reference's, in its order (tokens, then ``rng.normal`` patches cast to
+    float32), so both packages see the same numbers."""
+    batch = {"tokens": np.asarray(
         rng.integers(1, cfg.vocab_size, (batch_size, seq_len)), np.int32)}
+    if cfg.family == "vlm":
+        batch["patches"] = np.asarray(
+            rng.normal(size=(batch_size, cfg.n_patches, cfg.d_model)),
+            np.float32)
+    return batch
 
 
 def synthetic_batches(cfg, steps: int, batch_size: int = 2,
@@ -179,17 +186,23 @@ def capture_model(params, cfg, batches, *, w_in: int | None = None,
                   capture: ActivationCapture | None = None,
                   ) -> ActivationCapture:
     """Stream calibration batches through the exact (non-LUT) forward of
-    ``cfg``'s family (dense, moe or ssm), capturing every LUT site's
-    observed input bins per layer (``L{i}/{site}`` keys, each binned over
-    its site's domain; a moe layer's ``expert`` key sees every capacity
-    slot, empty ones included, as in the reference).  Batches go to the
-    parameters' device."""
+    ``cfg``'s family (dense, moe, vlm with its batches' patches, ssm or
+    hybrid), capturing every LUT site's observed input bins per layer
+    (``L{i}/{site}`` keys, each binned over its site's domain; a moe
+    layer's ``expert`` key sees every capacity slot, empty ones included,
+    as in the reference).  Batches go to the parameters' device."""
     from repro_torch.nn.mlp import project_logits
-    from repro_torch.nn.transformer import decoder_forward, rwkv_forward
+    from repro_torch.nn.transformer import (
+        decoder_forward,
+        hybrid_forward,
+        rwkv_forward,
+    )
 
-    forwards = {"dense": lambda toks: decoder_forward(params, cfg, toks),
-                "moe": lambda toks: decoder_forward(params, cfg, toks),
-                "ssm": lambda toks: rwkv_forward(params, cfg, toks)}
+    decoder = lambda toks, patches: decoder_forward(params, cfg, toks,
+                                                    patches=patches)
+    forwards = {"dense": decoder, "moe": decoder, "vlm": decoder,
+                "ssm": lambda toks, _: rwkv_forward(params, cfg, toks),
+                "hybrid": lambda toks, _: hybrid_forward(params, cfg, toks)}
     if cfg.family not in forwards:
         raise NotImplementedError(
             f"capture_model: family {cfg.family!r} is not yet ported "
@@ -203,7 +216,11 @@ def capture_model(params, cfg, batches, *, w_in: int | None = None,
                 batch = {"tokens": batch}
             toks = torch.as_tensor(np.asarray(batch["tokens"], np.int32),
                                    device=dev).long()
-            out, _ = forwards[cfg.family](toks)
+            patches = batch.get("patches")
+            if patches is not None:
+                patches = torch.as_tensor(np.asarray(patches, np.float32),
+                                          device=dev)
+            out, _ = forwards[cfg.family](toks, patches)
             # the softcap site lives past the forward (hidden states, not
             # logits): project so the network-global histogram is observed
             if sites.site_spec(sites.LOGIT_SOFTCAP).active(cfg):

@@ -3,7 +3,8 @@ ReducedLUT-compressed activations (counterpart of the reference's
 ``launch/serve.py`` on one device).
 
   PYTHONPATH=src python -m repro_torch.launch.serve \\
-      --arch qwen3-0.6b|deepseek-moe-16b|qwen3-moe-30b-a3b|rwkv6-3b \\
+      --arch qwen3-0.6b|deepseek-moe-16b|qwen3-moe-30b-a3b|rwkv6-3b|\\
+             phi-3-vision-4.2b|recurrentgemma-9b \\
       --full --batch 4 --prompt-len 64 --new-tokens 16 --lut-act \\
       --calib-steps 2 [--lut-sites act|all] \\
       [--logit-softcap S] [--plan-exec stacked|unrolled] [--lut-fuse] \\
@@ -27,7 +28,15 @@ hand-written kernels, ``gather`` through the plain PyTorch form;
 (kernel K3 on ``cuda``) and serves the other per-layer sites out of one
 multi-site super-slab (kernel K4).  ``--kv-int8`` replays the prompt
 into an int8 KV cache through the decode step (the dense and moe
-families; it does nothing for the ssm family, as in the reference).
+families; it does nothing for the ssm and hybrid families, as in the
+reference, and is refused for vlm: the replay ingests tokens only, so
+the image prefix would be lost).
+
+A vlm prompt is the batch's ``n_patches`` patch embeddings and then its
+tokens: the cache holds ``n_patches + T + --new-tokens`` positions and
+decoding starts at position ``n_patches + T`` (the reference's
+``verify_backend_equivalence`` convention; its launcher decodes from
+``T`` over the patch slots).
 
 On the card the decode step is captured in a CUDA graph once, before
 the decode clock starts (its seconds are logged on their own line), and
@@ -61,6 +70,7 @@ from repro_torch.serve import (
     CapturedStep,
     build_serving_plans,
     decode_fn,
+    decode_start,
     decode_step,
     init_cache,
     prefill,
@@ -76,6 +86,18 @@ from repro_torch.tune import (
 
 # the families whose decode state is a KV cache that --kv-int8 quantizes
 KV_INT8_FAMILIES = ("dense", "moe")
+
+
+def kv_int8_applies(args, cfg) -> bool:
+    """Whether ``--kv-int8`` replays the prompt into an int8 cache for
+    ``cfg``'s family; raises for vlm, whose prompt replay would drop the
+    image prefix (the replay ingests tokens only)."""
+    if args.kv_int8 and cfg.family == "vlm":
+        raise ValueError(
+            "--kv-int8 is refused for the vlm family: the prompt replay "
+            "into the int8 cache ingests tokens only and would drop the "
+            f"{cfg.n_patches} patch embeddings of the image prefix")
+    return args.kv_int8 and cfg.family in KV_INT8_FAMILIES
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -123,9 +145,9 @@ def build_parser() -> argparse.ArgumentParser:
                     help="freeze the built serving plans into a tuned-plan "
                          "artifact at PATH")
     ap.add_argument("--kv-int8", action="store_true",
-                    help="int8 KV cache (dense and moe families): the "
-                         "prompt is replayed into it through the decode "
-                         "step, which writes quantized entries")
+                    help="int8 KV cache (dense and moe families; refused "
+                         "for vlm): the prompt is replayed into it through "
+                         "the decode step, which writes quantized entries")
     ap.add_argument("--calib-min-count", type=int, default=1,
                     help="min observations for a bin to stay care")
     ap.add_argument("--calib-smoothing", type=int, default=0,
@@ -152,7 +174,8 @@ def parse_args(argv=None, ap: argparse.ArgumentParser | None = None):
 
 def setup(args):
     """``(cfg, params, batch, rng)``: config, random parameters (seed 0)
-    and the prompt batch on the serving device."""
+    and the prompt batch on the serving device (a vlm batch carries its
+    patch embeddings, float32, as ``"patches"``)."""
     dev = resolve_device(args.device)
     if args.lut_backend == "cuda" and dev.type != "cuda":
         raise ValueError(
@@ -161,6 +184,7 @@ def setup(args):
     cfg = get_config(args.arch)
     if not args.full:
         cfg = smoke_config(cfg)
+    kv_int8_applies(args, cfg)
     if (args.lut_sites != "act" or args.logit_softcap is not None
             or args.lut_fuse):
         cfg = dataclasses.replace(cfg, lut_sites=args.lut_sites,
@@ -168,8 +192,9 @@ def setup(args):
                                   lut_fuse=args.lut_fuse)
     params = init_params(cfg, seed=0, device=dev)
     rng = np.random.default_rng(0)
-    tokens = model_batch(cfg, rng, args.batch, args.prompt_len)["tokens"]
-    batch = {"tokens": torch.as_tensor(tokens, device=dev).long()}
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in model_batch(
+        cfg, rng, args.batch, args.prompt_len).items()}
+    batch["tokens"] = batch["tokens"].long()
     return cfg, params, batch, rng
 
 
@@ -264,25 +289,29 @@ def serve(args, cfg, params, batch, lut_tables, log=print, *,
     step is captured in a CUDA graph before the decode clock starts;
     ``eager=True`` decodes through the eager step instead (the yardstick
     the captured step is held against).  Returns the tokens (B, n_new),
-    the prefill, capture and replay seconds and decode tok/s (host clock
-    around synchronised work)."""
+    the prefill, capture and replay seconds, decode tok/s (host clock
+    around synchronised work) and the first decoded position.  Decoding starts at
+    :func:`~repro_torch.serve.decode_start` (after a vlm's patches)."""
     dev = batch["tokens"].device
     b, t = batch["tokens"].shape
-    max_seq = t + args.new_tokens
+    start = decode_start(cfg, batch)
+    max_seq = start + args.new_tokens
     synchronize(dev)
     t0 = time.perf_counter()
     logits, cache = prefill(params, cfg, batch, max_seq=max_seq,
                             lut_tables=lut_tables)
     synchronize(dev)
     prefill_s = time.perf_counter() - t0
-    log(f"prefill {b}x{t}: {prefill_s:.4f}s")
+    log(f"prefill {b}x{t}"
+        + (f" after {start - t} patch embeddings" if start != t else "")
+        + f": {prefill_s:.4f}s")
     if eager:
         step = lambda c, tk, pos: decode_step(params, cfg, c, tk, pos,
                                               lut_tables)
     else:
         step = decode_fn(params, cfg, lut_tables)
     out = {"prefill_s": prefill_s, "capture_s": None, "replay_s": None}
-    int8 = args.kv_int8 and cfg.family in KV_INT8_FAMILIES
+    int8 = kv_int8_applies(args, cfg)
     if int8:
         # the decode write path quantizes: replay the prompt into an int8
         # cache through the step the decode then runs
@@ -306,7 +335,7 @@ def serve(args, cfg, params, batch, lut_tables, log=print, *,
     t0 = time.perf_counter()
     for i in range(args.new_tokens):
         toks.append(tok)
-        logits, cache = step(cache, tok, t + i)
+        logits, cache = step(cache, tok, start + i)
         tok = logits[:, -1].argmax(-1)[:, None]
     synchronize(dev)
     dt = time.perf_counter() - t0
@@ -315,7 +344,8 @@ def serve(args, cfg, params, batch, lut_tables, log=print, *,
     log(f"decode {args.new_tokens} tokens x {b} requests: {dt:.4f}s "
         f"({tok_s:.1f} tok/s)")
     log(f"request 0: {tokens[0]}")
-    return dict(out, tokens=tokens, decode_s=dt, decode_tok_s=tok_s)
+    return dict(out, tokens=tokens, decode_s=dt, decode_tok_s=tok_s,
+                start=start)
 
 
 def main(argv=None) -> dict:

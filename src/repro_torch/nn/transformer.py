@@ -1,12 +1,15 @@
-"""Decoder-only model (dense and moe) and RWKV6 (PyTorch port of the
-dense, moe and ssm paths of the reference's ``nn/transformer.py``).
+"""Decoder-only model (dense, moe and vlm), RWKV6 (ssm) and Griffin /
+RecurrentGemma (hybrid): PyTorch port of those paths of the reference's
+``nn/transformer.py``.
 
-:class:`DecoderParams` and :class:`RWKVParams` hold the parameters under
-the reference's names and stacked ``(L, …)`` layouts (``embed``,
-``final_norm``, ``lm_head`` and ``blocks.{…}``), so a reference parameter
-tree copies in without renaming (:func:`repro_torch.bridge.
-params_from_jax`).  Each forward runs an eager Python loop over layers
-with a Python-int layer id.
+:class:`DecoderParams`, :class:`RWKVParams` and :class:`HybridParams` hold
+the parameters under the reference's names and stacked layouts
+(``embed``, ``final_norm``, ``lm_head``, ``blocks.{…}`` stacked ``(L, …)``;
+vlm's ``patch_proj``; hybrid's ``groups.t{i}_{kind}.{…}`` stacked over the
+groups of the block pattern and ``tail.t{i}_rec.{…}`` with a leading axis
+of 1), so a reference parameter tree copies in without renaming
+(:func:`repro_torch.bridge.params_from_jax`).  Each forward runs an eager
+Python loop over layers with a Python-int layer id.
 """
 from __future__ import annotations
 
@@ -20,10 +23,11 @@ from repro_torch import sites
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 
-from .attention import decode_attend, mha
+from .attention import decode_attend, mha, ring_decode_attend
 from .layers import embed_lookup, is_gated, rms_norm
 from .mlp import mlp_block, site_act
 from .moe import moe_block
+from .rglru import recurrent_block, recurrent_block_step
 from .rope import apply_rope
 from .ssm import rwkv_channel_mix, rwkv_time_mix
 
@@ -59,9 +63,82 @@ def _rwkv_defs(cfg: ArchConfig) -> dict:
     return defs
 
 
+def _attn_defs(cfg: ArchConfig, L: int) -> dict:
+    d = cfg.d_model
+    defs = {
+        "wq": ParamDef((L, d, cfg.q_dim)),
+        "wk": ParamDef((L, d, cfg.kv_dim)),
+        "wv": ParamDef((L, d, cfg.kv_dim)),
+        "wo": ParamDef((L, cfg.q_dim, d)),
+    }
+    if cfg.qk_norm:
+        defs["q_norm"] = ParamDef((L, cfg.d_head), 0.0)
+        defs["k_norm"] = ParamDef((L, cfg.d_head), 0.0)
+    return defs
+
+
+def _mlp_defs(cfg: ArchConfig, L: int) -> dict:
+    ff_in = 2 * cfg.d_ff if is_gated(cfg.activation) else cfg.d_ff
+    return {"w_in": ParamDef((L, cfg.d_model, ff_in)),
+            "w_out": ParamDef((L, cfg.d_ff, cfg.d_model))}
+
+
+def _rec_defs(cfg: ArchConfig, L: int) -> dict:
+    """A recurrent block's parameters (the reference's ``_rec_defs``)."""
+    d, drnn = cfg.d_model, cfg.d_rnn or cfg.d_model
+    return {
+        "w_in": ParamDef((L, d, drnn)),
+        "w_gate": ParamDef((L, d, drnn)),
+        "w_out": ParamDef((L, drnn, d)),
+        "conv_w": ParamDef((L, cfg.conv_width, drnn)),
+        "w_a": ParamDef((L, drnn, drnn)),
+        "w_x": ParamDef((L, drnn, drnn)),
+        "lam": ParamDef((L, drnn), 0.5),
+    }
+
+
+def block_pattern(cfg: ArchConfig) -> tuple[str, ...]:
+    """The hybrid family's repeating unit of temporal blocks."""
+    return cfg.block_pattern or ("rec", "rec", "attn")
+
+
+def hybrid_layout(cfg: ArchConfig) -> tuple[int, int]:
+    """``(n_groups, n_tail)``: whole repeats of the block pattern, then the
+    recurrent layers left over (recurrentgemma-9b: 12 groups of (rec,
+    rec, attn) and a tail of 2)."""
+    unit = len(block_pattern(cfg))
+    return cfg.n_layers // unit, cfg.n_layers % unit
+
+
+def _hybrid_defs(cfg: ArchConfig) -> dict:
+    """The reference's hybrid layout: per pattern position ``i`` the
+    temporal block ``t{i}_{kind}``, its norm ``t{i}_ln``, the MLP
+    ``m{i}`` and its norm ``m{i}_ln``, stacked over the groups; the tail
+    the same for its recurrent layers with a leading axis of 1."""
+    n_groups, n_tail = hybrid_layout(cfg)
+    d = cfg.d_model
+    groups = {}
+    for i, kind in enumerate(block_pattern(cfg)):
+        groups[f"t{i}_{kind}"] = (_rec_defs(cfg, n_groups) if kind == "rec"
+                                  else _attn_defs(cfg, n_groups))
+        groups[f"t{i}_ln"] = ParamDef((n_groups, d), 0.0)
+        groups[f"m{i}"] = _mlp_defs(cfg, n_groups)
+        groups[f"m{i}_ln"] = ParamDef((n_groups, d), 0.0)
+    defs = {"groups": groups}
+    if n_tail:
+        tail = {}
+        for i in range(n_tail):
+            tail[f"t{i}_rec"] = _rec_defs(cfg, 1)
+            tail[f"t{i}_ln"] = ParamDef((1, d), 0.0)
+            tail[f"m{i}"] = _mlp_defs(cfg, 1)
+            tail[f"m{i}_ln"] = ParamDef((1, d), 0.0)
+        defs["tail"] = tail
+    return defs
+
+
 def param_defs(cfg: ArchConfig) -> dict:
     """Names and shapes of the model's parameters (the reference's
-    ``param_defs`` for the dense, moe and ssm families)."""
+    ``param_defs`` for the dense, moe, vlm, ssm and hybrid families)."""
     L, d = cfg.n_layers, cfg.d_model
     head = {
         "embed": ParamDef((cfg.vocab_size, d)),
@@ -70,19 +147,13 @@ def param_defs(cfg: ArchConfig) -> dict:
     }
     if cfg.family == "ssm":
         return dict(head, blocks=_rwkv_defs(cfg))
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family == "hybrid":
+        return dict(head, **_hybrid_defs(cfg))
+    if cfg.family not in ("dense", "moe", "vlm"):
         raise NotImplementedError(
             f"param_defs: family {cfg.family!r} is not yet ported "
             f"(ROADMAP queue A, item 5)")
-    blocks = {
-        "wq": ParamDef((L, d, cfg.q_dim)),
-        "wk": ParamDef((L, d, cfg.kv_dim)),
-        "wv": ParamDef((L, d, cfg.kv_dim)),
-        "wo": ParamDef((L, cfg.q_dim, d)),
-    }
-    if cfg.qk_norm:
-        blocks["q_norm"] = ParamDef((L, cfg.d_head), 0.0)
-        blocks["k_norm"] = ParamDef((L, cfg.d_head), 0.0)
+    blocks = _attn_defs(cfg, L)
     blocks["ln1"] = ParamDef((L, d), 0.0)
     blocks["ln2"] = ParamDef((L, d), 0.0)
     if cfg.moe:
@@ -93,11 +164,26 @@ def param_defs(cfg: ArchConfig) -> dict:
         if m.n_shared:
             blocks["sh_w_in"] = ParamDef((L, d, 2 * m.d_expert * m.n_shared))
             blocks["sh_w_out"] = ParamDef((L, m.d_expert * m.n_shared, d))
-        return dict(head, blocks=blocks)
-    ff_in = 2 * cfg.d_ff if is_gated(cfg.activation) else cfg.d_ff
-    blocks["w_in"] = ParamDef((L, d, ff_in))
-    blocks["w_out"] = ParamDef((L, cfg.d_ff, d))
-    return dict(head, blocks=blocks)
+    else:
+        blocks.update(_mlp_defs(cfg, L))
+    defs = dict(head, blocks=blocks)
+    if cfg.family == "vlm":
+        defs["patch_proj"] = ParamDef((d, d))
+    return defs
+
+
+def _flat_defs(defs: dict, prefix: str = "") -> list:
+    """``[(dotted name, ParamDef, stacked)]`` of a :func:`param_defs` tree,
+    in its order; ``stacked``: the leaf lies in a tree (``blocks``,
+    ``groups``, ``tail``) and has a leading layer axis."""
+    out = []
+    for name, d in defs.items():
+        if isinstance(d, dict):
+            out += [(n, dd, True)
+                    for n, dd, _ in _flat_defs(d, f"{prefix}{name}.")]
+        else:
+            out.append((prefix + name, d, bool(prefix)))
+    return out
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -109,36 +195,71 @@ def _param(shape, dtype, device) -> nn.Parameter:
                         requires_grad=False)
 
 
+def _tree(defs: dict, dtype, device) -> nn.Module:
+    """A parameter for each leaf of ``defs``, a child module for each
+    sub-tree: an ``nn.ParameterDict`` where every entry is a leaf."""
+    if not any(isinstance(d, dict) for d in defs.values()):
+        return nn.ParameterDict({k: _param(d.shape, dtype, device)
+                                 for k, d in defs.items()})
+    mod = nn.Module()
+    for k, d in defs.items():
+        setattr(mod, k, _tree(d, dtype, device) if isinstance(d, dict)
+                else _param(d.shape, dtype, device))
+    return mod
+
+
+def _index(tree: nn.Module, i: int) -> dict:
+    """Entry ``i`` of every stack in ``tree``, as views, under its names."""
+    out = {n: p[i] for n, p in tree.named_parameters(recurse=False)}
+    out.update({n: _index(c, i) for n, c in tree.named_children()})
+    return out
+
+
 class _StackedParams(nn.Module):
     """Parameters of :func:`param_defs` (serving: no gradients): the head
-    tensors as attributes, the ``(L, …)`` block stacks in ``blocks``."""
+    tensors as attributes, each tree of stacks (``blocks``, ``groups``,
+    ``tail``) as a module of the same name."""
 
     def __init__(self, cfg: ArchConfig, device=None):
         super().__init__()
         dev = resolve_device(device)
         dt = torch_dtype(cfg.dtype)
-        defs = param_defs(cfg)
-        for name, d in defs.items():
-            if name != "blocks":
-                setattr(self, name, _param(d.shape, dt, dev))
-        self.blocks = nn.ParameterDict(
-            {k: _param(d.shape, dt, dev) for k, d in defs["blocks"].items()})
+        for name, d in param_defs(cfg).items():
+            setattr(self, name, _tree(d, dt, dev) if isinstance(d, dict)
+                    else _param(d.shape, dt, dev))
 
     def layer(self, i: int) -> dict:
         """Layer ``i``'s parameters as views into the stacks."""
-        return {k: v[i] for k, v in self.blocks.items()}
+        return _index(self.blocks, i)
 
 
 class DecoderParams(_StackedParams):
-    """Decoder parameters (the dense and moe families)."""
+    """Decoder parameters (the dense, moe and vlm families)."""
 
 
 class RWKVParams(_StackedParams):
     """RWKV6 parameters (the ssm family)."""
 
 
+class HybridParams(_StackedParams):
+    """Griffin / RecurrentGemma parameters (the hybrid family)."""
+
+    def group(self, g: int) -> dict:
+        """Group ``g``'s parameters (``t{i}_{kind}``, ``t{i}_ln``, ``m{i}``,
+        ``m{i}_ln`` per pattern position), as views into the stacks."""
+        return _index(self.groups, g)
+
+    def tail_layer(self, i: int) -> dict:
+        """The ``i``-th tail layer's parameters (``rec``, ``ln``, ``m``,
+        ``m_ln``), as views."""
+        t = _index(self.tail, 0)
+        return {"rec": t[f"t{i}_rec"], "ln": t[f"t{i}_ln"],
+                "m": t[f"m{i}"], "m_ln": t[f"m{i}_ln"]}
+
+
 def params_class(cfg: ArchConfig) -> type:
-    return RWKVParams if cfg.family == "ssm" else DecoderParams
+    return {"ssm": RWKVParams, "hybrid": HybridParams}.get(cfg.family,
+                                                           DecoderParams)
 
 
 def init_params(cfg: ArchConfig, seed: int = 0, device=None
@@ -155,12 +276,9 @@ def init_params(cfg: ArchConfig, seed: int = 0, device=None
     params = params_class(cfg)(cfg, device)
     dev = params.embed.device
     gen = torch.Generator(device=dev).manual_seed(seed)
-    defs = param_defs(cfg)
-    flat = [(n, d, False) for n, d in defs.items() if n != "blocks"]
-    flat += [(f"blocks.{n}", d, True) for n, d in defs["blocks"].items()]
     named = dict(params.named_parameters())
     with torch.no_grad():
-        for name, d, stacked in flat:
+        for name, d, stacked in _flat_defs(param_defs(cfg)):
             t = named[name]
             if d.scale == 0.0:
                 t.zero_()
@@ -194,16 +312,19 @@ def _qkv(p, x, cfg):
     return q, k, v
 
 
-def _attn_apply(p, x, cfg, *, pos_offset: int = 0, lut_tables=None,
+def _attn_apply(p, x, cfg, *, causal: bool = True, window: int | None = None,
+                pos_offset: int = 0, rope: bool = True, lut_tables=None,
                 layer: int | None = None):
-    """Causal self-attention over a segment; returns (out, (k, v))."""
+    """Self-attention over a segment at positions ``pos_offset ..``,
+    causal and, with ``window``, local; returns (out, (k, v))."""
     b, t, _ = x.shape
     q, k, v = _qkv(p, x, cfg)
-    positions = torch.arange(t, device=x.device) + pos_offset
-    sin_fn = site_act(cfg, lut_tables, sites.ROPE, layer)
-    q = apply_rope(q, positions, cfg.rope_theta, sin_fn=sin_fn)
-    k = apply_rope(k, positions, cfg.rope_theta, sin_fn=sin_fn)
-    out = mha(q, k, v, causal=True, q_offset=pos_offset,
+    if rope:
+        positions = torch.arange(t, device=x.device) + pos_offset
+        sin_fn = site_act(cfg, lut_tables, sites.ROPE, layer)
+        q = apply_rope(q, positions, cfg.rope_theta, sin_fn=sin_fn)
+        k = apply_rope(k, positions, cfg.rope_theta, sin_fn=sin_fn)
+    out = mha(q, k, v, causal=causal, window=window, q_offset=pos_offset,
               exp_fn=site_act(cfg, lut_tables, sites.ATTN_EXP, layer))
     out = torch.matmul(out.reshape(b, t, cfg.q_dim), p["wo"])
     return out, (k, v)
@@ -229,15 +350,18 @@ def _position_index(pos, device) -> torch.Tensor:
     return torch.full((1,), pos, dtype=torch.long, device=device)
 
 
-def _decode_attn(p, x, cfg, k_cache, v_cache, pos, *, scales=None,
-                 lut_tables=None, layer: int | None = None):
+def _decode_attn(p, x, cfg, k_cache, v_cache, pos, *, window=None,
+                 scales=None, lut_tables=None, layer: int | None = None):
     """Single-token attention against one layer's cache ``(B, Tmax, KV,
     Dh)`` at position ``pos`` (a Python int or a 0-d integer tensor on the
     cache's device; both give the same bits).  The new entry is written
     into the cache in place (the reference returns an updated copy; in
     place saves the copy).  ``scales``: the layer's ``(k_scale, v_scale)``
     ``(B, Tmax, KV)`` of an int8 cache, quantized at the write and
-    dequantized at the read."""
+    dequantized at the read.  ``window``: the cache is a ring of ``W``
+    slots (the hybrid family's local attention): the entry goes to slot
+    ``pos % W``, and the position each slot holds, ``pos - ((pos - s) %
+    W)``, is computed on the device, as is the slot."""
     b = x.shape[0]
     q, k, v = _qkv(p, x, cfg)
     pos_arr = _position_index(pos, x.device)
@@ -255,6 +379,15 @@ def _decode_attn(p, x, cfg, k_cache, v_cache, pos, *, scales=None,
         v_scale.index_copy_(1, pos_arr, vs.to(v_scale.dtype))
         out = decode_attend(q, k_cache, v_cache, pos, exp_fn=exp_fn,
                             k_scale=k_scale, v_scale=v_scale)
+    elif window is not None:
+        w = k_cache.shape[1]
+        slot = pos_arr % w
+        k_cache.index_copy_(1, slot, k.to(k_cache.dtype))
+        v_cache.index_copy_(1, slot, v.to(v_cache.dtype))
+        slots = torch.arange(w, device=x.device)
+        stored = pos_arr - ((pos_arr - slots) % w)
+        out = ring_decode_attend(q, k_cache, v_cache, stored, pos_arr,
+                                 window, exp_fn=exp_fn)
     else:
         k_cache.index_copy_(1, pos_arr, k.to(k_cache.dtype))
         v_cache.index_copy_(1, pos_arr, v.to(v_cache.dtype))
@@ -263,8 +396,21 @@ def _decode_attn(p, x, cfg, k_cache, v_cache, pos, *, scales=None,
 
 
 # =========================================================================
-# decoder-only forward (dense, moe)
+# decoder-only forward (dense, moe, vlm)
 # =========================================================================
+def _decoder_embed(params: DecoderParams, cfg: ArchConfig,
+                   tokens: torch.Tensor, patches: torch.Tensor | None = None
+                   ) -> torch.Tensor:
+    """Token embeddings; for vlm with ``patches`` (B, P, d) the projected
+    patch embeddings come first (cast to the model dtype before the
+    ``patch_proj`` product, as the reference casts them)."""
+    x = embed_lookup(params.embed, tokens)
+    if cfg.family == "vlm" and patches is not None:
+        pre = torch.matmul(patches.to(x.dtype), params.patch_proj)
+        x = torch.cat([pre, x], dim=1)
+    return x
+
+
 def feed_forward(p, x, cfg, lut_tables, layer: int | None = None):
     """A decoder layer's feed-forward part on its normed input: the MLP
     (dense), or the routed experts plus the shared experts' MLP (moe; the
@@ -296,13 +442,14 @@ def _decoder_block(p, x, cfg, lut_tables, *, pos_offset: int = 0,
 
 
 def decoder_forward(params: DecoderParams, cfg: ArchConfig,
-                    tokens: torch.Tensor, lut_tables=None,
-                    collect_kv: bool = False, kv_sink=None):
-    """Returns ``(hidden (B, T, d), kvs)``; ``kvs`` is the list of
-    per-layer ``(k, v)`` when ``collect_kv``, else ``None``.  ``kv_sink``
-    (``fn(layer, k, v)``) receives each layer's K/V instead, so a caller
-    can write them into a preallocated cache without keeping the list."""
-    x = embed_lookup(params.embed, tokens)
+                    tokens: torch.Tensor, patches: torch.Tensor | None = None,
+                    lut_tables=None, collect_kv: bool = False, kv_sink=None):
+    """Returns ``(hidden (B, P + T, d), kvs)`` (``P`` vlm patches, else 0);
+    ``kvs`` is the list of per-layer ``(k, v)`` when ``collect_kv``, else
+    ``None``.  ``kv_sink`` (``fn(layer, k, v)``) receives each layer's K/V
+    instead, so a caller can write them into a preallocated cache without
+    keeping the list."""
+    x = _decoder_embed(params, cfg, tokens, patches)
     kvs = [] if collect_kv else None
     for i in range(cfg.n_layers):
         x, (k, v) = _decoder_block(params.layer(i), x, cfg, lut_tables,
@@ -346,5 +493,93 @@ def rwkv_forward(params: RWKVParams, cfg: ArchConfig, tokens: torch.Tensor,
             st["att_x"].copy_(ax)
             st["ffn_x"].copy_(fx)
             st["wkv"].copy_(wkv)
+    x = rms_norm(x, params.final_norm, cfg.norm_eps)
+    return x, states
+
+
+# =========================================================================
+# Griffin / RecurrentGemma forward (hybrid)
+# =========================================================================
+def _ring_from_segment(k: torch.Tensor, v: torch.Tensor, window: int):
+    """The decode ring buffer from a prefill segment (positions 0 ..
+    T-1): slot ``s`` holds the latest position ``p`` with ``p % W == s``,
+    zeros where no position has reached it yet."""
+    t = k.shape[1]
+    slots = torch.arange(window, device=k.device)
+    p = (t - 1) - ((t - 1 - slots) % window)
+    valid = (p >= 0)[None, :, None, None]
+    idx = torch.clamp(p, 0, t - 1)
+    return (torch.where(valid, k[:, idx], 0),
+            torch.where(valid, v[:, idx], 0))
+
+
+def _hybrid_temporal(kind: str, p, x, cfg, pos, state, mode: str):
+    """One temporal block (``rec`` or local ``attn``).  ``decode``: one
+    token against ``state``, updated in place; ``prefill``: a fresh
+    segment whose final state (the conv window and LRU vector, or the
+    ring) is written into ``state``; ``train``: no state."""
+    if kind == "rec":
+        if mode == "decode":
+            out, _ = recurrent_block_step(p, x, cfg, state)
+            return out
+        out, st = recurrent_block(p, x, cfg)
+        if state is not None:
+            state["conv"].copy_(st["conv"])
+            state["lru"].copy_(st["lru"])
+        return out
+    if mode == "decode":
+        return _decode_attn(p, x, cfg, state["k"], state["v"], pos,
+                            window=cfg.local_window)
+    out, (k, v) = _attn_apply(p, x, cfg, causal=True,
+                              window=cfg.local_window, pos_offset=pos)
+    if state is not None:
+        kr, vr = _ring_from_segment(k, v, cfg.local_window)
+        state["k"].copy_(kr)
+        state["v"].copy_(vr)
+    return out
+
+
+def _hybrid_layer(kind, p_t, ln, p_m, m_ln, x, cfg, pos, state, mode,
+                  lut_tables, layer: int):
+    rs = site_act(cfg, lut_tables, sites.NORM_RSQRT, layer)
+    x = x + _hybrid_temporal(kind, p_t, rms_norm(x, ln, cfg.norm_eps, rs),
+                             cfg, pos, state, mode)
+    return x + mlp_block(p_m, rms_norm(x, m_ln, cfg.norm_eps, rs), cfg,
+                         lut_tables, layer=layer)
+
+
+def hybrid_forward(params: HybridParams, cfg: ArchConfig,
+                   tokens: torch.Tensor, states: dict | None = None,
+                   pos=0, mode: str | None = None, lut_tables=None):
+    """Returns ``(hidden (B, T, d), states)``.
+
+    ``states`` is the nested decode state of
+    :func:`repro_torch.serve.kvcache.init_cache` (``groups.t{i}`` stacked
+    over the groups, ``tail.t{i}``).  ``mode``: ``decode`` (the default
+    when ``states`` is given) runs ``tokens`` (B, 1) at position ``pos``
+    against it and updates it in place; ``prefill`` runs a fresh segment
+    from position 0, as the reference's prefill, and writes each layer's
+    final state into it; ``train`` (the default without ``states``; what
+    calibration capture runs) keeps none.  Layer ids are the reference's:
+    ``group * len(pattern) + i`` in the groups, then the tail's."""
+    mode = mode or ("decode" if states is not None else "train")
+    pattern = block_pattern(cfg)
+    n_groups, n_tail = hybrid_layout(cfg)
+    x = embed_lookup(params.embed, tokens)
+    for g in range(n_groups):
+        p = params.group(g)
+        for i, kind in enumerate(pattern):
+            st = None
+            if states is not None:
+                st = {k: v[g] for k, v in states["groups"][f"t{i}"].items()}
+            x = _hybrid_layer(kind, p[f"t{i}_{kind}"], p[f"t{i}_ln"],
+                              p[f"m{i}"], p[f"m{i}_ln"], x, cfg, pos, st,
+                              mode, lut_tables, g * len(pattern) + i)
+    tail_base = n_groups * len(pattern)
+    for i in range(n_tail):
+        p = params.tail_layer(i)
+        st = states["tail"][f"t{i}"] if states is not None else None
+        x = _hybrid_layer("rec", p["rec"], p["ln"], p["m"], p["m_ln"], x,
+                          cfg, pos, st, mode, lut_tables, tail_base + i)
     x = rms_norm(x, params.final_norm, cfg.norm_eps)
     return x, states

@@ -23,10 +23,11 @@ step program are not ported yet (ROADMAP queue A, item 8), and sharded
 serving (``mesh``) is queue A item 11.
 
 Caveat, as in the reference: the snapshot and restore cover only the
-attention cache.  An ssm (RWKV6) step advances every row's recurrent
-state, so a tick with slots at two positions would advance a row twice,
-and idle slots advance too; the batcher serves the decoder families
-(dense and moe).  A moe step routes all B rows together, so a row's
+top-level attention cache.  An ssm (RWKV6) step advances every row's
+recurrent state, and a hybrid step its nested rings, conv windows and LRU
+vectors, so a tick with slots at two positions would advance a row
+twice, and idle slots advance too; vlm requests would carry no patches;
+the batcher serves the dense and moe families.  A moe step routes all B rows together, so a row's
 experts could see another row's tokens only through a dropped
 assignment; at decode no expert sees more tokens than rows, and with
 capacity >= B (8 at 4 slots on both moe configurations, at least 2B on

@@ -1,5 +1,5 @@
-"""Prefill and single-token decode (PyTorch port of the dense, moe and
-ssm paths of the reference's ``serve/decode.py``).
+"""Prefill and single-token decode (PyTorch port of the dense, moe, vlm,
+ssm and hybrid paths of the reference's ``serve/decode.py``).
 
 ``prefill(params, cfg, batch)`` -> (last-token logits, decode state)
 ``decode_step(params, cfg, cache, tokens, pos)`` -> (logits, cache)
@@ -10,9 +10,12 @@ logits, cache)
 (the form a step captured in a CUDA graph reads, :mod:`.graphs`); both
 give the same bits, and nothing in a decode step reads a tensor back to
 the host.  ``decode_step`` updates ``cache`` in place (the new K/V
-entries, quantized for an int8 cache, or the recurrent state) and returns
-the same dict.  The family picks the functions, as the reference's
-``PREFILL_FNS`` / ``DECODE_FNS`` do.
+entries, quantized for an int8 cache, the recurrent state, or the
+hybrid's conv windows, LRU vectors and rings) and returns the same dict.
+The family picks the functions, as the reference's ``PREFILL_FNS`` /
+``DECODE_FNS`` do.  A vlm prompt is ``n_patches`` patch embeddings and
+then its tokens, so its first decoded token sits at ``n_patches + T``
+(:func:`decode_start`).
 """
 from __future__ import annotations
 
@@ -26,20 +29,33 @@ from repro_torch.nn.transformer import (
     _decode_attn,
     decoder_forward,
     feed_forward,
+    hybrid_forward,
     rwkv_forward,
 )
 
 from .kvcache import init_cache
 
 
+def decode_start(cfg: ArchConfig, batch: dict) -> int:
+    """The position of the first decoded token after prefilling ``batch``:
+    the prompt's length, plus the patch prefix a vlm batch carries (the
+    reference's ``verify_backend_equivalence`` convention)."""
+    t = batch["tokens"].shape[1]
+    if cfg.family == "vlm" and batch.get("patches") is not None:
+        t += batch["patches"].shape[1]
+    return t
+
+
 @torch.no_grad()
 def decoder_prefill(params, cfg: ArchConfig, batch: dict,
                     max_seq: int | None = None, lut_tables=None):
-    """Run the prompt ``batch["tokens"]`` (B, T); the cache holds
-    ``max_seq`` positions (default T) in the model dtype, as the
-    reference's padded prefill cache does."""
+    """Run the prompt ``batch["tokens"]`` (B, T), after a vlm batch's
+    ``batch["patches"]`` (B, P, d); the cache holds ``max_seq`` positions
+    (default the hidden length P + T, never fewer) in the model dtype, as
+    the reference's padded prefill cache does."""
     tokens = batch["tokens"]
-    b, t = tokens.shape
+    b = tokens.shape[0]
+    t = decode_start(cfg, batch)
     cache = init_cache(cfg, b, max(max_seq or t, t),
                        dtype=params.embed.dtype, device=tokens.device)
 
@@ -47,8 +63,8 @@ def decoder_prefill(params, cfg: ArchConfig, batch: dict,
         cache["k"][i, :, :t] = k
         cache["v"][i, :, :t] = v
 
-    x, _ = decoder_forward(params, cfg, tokens, lut_tables=lut_tables,
-                           kv_sink=sink)
+    x, _ = decoder_forward(params, cfg, tokens, patches=batch.get("patches"),
+                           lut_tables=lut_tables, kv_sink=sink)
     logits = project_logits(x[:, -1:], params.lm_head, cfg, lut_tables)
     return logits, cache
 
@@ -98,10 +114,36 @@ def rwkv_decode_step(params, cfg: ArchConfig, cache: dict,
     return project_logits(x, params.lm_head, cfg, lut_tables), cache
 
 
+@torch.no_grad()
+def hybrid_prefill(params, cfg: ArchConfig, batch: dict,
+                   max_seq: int | None = None, lut_tables=None):
+    """Run the prompt through the hybrid model from a fresh state; returns
+    the last-token logits and the nested state (``max_seq`` does not shape
+    it: the rings hold ``local_window`` positions)."""
+    tokens = batch["tokens"]
+    state = init_cache(cfg, tokens.shape[0], 1, dtype=params.embed.dtype,
+                       device=tokens.device)
+    x, state = hybrid_forward(params, cfg, tokens, states=state,
+                              mode="prefill", lut_tables=lut_tables)
+    logits = project_logits(x[:, -1:], params.lm_head, cfg, lut_tables)
+    return logits, state
+
+
+@torch.no_grad()
+def hybrid_decode_step(params, cfg: ArchConfig, cache: dict,
+                       tokens: torch.Tensor, pos, lut_tables=None):
+    """One hybrid decode step for tokens (B, 1) at position ``pos``."""
+    x, cache = hybrid_forward(params, cfg, tokens, states=cache, pos=pos,
+                              mode="decode", lut_tables=lut_tables)
+    return project_logits(x, params.lm_head, cfg, lut_tables), cache
+
+
 PREFILL_FNS = {"dense": decoder_prefill, "moe": decoder_prefill,
-               "ssm": rwkv_prefill}
+               "vlm": decoder_prefill, "ssm": rwkv_prefill,
+               "hybrid": hybrid_prefill}
 DECODE_FNS = {"dense": decoder_decode_step, "moe": decoder_decode_step,
-              "ssm": rwkv_decode_step}
+              "vlm": decoder_decode_step, "ssm": rwkv_decode_step,
+              "hybrid": hybrid_decode_step}
 
 
 def _family_fn(table: dict, cfg: ArchConfig, what: str):
@@ -115,8 +157,9 @@ def _family_fn(table: dict, cfg: ArchConfig, what: str):
 
 def prefill(params, cfg: ArchConfig, batch: dict, max_seq: int | None = None,
             lut_tables=None):
-    """Run the prompt ``batch["tokens"]`` (B, T) through the family's
-    prefill: ``(last-token logits, decode state)``."""
+    """Run the prompt ``batch["tokens"]`` (B, T) (and a vlm batch's
+    ``"patches"``) through the family's prefill: ``(last-token logits,
+    decode state)``."""
     return _family_fn(PREFILL_FNS, cfg, "prefill")(
         params, cfg, batch, max_seq, lut_tables=lut_tables)
 

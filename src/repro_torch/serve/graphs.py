@@ -8,8 +8,11 @@ one step of :func:`~repro_torch.serve.decode.decode_step` once and
 replays it per token:
 
 * **Capture.** Static ``tokens (B, 1)`` and ``pos`` buffers, the cache
-  dict it was captured against (the graph reads and writes those tensors
-  in place), PyTorch's recipe: warm-up steps on a side stream, on a copy
+  dict it was captured against (flat, or nested as the hybrid family's;
+  the graph reads and writes those tensors in place, so every state
+  update of the step, the hybrid's conv shift, LRU state and ring write
+  included, is an in-place write, never a rebound name), PyTorch's
+  recipe: warm-up steps on a side stream, on a copy
   of the cache so that they change nothing the caller holds, then one
   step captured with ``torch.cuda.graph`` on the same side stream (cuBLAS
   keeps a handle and workspace per stream).
@@ -36,6 +39,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import add_launch_counts, launch_counts
 
 from .decode import decode_step
+from .kvcache import clone_state, state_leaves
 
 WARMUP_STEPS = 2
 
@@ -57,7 +61,7 @@ class CapturedStep:
 
     def _key_of(self, cache: dict, tokens: torch.Tensor) -> tuple:
         return (tuple((n, t.data_ptr(), tuple(t.shape), t.dtype)
-                      for n, t in cache.items()),
+                      for n, t in state_leaves(cache)),
                 tuple(tokens.shape), id(self.lut_tables), self.cfg)
 
     def reset(self) -> None:
@@ -83,7 +87,7 @@ class CapturedStep:
         graph = torch.cuda.CUDAGraph()
         try:
             with torch.cuda.stream(side):
-                scratch = {n: t.clone() for n, t in cache.items()}
+                scratch = clone_state(cache)
                 for _ in range(WARMUP_STEPS):
                     decode_step(self.params, self.cfg, scratch, tok, pos,
                                 self.lut_tables)

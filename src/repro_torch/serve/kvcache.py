@@ -1,6 +1,8 @@
 """Decode-state construction (PyTorch port of the reference's
-``serve/kvcache.py``: the decoder families' (dense, moe) bf16 and int8
-KV caches and the ssm family's recurrent state)."""
+``serve/kvcache.py``: the decoder families' (dense, moe, vlm) bf16 and
+int8 KV caches, the ssm family's recurrent state and the hybrid family's
+nested recurrent and ring-buffer state), and the walks over a state's
+tensors that a captured step and its checks need."""
 from __future__ import annotations
 
 import torch
@@ -18,8 +20,13 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
     ``v`` are int8 and ``{"k_scale", "v_scale"}`` ``(L, B, Tmax, KV)``
     float32 hold their per-(position, head) scales.  Ssm (RWKV6):
     ``{"att_x", "ffn_x"}`` ``(L, B, 1, d)`` in ``dtype`` and ``"wkv"``
-    ``(L, B, H, N, N)`` in float32; neither ``max_seq`` nor ``kv_dtype``
-    shapes it, as in the reference."""
+    ``(L, B, H, N, N)`` in float32.  Hybrid: ``{"groups": {"t{i}": …},
+    "tail": {"t{i}": …}}``, per pattern position of the groups a recurrent
+    layer's ``{"conv": (G, B, K-1, d_rnn)}`` in ``dtype`` and ``{"lru":
+    (G, B, d_rnn)}`` in float32, or an attention layer's ring ``{"k",
+    "v"}`` ``(G, B, W, KV, Dh)``; the tail's recurrent layers without the
+    leading axis.  Neither ``max_seq`` nor ``kv_dtype`` shapes an ssm or
+    hybrid state, as in the reference."""
     if kv_dtype not in (None, "int8"):
         raise ValueError(f"init_cache: kv_dtype {kv_dtype!r} is not 'int8' "
                          f"(other caches take their type from dtype)")
@@ -33,7 +40,9 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
             "wkv": torch.zeros((L, batch, d // n, n, n),
                                dtype=torch.float32, device=dev),
         }
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family == "hybrid":
+        return _hybrid_state(cfg, batch, dtype, dev)
+    if cfg.family not in ("dense", "moe", "vlm"):
         raise NotImplementedError(
             f"init_cache: family {cfg.family!r} is not yet ported "
             f"(ROADMAP queue A, item 5)")
@@ -47,3 +56,38 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
         return cache
     return {n: torch.zeros(shape, dtype=dtype, device=dev)
             for n in ("k", "v")}
+
+
+def _hybrid_state(cfg: ArchConfig, batch: int, dtype, dev) -> dict:
+    from repro_torch.nn.transformer import block_pattern, hybrid_layout
+
+    n_groups, n_tail = hybrid_layout(cfg)
+    drnn = cfg.d_rnn or cfg.d_model
+    zeros = lambda shape, dt=dtype: torch.zeros(shape, dtype=dt, device=dev)
+
+    def rec(lead):
+        return {"conv": zeros(lead + (batch, cfg.conv_width - 1, drnn)),
+                "lru": zeros(lead + (batch, drnn), torch.float32)}
+
+    ring = (n_groups, batch, cfg.local_window, cfg.n_kv_heads, cfg.d_head)
+    groups = {f"t{i}": rec((n_groups,)) if kind == "rec"
+              else {"k": zeros(ring), "v": zeros(ring)}
+              for i, kind in enumerate(block_pattern(cfg))}
+    return {"groups": groups,
+            "tail": {f"t{i}": rec(()) for i in range(n_tail)}}
+
+
+def state_leaves(state: dict, prefix: str = ""):
+    """``(dotted name, tensor)`` of every tensor of a decode state, flat or
+    nested, in its order."""
+    for name, v in state.items():
+        if isinstance(v, dict):
+            yield from state_leaves(v, f"{prefix}{name}.")
+        else:
+            yield prefix + name, v
+
+
+def clone_state(state: dict) -> dict:
+    """A copy of a decode state, flat or nested, every tensor cloned."""
+    return {name: clone_state(v) if isinstance(v, dict) else v.clone()
+            for name, v in state.items()}

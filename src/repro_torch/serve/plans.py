@@ -53,9 +53,9 @@ from repro_torch.nn.lut_act import (
 DEFAULT_COMPRESS = dict(exiguity=250, m_candidates=(8, 16, 32, 64),
                         lb_candidates=(0, 1, 2, 3))
 
-# Families whose layer loops serve per-layer tables (the port: dense, moe,
-# ssm).
-PER_LAYER_FAMILIES = ("dense", "moe", "ssm")
+# Families whose layer loops serve per-layer tables (every family the port
+# serves).
+PER_LAYER_FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid")
 
 BACKENDS = ("gather", "cuda")
 
@@ -410,17 +410,19 @@ def build_serving_plans(
                         calib="per_site" if per_site else "shared")
 
 
-def greedy_decode(cfg, params, tokens: torch.Tensor, n_new: int,
+def greedy_decode(cfg, params, prompt, n_new: int,
                   max_seq: int | None = None, lut_tables=None
                   ) -> list[list[int]]:
-    """``n_new`` greedy tokens per request, ``(B, n_new)`` as lists.  The
-    tokens stay on the device until the end (one host sync)."""
-    from .decode import decode_step, prefill
+    """``n_new`` greedy tokens per request, ``(B, n_new)`` as lists, after
+    ``prompt``: (B, T) tokens, or a batch dict (a vlm's ``"patches"``
+    with its ``"tokens"``; decoding then starts at ``n_patches + T``).
+    The tokens stay on the device until the end (one host sync)."""
+    from .decode import decode_start, decode_step, prefill
 
-    b, t = tokens.shape
+    batch = prompt if isinstance(prompt, dict) else {"tokens": prompt}
+    t = decode_start(cfg, batch)
     max_seq = max_seq or (t + n_new)
-    logits, cache = prefill(params, cfg, {"tokens": tokens}, max_seq,
-                            lut_tables)
+    logits, cache = prefill(params, cfg, batch, max_seq, lut_tables)
     tok = logits[:, -1].argmax(-1)[:, None]
     toks = []
     for i in range(n_new):
@@ -435,26 +437,31 @@ def verify_backend_equivalence(
     cfg: ArchConfig,
     params,
     plans: ServingPlans,
-    prompt,                      # (B, T) int tokens
+    prompt,                      # (B, T) int tokens, or a batch dict
     n_new: int,
     max_seq: int | None = None,
     plan_exec: str | None = None,
 ) -> list[list[int]]:
     """Decode ``n_new`` greedy tokens with the ``gather`` backend and with
     the ``cuda`` kernels on the parameters' device and assert they agree
-    token for token.  Returns the ``(B, n_new)`` token lists.
+    token for token.  Returns the ``(B, n_new)`` token lists.  ``prompt``
+    may be a batch dict of numpy arrays for a family whose prefill takes
+    more than tokens (vlm patches), as in the reference.
 
     The matmul-epilogue form (``cfg.lut_fuse``) is not held to this: its
     GEMM sums in another order than ``torch.matmul``, so a GEMM output at a
     quantizer edge may land in the neighbouring bin."""
     cfg = plans.patched_config(cfg)
     dev = params.embed.device
-    tokens = torch.as_tensor(np.asarray(prompt), device=dev).long()
+    raw = prompt if isinstance(prompt, dict) else {"tokens": prompt}
+    batch = {k: torch.as_tensor(np.asarray(v), device=dev)
+             for k, v in raw.items()}
+    batch["tokens"] = batch["tokens"].long()
     outs = {}
     for backend in BACKENDS:
         tables = plans.tables_for_model(backend=backend, plan_exec=plan_exec,
                                         device=dev)
-        outs[backend] = greedy_decode(cfg, params, tokens, n_new, max_seq,
+        outs[backend] = greedy_decode(cfg, params, batch, n_new, max_seq,
                                       tables)
     for r, (a, b) in enumerate(zip(outs["gather"], outs["cuda"])):
         assert a == b, (

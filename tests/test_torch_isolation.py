@@ -35,7 +35,7 @@ def test_importing_every_submodule_pulls_in_no_jax_and_no_reference():
     r = subprocess.run([sys.executable, "-c", _IMPORT_ALL], env=env,
                        capture_output=True, text=True, timeout=240)
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.strip()) >= 56   # every submodule was imported
+    assert int(r.stdout.strip()) >= 68   # every submodule was imported
 
 
 def _imported_modules(path: Path) -> list[str]:
@@ -127,7 +127,7 @@ def test_non_dense_families_are_not_ported_yet():
     from repro_torch.configs import get_config
 
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        get_config("recurrentgemma-9b")
+        get_config("whisper-small")
 
 
 def test_missing_cuda_toolkit_raises(monkeypatch):
