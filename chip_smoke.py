@@ -155,7 +155,28 @@ Phases (any failure exits non-zero; nothing is caught):
      one kernel and no copy; K3 at each model's MLP shape held against its
      own GEMM + K1 and timed beside cuBLAS + K1; parameter bytes, peak
      memory, and one eager and one captured decode step profiled per model
-     (exact and (a)).
+     (exact and (a));
+  17. (run after phase 16, once its models are freed) the encdec family
+     and the reference's other dense configurations at full width, random
+     weights from seed 0, bf16, the same 4 x 64 x 16: ``whisper-small``
+     (12 encoder layers over 1500 stub frames from ``model_batch``, 12
+     decoder layers with cross-attention, d_model 768, 12 heads x 64, d_ff
+     3072 gelu without a gate) in forms exact, (a), (b), (d) ``--lut-fuse``
+     (K3 without a gate), (e) ``--lut-sites all`` and (f) ``--lut-sites all
+     --lut-fuse`` (K4 on the cross-attention's scores over the 1500
+     frames), its encoder timed apart from its decoder prefill; then
+     ``phi4-mini-3.8b`` and ``nemotron-4-15b`` (relu2 without a gate, d_ff
+     24576) in forms exact, (a), (b) and (d), and ``deepseek-67b`` with its
+     depth cut to 40 of 95 layers (134.9 GB in bf16 at full depth) in forms
+     exact and (a); each form captured and eager as in phase 5 (whisper's
+     cross K/V as prefill wrote them, bit for bit), (a), (b), (e)
+     token-identical to the gather backend, every form launching the LUT
+     kernels as often as its sites imply; every K1 / K2 / K4 call of a
+     prefill and a decode step in forms (a), (b) and (f) held bit for bit
+     against its plain version and timed beside its bound; K3 at each
+     model's MLP shape held against its own GEMM + K1 and timed beside
+     cuBLAS + K1; parameter bytes, peak memory, and one eager and one
+     captured decode step profiled per model (exact and (a)).
 The last lines are the kernel JSON, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.  Long logs go to ``chiprun_out/`` (every
 logged line to ``chiprun_out/chip_smoke.log``).
@@ -1519,7 +1540,9 @@ def check_captured(cfg, params, batch, tables, kv_int8=False) -> float:
     eager's, and the wrappers' launch counts over the replays must be the
     eager steps'.  ``kv_int8``: the cache is int8, filled by an eager
     replay of the prompt.  Decoding starts at ``decode_start`` (after a
-    vlm's patches); a nested state (hybrid) is compared tensor by tensor.
+    vlm's patches); a nested state (hybrid) is compared tensor by tensor;
+    an encdec cache's cross K/V (``xk`` / ``xv``) must come out of the
+    replays and of the eager steps as prefill wrote them, bit for bit.
     Returns the capture's seconds."""
     import torch
 
@@ -1547,6 +1570,7 @@ def check_captured(cfg, params, batch, tables, kv_int8=False) -> float:
         logits, cache = prefill_replay(params, cfg, cache, toks, 0, tables,
                                        step=eager)
     graph_cache = clone_state(cache)
+    cross = {n: cache[n].clone() for n in ("xk", "xv") if n in cache}
     step = CapturedStep(params, cfg, tables)
     step.capture(graph_cache, toks[:, :1])
     tok = logits[:, -1].argmax(-1)[:, None]
@@ -1573,6 +1597,11 @@ def check_captured(cfg, params, batch, tables, kv_int8=False) -> float:
         if not bits_equal(torch, v, graph_leaves[k]):
             raise AssertionError(f"the captured steps' cache {k!r} differs "
                                  f"from eager's")
+    for n, c in cross.items():
+        if not (bits_equal(torch, cache[n], c)
+                and bits_equal(torch, graph_leaves[n], c)):
+            raise AssertionError(f"the decode steps wrote the read-only "
+                                 f"cross cache {n!r}")
     return step.capture_s
 
 
@@ -2345,11 +2374,13 @@ ALL_SITE_CALIB = {"vlm": [], "hybrid": ["--calib-smoothing", "1"]}
 
 
 def mlp_weights(params, cfg) -> list:
-    """``[(layer id, w_in (d, 2 d_ff))]`` of every layer's MLP, with the
-    layer ids the served tables use (hybrid: ``group * len(pattern) + i``,
-    then the tail's)."""
+    """``[(layer id, w_in (d, 2 d_ff) or (d, d_ff))]`` of every layer's
+    MLP, with the layer ids the served tables use (hybrid: ``group *
+    len(pattern) + i``, then the tail's; encdec: the decoder's, the
+    encoder serving no tables)."""
     if cfg.family != "hybrid":
-        w = params.blocks["w_in"]
+        w = (params.dec_blocks if cfg.family == "encdec"
+             else params.blocks)["w_in"]
         return [(l, w[l]) for l in range(cfg.n_layers)]
     from repro_torch.nn.transformer import block_pattern, hybrid_layout
 
@@ -2362,15 +2393,17 @@ def mlp_weights(params, cfg) -> list:
     return sorted(out, key=lambda lw: lw[0])
 
 
-def check_mlp_k3(dev, params, cfg, tables, m_prefill, gen, tag) -> dict:
-    """K3 at the model's gated MLP shape (K = d_model, N = 2 d_ff) on form
-    (f)'s super-slab: against its own GEMM + K1 and within 1% of the plain
-    path at the decode and prefill M and a ragged M, at the first, middle
-    and last layers; timed beside the plain version and cuBLAS + K1,
-    rotating every layer's weights (L2-cold)."""
+def check_mlp_k3(dev, params, cfg, tables, m_prefill, gen, tag,
+                 phase="16") -> dict:
+    """K3 at the model's MLP shape (K = d_model, N = 2 d_ff gated, or d_ff
+    without a gate) on a fused form's super-slab: against its own GEMM +
+    K1 and within 1% of the plain path at the decode and prefill M and a
+    ragged M, at the first, middle and last layers; timed beside the plain
+    version and cuBLAS + K1, rotating every layer's weights (L2-cold)."""
     import torch
 
     from repro_torch.kernels import ops
+    from repro_torch.nn.layers import is_gated
     from repro_torch.serve.stacked import multi_site_stacked_entry
 
     multi = tables["multi"]
@@ -2379,21 +2412,23 @@ def check_mlp_k3(dev, params, cfg, tables, m_prefill, gen, tag) -> dict:
     tab = lambda layer: {"multi_entry": multi, "site": "mlp", "layer": layer}
     k1 = lambda layer: (lambda g: ops.lut_act_stacked(g, sl, layer))
     k = layers[0][1].shape[0]
+    gated = is_gated(cfg.activation)
     shares = {}
     for m in (B, m_prefill, 67):
         for layer, w in (layers[0], layers[len(layers) // 2], layers[-1]):
             x = torch.randn(m, k, generator=gen, device=dev).to(
                 torch.bfloat16)
             _, shares[f"M={m} layer {layer}"] = check_fused_case(
-                x, w, tab(layer), k1(layer), gated=True,
+                x, w, tab(layer), k1(layer), gated=gated,
                 label=f"{tag} mlp M={m} layer {layer}")
     out = {"mismatch_share_vs_plain": shares}
     mid = layers[len(layers) // 2][0]
     for shape_name, m in (("decode", B), ("prefill", m_prefill)):
         x = torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
         out[shape_name] = t = k3_times(x, [w for _, w in layers], tab(mid),
-                                       sl, mid, gated=True)
-        log(f"[16] K3 {tag} mlp {shape_name} {t['shape']}: "
+                                       sl, mid, gated=gated)
+        log(f"[{phase}] K3 {tag} mlp {shape_name} {t['shape']}"
+            f"{'' if gated else ' (no gate)'}: "
             f"{t['graph_ms'] * 1e3:.2f} us from a graph ({t['ms'] * 1e3:.2f} "
             f"host-driven), bound {t['bound_ms'] * 1e3:.3f} us "
             f"({t['bound_by']}), plain {t['plain_ms'] * 1e3:.2f} us, cuBLAS + "
@@ -2574,6 +2609,212 @@ def run_family_model(launcher, dev, arch, totals, results, stamp) -> dict:
         raise AssertionError(f"{arch}: bad logits {tuple(logits.shape)}")
     out["peak"] = torch.cuda.max_memory_allocated(dev)
     log(f"[16] {tag}: parameters {out['param_bytes']} bytes, peak allocated "
+        f"{out['peak_after_params']} after the parameters, "
+        f"{out['peak']} over the phase")
+    return out
+
+# -------------------------------------------------------------------------
+# phase 17: the encdec family and the other dense configurations
+# -------------------------------------------------------------------------
+# the forms phase 17 serves each configuration in, and what each is held
+# against, as MOE_FORMS / MOE_REFS
+P17_FORMS = {"whisper-small": ("exact", "a", "b", "d", "e", "f"),
+             "phi4-mini-3.8b": ("exact", "a", "b", "d"),
+             "nemotron-4-15b": ("exact", "a", "b", "d"),
+             "deepseek-67b": ("exact", "a")}
+P17_REFS = {"exact": None, "a": "gather", "b": "gather", "e": "gather",
+            "d": "a", "f": "e"}
+# LUT calls a whisper decoder layer makes under --lut-sites all: mlp,
+# attn_exp twice (self- and cross-attention), norm_rsqrt three times (the
+# self-attention's, the cross-attention's and the MLP's norms) and
+# rope_table four times (sine and cosine of q and of k); the encoder
+# serves no tables
+P17_ALL_SITE_CALLS = 10
+# depth cuts, with their reason: deepseek-67b's 95 layers at d_model 8192
+# are 67.4 G parameters, 134.9 GB in bf16, and one 80 GB card holds 40 of
+# them (58.7 GB) beside the decode state and the calibration's work
+P17_DEPTH = {"deepseek-67b": (40, "95 layers are 134.9 GB in bf16; one "
+                                  "80 GB card holds 40 (58.7 GB)")}
+P17_TAGS = {"whisper-small": "wsp", "phi4-mini-3.8b": "phi4",
+            "nemotron-4-15b": "nem", "deepseek-67b": "ds67"}
+
+
+def setup_model(launcher, args, n_layers=None):
+    """``launch.serve.setup(args)``, with the configuration's depth cut to
+    ``n_layers`` where one is given (its widths stay the published ones)."""
+    if n_layers is None:
+        return launcher.setup(args)
+    orig = launcher.get_config
+    launcher.get_config = lambda name: dataclasses.replace(
+        orig(name), n_layers=n_layers)
+    try:
+        return launcher.setup(args)
+    finally:
+        launcher.get_config = orig
+
+
+def encoder_split(launcher, params, cfg, batch, reps=3) -> dict:
+    """whisper's prefill in two parts: the encoder alone over the batch's
+    frames, and the whole prefill (encoder, cross K/V, decoder); the
+    decoder's share is their difference.  Medians of ``reps`` runs, host
+    clock around synchronised work."""
+    import torch
+
+    from repro_torch.nn.transformer import encoder_forward
+
+    def run(fn):
+        times = []
+        for _ in range(reps + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                fn()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        return statistics.median(times[1:])   # the first warms up
+
+    enc_s = run(lambda: encoder_forward(params, cfg, batch["frames"]))
+    pre_s = run(lambda: launcher.prefill(params, cfg, batch,
+                                         max_seq=T + NEW))
+    return {"encoder_s": enc_s, "prefill_s": pre_s,
+            "decoder_prefill_s": pre_s - enc_s}
+
+
+def run_phase17_model(launcher, dev, arch, totals, results, stamp) -> dict:
+    """Phase 17 for one configuration at full width (random weights from
+    seed 0, bf16; deepseek-67b's depth cut, ``P17_DEPTH``): plans from 2
+    calibration batches (``mlp``; every site for whisper's (e) / (f)); the
+    forms ``P17_FORMS[arch]`` through :func:`serve_form`, each captured
+    and eager (whisper's cross K/V left as prefill wrote them), with the
+    launch counts its sites imply; every K1 / K2 / K4 call of a prefill
+    and a decode step in forms (a), (b) and (f) held bit for bit against
+    its plain version and timed; K3 at the MLP shape (gated or not);
+    whisper's encoder timed apart from its decoder prefill; one eager and
+    one captured decode step profiled (exact and (a))."""
+    import torch
+
+    labels = P17_FORMS[arch]
+    tag = P17_TAGS[arch]
+    gen = torch.Generator(device=dev).manual_seed(17)
+    parse = launcher.parse_args
+    common = ["--arch", arch, "--full", "--batch", str(B), "--prompt-len",
+              str(T), "--new-tokens", str(NEW), "--device", "cuda"]
+    lut = common + ["--lut-act", "--calib-steps", "2"]
+    lut_all = lut + ["--lut-sites", "all"]
+    args = {"exact": parse(common), "a": parse(lut),
+            "b": parse(lut + ["--plan-exec", "unrolled"]),
+            "d": parse(lut + ["--lut-fuse"]), "e": parse(lut_all),
+            "f": parse(lut_all + ["--lut-fuse"])}
+    depth, why = P17_DEPTH.get(arch, (None, None))
+    torch.cuda.init()   # the allocator, before its peak is reset
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    cfg0, params, batch, rng = setup_model(launcher, args["exact"], depth)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    start = launcher.decode_start(cfg0, batch)
+    if start != T:
+        raise AssertionError(f"{arch}: decoding would start at {start}, "
+                             f"not {T}")
+    encdec = cfg0.family == "encdec"
+    out = {"arch": arch, "init_s": init_s, "n_layers": cfg0.n_layers,
+           "depth_cut": why,
+           "n_params": sum(p.numel() for p in params.parameters()),
+           "param_bytes": sum(p.numel() * p.element_size()
+                              for p in params.parameters()),
+           "peak_after_params": torch.cuda.max_memory_allocated(dev)}
+    full_layers = launcher.get_config(arch).n_layers
+    shape = (f"{cfg0.n_encoder_layers} encoder layers over "
+             f"{cfg0.n_frames} stub frames (batch frames "
+             f"{tuple(batch['frames'].shape)})" if encdec else
+             "[gate|up] w_in" if cfg0.activation == "swiglu" else
+             "w_in without a gate")
+    log(f"[17] {cfg0.name}: {cfg0.n_layers} layers"
+        + (f" (cut from {full_layers}: {why})" if depth else "")
+        + f", d_model {cfg0.d_model}, {cfg0.n_heads}/{cfg0.n_kv_heads} "
+        f"heads x {cfg0.d_head}, d_ff {cfg0.d_ff} {cfg0.activation}, vocab "
+        f"{cfg0.vocab_size}, {cfg0.dtype}; {shape}; "
+        f"{launcher.param_summary(params)}; built in {init_s:.1f}s")
+    quiet = lambda msg: None
+    plans = launcher.build_plans(args["a"], cfg0, params, rng,
+                                 log=lambda msg: log("    " + msg))
+    plan_of = {"exact": None}
+    if "e" in labels:
+        plan_of["e"] = plan_of["f"] = launcher.build_plans(
+            args["f"], form_config(None, cfg0, args["f"]), params, rng,
+            log=lambda msg: log("    " + msg))
+
+    def served(label):
+        """A form's served config and tables."""
+        pl = plan_of.get(label, plans)
+        tabs = (None if pl is None else
+                launcher.serving_tables(args[label], pl, dev, log=quiet))
+        return form_config(pl, cfg0, args[label]), tabs
+
+    L, steps = cfg0.n_layers, 1 + NEW    # the prefill and NEW replays
+    per_all = P17_ALL_SITE_CALLS
+    forms = {   # the kernels a form must launch, and how often
+        "exact": ([], {k: 0 for k in MOE_LUT}),
+        "a": (["lut_act_stacked"], {"lut_act_stacked": steps * L}),
+        "b": (["lut_act"], {"lut_act": steps * L}),
+        "d": (["fused_matmul_lut"], {"fused_matmul_lut": steps * L,
+                                     "lut_act_multi": 0}),
+        "e": (["lut_act_stacked"], {"lut_act_stacked": steps * L * per_all}),
+        "f": (["fused_matmul_lut", "lut_act_multi"],
+              {"fused_matmul_lut": steps * L,
+               "lut_act_multi": steps * L * (per_all - 1)}),
+    }
+    out["forms"] = {}
+    for label in labels:
+        uses, want = forms[label]
+        ref = P17_REFS[label]
+        log(f"[17] {stamp()}")
+        res = serve_form(launcher, dev, f"{tag} {label}", args[label], cfg0,
+                         params, batch, plan_of.get(label, plans), uses,
+                         results, totals, ref=ref if ref in (None, "gather")
+                         else f"{tag} {ref}", want=want)
+        out["forms"][label] = {k: v for k, v in res.items()
+                               if k != "tokens"}
+    if encdec:
+        split = encoder_split(launcher, params, cfg0, batch)
+        a = out["forms"]["a"]
+        out["encoder"] = dict(split, capture_s=a["capture_s"],
+                              decode_tok_s=a["decode_tok_s"])
+        log(f"[17] {tag} encoder over {B} x {cfg0.n_frames} frames: "
+            f"{split['encoder_s']:.4f}s")
+        log(f"[17] {tag} decoder prefill {B} x {T} (the whole prefill "
+            f"{split['prefill_s']:.4f}s less the encoder): "
+            f"{split['decoder_prefill_s']:.4f}s")
+        log(f"[17] {tag} capture of the decode step, form (a): "
+            f"{a['capture_s']:.4f}s")
+        log(f"[17] {tag} decode, form (a): {a['decode_tok_s']:.1f} tok/s "
+            f"captured, {a['eager']['decode_tok_s']:.1f} eager")
+    # the served K1 / K2 / K4 calls at the new shapes
+    out["lut_calls"] = []
+    for label in [l for l in ("a", "b", "f") if l in labels]:
+        fcfg, tabs = served(label)
+        calls = served_lut_calls(launcher, params, fcfg, batch, tabs)
+        log(f"[17] form ({tag} {label}): {len(calls)} served K1/K2/K4 calls "
+            f"of one prefill and one decode step equal their plain "
+            f"versions bit for bit (K4 also K1 per site)")
+        out["lut_calls"] += served_timings(calls, f"{tag} {label}", "17")
+        del calls
+    k1_in_place(out["lut_calls"])
+    fused_tabs = launcher.serving_tables(args["d"], plans, dev, log=quiet)
+    out["k3"] = check_mlp_k3(dev, params, cfg0, fused_tabs, B * start, gen,
+                             tag, phase="17")
+    del fused_tabs
+    out["steps"] = {}
+    for label in ("exact", "a"):
+        fcfg, tabs = served(label)
+        out["steps"][label] = profile_decode_step(
+            launcher, f"{tag} {label}", fcfg, params, batch, tabs, tag="17")
+    logits, _ = launcher.prefill(params, cfg0, batch, max_seq=start + 1)
+    if logits.shape != (B, 1, cfg0.vocab_size) or not torch.isfinite(
+            logits.float()).all():
+        raise AssertionError(f"{arch}: bad logits {tuple(logits.shape)}")
+    out["peak"] = torch.cuda.max_memory_allocated(dev)
+    log(f"[17] {tag}: parameters {out['param_bytes']} bytes, peak allocated "
         f"{out['peak_after_params']} after the parameters, "
         f"{out['peak']} over the phase")
     return out
@@ -2883,9 +3124,9 @@ def main() -> int:
         raise AssertionError(f"bad logits {tuple(logits.shape)}")
     # the port's own backend check (cuda == gather, token for token) on a
     # small input: the smoke config, per-layer tables, both exec forms
-    s_args = parse(["--batch", "2", "--prompt-len", "8", "--new-tokens",
-                    "4", "--lut-act", "--lut-backend", "cuda",
-                    "--calib-steps", "1", "--device", "cuda"])
+    s_args = parse(["--arch", "qwen3-0.6b", "--batch", "2", "--prompt-len",
+                    "8", "--new-tokens", "4", "--lut-act", "--lut-backend",
+                    "cuda", "--calib-steps", "1", "--device", "cuda"])
     s_cfg, s_params, s_batch, s_rng = launcher.setup(s_args)
     s_plans = launcher.build_plans(s_args, s_cfg, s_params, s_rng, log=quiet)
     for exec_ in ("stacked", "unrolled"):
@@ -3291,9 +3532,33 @@ def main() -> int:
                                    for n in ("decode", "prefill")}
     log(f"[16] phase 16's launches: {fam_totals}")
 
+    # ---- 17. the encdec family and the other dense configurations, after
+    # the vlm and hybrid models are freed
+    log(f"[17] {stamp()}")
+    p17_totals = {k: 0 for k in launch_counts()}
+    p17 = {}
+    for arch in P17_FORMS:
+        p17[arch] = run_phase17_model(launcher, dev, arch, p17_totals,
+                                      results, stamp)
+        gc.collect()
+        torch.cuda.empty_cache()
+    for k in kernels:
+        k["launches"] += p17_totals.get(k["name"], 0)
+        for arch, key in P17_TAGS.items():
+            shapes = {f"{t['name']} {t['site']} {t['step']}": compact(t)
+                      for t in p17[arch]["lut_calls"]
+                      if t["kernel"] == k["name"]}
+            if shapes:
+                k[key] = shapes
+            if k["name"] == "fused_matmul_lut":
+                k[f"{key}_mlp"] = {n: compact(p17[arch]["k3"][n])
+                                   for n in ("decode", "prefill")}
+    log(f"[17] phase 17's launches: {p17_totals}")
+
     summary = {"card": smi, "seconds": time.perf_counter() - t_start,
                "exact": exact, "steps": steps, "logit_drift": drift,
                "batcher": batcher, "moe": moe, "families": fam,
+               "phase17": p17,
                "forms": {
                    f: {k: v for k, v in r.items() if k != "plans"}
                    for f, r in results.items()}, "kernels": kernels,
@@ -3308,8 +3573,9 @@ def main() -> int:
     # four significant digits, no spaces and compact() entries for the
     # served shapes keep this line short (about 20 KB); chip_smoke.json
     # keeps every digit and field
-    print(json.dumps({"kernels": sig4(kernels)}, separators=(",", ":")),
-          flush=True)
+    line = json.dumps({"kernels": sig4(kernels)}, separators=(",", ":"))
+    log(f"the kernel JSON line below: {len(line)} bytes")
+    print(line, flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -160,15 +160,20 @@ class ActivationCapture:
 
 def model_batch(cfg, rng, batch_size: int, seq_len: int) -> dict:
     """One family-shaped random batch (tokens, and a vlm's patch
-    embeddings) — the single source of the batch-shaping convention shared
-    by calibration capture and the serving launcher.  The draws are the
-    reference's, in its order (tokens, then ``rng.normal`` patches cast to
-    float32), so both packages see the same numbers."""
+    embeddings or an encdec model's audio frames) — the single source of
+    the batch-shaping convention shared by calibration capture and the
+    serving launcher.  The draws are the reference's, in its order
+    (tokens, then ``rng.normal`` patches or frames cast to float32), so
+    both packages see the same numbers."""
     batch = {"tokens": np.asarray(
         rng.integers(1, cfg.vocab_size, (batch_size, seq_len)), np.int32)}
     if cfg.family == "vlm":
         batch["patches"] = np.asarray(
             rng.normal(size=(batch_size, cfg.n_patches, cfg.d_model)),
+            np.float32)
+    if cfg.family == "encdec":
+        batch["frames"] = np.asarray(
+            rng.normal(size=(batch_size, cfg.n_frames, cfg.d_model)),
             np.float32)
     return batch
 
@@ -186,27 +191,33 @@ def capture_model(params, cfg, batches, *, w_in: int | None = None,
                   capture: ActivationCapture | None = None,
                   ) -> ActivationCapture:
     """Stream calibration batches through the exact (non-LUT) forward of
-    ``cfg``'s family (dense, moe, vlm with its batches' patches, ssm or
-    hybrid), capturing every LUT site's observed input bins per layer
+    ``cfg``'s family (dense, moe, vlm with its batches' patches, ssm,
+    hybrid, or encdec's encoder over the batches' frames and then its
+    decoder), capturing every LUT site's observed input bins per layer
     (``L{i}/{site}`` keys, each binned over its site's domain; a moe
     layer's ``expert`` key sees every capacity slot, empty ones included,
-    as in the reference).  Batches go to the parameters' device."""
+    as in the reference).  The encdec encoder's sites stream into keys
+    with no layer (``mlp``, and ``attn_exp`` in scope), which the
+    per-layer keys shadow when masks are resolved, as in the reference.
+    Batches go to the parameters' device."""
     from repro_torch.nn.mlp import project_logits
     from repro_torch.nn.transformer import (
         decoder_forward,
+        encdec_forward,
+        encoder_forward,
         hybrid_forward,
         rwkv_forward,
     )
 
-    decoder = lambda toks, patches: decoder_forward(params, cfg, toks,
-                                                    patches=patches)
+    decoder = lambda toks, b: decoder_forward(params, cfg, toks,
+                                              patches=b.get("patches"))[0]
+    encdec = lambda toks, b: encdec_forward(
+        params, cfg, toks, encoder_forward(params, cfg, b["frames"]))
     forwards = {"dense": decoder, "moe": decoder, "vlm": decoder,
-                "ssm": lambda toks, _: rwkv_forward(params, cfg, toks),
-                "hybrid": lambda toks, _: hybrid_forward(params, cfg, toks)}
-    if cfg.family not in forwards:
-        raise NotImplementedError(
-            f"capture_model: family {cfg.family!r} is not yet ported "
-            f"(ROADMAP queue A, item 5)")
+                "ssm": lambda toks, _: rwkv_forward(params, cfg, toks)[0],
+                "hybrid": lambda toks, _: hybrid_forward(params, cfg,
+                                                         toks)[0],
+                "encdec": encdec}
     dev = params.embed.device
     cap = capture or ActivationCapture(
         w_in=w_in or cfg.lut_act_bits_in, x_lo=x_lo, x_hi=x_hi)
@@ -216,11 +227,10 @@ def capture_model(params, cfg, batches, *, w_in: int | None = None,
                 batch = {"tokens": batch}
             toks = torch.as_tensor(np.asarray(batch["tokens"], np.int32),
                                    device=dev).long()
-            patches = batch.get("patches")
-            if patches is not None:
-                patches = torch.as_tensor(np.asarray(patches, np.float32),
-                                          device=dev)
-            out, _ = forwards[cfg.family](toks, patches)
+            extra = {k: torch.as_tensor(np.asarray(batch[k], np.float32),
+                                        device=dev)
+                     for k in ("patches", "frames") if k in batch}
+            out = forwards[cfg.family](toks, extra)
             # the softcap site lives past the forward (hidden states, not
             # logits): project so the network-global histogram is observed
             if sites.site_spec(sites.LOGIT_SOFTCAP).active(cfg):

@@ -1,12 +1,13 @@
 """Architecture registry of the PyTorch port (own copy of the reference's
-``configs`` package for the architectures it serves).
+``configs`` package): the reference's ten architectures, every one
+served, in the reference's order.
 
-The port serves ``qwen3-0.6b`` (dense decoder-only), ``rwkv6-3b`` (ssm),
-``deepseek-moe-16b`` and ``qwen3-moe-30b-a3b`` (moe),
-``phi-3-vision-4.2b`` (vlm: the dense decoder after a stubbed image
-prefix) and ``recurrentgemma-9b`` (hybrid: RG-LRU and local attention);
-the reference's four other architectures are listed by name so that
-asking for one fails with a clear message instead of a ``KeyError``.
+Dense: ``nemotron-4-15b``, ``phi4-mini-3.8b``, ``deepseek-67b``,
+``qwen3-0.6b``; moe: ``deepseek-moe-16b``, ``qwen3-moe-30b-a3b``; vlm:
+``phi-3-vision-4.2b`` (the dense decoder after a stubbed image prefix);
+ssm: ``rwkv6-3b``; hybrid: ``recurrentgemma-9b`` (RG-LRU and local
+attention); encdec: ``whisper-small`` (a bidirectional encoder over
+stubbed audio frames, a decoder with cross-attention).
 """
 from __future__ import annotations
 
@@ -15,39 +16,33 @@ import dataclasses
 from .base import ArchConfig, MoEConfig
 
 from . import (
+    deepseek_67b,
     deepseek_moe_16b,
+    nemotron_4_15b,
+    phi4_mini_3_8b,
     phi_3_vision_4_2b,
     qwen3_0_6b,
     qwen3_moe_30b_a3b,
     recurrentgemma_9b,
     rwkv6_3b,
+    whisper_small,
 )
 
 REGISTRY: dict[str, ArchConfig] = {
     m.CONFIG.name: m.CONFIG
-    for m in (qwen3_0_6b, deepseek_moe_16b, qwen3_moe_30b_a3b,
-              phi_3_vision_4_2b, rwkv6_3b, recurrentgemma_9b)}
-
-PORTED_FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid")
-
-# Architectures of the reference the port does not serve yet, with their
-# family (ROADMAP queue A, item 5).
-NOT_PORTED: dict[str, str] = {
-    "nemotron-4-15b": "dense",
-    "phi4-mini-3.8b": "dense",
-    "deepseek-67b": "dense",
-    "whisper-small": "encdec",
+    for m in (
+        nemotron_4_15b, phi4_mini_3_8b, deepseek_67b, qwen3_0_6b,
+        deepseek_moe_16b, qwen3_moe_30b_a3b, phi_3_vision_4_2b,
+        rwkv6_3b, recurrentgemma_9b, whisper_small,
+    )
 }
+
+PORTED_FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid", "encdec")
 
 ARCH_NAMES = tuple(REGISTRY)
 
 
 def get_config(name: str) -> ArchConfig:
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"arch {name!r} (family {NOT_PORTED[name]!r}) is not yet ported "
-            f"to repro_torch: it serves {ARCH_NAMES}; the four still "
-            f"waiting are {sorted(NOT_PORTED)} (ROADMAP queue A, item 5)")
     if name not in REGISTRY:
         raise KeyError(f"unknown arch {name!r}; have {sorted(REGISTRY)}")
     return REGISTRY[name]
@@ -56,13 +51,9 @@ def get_config(name: str) -> ArchConfig:
 def smoke_config(cfg: ArchConfig) -> ArchConfig:
     """Reduced same-family variant (2 layers, d_model 64; moe: 8 experts
     top-2 at d_expert 32; vlm: 4 patches; hybrid: 4 layers, one group of
-    the pattern and a one-layer tail, d_rnn 64, window 8) for CPU tests,
-    the reference's ``smoke_config``."""
-    if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"smoke_config: family {cfg.family!r} is not yet ported; the "
-            f"four architectures still waiting are {sorted(NOT_PORTED)} "
-            f"(ROADMAP queue A, item 5)")
+    the pattern and a one-layer tail, d_rnn 64, window 8; encdec: 2
+    encoder layers over 16 frames) for CPU tests, the reference's
+    ``smoke_config``."""
     kw = dict(
         name=cfg.name + "-smoke",
         n_layers=4 if cfg.family == "hybrid" else 2,
@@ -72,8 +63,8 @@ def smoke_config(cfg: ArchConfig) -> ArchConfig:
         d_head=16,
         d_ff=128,
         vocab_size=256,
-        n_frames=cfg.n_frames,
-        n_encoder_layers=0,
+        n_frames=16 if cfg.family == "encdec" else cfg.n_frames,
+        n_encoder_layers=2 if cfg.family == "encdec" else 0,
         n_patches=4 if cfg.family == "vlm" else 0,
         d_rnn=64 if cfg.family == "hybrid" else None,
         local_window=8 if cfg.local_window else None,

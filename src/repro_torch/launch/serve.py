@@ -3,8 +3,9 @@ ReducedLUT-compressed activations (counterpart of the reference's
 ``launch/serve.py`` on one device).
 
   PYTHONPATH=src python -m repro_torch.launch.serve \\
-      --arch qwen3-0.6b|deepseek-moe-16b|qwen3-moe-30b-a3b|rwkv6-3b|\\
-             phi-3-vision-4.2b|recurrentgemma-9b \\
+      --arch phi4-mini-3.8b|nemotron-4-15b|deepseek-67b|qwen3-0.6b|\\
+             deepseek-moe-16b|qwen3-moe-30b-a3b|phi-3-vision-4.2b|\\
+             rwkv6-3b|recurrentgemma-9b|whisper-small \\
       --full --batch 4 --prompt-len 64 --new-tokens 16 --lut-act \\
       --calib-steps 2 [--lut-sites act|all] \\
       [--logit-softcap S] [--plan-exec stacked|unrolled] [--lut-fuse] \\
@@ -28,15 +29,18 @@ hand-written kernels, ``gather`` through the plain PyTorch form;
 (kernel K3 on ``cuda``) and serves the other per-layer sites out of one
 multi-site super-slab (kernel K4).  ``--kv-int8`` replays the prompt
 into an int8 KV cache through the decode step (the dense and moe
-families; it does nothing for the ssm and hybrid families, as in the
-reference, and is refused for vlm: the replay ingests tokens only, so
-the image prefix would be lost).
+families; it does not apply to the ssm, hybrid and encdec families, as
+in the reference (for encdec the log says so), and is refused for vlm:
+the replay ingests tokens only, so the image prefix would be lost).  The
+default ``--arch`` is the reference launcher's, ``phi4-mini-3.8b``.
 
 A vlm prompt is the batch's ``n_patches`` patch embeddings and then its
 tokens: the cache holds ``n_patches + T + --new-tokens`` positions and
 decoding starts at position ``n_patches + T`` (the reference's
 ``verify_backend_equivalence`` convention; its launcher decodes from
-``T`` over the patch slots).
+``T`` over the patch slots).  An encdec prompt is its ``n_frames`` audio
+frames, which the encoder runs over once in the prefill, and its tokens;
+decoding starts at ``T``.
 
 On the card the decode step is captured in a CUDA graph once, before
 the decode clock starts (its seconds are logged on their own line), and
@@ -102,7 +106,7 @@ def kv_int8_applies(args, cfg) -> bool:
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
-    ap.add_argument("--arch", choices=ARCH_NAMES, default="qwen3-0.6b")
+    ap.add_argument("--arch", choices=ARCH_NAMES, default="phi4-mini-3.8b")
     ap.add_argument("--full", action="store_true",
                     help="serve the published widths (default: the smoke "
                          "config, 2 layers of width 64)")
@@ -146,8 +150,9 @@ def build_parser() -> argparse.ArgumentParser:
                          "artifact at PATH")
     ap.add_argument("--kv-int8", action="store_true",
                     help="int8 KV cache (dense and moe families; refused "
-                         "for vlm): the prompt is replayed into it through "
-                         "the decode step, which writes quantized entries")
+                         "for vlm; does not apply to ssm, hybrid, encdec): "
+                         "the prompt is replayed into it through the decode "
+                         "step, which writes quantized entries")
     ap.add_argument("--calib-min-count", type=int, default=1,
                     help="min observations for a bin to stay care")
     ap.add_argument("--calib-smoothing", type=int, default=0,
@@ -175,7 +180,8 @@ def parse_args(argv=None, ap: argparse.ArgumentParser | None = None):
 def setup(args):
     """``(cfg, params, batch, rng)``: config, random parameters (seed 0)
     and the prompt batch on the serving device (a vlm batch carries its
-    patch embeddings, float32, as ``"patches"``)."""
+    patch embeddings, float32, as ``"patches"``, an encdec batch its audio
+    frames, float32, as ``"frames"``)."""
     dev = resolve_device(args.device)
     if args.lut_backend == "cuda" and dev.type != "cuda":
         raise ValueError(
@@ -312,6 +318,10 @@ def serve(args, cfg, params, batch, lut_tables, log=print, *,
         step = decode_fn(params, cfg, lut_tables)
     out = {"prefill_s": prefill_s, "capture_s": None, "replay_s": None}
     int8 = kv_int8_applies(args, cfg)
+    if args.kv_int8 and cfg.family == "encdec":
+        log("--kv-int8 does not apply to the encdec family, as in the "
+            "reference's launcher: the self and cross K/V stay in the "
+            "model dtype")
     if int8:
         # the decode write path quantizes: replay the prompt into an int8
         # cache through the step the decode then runs

@@ -1,13 +1,15 @@
-"""Decoder-only model (dense, moe and vlm), RWKV6 (ssm) and Griffin /
-RecurrentGemma (hybrid): PyTorch port of those paths of the reference's
-``nn/transformer.py``.
+"""Decoder-only model (dense, moe and vlm), RWKV6 (ssm), Griffin /
+RecurrentGemma (hybrid) and Whisper (encdec): PyTorch port of the
+reference's ``nn/transformer.py`` forwards.
 
-:class:`DecoderParams`, :class:`RWKVParams` and :class:`HybridParams` hold
-the parameters under the reference's names and stacked layouts
-(``embed``, ``final_norm``, ``lm_head``, ``blocks.{…}`` stacked ``(L, …)``;
-vlm's ``patch_proj``; hybrid's ``groups.t{i}_{kind}.{…}`` stacked over the
-groups of the block pattern and ``tail.t{i}_rec.{…}`` with a leading axis
-of 1), so a reference parameter tree copies in without renaming
+:class:`DecoderParams`, :class:`RWKVParams`, :class:`HybridParams` and
+:class:`EncDecParams` hold the parameters under the reference's names and
+stacked layouts (``embed``, ``final_norm``, ``lm_head``, ``blocks.{…}``
+stacked ``(L, …)``; vlm's ``patch_proj``; hybrid's ``groups.t{i}_{kind}.{…}``
+stacked over the groups of the block pattern and ``tail.t{i}_rec.{…}``
+with a leading axis of 1; encdec's ``enc_blocks.{…}`` ``(L_enc, …)``,
+``dec_blocks.{…}`` with the cross-attention's ``x*`` and ``lnx``, and
+``enc_norm``), so a reference parameter tree copies in without renaming
 (:func:`repro_torch.bridge.params_from_jax`).  Each forward runs an eager
 Python loop over layers with a Python-int layer id.
 """
@@ -136,9 +138,25 @@ def _hybrid_defs(cfg: ArchConfig) -> dict:
     return defs
 
 
+def _encdec_defs(cfg: ArchConfig) -> dict:
+    """The reference's encdec layout: the encoder's attention, MLP and two
+    norms stacked over its layers; the decoder's the same plus the
+    cross-attention (``xwq`` / ``xwk`` / ``xwv`` / ``xwo``) and its norm
+    ``lnx``; the encoder's final norm ``enc_norm``."""
+    Le, L, d = cfg.n_encoder_layers, cfg.n_layers, cfg.d_model
+    enc = dict(_attn_defs(cfg, Le), **_mlp_defs(cfg, Le),
+               ln1=ParamDef((Le, d), 0.0), ln2=ParamDef((Le, d), 0.0))
+    dec = dict(_attn_defs(cfg, L), **_mlp_defs(cfg, L))
+    dec.update({"x" + k: v for k, v in _attn_defs(cfg, L).items()})
+    dec.update(ln1=ParamDef((L, d), 0.0), lnx=ParamDef((L, d), 0.0),
+               ln2=ParamDef((L, d), 0.0))
+    return {"enc_blocks": enc, "dec_blocks": dec,
+            "enc_norm": ParamDef((d,), 0.0)}
+
+
 def param_defs(cfg: ArchConfig) -> dict:
     """Names and shapes of the model's parameters (the reference's
-    ``param_defs`` for the dense, moe, vlm, ssm and hybrid families)."""
+    ``param_defs``)."""
     L, d = cfg.n_layers, cfg.d_model
     head = {
         "embed": ParamDef((cfg.vocab_size, d)),
@@ -149,10 +167,10 @@ def param_defs(cfg: ArchConfig) -> dict:
         return dict(head, blocks=_rwkv_defs(cfg))
     if cfg.family == "hybrid":
         return dict(head, **_hybrid_defs(cfg))
+    if cfg.family == "encdec":
+        return dict(head, **_encdec_defs(cfg))
     if cfg.family not in ("dense", "moe", "vlm"):
-        raise NotImplementedError(
-            f"param_defs: family {cfg.family!r} is not yet ported "
-            f"(ROADMAP queue A, item 5)")
+        raise ValueError(f"param_defs: unknown family {cfg.family!r}")
     blocks = _attn_defs(cfg, L)
     blocks["ln1"] = ParamDef((L, d), 0.0)
     blocks["ln2"] = ParamDef((L, d), 0.0)
@@ -257,9 +275,22 @@ class HybridParams(_StackedParams):
                 "m": t[f"m{i}"], "m_ln": t[f"m{i}_ln"]}
 
 
+class EncDecParams(_StackedParams):
+    """Whisper parameters (the encdec family)."""
+
+    def enc_layer(self, i: int) -> dict:
+        """Encoder layer ``i``'s parameters, as views into the stacks."""
+        return _index(self.enc_blocks, i)
+
+    def layer(self, i: int) -> dict:
+        """Decoder layer ``i``'s parameters (self-attention, cross-attention
+        ``x*`` and ``lnx``, MLP), as views into the stacks."""
+        return _index(self.dec_blocks, i)
+
+
 def params_class(cfg: ArchConfig) -> type:
-    return {"ssm": RWKVParams, "hybrid": HybridParams}.get(cfg.family,
-                                                           DecoderParams)
+    return {"ssm": RWKVParams, "hybrid": HybridParams,
+            "encdec": EncDecParams}.get(cfg.family, DecoderParams)
 
 
 def init_params(cfg: ArchConfig, seed: int = 0, device=None
@@ -583,3 +614,82 @@ def hybrid_forward(params: HybridParams, cfg: ArchConfig,
                           cfg, pos, st, mode, lut_tables, tail_base + i)
     x = rms_norm(x, params.final_norm, cfg.norm_eps)
     return x, states
+
+
+# =========================================================================
+# Whisper forward (encdec)
+# =========================================================================
+def _sinusoid(n: int, d: int, device=None) -> torch.Tensor:
+    """The encoder's (n, d) float32 position table, the reference's
+    formula: ``sin`` then ``cos`` of ``pos / 10000 ** (2 i / d)``."""
+    pos = torch.arange(n, device=device, dtype=torch.float32)[:, None]
+    dim = torch.arange(d // 2, device=device, dtype=torch.float32)[None]
+    angle = pos / torch.pow(10000.0, 2 * dim / d)
+    return torch.cat([torch.sin(angle), torch.cos(angle)], dim=-1)
+
+
+def encoder_forward(params: EncDecParams, cfg: ArchConfig,
+                    frames: torch.Tensor) -> torch.Tensor:
+    """frames (B, n_frames, d): the stubbed audio frontend's embeddings
+    (cast to the model dtype, as the reference casts them).  Returns the
+    encoder output (B, n_frames, d).  Bidirectional attention without rope;
+    the encoder serves no LUT tables (one pass a request, exact), but
+    under an active capture its ``mlp`` (and, in scope, ``attn_exp``)
+    sites stream into histograms with no layer, as the reference's do."""
+    x = frames.to(torch_dtype(cfg.dtype))
+    x = x + _sinusoid(x.shape[1], cfg.d_model, x.device).to(x.dtype)[None]
+    for i in range(cfg.n_encoder_layers):
+        p = params.enc_layer(i)
+        h, _ = _attn_apply(p, rms_norm(x, p["ln1"], cfg.norm_eps), cfg,
+                           causal=False, rope=False)
+        x = x + h
+        x = x + mlp_block(p, rms_norm(x, p["ln2"], cfg.norm_eps), cfg)
+    return rms_norm(x, params.enc_norm, cfg.norm_eps)
+
+
+def cross_kv(p, enc: torch.Tensor, cfg: ArchConfig):
+    """A decoder layer's cross-attention K and V (B, S, KV, Dh) from the
+    encoder output."""
+    b, s, _ = enc.shape
+    ek = torch.matmul(enc, p["xwk"]).reshape(b, s, cfg.n_kv_heads,
+                                             cfg.d_head)
+    ev = torch.matmul(enc, p["xwv"]).reshape(b, s, cfg.n_kv_heads,
+                                             cfg.d_head)
+    return ek, ev
+
+
+def cross_attend(p, x, cfg: ArchConfig, ek, ev, lut_tables=None,
+                 layer: int | None = None) -> torch.Tensor:
+    """Cross-attention of the normed decoder stream ``x`` (B, T, d) over
+    the encoder's K / V: every query sees every frame."""
+    b, t, _ = x.shape
+    q = torch.matmul(x, p["xwq"]).reshape(b, t, cfg.n_heads, cfg.d_head)
+    h = mha(q, ek, ev, causal=False,
+            exp_fn=site_act(cfg, lut_tables, sites.ATTN_EXP, layer))
+    return torch.matmul(h.reshape(b, t, cfg.q_dim), p["xwo"])
+
+
+def encdec_forward(params: EncDecParams, cfg: ArchConfig,
+                   tokens: torch.Tensor, enc_out: torch.Tensor,
+                   lut_tables=None, kv_sink=None):
+    """The decoder over ``tokens`` (B, T) against ``enc_out``: causal
+    self-attention with rope, cross-attention, MLP.  Returns the hidden
+    states (B, T, d).  ``kv_sink`` (``fn(layer, k, v, ek, ev)``)
+    receives each layer's self K/V and cross K/V (projected once a layer,
+    used here and handed on), so prefill can fill its cache."""
+    x = embed_lookup(params.embed, tokens)
+    for i in range(cfg.n_layers):
+        p = params.layer(i)
+        rs = site_act(cfg, lut_tables, sites.NORM_RSQRT, i)
+        h, (k, v) = _attn_apply(p, rms_norm(x, p["ln1"], cfg.norm_eps, rs),
+                                cfg, causal=True, rope=True,
+                                lut_tables=lut_tables, layer=i)
+        x = x + h
+        ek, ev = cross_kv(p, enc_out, cfg)
+        x = x + cross_attend(p, rms_norm(x, p["lnx"], cfg.norm_eps, rs), cfg,
+                             ek, ev, lut_tables, layer=i)
+        x = x + mlp_block(p, rms_norm(x, p["ln2"], cfg.norm_eps, rs), cfg,
+                          lut_tables, layer=i)
+        if kv_sink is not None:
+            kv_sink(i, k, v, ek, ev)
+    return rms_norm(x, params.final_norm, cfg.norm_eps)

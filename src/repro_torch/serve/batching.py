@@ -22,12 +22,15 @@ counters, events and registry histograms) and the drift monitor's second
 step program are not ported yet (ROADMAP queue A, item 8), and sharded
 serving (``mesh``) is queue A item 11.
 
-Caveat, as in the reference: the snapshot and restore cover only the
-top-level attention cache.  An ssm (RWKV6) step advances every row's
-recurrent state, and a hybrid step its nested rings, conv windows and LRU
-vectors, so a tick with slots at two positions would advance a row
-twice, and idle slots advance too; vlm requests would carry no patches;
-the batcher serves the dense and moe families.  A moe step routes all B rows together, so a row's
+The batcher serves the dense and moe families and refuses the others
+(:data:`REFUSED`), whose reference batcher answers wrongly: its snapshot
+and restore cover only the top-level attention cache, so an ssm (RWKV6)
+step, which advances every row's recurrent state, and a hybrid step,
+which advances its nested rings, conv windows and LRU vectors, would
+advance a row twice in a tick with slots at two positions, and idle
+slots too; vlm requests would carry no patches; an encdec slot would
+decode against zero cross K/V, since no encoder pass runs.  A moe step
+routes all B rows together, so a row's
 experts could see another row's tokens only through a dropped
 assignment; at decode no expert sees more tokens than rows, and with
 capacity >= B (8 at 4 slots on both moe configurations, at least 2B on
@@ -52,6 +55,21 @@ from .kvcache import init_cache
 
 # the cache entries a step writes at its position for every row
 _KV = ("k", "v", "k_scale", "v_scale")
+
+# the families the batcher refuses, and the reference caveat behind each
+REFUSED = {
+    "ssm": "its snapshot covers only top-level k / v, so a tick with slots "
+           "at two positions advances a row's recurrent state twice and "
+           "idle slots advance too (repro/serve/batching.py:286-289, "
+           "356-359)",
+    "hybrid": "its snapshot covers only top-level k / v, so a tick with "
+              "slots at two positions advances a row's rings, conv windows "
+              "and LRU vectors twice and idle slots advance too "
+              "(repro/serve/batching.py:286-289, 356-359)",
+    "vlm": "a request carries no patches, so the image prefix is lost",
+    "encdec": "no encoder pass runs, so every slot decodes against zero "
+              "cross K/V",
+}
 
 
 @dataclasses.dataclass
@@ -97,6 +115,10 @@ class ContinuousBatcher:
         if prefill not in ("step", "replay"):
             raise ValueError(
                 f"prefill must be 'step' or 'replay', got {prefill!r}")
+        if cfg.family in REFUSED:
+            raise NotImplementedError(
+                f"ContinuousBatcher serves the dense and moe families, not "
+                f"{cfg.family!r}: {REFUSED[cfg.family]}")
         if mesh is not None:
             raise NotImplementedError(
                 "ContinuousBatcher: sharded serving (mesh) is not yet "

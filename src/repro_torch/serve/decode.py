@@ -1,5 +1,5 @@
-"""Prefill and single-token decode (PyTorch port of the dense, moe, vlm,
-ssm and hybrid paths of the reference's ``serve/decode.py``).
+"""Prefill and single-token decode (PyTorch port of the reference's
+``serve/decode.py``: the dense, moe, vlm, ssm, hybrid and encdec paths).
 
 ``prefill(params, cfg, batch)`` -> (last-token logits, decode state)
 ``decode_step(params, cfg, cache, tokens, pos)`` -> (logits, cache)
@@ -15,7 +15,9 @@ hybrid's conv windows, LRU vectors and rings) and returns the same dict.
 The family picks the functions, as the reference's ``PREFILL_FNS`` /
 ``DECODE_FNS`` do.  A vlm prompt is ``n_patches`` patch embeddings and
 then its tokens, so its first decoded token sits at ``n_patches + T``
-(:func:`decode_start`).
+(:func:`decode_start`).  An encdec prompt is its ``frames`` (B,
+n_frames, d), which the encoder runs over once in prefill, and its
+tokens; decoding starts at ``T``.
 """
 from __future__ import annotations
 
@@ -24,10 +26,13 @@ import torch
 from repro_torch import sites
 from repro_torch.configs.base import ArchConfig
 from repro_torch.nn.layers import embed_lookup, rms_norm
-from repro_torch.nn.mlp import project_logits, site_act
+from repro_torch.nn.mlp import mlp_block, project_logits, site_act
 from repro_torch.nn.transformer import (
     _decode_attn,
+    cross_attend,
     decoder_forward,
+    encdec_forward,
+    encoder_forward,
     feed_forward,
     hybrid_forward,
     rwkv_forward,
@@ -39,7 +44,8 @@ from .kvcache import init_cache
 def decode_start(cfg: ArchConfig, batch: dict) -> int:
     """The position of the first decoded token after prefilling ``batch``:
     the prompt's length, plus the patch prefix a vlm batch carries (the
-    reference's ``verify_backend_equivalence`` convention)."""
+    reference's ``verify_backend_equivalence`` convention); an encdec
+    batch's frames sit in the encoder, not in the cache."""
     t = batch["tokens"].shape[1]
     if cfg.family == "vlm" and batch.get("patches") is not None:
         t += batch["patches"].shape[1]
@@ -138,29 +144,69 @@ def hybrid_decode_step(params, cfg: ArchConfig, cache: dict,
     return project_logits(x, params.lm_head, cfg, lut_tables), cache
 
 
+@torch.no_grad()
+def encdec_prefill(params, cfg: ArchConfig, batch: dict,
+                   max_seq: int | None = None, lut_tables=None):
+    """Run the encoder once over ``batch["frames"]`` (exact: it serves no
+    tables), then the decoder over the prompt ``batch["tokens"]`` (B, T).
+    The cache's self K/V hold ``max_seq`` positions (default ``T``, never
+    fewer), padded with zeros as :func:`decoder_prefill`'s; the reference's
+    ``encdec_prefill`` keeps exactly ``T``, so its decode writes every
+    token at slot ``T - 1`` (ROADMAP queue C).  The cross K/V ``xk`` /
+    ``xv`` are each decoder layer's projections of the encoder output."""
+    tokens = batch["tokens"]
+    b, t = tokens.shape
+    cache = init_cache(cfg, b, max(max_seq or t, t),
+                       dtype=params.embed.dtype, device=tokens.device)
+    enc = encoder_forward(params, cfg, batch["frames"])
+
+    def sink(i, k, v, ek, ev):
+        cache["k"][i, :, :t] = k
+        cache["v"][i, :, :t] = v
+        cache["xk"][i] = ek
+        cache["xv"][i] = ev
+
+    x = encdec_forward(params, cfg, tokens, enc, lut_tables=lut_tables,
+                       kv_sink=sink)
+    logits = project_logits(x[:, -1:], params.lm_head, cfg, lut_tables)
+    return logits, cache
+
+
+@torch.no_grad()
+def encdec_decode_step(params, cfg: ArchConfig, cache: dict,
+                       tokens: torch.Tensor, pos, lut_tables=None):
+    """One whisper decode step for tokens (B, 1) at position ``pos``: the
+    self K/V entry written in place, the cross K/V only read."""
+    x = embed_lookup(params.embed, tokens)
+    for i in range(cfg.n_layers):
+        p = params.layer(i)
+        rs = site_act(cfg, lut_tables, sites.NORM_RSQRT, i)
+        x = x + _decode_attn(p, rms_norm(x, p["ln1"], cfg.norm_eps, rs),
+                             cfg, cache["k"][i], cache["v"][i], pos,
+                             lut_tables=lut_tables, layer=i)
+        x = x + cross_attend(p, rms_norm(x, p["lnx"], cfg.norm_eps, rs), cfg,
+                             cache["xk"][i], cache["xv"][i], lut_tables,
+                             layer=i)
+        x = x + mlp_block(p, rms_norm(x, p["ln2"], cfg.norm_eps, rs), cfg,
+                          lut_tables, layer=i)
+    x = rms_norm(x, params.final_norm, cfg.norm_eps)
+    return project_logits(x, params.lm_head, cfg, lut_tables), cache
+
+
 PREFILL_FNS = {"dense": decoder_prefill, "moe": decoder_prefill,
                "vlm": decoder_prefill, "ssm": rwkv_prefill,
-               "hybrid": hybrid_prefill}
+               "hybrid": hybrid_prefill, "encdec": encdec_prefill}
 DECODE_FNS = {"dense": decoder_decode_step, "moe": decoder_decode_step,
               "vlm": decoder_decode_step, "ssm": rwkv_decode_step,
-              "hybrid": hybrid_decode_step}
-
-
-def _family_fn(table: dict, cfg: ArchConfig, what: str):
-    fn = table.get(cfg.family)
-    if fn is None:
-        raise NotImplementedError(
-            f"{what}: family {cfg.family!r} is not yet ported to "
-            f"repro_torch (ROADMAP queue A, item 5)")
-    return fn
+              "hybrid": hybrid_decode_step, "encdec": encdec_decode_step}
 
 
 def prefill(params, cfg: ArchConfig, batch: dict, max_seq: int | None = None,
             lut_tables=None):
     """Run the prompt ``batch["tokens"]`` (B, T) (and a vlm batch's
-    ``"patches"``) through the family's prefill: ``(last-token logits,
-    decode state)``."""
-    return _family_fn(PREFILL_FNS, cfg, "prefill")(
+    ``"patches"``, an encdec batch's ``"frames"``) through the family's
+    prefill: ``(last-token logits, decode state)``."""
+    return PREFILL_FNS[cfg.family](
         params, cfg, batch, max_seq, lut_tables=lut_tables)
 
 
@@ -168,7 +214,7 @@ def decode_step(params, cfg: ArchConfig, cache: dict, tokens: torch.Tensor,
                 pos, lut_tables=None):
     """One greedy-decode step for tokens (B, 1) at position ``pos`` (a
     Python int or a 0-d integer tensor on the cache's device)."""
-    return _family_fn(DECODE_FNS, cfg, "decode_step")(
+    return DECODE_FNS[cfg.family](
         params, cfg, cache, tokens, pos, lut_tables=lut_tables)
 
 

@@ -11,7 +11,8 @@ replays it per token:
   dict it was captured against (flat, or nested as the hybrid family's;
   the graph reads and writes those tensors in place, so every state
   update of the step, the hybrid's conv shift, LRU state and ring write
-  included, is an in-place write, never a rebound name), PyTorch's
+  included, is an in-place write, never a rebound name; an encdec
+  cache's cross K/V ``xk`` / ``xv`` are read and never written), PyTorch's
   recipe: warm-up steps on a side stream, on a copy
   of the cache so that they change nothing the caller holds, then one
   step captured with ``torch.cuda.graph`` on the same side stream (cuBLAS

@@ -1,7 +1,8 @@
 """Decode-state construction (PyTorch port of the reference's
 ``serve/kvcache.py``: the decoder families' (dense, moe, vlm) bf16 and
-int8 KV caches, the ssm family's recurrent state and the hybrid family's
-nested recurrent and ring-buffer state), and the walks over a state's
+int8 KV caches, the ssm family's recurrent state, the hybrid family's
+nested recurrent and ring-buffer state, and the encdec family's self and
+cross K/V), and the walks over a state's
 tensors that a captured step and its checks need."""
 from __future__ import annotations
 
@@ -25,8 +26,11 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
     layer's ``{"conv": (G, B, K-1, d_rnn)}`` in ``dtype`` and ``{"lru":
     (G, B, d_rnn)}`` in float32, or an attention layer's ring ``{"k",
     "v"}`` ``(G, B, W, KV, Dh)``; the tail's recurrent layers without the
-    leading axis.  Neither ``max_seq`` nor ``kv_dtype`` shapes an ssm or
-    hybrid state, as in the reference."""
+    leading axis.  Encdec: the self-attention's ``{"k", "v"}`` as dense,
+    and the cross-attention's ``{"xk", "xv"}`` ``(L, B, n_frames, KV, Dh)``,
+    written once by prefill and only read by decode.  Neither ``max_seq``
+    nor ``kv_dtype`` shapes an ssm or hybrid state, and ``kv_dtype`` does
+    not change an encdec cache, as in the reference."""
     if kv_dtype not in (None, "int8"):
         raise ValueError(f"init_cache: kv_dtype {kv_dtype!r} is not 'int8' "
                          f"(other caches take their type from dtype)")
@@ -42,11 +46,15 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
         }
     if cfg.family == "hybrid":
         return _hybrid_state(cfg, batch, dtype, dev)
-    if cfg.family not in ("dense", "moe", "vlm"):
-        raise NotImplementedError(
-            f"init_cache: family {cfg.family!r} is not yet ported "
-            f"(ROADMAP queue A, item 5)")
     shape = (L, batch, max_seq, cfg.n_kv_heads, cfg.d_head)
+    if cfg.family == "encdec":
+        cross = (L, batch, cfg.n_frames, cfg.n_kv_heads, cfg.d_head)
+        return {"k": torch.zeros(shape, dtype=dtype, device=dev),
+                "v": torch.zeros(shape, dtype=dtype, device=dev),
+                "xk": torch.zeros(cross, dtype=dtype, device=dev),
+                "xv": torch.zeros(cross, dtype=dtype, device=dev)}
+    if cfg.family not in ("dense", "moe", "vlm"):
+        raise ValueError(f"init_cache: unknown family {cfg.family!r}")
     if kv_dtype == "int8":
         cache = {n: torch.zeros(shape, dtype=torch.int8, device=dev)
                  for n in ("k", "v")}

@@ -55,7 +55,7 @@ DEFAULT_COMPRESS = dict(exiguity=250, m_candidates=(8, 16, 32, 64),
 
 # Families whose layer loops serve per-layer tables (every family the port
 # serves).
-PER_LAYER_FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid")
+PER_LAYER_FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid", "encdec")
 
 BACKENDS = ("gather", "cuda")
 
@@ -415,7 +415,8 @@ def greedy_decode(cfg, params, prompt, n_new: int,
                   ) -> list[list[int]]:
     """``n_new`` greedy tokens per request, ``(B, n_new)`` as lists, after
     ``prompt``: (B, T) tokens, or a batch dict (a vlm's ``"patches"``
-    with its ``"tokens"``; decoding then starts at ``n_patches + T``).
+    with its ``"tokens"``, decoding then from ``n_patches + T``; an
+    encdec model's ``"frames"``).
     The tokens stay on the device until the end (one host sync)."""
     from .decode import decode_start, decode_step, prefill
 
@@ -446,7 +447,7 @@ def verify_backend_equivalence(
     the ``cuda`` kernels on the parameters' device and assert they agree
     token for token.  Returns the ``(B, n_new)`` token lists.  ``prompt``
     may be a batch dict of numpy arrays for a family whose prefill takes
-    more than tokens (vlm patches), as in the reference.
+    more than tokens (vlm patches, encdec frames), as in the reference.
 
     The matmul-epilogue form (``cfg.lut_fuse``) is not held to this: its
     GEMM sums in another order than ``torch.matmul``, so a GEMM output at a

@@ -270,7 +270,8 @@ def _launch(*argv):
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     r = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", "--device", "cpu",
-         "--batch", "2", "--prompt-len", "8", "--new-tokens", "3", *argv],
+         "--arch", "qwen3-0.6b", "--batch", "2", "--prompt-len", "8",
+         "--new-tokens", "3", *argv],
         env=env, capture_output=True, text=True, timeout=240, cwd=ROOT)
     assert r.returncode == 0, r.stderr
     return next(l for l in r.stdout.splitlines()
@@ -301,8 +302,8 @@ def test_launcher_artifact_errors(argv, msg):
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     r = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", "--device", "cpu",
-         *argv], env=env, capture_output=True, text=True, timeout=240,
-        cwd=ROOT)
+         "--arch", "qwen3-0.6b", *argv], env=env, capture_output=True,
+        text=True, timeout=240, cwd=ROOT)
     assert r.returncode == 2 and msg in r.stderr
 
 

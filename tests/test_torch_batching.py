@@ -546,3 +546,20 @@ def test_batcher_swap_tables_and_mesh(model, lut):
     assert b.metrics()["dropped"] == 0
     with pytest.raises(NotImplementedError, match="item 11"):
         ContinuousBatcher(ct, pt, batch_size=1, max_seq=8, mesh=object())
+
+
+@pytest.mark.parametrize("arch, family, why", [
+    ("rwkv6-3b", "ssm", "recurrent state twice"),
+    ("recurrentgemma-9b", "hybrid", "rings, conv windows"),
+    ("phi-3-vision-4.2b", "vlm", "no patches"),
+    ("whisper-small", "encdec", "zero cross K/V")])
+def test_batcher_refuses_the_families_it_does_not_serve(arch, family, why):
+    """The batcher serves dense and moe; on the other families the
+    reference's batcher answers wrongly, so the port's refuses them, naming
+    the reason (and builds no cache or step first)."""
+    cfg = tconfigs.smoke_config(tconfigs.get_config(arch))
+    assert cfg.family == family
+    params = init_params(cfg, seed=0, device="cpu")
+    with pytest.raises(NotImplementedError, match=why) as info:
+        ContinuousBatcher(cfg, params, batch_size=2, max_seq=16)
+    assert f"not {family!r}" in str(info.value)

@@ -35,7 +35,7 @@ def test_importing_every_submodule_pulls_in_no_jax_and_no_reference():
     r = subprocess.run([sys.executable, "-c", _IMPORT_ALL], env=env,
                        capture_output=True, text=True, timeout=240)
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.strip()) >= 68   # every submodule was imported
+    assert int(r.stdout.strip()) >= 72   # every submodule was imported
 
 
 def _imported_modules(path: Path) -> list[str]:
@@ -90,7 +90,8 @@ def _entry_points(tmp_path):
         "tuned_plan": lambda: load_tuned_plan(path).tables_for_model(),
         "launcher --tuned-plan": lambda: launcher.main(
             ["--tuned-plan", path]),
-        "launcher": lambda: launcher.main(["--lut-act"]),
+        "launcher": lambda: launcher.main(["--arch", "qwen3-0.6b",
+                                           "--lut-act"]),
         "lutnn": lambda: lutnn.main([]),
         "quickstart": lambda: quickstart.main([]),
     }
@@ -124,10 +125,22 @@ def test_cuda_backend_on_a_cpu_tensor_raises():
 
 
 def test_non_dense_families_are_not_ported_yet():
-    from repro_torch.configs import get_config
+    """Nothing is left unported: every architecture of the reference is
+    served, with the reference's config, and an unknown one raises
+    ``KeyError``."""
+    import dataclasses
 
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        get_config("whisper-small")
+    from repro import configs as jconfigs
+    from repro_torch import configs as tconfigs
+
+    assert not hasattr(tconfigs, "NOT_PORTED")
+    for name in jconfigs.ARCH_NAMES:
+        cfg = tconfigs.get_config(name)
+        assert dataclasses.asdict(cfg) == dataclasses.asdict(
+            jconfigs.get_config(name))
+        assert cfg.family in tconfigs.PORTED_FAMILIES
+    with pytest.raises(KeyError, match="unknown arch"):
+        tconfigs.get_config("no-such-arch")
 
 
 def test_missing_cuda_toolkit_raises(monkeypatch):

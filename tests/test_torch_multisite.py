@@ -351,9 +351,9 @@ def test_launcher_site_flags(argv, sites, softcap, fuse, kernel):
     reference's launcher (the softcap table is served only with every
     site in scope), and ``--lut-fuse`` picks the fused super-slab exactly
     under stacked execution."""
-    args = launcher.parse_args(["--device", "cpu", "--lut-act",
-                                "--calib-steps", "1", "--batch", "2",
-                                "--prompt-len", "8"] + argv)
+    args = launcher.parse_args(["--device", "cpu", "--arch", "qwen3-0.6b",
+                                "--lut-act", "--calib-steps", "1",
+                                "--batch", "2", "--prompt-len", "8"] + argv)
     cfg, params, batch, rng = launcher.setup(args)
     assert (cfg.lut_sites, cfg.logit_softcap, cfg.lut_fuse) == (
         sites, softcap, fuse)

@@ -145,9 +145,9 @@ def _launch(*argv):
 
 
 def test_launcher_serves_on_cpu_with_gather():
-    r = _launch("--device", "cpu", "--lut-act", "--calib-steps", "1",
-                "--lut-backend", "gather", "--batch", "2", "--prompt-len",
-                "8", "--new-tokens", "3")
+    r = _launch("--device", "cpu", "--arch", "qwen3-0.6b", "--lut-act",
+                "--calib-steps", "1", "--lut-backend", "gather", "--batch",
+                "2", "--prompt-len", "8", "--new-tokens", "3")
     assert r.returncode == 0, r.stderr
     assert "per-layer tables" in r.stdout
     line = next(l for l in r.stdout.splitlines()
@@ -156,7 +156,8 @@ def test_launcher_serves_on_cpu_with_gather():
 
 
 def test_launcher_cuda_backend_on_cpu_exits_with_a_clear_error():
-    r = _launch("--device", "cpu", "--lut-act", "--lut-backend", "cuda")
+    r = _launch("--device", "cpu", "--arch", "qwen3-0.6b", "--lut-act",
+                "--lut-backend", "cuda")
     assert r.returncode == 2
     assert "--lut-backend cuda" in r.stderr and "--device cuda" in r.stderr
 
