@@ -176,7 +176,31 @@ Phases (any failure exits non-zero; nothing is caught):
      against its plain version and timed beside its bound; K3 at each
      model's MLP shape held against its own GEMM + K1 and timed beside
      cuBLAS + K1; parameter bytes, peak memory, and one eager and one
-     captured decode step profiled per model (exact and (a)).
+     captured decode step profiled per model (exact and (a));
+  18. (run after phase 17, once its models are freed) training through
+     ``repro_torch.launch.train``'s functions, bf16, random weights from
+     seed 0 (the measured runs drive ``setup(...)['step']`` directly, with
+     no checkpoint in the timed steps): ``qwen3-0.6b`` at full width, 8 x
+     512 tokens, 20 steps on the launcher's schedule (finite losses, the
+     mean of the last five below the first; step time, tokens/s, peak
+     memory and the model FLOPs' share of the bf16 peak), its step-19
+     state saved and restored bit for bit,
+     5 steps each with ``--remat`` (step 0's loss bit-identical),
+     ``--microbatch 2`` and ``--grad-compress``, and a ``Supervisor`` run
+     (``launch.train.run``) of 10 steps checkpointing every 5 (after its
+     starting state) whose step 7 raises once, ending
+     bit-identical (parameters, moments, count, step) to an uninterrupted
+     10-step run; K8b (K8's backward) held against its plain version at
+     (4, 256, 40, 64) (dq, dk, dv, du within 1e-4 of their largest entry,
+     dlog_w within 1e-5 of the running sums it is the difference of;
+     strong and weak decay, ``log_w = -e`` and ``-30``, ragged T, an
+     initial state; two launches bit-identical), then ``rwkv6-3b`` at full width, ``--remat``, 4 x 256,
+     5 steps, launching K8 64 and K8b 32 times a step, and K8b timed beside
+     its bound (``k8b_work``: bytes, or its products at the 3xTF32
+     tensor-core rate as K8's); ``whisper-small`` at full width and ``deepseek-moe-16b``,
+     ``recurrentgemma-9b`` and ``phi-3-vision-4.2b`` with their depth cut
+     (``P18_DEPTH`` gives why), 2 steps each at 4 x 64, losses and gradient
+     norms finite.
 The last lines are the kernel JSON, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.  Long logs go to ``chiprun_out/`` (every
 logged line to ``chiprun_out/chip_smoke.log``).
@@ -2820,6 +2844,412 @@ def run_phase17_model(launcher, dev, arch, totals, results, stamp) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 18: training through launch/train
+# ---------------------------------------------------------------------------
+P18_QWEN = ["--arch", "qwen3-0.6b", "--full", "--batch", "8", "--seq", "512",
+            "--device", "cuda"]
+P18_RWKV = ["--arch", "rwkv6-3b", "--full", "--remat", "--batch", "4",
+            "--seq", "256", "--steps", "5", "--device", "cuda"]
+P18_DEPTH = {
+    "whisper-small": (None, None),
+    "deepseek-moe-16b": (2, "16.88 G parameters take 135 GB with bf16 "
+                            "gradients and moments; 2 of 28 layers keep the "
+                            "published widths on one 80 GB card"),
+    "recurrentgemma-9b": (3, "10.44 G parameters take 84 GB with bf16 "
+                             "gradients and moments; one (rec, rec, attn) "
+                             "group of the 38 layers"),
+    "phi-3-vision-4.2b": (2, "3.83 G parameters would fit (31 GB with "
+                             "gradients and moments); 2 of 32 layers keep "
+                             "the phase within its time"),
+}
+P18_OTHERS = ["--full", "--batch", "4", "--seq", "64", "--steps", "2",
+              "--device", "cuda"]
+
+
+def attention_flops(cfg, b, t) -> float:
+    """Forward and backward FLOPs of the attention products (scores and the
+    value contraction, every query against every key as the port computes
+    them): 3 x 4 B H T^2 Dh a layer."""
+    return 12.0 * b * cfg.n_heads * t * t * cfg.d_head * cfg.n_layers
+
+
+def model_flops(cfg, params, b, t) -> float:
+    """6 x (parameters but the embedding table, which is a lookup) x tokens
+    plus the attention products."""
+    n = sum(p.numel() for n_, p in params.named_parameters()
+            if n_ != "embed")
+    return 6.0 * n * b * t + attention_flops(cfg, b, t)
+
+
+def leaves_equal(torch, a: dict, b: dict) -> list:
+    """The train-state leaves (``train.checkpoint.state_leaves``) where
+    ``a`` and ``b`` differ in any bit."""
+    from repro_torch.train.checkpoint import state_leaves
+
+    bad = []
+    for (p, x), (_, y) in zip(state_leaves(a), state_leaves(b)):
+        same = (torch.equal(x, y) and x.dtype == y.dtype
+                if isinstance(x, torch.Tensor) else x == y)
+        if not same:
+            bad.append(p)
+    return bad
+
+
+def train_steps(torch, s, n) -> dict:
+    """``n`` steps of ``setup(...)['step']`` on ``setup(...)['batch_at']``
+    from the state's step, each timed on the host clock with the device
+    synchronized (no checkpoint is written)."""
+    state = s["state"]
+    out = {"losses": [], "grad_norms": [], "seconds": []}
+    for step in range(state["step"], n):
+        batch = s["batch_at"](step)
+        t0 = time.perf_counter()
+        state, m = s["step"](state, batch)
+        torch.cuda.synchronize()
+        out["seconds"].append(time.perf_counter() - t0)
+        out["losses"].append(float(m["loss"]))
+        out["grad_norms"].append(float(m["grad_norm"]))
+    return dict(out, state=state)
+
+
+def train_run(tl, torch, dev, argv, label, cfg=None) -> dict:
+    """``args.steps`` train steps of ``launch.train.setup`` from a fresh
+    state (seed 0) with the peak memory of the run; the state is returned
+    for checks and then freed by the caller."""
+    args = tl.parse_args(argv)
+    s = tl.setup(args, cfg=cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    out = train_steps(torch, s, args.steps)
+    peak = torch.cuda.max_memory_allocated(dev)
+    secs = out["seconds"][2:] or out["seconds"]
+    step_s = statistics.median(secs)
+    toks = args.batch * args.seq
+    flops = model_flops(s["cfg"], out["state"]["params"], args.batch,
+                        args.seq)
+    r = {"label": label, "losses": out["losses"],
+         "grad_norms": out["grad_norms"], "step_s": step_s,
+         "seconds": out["seconds"], "tokens_s": toks / step_s,
+         "peak_gb": peak / 1e9, "model_tflop": flops / 1e12,
+         "bf16_peak_share": flops / step_s / PEAK_BF16_FLOPS,
+         "params": sum(p.numel() for p in out["state"]["params"]
+                       .parameters())}
+    if not all(math.isfinite(x) for x in r["losses"] + r["grad_norms"]):
+        raise AssertionError(f"[18] {label}: a loss or gradient norm is not "
+                             f"finite: {r['losses']} {r['grad_norms']}")
+    log(f"[18] {label}: {r['params'] / 1e9:.3f}G params, "
+        f"{args.batch}x{args.seq}, step {step_s * 1e3:.2f} ms (median of "
+        f"steps >= 2), {r['tokens_s']:.0f} tokens/s, {r['model_tflop']:.2f}"
+        f" TFLOP a step, {r['bf16_peak_share']:.3f} of the bf16 peak, peak "
+        f"memory {r['peak_gb']:.2f} GB; losses "
+        f"{[round(x, 4) for x in r['losses']]}, grad norms "
+        f"{[round(x, 3) for x in r['grad_norms']]}")
+    return dict(r, _state=out["state"], _setup=s, _args=args)
+
+
+def k8b_cases(torch, dev, gen):
+    """K8b's comparison cases at rwkv6-3b's training shape (4, 256, 40,
+    64): random inputs with strong and with weak decay, ``log_w`` at the
+    model's bound ``-e`` and at ``-30`` on every step, a ragged T and a
+    given initial state."""
+    b, t, h, n = 4, 256, 40, 64
+
+    def rnd(hi, tt=t):
+        q, k, v, dy = (torch.randn(b, tt, h, n, generator=gen, device=dev)
+                       for _ in range(4))
+        lw = -torch.exp(torch.rand(b, tt, h, n, generator=gen, device=dev)
+                        * (hi + 3.0) - 3.0)
+        return q, k, v, lw, torch.randn(h, n, generator=gen, device=dev), dy
+
+    strong, weak = rnd(0.7), rnd(-1.0)
+    at = lambda lw: strong[:3] + (torch.full_like(strong[3], lw),
+                                  strong[4], strong[5])
+    s0 = torch.randn(b, h, n, n, generator=gen, device=dev) * 0.1
+    return {"strong decay": (strong, None), "weak decay": (weak, None),
+            "log_w = -e": (at(-math.e), None),
+            "log_w = -30": (at(-30.0), None),
+            "ragged T 201": (rnd(0.7, 201), None),
+            "initial state": (weak, s0)}
+
+
+def check_k8b(dev, gen) -> tuple[float, tuple]:
+    """K8b against ``wkv_backward_plain`` on the card: dq, dk, dv and du
+    within ``1e-4`` of their largest entry (their entries are sums over up
+    to T steps, du's over B x T, that cancel: an elementwise relative
+    bound holds for neither of two float32 orders), dlog_w within ``1e-5``
+    of the running sums it is the difference of (``max sum_t |q_t *
+    dq_t|`` or ``|k_t * dk_t|``: at ``log_w = -30`` the exact dlog_w is
+    about 1e-13 and both sides give the sums' float32 rounding); finite,
+    and two launches bit-identical.  Returns the largest absolute
+    difference and the strong-decay case's inputs (for timing)."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.wkv import wkv_backward_plain
+
+    worst = 0.0
+    cases = k8b_cases(torch, dev, gen)
+    for name, (args, s0) in cases.items():
+        gk = ops.wkv_backward(*args, state=s0)
+        g2 = ops.wkv_backward(*args, state=s0)
+        gp = wkv_backward_plain(*args, state=s0)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, c) for a, c in zip(gk, g2)):
+            raise AssertionError(f"K8b {name}: two launches differ")
+        if not all(torch.isfinite(a).all() for a in gk):
+            raise AssertionError(f"K8b {name}: inf or nan")
+        errs = [float((a - p).abs().max()) for a, p in zip(gk, gp)]
+        tops = [float(p.abs().max()) for p in gp]
+        sums = max(float((args[0] * gp[0]).abs().sum(1).max()),
+                   float((args[1] * gp[1]).abs().sum(1).max()))
+        tols = [1e-4 * t for t in tops]
+        tols[3] = 1e-5 * sums
+        worst = max([worst] + errs)
+        log(f"    K8b {name} {tuple(args[0].shape)}: max |grad - plain| / "
+            f"max |plain|: "
+            + ", ".join(f"{g} {e:.2e} / {t:.3g}" for g, e, t in zip(
+                ("dq", "dk", "dv", "dlog_w", "du"), errs, tops))
+            + f" (dlog_w's running sums {sums:.3g}); two launches "
+              f"bit-identical")
+        if any(e > t for e, t in zip(errs, tols)):
+            raise AssertionError(f"K8b differs from its plain version "
+                                 f"beyond its tolerance: {name}")
+    return worst, cases["strong decay"][0]
+
+
+def k8b_work(b, t, h, n) -> tuple[int, int, int]:
+    """(bytes, f32 CUDA-core operations, TF32 tensor-core operations) of
+    one K8b launch, in K8's convention (``k8_work``): q, k, v, log_w, dy
+    read and dq, dk, dv, dlog_w written once (u in, du out); per step and
+    (batch, head) on the CUDA cores the decays of S and G (N^2 each) and
+    about 24 N of vector work (the exps, beta, a, the gradients' bonus
+    terms, the running sums), and as products the tensor cores could take
+    (each three TF32 products, 3xTF32) the updates ``k v^T`` and ``q
+    dy^T``, ``S dy``, ``G v`` and ``G^T k`` (2 N^2 each)."""
+    steps = b * h * t
+    return (4 * (9 * b * t * h * n + 2 * h * n),
+            steps * (2 * n * n + 24 * n), steps * 3 * 10 * n * n)
+
+
+KERNEL_KINDS = (("GEMM", ("gemm", "cutlass", "sm90", "nvjet", "xmma")),
+                ("K8 / K8b", ("wkv",)),
+                ("softmax / logsumexp", ("softmax", "logsumexp")),
+                ("reduction", ("reduce",)),
+                ("index / scatter / gather", ("index", "scatter", "gather")),
+                ("copy / cast", ("copy", "cast")),
+                ("elementwise", ("elementwise", "vectorized")))
+
+
+def kernel_kind(name: str) -> str:
+    low = name.lower()
+    for kind, keys in KERNEL_KINDS:
+        if any(k in low for k in keys):
+            return kind
+    return "other"
+
+
+def profile_train_step(label, setup, step) -> dict:
+    """Where one training step's time goes (after the measured steps, so
+    the step's state moves on): wall, kernels, device busy and idle share,
+    and device time by kind of kernel.  Writes
+    ``chiprun_out/profile_train_<label>.txt``."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    state, batch = setup["state"], setup["batch_at"](step)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        setup["step"](state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy_us = sum(e.time_range.elapsed_us() for e in kern)
+    kinds = {}
+    for e in kern:
+        k = kernel_kind(e.name)
+        kinds[k] = kinds.get(k, 0.0) + e.time_range.elapsed_us() / 1e3
+    out = {"wall_ms": wall * 1e3, "kernels": len(kern),
+           "device_busy_ms": busy_us / 1e3,
+           "idle_share": (1 - busy_us / 1e6 / wall) if kern else None,
+           "by_kind_ms": dict(sorted(kinds.items(), key=lambda kv: -kv[1]))}
+    log(f"[18] training step ({label}) profiled: wall {wall * 1e3:.1f} ms, "
+        f"{len(kern)} kernels, device busy {busy_us / 1e3:.1f} ms"
+        + (f", idle share {out['idle_share']:.3f}" if kern else
+           " (profiler saw no device events: idle not measured)")
+        + "; by kind (ms): "
+        + ", ".join(f"{k} {v:.1f}" for k, v in out["by_kind_ms"].items()))
+    (OUT_DIR / f"profile_train_{label}.txt").write_text(
+        prof.key_averages().table(sort_by="cuda_time_total", row_limit=40))
+    return out
+
+
+def run_phase18(dev, stamp, gen) -> dict:
+    """Training through ``repro_torch.launch.train``'s functions (module
+    docstring, phase 18).  Returns the numbers for ``chip_smoke.json`` and
+    K8b's kernel entry."""
+    import shutil
+
+    import torch
+
+    from repro_torch.bridge import train_state_from_checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, ops, reset_launch_counts
+    from repro_torch.kernels.wkv import wkv_backward_plain
+    from repro_torch.launch import train as tl
+    from repro_torch.train import Supervisor, save_checkpoint
+
+    ckpt_root = ROOT / "build" / "p18_ckpt"
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+    res = {}
+
+    def free(*rs):
+        for r in rs:
+            r.pop("_state", None)
+            r.pop("_setup", None)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # ---- qwen3-0.6b at full width: 20 steps, the checkpoint restored --------
+    main_dir = ckpt_root / "main"
+    q = train_run(tl, torch, dev, P18_QWEN + ["--steps", "20"],
+                  "qwen3-0.6b 20 steps")
+    first, last5 = q["losses"][0], statistics.mean(q["losses"][-5:])
+    if not last5 < first:
+        raise AssertionError(f"[18] qwen3-0.6b: the mean of the last five "
+                             f"losses {last5:.4f} is not below the first "
+                             f"{first:.4f}")
+    t0 = time.perf_counter()
+    save_checkpoint(str(main_dir), q["_state"], 19)
+    q["save_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    restored, rstep = train_state_from_checkpoint(
+        str(main_dir), q["_setup"]["cfg"], q["_setup"]["tcfg"], device=dev)
+    bad = leaves_equal(torch, restored, q["_state"])
+    if rstep != 19 or bad:
+        raise AssertionError(f"[18] the full-width checkpoint (step "
+                             f"{rstep}) differs from the state in {bad}")
+    q["restore_s"] = time.perf_counter() - t0
+    n_leaves = len(list(restored["params"].parameters())) * 3 + 2
+    log(f"[18] {stamp()} qwen3-0.6b: losses fall (first {first:.4f}, mean of "
+        f"the last five {last5:.4f}); the step-19 checkpoint ({n_leaves} "
+        f"leaves) written in {q['save_s']:.1f}s and restored bit for bit "
+        f"in {q['restore_s']:.1f}s")
+    del restored
+    q["profile"] = profile_train_step("qwen3", q["_setup"], 20)
+    free(q)
+    shutil.rmtree(main_dir, ignore_errors=True)
+    res["qwen3"] = q
+
+    # the same first steps with --remat, --microbatch 2, --grad-compress
+    for label, extra in (("remat", ["--remat"]),
+                         ("microbatch 2", ["--microbatch", "2"]),
+                         ("grad-compress", ["--grad-compress"])):
+        r = train_run(tl, torch, dev,
+                      P18_QWEN + ["--steps", "5"] + extra,
+                      f"qwen3-0.6b 5 steps {label}")
+        if label == "remat" and r["losses"][0] != q["losses"][0]:
+            raise AssertionError(f"[18] --remat changed step 0's loss: "
+                                 f"{r['losses'][0]!r} != {q['losses'][0]!r}")
+        free(r)
+        res[f"qwen3 {label}"] = r
+    log(f"[18] {stamp()} --remat: step 0's loss bit-identical "
+        f"({q['losses'][0]!r}); peak memory "
+        f"{res['qwen3 remat']['peak_gb']:.2f} GB against {q['peak_gb']:.2f} "
+        f"GB without")
+
+    # a supervised run that fails once at step 7 against an uninterrupted one
+    args10 = tl.parse_args(P18_QWEN + ["--steps", "10"])
+    ref = tl.setup(args10)
+    for i in range(10):
+        ref["state"], _ = ref["step"](ref["state"], ref["batch_at"](i))
+    raised = []
+    s2 = tl.setup(args10)
+
+    def once(state, batch):
+        if state["step"] == 7 and not raised:
+            raised.append(True)
+            raise RuntimeError("injected failure at step 7")
+        return s2["step"](state, batch)
+
+    t0 = time.perf_counter()
+    out = tl.run(args10, s2, log=lambda m: log("    " + m),
+                 supervisor=Supervisor(str(ckpt_root / "sup"), ckpt_every=5),
+                 step_fn=once)
+    bad = leaves_equal(torch, out["state"], ref["state"])
+    if out["stats"]["restarts"] != 1 or bad:
+        raise AssertionError(f"[18] the restarted run ({out['stats']}) "
+                             f"differs from the uninterrupted one in {bad}")
+    res["supervisor"] = {"restarts": 1, "seconds": time.perf_counter() - t0,
+                         "losses": out["losses"]}
+    log(f"[18] {stamp()} supervisor: 10 steps, checkpoints every 5, step 7 "
+        f"raised once, resumed from step 4; parameters, moments, count and "
+        f"step bit-identical to the uninterrupted run "
+        f"({res['supervisor']['seconds']:.1f}s)")
+    del ref, s2, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+
+    # ---- rwkv6-3b at full width: K8b held, then 5 steps through K8 / K8b ----
+    k8b_err, (kq, kk, kv, klw, ku, kdy) = check_k8b(dev, gen)
+    log(f"[18] {stamp()} K8b held against its plain version (dq, dk, dv, du "
+        f"within 1e-4 of their largest entry, dlog_w within 1e-5 of its "
+        f"running sums); largest difference {k8b_err:.3e}")
+    reset_launch_counts()
+    r = train_run(tl, torch, dev, P18_RWKV, "rwkv6-3b 5 steps remat")
+    counts = {k: v for k, v in launch_counts().items() if v}
+    cfg = r["_setup"]["cfg"]
+    want = {"wkv": 5 * 2 * cfg.n_layers, "wkv_backward": 5 * cfg.n_layers}
+    if counts != want:
+        raise AssertionError(f"[18] rwkv6-3b's 5 steps launched {counts}, "
+                             f"not {want} (K8 twice a layer a step under "
+                             f"remat, K8b once)")
+    log(f"[18] rwkv6-3b launches in 5 steps: {counts} (K8 "
+        f"{counts['wkv'] // 5}, K8b {counts['wkv_backward'] // 5} a step)")
+    r["profile"] = profile_train_step("rwkv6", r["_setup"], 5)
+    free(r)
+    res["rwkv6"] = r
+    kfn = lambda: ops.wkv_backward(kq, kk, kv, klw, ku, kdy)
+    nbytes, nops, tc_ops = k8b_work(*kq.shape)
+    bms, by = bound(nbytes, nops, PEAK_F32_FLOPS,
+                    more=[(tc_ops, PEAK_TF32_FLOPS)])
+    k8b = {"name": "wkv_backward", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/wkv_bwd.cu",
+           "replaces": "src/repro/kernels/wkv.py:68",
+           "backward_of": "wkv", "launches": counts["wkv_backward"],
+           "max_abs_err": k8b_err, "shape": list(kq.shape),
+           "ms": timed_ms(kfn, n=10), "graph_ms": graph_ms(kfn, n=10),
+           "plain_ms": timed_ms(lambda: wkv_backward_plain(
+               kq, kk, kv, klw, ku, kdy), n=1, warmup=1, reps=3),
+           "bound_ms": bms, "bound_by": by, "library_ms": None}
+    log(f"[18] K8b at {k8b['shape']}: {k8b['ms'] * 1e3:.2f} us/launch (graph "
+        f"{k8b['graph_ms'] * 1e3:.2f} us), bound {bms * 1e3:.2f} us ({by}: "
+        f"{nbytes / 1e6:.1f} MB, {nops / 1e9:.2f} GFLOP f32, "
+        f"{tc_ops / 1e9:.2f} GFLOP TF32), plain "
+        f"{k8b['plain_ms'] * 1e3:.0f} us; launches {k8b['launches']}")
+    del kq, kk, kv, klw, ku, kdy, kfn
+
+    # ---- the other families, 2 steps each ---------------------------------
+    for arch, (depth, why) in P18_DEPTH.items():
+        cfg = get_config(arch)
+        if depth is not None:
+            log(f"[18] {arch}: n_layers cut from {cfg.n_layers} to {depth}: "
+                f"{why}")
+            cfg = dataclasses.replace(cfg, n_layers=depth)
+        r = train_run(tl, torch, dev, ["--arch", arch] + P18_OTHERS,
+                      f"{arch} 2 steps", cfg=cfg)
+        free(r)
+        res[arch] = r
+    log(f"[18] {stamp()} done")
+    for r in res.values():
+        r.pop("_args", None)
+    return {"runs": res, "k8b": k8b, "k8_launches": counts["wkv"]}
+
+
 def compact(t) -> dict:
     """A timed call's numbers for the kernel JSON line (``chip_smoke.json``
     keeps them all)."""
@@ -3555,10 +3985,19 @@ def main() -> int:
                                    for n in ("decode", "prefill")}
     log(f"[17] phase 17's launches: {p17_totals}")
 
+    # ---- 18. training through launch/train, after phase 17's models are
+    # freed; K8's launches there join its entry, K8b joins the kernels
+    log(f"[18] {stamp()}")
+    p18 = run_phase18(dev, stamp, gen)
+    for k in kernels:
+        if k["name"] == "wkv":
+            k["launches"] += p18["k8_launches"]
+    kernels.append(p18["k8b"])
+
     summary = {"card": smi, "seconds": time.perf_counter() - t_start,
                "exact": exact, "steps": steps, "logit_drift": drift,
                "batcher": batcher, "moe": moe, "families": fam,
-               "phase17": p17,
+               "phase17": p17, "phase18": p18["runs"],
                "forms": {
                    f: {k: v for k, v in r.items() if k != "plans"}
                    for f, r in results.items()}, "kernels": kernels,
@@ -3571,9 +4010,13 @@ def main() -> int:
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(summary, indent=1))
     log(f"done in {time.perf_counter() - t_start:.0f}s")
     # four significant digits, no spaces and compact() entries for the
-    # served shapes keep this line short (about 20 KB); chip_smoke.json
-    # keeps every digit and field
-    line = json.dumps({"kernels": sig4(kernels)}, separators=(",", ":"))
+    # served and timed shapes keep this line short (about 18 KB; the tool
+    # that runs the script returns the last 24 KB of its output);
+    # chip_smoke.json keeps every digit and field
+    line_kernels = [dict(k, shapes={n: compact(t)
+                                    for n, t in k["shapes"].items()})
+                    if "shapes" in k else k for k in kernels]
+    line = json.dumps({"kernels": sig4(line_kernels)}, separators=(",", ":"))
     log(f"the kernel JSON line below: {len(line)} bytes")
     print(line, flush=True)
     print(smi, flush=True)

@@ -15,7 +15,14 @@ the reference side — so this module imports nothing of JAX.
   compute with the same slabs;
 * :func:`lutnn_params_from_jax` — a reference LUT-NN parameter tree
   (``{"layers": [{w1, b1, w2, b2}, ...]}``) -> a
-  :class:`~repro_torch.lutnn.LUTNN`.
+  :class:`~repro_torch.lutnn.LUTNN`;
+* :func:`train_state_from_jax` — a reference train state (``params``,
+  ``opt`` with ``mu`` / ``nu`` / ``count``, ``step``, ``ef_error``) -> the
+  port's (:mod:`repro_torch.train.state`);
+  :func:`train_state_from_checkpoint` / :func:`train_state_to_checkpoint`
+  — a reference ``train/checkpoint.py`` directory into a port train
+  state, and back (the layout is the same: :mod:`repro_torch.train.
+  checkpoint`).
 """
 from __future__ import annotations
 
@@ -25,6 +32,8 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.lutnn.model import LUTNN, LUTNNConfig
 from repro_torch.nn.transformer import params_class
+from repro_torch.train.checkpoint import restore_checkpoint, save_checkpoint
+from repro_torch.train.state import state_for
 
 _BACKENDS = {"pallas": "cuda", "gather": "gather"}
 
@@ -40,7 +49,12 @@ def _tensor(a: np.ndarray, device) -> torch.Tensor:
 def _copy_named(who: str, module: torch.nn.Module, flat: dict) -> None:
     """Copy ``flat`` (dotted name -> numpy leaf) into ``module``'s
     parameters of the same names, shapes and dtypes, bit for bit."""
-    named = dict(module.named_parameters())
+    _copy_into(who, dict(module.named_parameters()), flat)
+
+
+def _copy_into(who: str, named: dict, flat: dict) -> None:
+    """Copy ``flat`` (dotted name -> numpy leaf) into ``named`` (dotted
+    name -> tensor) of the same names, shapes and dtypes, bit for bit."""
     if set(flat) != set(named):
         raise ValueError(
             f"{who}: parameter names differ — reference only "
@@ -105,3 +119,38 @@ def tables_from_jax(tables, device=None):
         return v
 
     return conv(tables)
+
+
+def train_state_from_jax(tree: dict, cfg, tcfg, device=None) -> dict:
+    """Copy a reference train state (numpy leaves) into a port train
+    state for ``cfg`` and ``tcfg``: parameters, moments, the counters and,
+    under ``grad_compress``, the error-feedback buffers."""
+    state = state_for(params_from_jax(tree["params"], cfg, device), tcfg)
+    params = state["params"]
+    names = [n for n, _ in params.named_parameters()]
+    lists = [("mu", state["opt"]["mu"], tree["opt"]["mu"]),
+             ("nu", state["opt"]["nu"], tree["opt"]["nu"])]
+    if tcfg.grad_compress:
+        lists.append(("ef_error", state["ef_error"], tree["ef_error"]))
+    for key, tensors, sub in lists:
+        _copy_into(f"train_state_from_jax ({key})",
+                   dict(zip(names, tensors)), _flatten(sub))
+    state["opt"]["count"] = int(tree["opt"]["count"])
+    state["step"] = int(tree["step"])
+    return state
+
+
+def train_state_from_checkpoint(ckpt_dir: str, cfg, tcfg, step=None,
+                                device=None):
+    """A reference (or port) checkpoint directory restored into a fresh
+    port train state for ``cfg`` and ``tcfg``.  Returns ``(state,
+    step)``."""
+    return restore_checkpoint(ckpt_dir,
+                              state_for(params_class(cfg)(cfg, device), tcfg),
+                              step)
+
+
+def train_state_to_checkpoint(state: dict, ckpt_dir: str, step: int) -> str:
+    """Write a port train state in the reference's checkpoint layout (its
+    ``restore_checkpoint`` reads it into its own train state)."""
+    return save_checkpoint(ckpt_dir, state, step)

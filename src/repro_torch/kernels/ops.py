@@ -8,10 +8,11 @@ Counterpart of the reference's ``kernels/ops.py``:
 * :func:`lut_act` (K2), :func:`lut_act_stacked` (K1),
   :func:`fused_matmul_lut` (K3), :func:`lut_act_multi` (K4),
   :func:`lut_reconstruct` (K5, or K6 through :func:`plain_lookup` for a
-  plain plan), :func:`lutnn_layer` (K7) and :func:`wkv` (K8) — the launch
-  wrappers.  A tensor on the CPU goes to the kernel's
-  plain version; a tensor on the card goes to the kernel, or the wrapper
-  raises.  Each wrapper counts its kernel launches in a plain integer
+  plain plan), :func:`lutnn_layer` (K7), :func:`wkv` (K8) and
+  :func:`wkv_backward` (K8b, its backward, through which :func:`wkv` is
+  differentiable) — the launch wrappers.  A tensor on the CPU goes to the
+  kernel's plain version; a tensor on the card goes to the kernel, or the
+  wrapper raises.  Each wrapper counts its kernel launches in a plain integer
   attribute (``lut_act_stacked.launches``), so a run can show that it went
   through the kernels.
 """
@@ -48,7 +49,13 @@ from .lutnn_layer import (
     lutnn_layer_plain,
 )
 from .packing import COMPONENTS, pack_component_dict
-from .wkv import wkv_chunked_plain, wkv_cuda
+from .wkv import (
+    K8B_HEAD_SIZES,
+    wkv_backward_cuda,
+    wkv_backward_plain,
+    wkv_chunked_plain,
+    wkv_cuda,
+)
 
 LANES = 128
 
@@ -336,11 +343,7 @@ def lutnn_layer(codes: torch.Tensor, conn: torch.Tensor,
     return out
 
 
-def wkv(q, k, v, log_w, u, *, chunk: int = 16, state=None):
-    """K8: chunked RWKV6 WKV.  ``q``/``k``/``v``/``log_w`` ``(B, T, H,
-    N)`` (any float dtype; the kernel computes in float32), ``u`` ``(H,
-    N)``, ``state`` ``(B, H, N, N)`` or ``None`` (zeros).  Returns ``(y
-    (B, T, H, N), final state (B, H, N, N))``, both float32."""
+def _wkv_check(q, k, v, log_w, u, chunk, state) -> None:
     b, t, h, n = q.shape
     for name, a in (("k", k), ("v", v), ("log_w", log_w)):
         if a.shape != q.shape:
@@ -351,21 +354,94 @@ def wkv(q, k, v, log_w, u, *, chunk: int = 16, state=None):
         raise ValueError(
             f"wkv: u {tuple(u.shape)} must be ({h}, {n}), chunk {chunk} "
             f">= 1, state (B, H, N, N) or None")
-    if q.device.type == "cpu":
-        return wkv_chunked_plain(q, k, v, log_w, u, chunk=chunk,
-                                 state=state)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"wkv: input on {q.device}")
-    def f32(a):
-        a = a.to(device=q.device, dtype=torch.float32).contiguous()
-        return a.clone() if a.data_ptr() % 16 else a   # 16-byte loads
     for a in (k, v, log_w, u) + (() if state is None else (state,)):
         if a.device != q.device:
             raise ValueError(f"wkv: tensor on {a.device}, q on {q.device}")
+
+
+def _f32(a, dev):
+    """``a`` as a contiguous float32 tensor on ``dev``, 16-byte aligned."""
+    a = a.to(device=dev, dtype=torch.float32).contiguous()
+    return a.clone() if a.data_ptr() % 16 else a
+
+
+def _wkv_forward(q, k, v, log_w, u, chunk, state):
+    if q.device.type == "cpu":
+        return wkv_chunked_plain(q, k, v, log_w, u, chunk=chunk,
+                                 state=state)
+    f32 = lambda a: _f32(a, q.device)
     y, s = wkv_cuda(f32(q), f32(k), f32(v), f32(log_w), f32(u), chunk,
                     None if state is None else f32(state))
     wkv.launches += 1
     return y, s
+
+
+class _WKV(torch.autograd.Function):
+    """K8 forward, K8b backward (their plain versions on the CPU).  The
+    gradient covers q, k, v, log_w and u; the initial state may be given
+    but takes no gradient, and the final state must not reach the loss."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, log_w, u, chunk, state):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(q, k, v, log_w, u, state)
+        return _wkv_forward(q, k, v, log_w, u, chunk, state)
+
+    @staticmethod
+    def backward(ctx, dy, d_state):
+        if d_state is not None:
+            raise RuntimeError(
+                "wkv: no gradient flows into the final state (K8b starts "
+                "its reverse pass from G_T = 0); a loss may use y only")
+        q, k, v, log_w, u, state = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+        grads = wkv_backward(q, k, v, log_w, u, dy, state=state)
+        return (*(g.to(a.dtype) for g, a in zip(grads, (q, k, v, log_w, u))),
+                None, None)
+
+
+def wkv(q, k, v, log_w, u, *, chunk: int = 16, state=None):
+    """K8: chunked RWKV6 WKV.  ``q``/``k``/``v``/``log_w`` ``(B, T, H,
+    N)`` (any float dtype; the kernel computes in float32), ``u`` ``(H,
+    N)``, ``state`` ``(B, H, N, N)`` or ``None`` (zeros).  Returns ``(y
+    (B, T, H, N), final state (B, H, N, N))``, both float32.
+
+    Differentiable with respect to q, k, v, log_w and u when one of them
+    requires a gradient (training): the backward is K8b
+    (:func:`wkv_backward`).  A ``state`` that requires a gradient is
+    refused."""
+    _wkv_check(q, k, v, log_w, u, chunk, state)
+    if torch.is_grad_enabled() and any(
+            a.requires_grad for a in (q, k, v, log_w, u)):
+        if state is not None and state.requires_grad:
+            raise ValueError("wkv: no gradient with respect to the initial "
+                             "state (K8b gives q, k, v, log_w and u's)")
+        return _WKV.apply(q, k, v, log_w, u, chunk, state)
+    return _wkv_forward(q, k, v, log_w, u, chunk, state)
+
+
+def wkv_backward(q, k, v, log_w, u, dy, *, state=None):
+    """K8b: the backward of :func:`wkv` against ``dy = dL/dy`` (B, T, H,
+    N), from the initial ``state`` (``None``: zeros) — ``(dq, dk, dv,
+    dlog_w (B, T, H, N), du (H, N))``, float32.  On the card N must be one
+    of ``K8B_HEAD_SIZES``."""
+    _wkv_check(q, k, v, log_w, u, 1, state)
+    if dy.shape != q.shape or dy.device != q.device:
+        raise ValueError(f"wkv_backward: dy {tuple(dy.shape)} on "
+                         f"{dy.device}, q {tuple(q.shape)} on {q.device}")
+    if q.device.type == "cpu":
+        return wkv_backward_plain(q, k, v, log_w, u, dy, state=state)
+    if q.shape[-1] not in K8B_HEAD_SIZES:
+        raise ValueError(f"wkv_backward: K8b needs N in {K8B_HEAD_SIZES}, "
+                         f"got {q.shape[-1]}")
+    f32 = lambda a: _f32(a, q.device)
+    out = wkv_backward_cuda(f32(q), f32(k), f32(v), f32(log_w), f32(u),
+                            f32(dy), None if state is None else f32(state))
+    wkv_backward.launches += 1
+    return out
 
 
 WRAPPERS = {"lut_act_stacked": lut_act_stacked, "lut_act": lut_act,
@@ -373,7 +449,7 @@ WRAPPERS = {"lut_act_stacked": lut_act_stacked, "lut_act": lut_act,
             "lut_act_multi": lut_act_multi,
             "lut_reconstruct": lut_reconstruct,
             "plain_lookup": plain_lookup, "lutnn_layer": lutnn_layer,
-            "wkv": wkv}
+            "wkv": wkv, "wkv_backward": wkv_backward}
 for _fn in WRAPPERS.values():
     _fn.launches = 0
 

@@ -17,6 +17,11 @@ with a share of the value columns and its slice of the state in shared
 memory, the pairwise matrix computed once per cluster in 16-step
 sub-chunks with bounded decay.  The launch wrapper that picks between
 them by the input's device is :func:`repro_torch.kernels.ops.wkv`.
+
+K8b, the backward (training), is :func:`wkv_backward_plain` (the
+recurrence's backward written in PyTorch) and :func:`wkv_backward_cuda`
+(``csrc/wkv_bwd.cu``); :func:`repro_torch.kernels.ops.wkv_backward` picks
+between them, and ``ops.wkv`` is differentiable through them.
 """
 from __future__ import annotations
 
@@ -173,3 +178,91 @@ def wkv_cuda(q, k, v, log_w, u, chunk: int, state=None):
         p.smem_bytes, ctypes.c_void_p(stream))
     check_status("wkv", status)
     return y, s
+
+
+# -------------------------------------------------------------------------
+# K8b: the backward
+# -------------------------------------------------------------------------
+K8B_THREADS = 256
+K8B_STAGE = 16           # steps staged at a time (csrc/wkv_bwd.cu kStage)
+K8B_HEAD_SIZES = (16, 32, 64, 128)
+
+
+def k8b_smem_bytes(n: int) -> int:
+    """Shared memory of one K8b CTA (``csrc/wkv_bwd.cu::
+    wkv_bwd_smem_floats``): the state with a row stride of N + 1, the
+    staged q, k, v, w, dy and q * dq^st, each staged step's beta and a,
+    and u."""
+    return 4 * (n * (n + 1) + 6 * K8B_STAGE * n + 2 * K8B_STAGE + n)
+
+
+def wkv_backward_plain(q, k, v, log_w, u, dy, state=None):
+    """Plain K8b: the gradients of :func:`wkv_chunked_plain`'s ``y`` (the
+    recurrence ``y_t = q_t S_t + (q_t . (u * k_t)) v_t``, ``S_{t+1} = w_t
+    * S_t + k_t v_t^T``) against ``dy = dL/dy``, from the initial
+    ``state`` (``None``: zeros).  Two sequential passes in float32, with
+    ``w = exp(log_w)``, ``beta_t = dy_t . v_t``, ``a_t = q_t . (u * k_t)``:
+    the forward pass rebuilds ``S_t`` and gives ``dq_t = S_t dy_t + (u *
+    k_t) beta_t``; the reverse pass carries ``G_t = w_t * G_{t+1} + q_t
+    dy_t^T`` from ``G_T = 0`` and gives ``dk_t = G_{t+1} v_t + (q_t * u)
+    beta_t`` and ``dv_t = G_{t+1}^T k_t + a_t dy_t``; ``du = sum (q * k)
+    beta``; and ``dlog_w_t = sum_{i>t} q_i * dq^st_i - sum_{j>=t} k_j *
+    dk^st_j`` with ``dq^st`` / ``dk^st`` the state parts above.  Returns
+    ``(dq, dk, dv, dlog_w, du)`` float32 (``du`` (H, N)); float64 inputs
+    are computed and returned in float64."""
+    b, t, h, n = q.shape
+    dt = torch.float64 if q.dtype == torch.float64 else torch.float32
+    q, k, v, log_w, dy, u = (a.to(dt) for a in (q, k, v, log_w, dy, u))
+    w = torch.exp(log_w)
+    beta = torch.sum(dy * v, dim=-1)[..., None]        # (B, T, H, 1)
+    a = torch.sum(q * (u * k), dim=-1)[..., None]
+    s = (torch.zeros((b, h, n, n), dtype=dt, device=q.device)
+         if state is None else state.to(dt))
+    dq = torch.empty_like(q)
+    c = torch.empty_like(q)
+    for i in range(t):
+        dqst = torch.einsum("bhnm,bhm->bhn", s, dy[:, i])
+        dq[:, i] = dqst + (u * k[:, i]) * beta[:, i]
+        c[:, i] = q[:, i] * dqst
+        s = (w[:, i][..., None] * s
+             + k[:, i][..., None] * v[:, i][..., None, :])
+    g = torch.zeros((b, h, n, n), dtype=dt, device=q.device)
+    run_a = torch.zeros((b, h, n), dtype=dt, device=q.device)
+    run_b = torch.zeros_like(run_a)
+    dk, dv, dlw = torch.empty_like(q), torch.empty_like(q), torch.empty_like(q)
+    for i in reversed(range(t)):
+        dkst = torch.einsum("bhnm,bhm->bhn", g, v[:, i])
+        dvst = torch.einsum("bhnm,bhn->bhm", g, k[:, i])
+        dk[:, i] = dkst + (q[:, i] * u) * beta[:, i]
+        dv[:, i] = dvst + a[:, i] * dy[:, i]
+        run_b = run_b + k[:, i] * dkst
+        dlw[:, i] = run_a - run_b
+        run_a = run_a + c[:, i]
+        g = (w[:, i][..., None] * g
+             + q[:, i][..., None] * dy[:, i][..., None, :])
+    du = torch.sum(q * k * beta, dim=(0, 1))
+    return dq, dk, dv, dlw, du
+
+
+def wkv_backward_cuda(q, k, v, log_w, u, dy, state=None):
+    """Launch K8b on contiguous float32 card tensors (the wrapper in
+    :mod:`.ops` validates): one CTA of ``K8B_THREADS`` per (batch, head).
+    Returns ``(dq, dk, dv, dlog_w, du)``, ``du`` summed over the batch
+    from the kernel's per-(batch, head) partial sums."""
+    from . import build
+
+    b, t, h, n = q.shape
+    if n not in K8B_HEAD_SIZES:
+        raise ValueError(f"wkv_backward: K8b needs N in {K8B_HEAD_SIZES}, "
+                         f"got {n}")
+    dq, dk, dv, dlw = (torch.empty_like(q) for _ in range(4))
+    du = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    status = build.entry("rlut_wkv_backward")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), log_w.data_ptr(),
+        u.data_ptr(), None if state is None else state.data_ptr(),
+        dy.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        dlw.data_ptr(), du.data_ptr(), b, t, h, n, k8b_smem_bytes(n),
+        ctypes.c_void_p(stream))
+    check_status("wkv_backward", status)
+    return dq, dk, dv, dlw, du.sum(dim=0)

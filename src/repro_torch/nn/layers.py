@@ -40,3 +40,13 @@ def logits_projection(x: torch.Tensor, lm_head: torch.Tensor
                       ) -> torch.Tensor:
     """(B, T, d) @ (d, V)."""
     return torch.matmul(x, lm_head)
+
+
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor
+                          ) -> torch.Tensor:
+    """Mean cross-entropy in float32: logsumexp minus the picked logit,
+    then the mean (the reference's order)."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    picked = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return torch.mean(lse - picked)

@@ -12,22 +12,33 @@ with a leading axis of 1; encdec's ``enc_blocks.{…}`` ``(L_enc, …)``,
 ``enc_norm``), so a reference parameter tree copies in without renaming
 (:func:`repro_torch.bridge.params_from_jax`).  Each forward runs an eager
 Python loop over layers with a Python-int layer id.
+
+The losses (:data:`LOSS_FNS`, :func:`loss_fn`) are the reference's
+``decoder_loss`` / ``rwkv_loss`` / ``hybrid_loss`` / ``encdec_loss`` for
+training: the same forwards, ``remat`` as activation checkpointing of each
+layer (each hybrid group) with ``torch.utils.checkpoint``, and the moe
+router's auxiliary loss added as the reference adds it.  Serving's
+parameters are frozen (``requires_grad`` off); the train state turns
+them on (:func:`repro_torch.train.init_train_state`).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 import math
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import sites
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 
 from .attention import decode_attend, mha, ring_decode_attend
-from .layers import embed_lookup, is_gated, rms_norm
-from .mlp import mlp_block, site_act
+from .layers import embed_lookup, is_gated, rms_norm, softmax_cross_entropy
+from .mlp import mlp_block, project_logits, site_act
 from .moe import moe_block
 from .rglru import recurrent_block, recurrent_block_step
 from .rope import apply_rope
@@ -233,10 +244,23 @@ def _index(tree: nn.Module, i: int) -> dict:
     return out
 
 
+def _unbind(tree: nn.Module) -> list[dict]:
+    """Every entry of the stacks in ``tree``, as :func:`_index` gives them,
+    from one ``unbind`` per stack.  A stack's gradient then comes back as
+    one stacked tensor (``unbind``'s backward), not as one zero-padded
+    full-size tensor per layer (``select``'s, summed into the stack)."""
+    cols = {n: p.unbind(0) for n, p in tree.named_parameters(recurse=False)}
+    cols.update({n: _unbind(c) for n, c in tree.named_children()})
+    n = len(next(iter(cols.values())))
+    return [{k: v[i] for k, v in cols.items()} for i in range(n)]
+
+
 class _StackedParams(nn.Module):
-    """Parameters of :func:`param_defs` (serving: no gradients): the head
+    """Parameters of :func:`param_defs` (frozen for serving): the head
     tensors as attributes, each tree of stacks (``blocks``, ``groups``,
     ``tail``) as a module of the same name."""
+
+    _views = None   # {tree: [entry dicts]} inside unstacked()
 
     def __init__(self, cfg: ArchConfig, device=None):
         super().__init__()
@@ -246,9 +270,25 @@ class _StackedParams(nn.Module):
             setattr(self, name, _tree(d, dt, dev) if isinstance(d, dict)
                     else _param(d.shape, dt, dev))
 
+    def _entry(self, tree: str, i: int) -> dict:
+        if self._views is not None:
+            return self._views[tree][i]
+        return _index(getattr(self, tree), i)
+
+    @contextlib.contextmanager
+    def unstacked(self):
+        """Within the block, the per-layer accessors hand out views from one
+        ``unbind`` per stack (:func:`_unbind`): what a loss differentiates
+        through.  Outside it (serving), each call indexes the stacks."""
+        self._views = {n: _unbind(c) for n, c in self.named_children()}
+        try:
+            yield self
+        finally:
+            self._views = None
+
     def layer(self, i: int) -> dict:
         """Layer ``i``'s parameters as views into the stacks."""
-        return _index(self.blocks, i)
+        return self._entry("blocks", i)
 
 
 class DecoderParams(_StackedParams):
@@ -265,12 +305,12 @@ class HybridParams(_StackedParams):
     def group(self, g: int) -> dict:
         """Group ``g``'s parameters (``t{i}_{kind}``, ``t{i}_ln``, ``m{i}``,
         ``m{i}_ln`` per pattern position), as views into the stacks."""
-        return _index(self.groups, g)
+        return self._entry("groups", g)
 
     def tail_layer(self, i: int) -> dict:
         """The ``i``-th tail layer's parameters (``rec``, ``ln``, ``m``,
         ``m_ln``), as views."""
-        t = _index(self.tail, 0)
+        t = self._entry("tail", 0)
         return {"rec": t[f"t{i}_rec"], "ln": t[f"t{i}_ln"],
                 "m": t[f"m{i}"], "m_ln": t[f"m{i}_ln"]}
 
@@ -280,12 +320,12 @@ class EncDecParams(_StackedParams):
 
     def enc_layer(self, i: int) -> dict:
         """Encoder layer ``i``'s parameters, as views into the stacks."""
-        return _index(self.enc_blocks, i)
+        return self._entry("enc_blocks", i)
 
     def layer(self, i: int) -> dict:
         """Decoder layer ``i``'s parameters (self-attention, cross-attention
         ``x*`` and ``lnx``, MLP), as views into the stacks."""
-        return _index(self.dec_blocks, i)
+        return self._entry("dec_blocks", i)
 
 
 def params_class(cfg: ArchConfig) -> type:
@@ -345,9 +385,10 @@ def _qkv(p, x, cfg):
 
 def _attn_apply(p, x, cfg, *, causal: bool = True, window: int | None = None,
                 pos_offset: int = 0, rope: bool = True, lut_tables=None,
-                layer: int | None = None):
+                layer: int | None = None, chunk_q: int = 512):
     """Self-attention over a segment at positions ``pos_offset ..``,
-    causal and, with ``window``, local; returns (out, (k, v))."""
+    causal and, with ``window``, local; queries in chunks of ``chunk_q``.
+    Returns (out, (k, v))."""
     b, t, _ = x.shape
     q, k, v = _qkv(p, x, cfg)
     if rope:
@@ -356,6 +397,7 @@ def _attn_apply(p, x, cfg, *, causal: bool = True, window: int | None = None,
         q = apply_rope(q, positions, cfg.rope_theta, sin_fn=sin_fn)
         k = apply_rope(k, positions, cfg.rope_theta, sin_fn=sin_fn)
     out = mha(q, k, v, causal=causal, window=window, q_offset=pos_offset,
+              chunk_q=chunk_q,
               exp_fn=site_act(cfg, lut_tables, sites.ATTN_EXP, layer))
     out = torch.matmul(out.reshape(b, t, cfg.q_dim), p["wo"])
     return out, (k, v)
@@ -442,34 +484,77 @@ def _decoder_embed(params: DecoderParams, cfg: ArchConfig,
     return x
 
 
-def feed_forward(p, x, cfg, lut_tables, layer: int | None = None):
+def _run(fn, remat: bool, *args):
+    """``fn(*args)``; with ``remat`` its activations are recomputed in the
+    backward instead of kept (the reference's ``jax.checkpoint`` of a
+    layer body), through ``torch.utils.checkpoint``."""
+    if remat:
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+def feed_forward_aux(p, x, cfg, lut_tables, layer: int | None = None):
     """A decoder layer's feed-forward part on its normed input: the MLP
-    (dense), or the routed experts plus the shared experts' MLP (moe; the
-    router's auxiliary loss is discarded, as serving does).  Prefill,
-    decode and replay all go through here."""
+    (dense), or the routed experts plus the shared experts' MLP (moe).
+    Returns ``(y, aux)``: the moe router's auxiliary loss (float32, 0-d),
+    ``None`` for the MLP."""
     if not cfg.moe:
-        return mlp_block(p, x, cfg, lut_tables, layer=layer)
+        return mlp_block(p, x, cfg, lut_tables, layer=layer), None
     shared = None
     if cfg.moe.n_shared:
         shared = lambda z: mlp_block(
             {"w_in": p["sh_w_in"], "w_out": p["sh_w_out"]}, z, cfg,
             lut_tables, layer=layer)
-    y, _ = moe_block({"router": p["router"], "w_in": p["moe_w_in"],
+    return moe_block({"router": p["router"], "w_in": p["moe_w_in"],
                       "w_out": p["moe_w_out"]}, x, cfg, shared_mlp=shared,
                      lut_tables=lut_tables, layer=layer)
-    return y
+
+
+def feed_forward(p, x, cfg, lut_tables, layer: int | None = None):
+    """:func:`feed_forward_aux` without the auxiliary loss, as serving
+    discards it.  Prefill, decode and replay all go through here."""
+    return feed_forward_aux(p, x, cfg, lut_tables, layer=layer)[0]
 
 
 def _decoder_block(p, x, cfg, lut_tables, *, pos_offset: int = 0,
-                   layer: int | None = None):
+                   layer: int | None = None, chunk_q: int = 512):
+    """One decoder layer: ``(x, aux, (k, v))``."""
     rs = site_act(cfg, lut_tables, sites.NORM_RSQRT, layer)
     h, kv = _attn_apply(p, rms_norm(x, p["ln1"], cfg.norm_eps, rs), cfg,
                         pos_offset=pos_offset, lut_tables=lut_tables,
-                        layer=layer)
+                        layer=layer, chunk_q=chunk_q)
     x = x + h
     hin = rms_norm(x, p["ln2"], cfg.norm_eps, rs)
-    x = x + feed_forward(p, hin, cfg, lut_tables, layer=layer)
-    return x, kv
+    y, aux = feed_forward_aux(p, hin, cfg, lut_tables, layer=layer)
+    return x + y, aux, kv
+
+
+def _decoder_run(params: DecoderParams, cfg: ArchConfig, tokens, patches,
+                 lut_tables, *, collect_kv: bool = False, kv_sink=None,
+                 remat: bool = False, chunk_q: int = 512):
+    """:func:`decoder_forward` that also returns the layers' moe auxiliary
+    losses (a list, empty without moe; summed by the loss alone, so that
+    serving launches nothing for them)."""
+    x = _decoder_embed(params, cfg, tokens, patches)
+    kvs = [] if collect_kv else None
+    auxes = []
+    for i in range(cfg.n_layers):
+        p = params.layer(i)
+        if remat:
+            x, a = _run(lambda x, p=p, i=i: _decoder_block(
+                p, x, cfg, lut_tables, layer=i, chunk_q=chunk_q)[:2],
+                True, x)
+        else:
+            x, a, (k, v) = _decoder_block(p, x, cfg, lut_tables, layer=i,
+                                          chunk_q=chunk_q)
+            if kv_sink is not None:
+                kv_sink(i, k, v)
+            elif collect_kv:
+                kvs.append((k, v))
+        if a is not None:
+            auxes.append(a)
+    x = rms_norm(x, params.final_norm, cfg.norm_eps)
+    return x, kvs, auxes
 
 
 def decoder_forward(params: DecoderParams, cfg: ArchConfig,
@@ -480,24 +565,31 @@ def decoder_forward(params: DecoderParams, cfg: ArchConfig,
     ``None``.  ``kv_sink`` (``fn(layer, k, v)``) receives each layer's K/V
     instead, so a caller can write them into a preallocated cache without
     keeping the list."""
-    x = _decoder_embed(params, cfg, tokens, patches)
-    kvs = [] if collect_kv else None
-    for i in range(cfg.n_layers):
-        x, (k, v) = _decoder_block(params.layer(i), x, cfg, lut_tables,
-                                   layer=i)
-        if kv_sink is not None:
-            kv_sink(i, k, v)
-        elif collect_kv:
-            kvs.append((k, v))
-    x = rms_norm(x, params.final_norm, cfg.norm_eps)
+    x, kvs, _ = _decoder_run(params, cfg, tokens, patches, lut_tables,
+                             collect_kv=collect_kv, kv_sink=kv_sink)
     return x, kvs
 
 
 # =========================================================================
 # RWKV6 forward (ssm)
 # =========================================================================
+def _rwkv_layer(p, x, cfg, st: dict, lut_tables, i: int):
+    """One RWKV6 layer from state ``st`` (empty: zeros); returns ``(x,
+    (att_x, ffn_x, wkv))``, the layer's segment-final state."""
+    rs = site_act(cfg, lut_tables, sites.NORM_RSQRT, i)
+    h, (ax, wkv) = rwkv_time_mix(
+        p, rms_norm(x, p["ln1"], cfg.norm_eps, rs), cfg,
+        x_last=st.get("att_x"), wkv_state=st.get("wkv"))
+    x = x + h
+    h, fx = rwkv_channel_mix(
+        p, rms_norm(x, p["ln2"], cfg.norm_eps, rs), cfg,
+        x_last=st.get("ffn_x"), lut_tables=lut_tables, layer=i)
+    return x + h, (ax, fx, wkv)
+
+
 def rwkv_forward(params: RWKVParams, cfg: ArchConfig, tokens: torch.Tensor,
-                 states: dict | None = None, lut_tables=None):
+                 states: dict | None = None, lut_tables=None,
+                 remat: bool = False):
     """Returns ``(hidden (B, T, d), states)``.
 
     ``states`` is the per-layer recurrent state ``{"att_x": (L, B, 1, d),
@@ -506,20 +598,21 @@ def rwkv_forward(params: RWKVParams, cfg: ArchConfig, tokens: torch.Tensor,
     it and each layer's segment-final state is written back into it in
     place (the reference returns new stacks).  A zero state is the
     reference's fresh prefill, bit for bit; ``None`` runs the segment
-    from zeros and keeps no state (calibration capture)."""
+    from zeros and keeps no state (calibration capture, training).
+    ``remat`` (training, no ``states``) recomputes each layer in the
+    backward."""
+    if remat and states:
+        raise ValueError("rwkv_forward: remat is for training, which keeps "
+                         "no state")
     x = embed_lookup(params.embed, tokens)
     for i in range(cfg.n_layers):
         p = params.layer(i)
-        rs = site_act(cfg, lut_tables, sites.NORM_RSQRT, i)
         st = {k: v[i] for k, v in states.items()} if states else {}
-        h, (ax, wkv) = rwkv_time_mix(
-            p, rms_norm(x, p["ln1"], cfg.norm_eps, rs), cfg,
-            x_last=st.get("att_x"), wkv_state=st.get("wkv"))
-        x = x + h
-        h, fx = rwkv_channel_mix(
-            p, rms_norm(x, p["ln2"], cfg.norm_eps, rs), cfg,
-            x_last=st.get("ffn_x"), lut_tables=lut_tables, layer=i)
-        x = x + h
+        if remat:
+            x = _run(lambda x, p=p, i=i: _rwkv_layer(
+                p, x, cfg, {}, lut_tables, i)[0], True, x)
+            continue
+        x, (ax, fx, wkv) = _rwkv_layer(p, x, cfg, st, lut_tables, i)
         if st:
             st["att_x"].copy_(ax)
             st["ffn_x"].copy_(fx)
@@ -581,7 +674,8 @@ def _hybrid_layer(kind, p_t, ln, p_m, m_ln, x, cfg, pos, state, mode,
 
 def hybrid_forward(params: HybridParams, cfg: ArchConfig,
                    tokens: torch.Tensor, states: dict | None = None,
-                   pos=0, mode: str | None = None, lut_tables=None):
+                   pos=0, mode: str | None = None, lut_tables=None,
+                   remat: bool = False):
     """Returns ``(hidden (B, T, d), states)``.
 
     ``states`` is the nested decode state of
@@ -592,20 +686,33 @@ def hybrid_forward(params: HybridParams, cfg: ArchConfig,
     from position 0, as the reference's prefill, and writes each layer's
     final state into it; ``train`` (the default without ``states``; what
     calibration capture runs) keeps none.  Layer ids are the reference's:
-    ``group * len(pattern) + i`` in the groups, then the tail's."""
+    ``group * len(pattern) + i`` in the groups, then the tail's.
+    ``remat`` (``train`` mode) recomputes each group in the backward, as
+    the reference checkpoints its group scan's body (the tail is not)."""
     mode = mode or ("decode" if states is not None else "train")
+    if remat and mode != "train":
+        raise ValueError(f"hybrid_forward: remat is for training, not "
+                         f"{mode!r}")
     pattern = block_pattern(cfg)
     n_groups, n_tail = hybrid_layout(cfg)
     x = embed_lookup(params.embed, tokens)
-    for g in range(n_groups):
-        p = params.group(g)
+
+    def group(x, p, g, gstates):
         for i, kind in enumerate(pattern):
             st = None
-            if states is not None:
-                st = {k: v[g] for k, v in states["groups"][f"t{i}"].items()}
+            if gstates is not None:
+                st = {k: v[g] for k, v in gstates[f"t{i}"].items()}
             x = _hybrid_layer(kind, p[f"t{i}_{kind}"], p[f"t{i}_ln"],
                               p[f"m{i}"], p[f"m{i}_ln"], x, cfg, pos, st,
                               mode, lut_tables, g * len(pattern) + i)
+        return x
+
+    for g in range(n_groups):
+        p = params.group(g)
+        if remat:
+            x = _run(lambda x, p=p, g=g: group(x, p, g, None), True, x)
+        else:
+            x = group(x, p, g, None if states is None else states["groups"])
     tail_base = n_groups * len(pattern)
     for i in range(n_tail):
         p = params.tail_layer(i)
@@ -628,22 +735,28 @@ def _sinusoid(n: int, d: int, device=None) -> torch.Tensor:
     return torch.cat([torch.sin(angle), torch.cos(angle)], dim=-1)
 
 
+def _encoder_layer(p, x, cfg):
+    h, _ = _attn_apply(p, rms_norm(x, p["ln1"], cfg.norm_eps), cfg,
+                       causal=False, rope=False)
+    x = x + h
+    return x + mlp_block(p, rms_norm(x, p["ln2"], cfg.norm_eps), cfg)
+
+
 def encoder_forward(params: EncDecParams, cfg: ArchConfig,
-                    frames: torch.Tensor) -> torch.Tensor:
+                    frames: torch.Tensor, remat: bool = False
+                    ) -> torch.Tensor:
     """frames (B, n_frames, d): the stubbed audio frontend's embeddings
     (cast to the model dtype, as the reference casts them).  Returns the
     encoder output (B, n_frames, d).  Bidirectional attention without rope;
     the encoder serves no LUT tables (one pass a request, exact), but
     under an active capture its ``mlp`` (and, in scope, ``attn_exp``)
-    sites stream into histograms with no layer, as the reference's do."""
+    sites stream into histograms with no layer, as the reference's do.
+    ``remat`` recomputes each layer in the backward."""
     x = frames.to(torch_dtype(cfg.dtype))
     x = x + _sinusoid(x.shape[1], cfg.d_model, x.device).to(x.dtype)[None]
     for i in range(cfg.n_encoder_layers):
-        p = params.enc_layer(i)
-        h, _ = _attn_apply(p, rms_norm(x, p["ln1"], cfg.norm_eps), cfg,
-                           causal=False, rope=False)
-        x = x + h
-        x = x + mlp_block(p, rms_norm(x, p["ln2"], cfg.norm_eps), cfg)
+        x = _run(functools.partial(_encoder_layer, params.enc_layer(i),
+                                   cfg=cfg), remat, x)
     return rms_norm(x, params.enc_norm, cfg.norm_eps)
 
 
@@ -669,27 +782,109 @@ def cross_attend(p, x, cfg: ArchConfig, ek, ev, lut_tables=None,
     return torch.matmul(h.reshape(b, t, cfg.q_dim), p["xwo"])
 
 
+def _encdec_layer(p, x, enc_out, cfg, lut_tables, i: int):
+    """One decoder layer: ``(x, (k, v, ek, ev))``."""
+    rs = site_act(cfg, lut_tables, sites.NORM_RSQRT, i)
+    h, (k, v) = _attn_apply(p, rms_norm(x, p["ln1"], cfg.norm_eps, rs),
+                            cfg, causal=True, rope=True,
+                            lut_tables=lut_tables, layer=i)
+    x = x + h
+    ek, ev = cross_kv(p, enc_out, cfg)
+    x = x + cross_attend(p, rms_norm(x, p["lnx"], cfg.norm_eps, rs), cfg,
+                         ek, ev, lut_tables, layer=i)
+    x = x + mlp_block(p, rms_norm(x, p["ln2"], cfg.norm_eps, rs), cfg,
+                      lut_tables, layer=i)
+    return x, (k, v, ek, ev)
+
+
 def encdec_forward(params: EncDecParams, cfg: ArchConfig,
                    tokens: torch.Tensor, enc_out: torch.Tensor,
-                   lut_tables=None, kv_sink=None):
+                   lut_tables=None, kv_sink=None, remat: bool = False):
     """The decoder over ``tokens`` (B, T) against ``enc_out``: causal
     self-attention with rope, cross-attention, MLP.  Returns the hidden
     states (B, T, d).  ``kv_sink`` (``fn(layer, k, v, ek, ev)``)
     receives each layer's self K/V and cross K/V (projected once a layer,
-    used here and handed on), so prefill can fill its cache."""
+    used here and handed on), so prefill can fill its cache.  ``remat``
+    (training) recomputes each layer in the backward."""
     x = embed_lookup(params.embed, tokens)
     for i in range(cfg.n_layers):
         p = params.layer(i)
-        rs = site_act(cfg, lut_tables, sites.NORM_RSQRT, i)
-        h, (k, v) = _attn_apply(p, rms_norm(x, p["ln1"], cfg.norm_eps, rs),
-                                cfg, causal=True, rope=True,
-                                lut_tables=lut_tables, layer=i)
-        x = x + h
-        ek, ev = cross_kv(p, enc_out, cfg)
-        x = x + cross_attend(p, rms_norm(x, p["lnx"], cfg.norm_eps, rs), cfg,
-                             ek, ev, lut_tables, layer=i)
-        x = x + mlp_block(p, rms_norm(x, p["ln2"], cfg.norm_eps, rs), cfg,
-                          lut_tables, layer=i)
+        if remat:
+            x = _run(lambda x, e, p=p, i=i: _encdec_layer(
+                p, x, e, cfg, lut_tables, i)[0], True, x, enc_out)
+            continue
+        x, kvs = _encdec_layer(p, x, enc_out, cfg, lut_tables, i)
         if kv_sink is not None:
-            kv_sink(i, k, v, ek, ev)
+            kv_sink(i, *kvs)
     return rms_norm(x, params.final_norm, cfg.norm_eps)
+
+
+# =========================================================================
+# losses (training)
+# =========================================================================
+def decoder_loss(params: DecoderParams, cfg: ArchConfig, batch: dict,
+                 lut_tables=None, remat: bool = False, chunk_q: int = 512):
+    """Mean next-token cross-entropy of the decoder; vlm drops the patch
+    prefix's positions before the head, moe adds ``router_aux_weight *
+    aux / n_layers`` (the layers' summed router auxiliary loss)."""
+    patches = batch.get("patches")
+    with params.unstacked():
+        x, _, auxes = _decoder_run(params, cfg, batch["tokens"], patches,
+                                   lut_tables, remat=remat, chunk_q=chunk_q)
+    if patches is not None:
+        x = x[:, patches.shape[1]:]
+    logits = project_logits(x, params.lm_head, cfg, lut_tables)
+    loss = softmax_cross_entropy(logits, batch["labels"])
+    if cfg.moe:
+        aux = torch.sum(torch.stack(auxes))
+        loss = loss + cfg.moe.router_aux_weight * aux / cfg.n_layers
+    return loss
+
+
+def rwkv_loss(params: RWKVParams, cfg: ArchConfig, batch: dict,
+              lut_tables=None, remat: bool = False, **_):
+    """Mean cross-entropy of RWKV6 (its WKV through K8 and K8b on the
+    card)."""
+    with params.unstacked():
+        x, _ = rwkv_forward(params, cfg, batch["tokens"],
+                            lut_tables=lut_tables, remat=remat)
+    logits = project_logits(x, params.lm_head, cfg, lut_tables)
+    return softmax_cross_entropy(logits, batch["labels"])
+
+
+def hybrid_loss(params: HybridParams, cfg: ArchConfig, batch: dict,
+                lut_tables=None, remat: bool = False, **_):
+    with params.unstacked():
+        x, _ = hybrid_forward(params, cfg, batch["tokens"], mode="train",
+                              lut_tables=lut_tables, remat=remat)
+    logits = project_logits(x, params.lm_head, cfg, lut_tables)
+    return softmax_cross_entropy(logits, batch["labels"])
+
+
+def encdec_loss(params: EncDecParams, cfg: ArchConfig, batch: dict,
+                lut_tables=None, remat: bool = False, **_):
+    """The encoder over ``batch["frames"]``, then the decoder's mean
+    cross-entropy.  The reference's decoder loss passes no tables to the
+    decoder layers, only to the head; so does this one."""
+    with params.unstacked():
+        enc = encoder_forward(params, cfg, batch["frames"], remat=remat)
+        x = encdec_forward(params, cfg, batch["tokens"], enc, remat=remat)
+    logits = project_logits(x, params.lm_head, cfg, lut_tables)
+    return softmax_cross_entropy(logits, batch["labels"])
+
+
+LOSS_FNS = {
+    "dense": decoder_loss,
+    "moe": decoder_loss,
+    "vlm": decoder_loss,
+    "ssm": rwkv_loss,
+    "hybrid": hybrid_loss,
+    "encdec": encdec_loss,
+}
+
+
+def loss_fn(cfg: ArchConfig):
+    """``fn(params, batch=..., lut_tables=None, remat=False,
+    chunk_q=512)`` for ``cfg``'s family (``batch`` by keyword, as the
+    reference's train step passes it)."""
+    return functools.partial(LOSS_FNS[cfg.family], cfg=cfg)
