@@ -200,10 +200,43 @@ Phases (any failure exits non-zero; nothing is caught):
      tensor-core rate as K8's); ``whisper-small`` at full width and ``deepseek-moe-16b``,
      ``recurrentgemma-9b`` and ``phi-3-vision-4.2b`` with their depth cut
      (``P18_DEPTH`` gives why), 2 steps each at 4 x 64, losses and gradient
-     norms finite.
+     norms finite; the qwen3-0.6b step-19 checkpoint stays under
+     ``build/p18_ckpt/`` for phase 19;
+  19. (run after phase 18) the accuracy-parity autotuner and the serving
+     control plane at full width: ``repro_torch.launch.tune``'s functions
+     with the reference's flags (``--full --arch qwen3-0.6b --ckpt-dir``
+     phase 18's checkpoint ``--backend cuda --calib-steps 4 --eval-steps 4
+     --batch 4 --seq 64 --grid default``): ``trained_params`` restores the
+     checkpoint, the default grid's 12 points are compressed and measured
+     through K1 (each point's cost, table bytes, top-1 drop, KL and
+     compress / evaluate seconds, the frontier, the selection, the greedy
+     evaluations and each stage's seconds printed), gather == cuda on the
+     tuned plans, the artifact (``artifacts/tuned_qwen3.npz`` in the
+     output directory)
+     round-trips token-identically on both backends, and the reference
+     launcher's three strict rules must hold; then form (a)'s tables
+     (``--lut-act --calib-steps 2``) from the same parameters serve 8
+     requests of 16-64 prompt tokens through 4 slots of the batcher
+     (replay prefill) under a ``DegradationLadder`` at its top rung
+     (``cuda_fused``: K4): with nothing injected (no demotion), with
+     ``cuda:lut_act_multi`` injected twice (``mlp`` demoted to ``cuda``,
+     K1 while demoted, re-promoted after backoff, K4 again after), once
+     from the capture's warm-up and once from inside the graph capture
+     (the failed capture leaves no graph; the retry captures afresh), and
+     with
+     the super-slab bit-flipped (caught by revalidation against gather),
+     every request's tokens equal to the run with nothing injected; then
+     ``launch/serve``'s ``--reload-plan --degrade`` path hot-reloads the
+     tuned artifact (the parity gate judges it, its measured drop printed)
+     and a frozen copy of the active plans (cut over between ticks,
+     tokens equal), no request dropped, no ladder demotion, and a
+     corrupted copy of the tuned artifact is rejected at load; the
+     checkpoint is removed after.
 The last lines are the kernel JSON, the card's name and power limit, and
-``{"ok": true, "device": {...}}``.  Long logs go to ``chiprun_out/`` (every
-logged line to ``chiprun_out/chip_smoke.log``).
+``{"ok": true, "device": {...}}``; the kernels' launches include phase
+19's.  Long logs go to the output directory beside the script
+(``OUT_DIR``: every logged line to ``chip_smoke.log``, phase 19's
+``tune_bench/v1`` payload to ``tune_qwen3.json``).
 """
 from __future__ import annotations
 
@@ -3141,7 +3174,6 @@ def run_phase18(dev, stamp, gen) -> dict:
     del restored
     q["profile"] = profile_train_step("qwen3", q["_setup"], 20)
     free(q)
-    shutil.rmtree(main_dir, ignore_errors=True)
     res["qwen3"] = q
 
     # the same first steps with --remat, --microbatch 2, --grad-compress
@@ -3192,7 +3224,8 @@ def run_phase18(dev, stamp, gen) -> dict:
     del ref, s2, out
     gc.collect()
     torch.cuda.empty_cache()
-    shutil.rmtree(ckpt_root, ignore_errors=True)
+    # the step-19 checkpoint stays for phase 19, which removes it
+    shutil.rmtree(ckpt_root / "sup", ignore_errors=True)
 
     # ---- rwkv6-3b at full width: K8b held, then 5 steps through K8 / K8b ----
     k8b_err, (kq, kk, kv, klw, ku, kdy) = check_k8b(dev, gen)
@@ -3247,7 +3280,294 @@ def run_phase18(dev, stamp, gen) -> dict:
     log(f"[18] {stamp()} done")
     for r in res.values():
         r.pop("_args", None)
-    return {"runs": res, "k8b": k8b, "k8_launches": counts["wkv"]}
+    return {"runs": res, "k8b": k8b, "k8_launches": counts["wkv"],
+            "ckpt_dir": main_dir}
+
+
+# ---------------------------------------------------------------------------
+# phase 19: the autotuner and the serving control plane at full width
+# ---------------------------------------------------------------------------
+# launch/tune's flags (the reference's own): 4 x 64 x 4 held-out tokens
+# resolve a top-1 drop of 1/1024
+P19_TUNE = ["--full", "--arch", "qwen3-0.6b", "--backend", "cuda",
+            "--calib-steps", "4", "--eval-steps", "4", "--batch", "4",
+            "--seq", "64", "--grid", "default", "--device", "cuda"]
+# form (a) through the batcher: 4 slots, 16 new tokens a request
+P19_SERVE = ["--arch", "qwen3-0.6b", "--full", "--batch", str(BATCHER_SLOTS),
+             "--prompt-len", str(T), "--new-tokens", str(NEW), "--lut-act",
+             "--calib-steps", "2", "--device", "cuda"]
+
+
+def ladder_run(cfg, params, plans, prompts, dev, *, inject=None,
+               corrupt=False) -> dict:
+    """Serve ``prompts`` (``NEW`` tokens each, replay prefill) through
+    ``BATCHER_SLOTS`` slots under a :class:`DegradationLadder` at its
+    default top rung (``cuda_fused``: the mlp site through K4 on the
+    super-slab).  ``inject``: ``(point, times, after)`` armed for the run;
+    ``corrupt``: the ``cuda_fused`` rung's super-slab bit-flipped before
+    the first step, with revalidation every tick.  Returns the tokens by
+    request, the ladder, the batcher's metrics, the launch counts of the
+    run, the rung and counts at each tick, and the seconds."""
+    import torch
+
+    from repro_torch.kernels import launch_counts
+    from repro_torch.serve import ContinuousBatcher, Request
+    from repro_torch.serve.degrade import (
+        CompositeSupervisor,
+        DegradationLadder,
+    )
+    from repro_torch.serve.faults import FaultInjector, corrupt_rung
+
+    lad = DegradationLadder(plans, plan_exec="stacked", device=dev,
+                            revalidate_every=1 if corrupt else 0)
+    if lad.status() != {"mlp": "cuda_fused"}:
+        raise AssertionError(f"[19] the ladder's top rung: {lad.status()}")
+    if corrupt:
+        corrupt_rung(lad, "cuda_fused", "mlp")
+    trace = []
+
+    class Trace:   # the rung and the counts as each tick starts
+        def on_tick(self, b):
+            trace.append((b.steps, lad.rung_for("mlp"), launch_counts()))
+
+    b = ContinuousBatcher(cfg, params, BATCHER_SLOTS,
+                          max(len(p) for p in prompts) + NEW, eos_token=-1,
+                          lut_tables=lad.tables(), prefill="replay",
+                          supervisor=CompositeSupervisor(lad, Trace()))
+    reqs = [Request(rid=i, prompt=p, max_new=NEW)
+            for i, p in enumerate(prompts)]
+    for r in reqs:
+        b.submit(r)
+    before = launch_counts()
+    with FaultInjector() as fi:
+        if inject:
+            fi.inject(inject[0], times=inject[1], after=inject[2],
+                      message=f"injected fault at {inject[0]}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        done = b.run()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    after = launch_counts()
+    m = b.metrics()
+    if m["dropped"] or m["finished"] != len(prompts) or any(
+            len(r.out) != NEW for r in done):
+        raise AssertionError(f"[19] ladder run: metrics {m}")
+    return {"tokens": [r.out for r in sorted(done, key=lambda r: r.rid)],
+            "ladder": lad, "metrics": m, "seconds": secs, "trace": trace,
+            "fired": list(fi.log), "end": after,
+            "launches": {k: after[k] - before[k] for k in after
+                         if after[k] != before[k]}}
+
+
+def run_phase19(dev, stamp, ckpt_dir) -> dict:
+    """The autotuner and the serving control plane (module docstring,
+    phase 19): tune full-width qwen3-0.6b from phase 18's checkpoint
+    through ``launch/tune``'s functions, then serve form (a) and the tuned
+    artifact through the batcher behind the parity gate and the ladder.
+    Returns the numbers for ``chip_smoke.json`` and the phase's launches;
+    removes the checkpoint."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import launch_counts
+    from repro_torch.launch import serve as launcher
+    from repro_torch.launch import tune as tl
+    from repro_torch.serve.faults import corrupt_file
+    from repro_torch.serve.reload import PlanReloader
+    from repro_torch.tune import save_tuned_plan, tuned_plan_from_serving
+
+    start = launch_counts()
+    art = OUT_DIR / "artifacts"
+    art.mkdir(parents=True, exist_ok=True)
+    out = {}
+
+    # ---- tune from the checkpoint -----------------------------------------
+    targs = tl.parse_args(P19_TUNE + [
+        "--ckpt-dir", str(ckpt_dir), "--out", str(art / "tuned_qwen3.npz"),
+        "--bench-out", str(OUT_DIR / "tune_qwen3.json")])
+    t0 = time.perf_counter()
+    tuned = tl.run(targs, log=lambda m: log("    " + m))
+    oc = tuned["outcome"]
+    params, cfg0 = tuned["params"], tuned["cfg"]
+    if tuned["info"]["source"] != "checkpoint":
+        raise AssertionError(f"[19] trained_params did not restore phase "
+                             f"18's checkpoint: {tuned['info']}")
+    k1_sweep = tuned["sweep_launches"].get("lut_act_stacked", 0)
+    if not k1_sweep:
+        raise AssertionError(f"[19] the sweep launched no K1: "
+                             f"{tuned['sweep_launches']}")
+    if tuned["failures"]:
+        raise AssertionError(f"[19] launch/tune's strict rules failed: "
+                             f"{tuned['failures']}")
+    out["tune"] = {
+        "seconds": time.perf_counter() - t0, "stages": tuned["stages"],
+        "info": tuned["info"], "sweep_launches": tuned["sweep_launches"],
+        "default_cost": oc.default.cost, "cost": oc.cost,
+        "frontier": [r.point.label() for r in oc.frontier],
+        "selected": oc.selected.point.label() if oc.selected else None,
+        "assignment": {k: p.label() for k, p in oc.assignment.items()},
+        "metrics": oc.metrics.to_dict(), "greedy": {
+            k: v for k, v in oc.greedy.items() if k != "history"},
+        "sweep": [r.to_dict() for r in oc.results]}
+    log(f"[19] {stamp()} tuned from the step-{tuned['info']['step']} "
+        f"checkpoint: {oc.cost} P-LUTs against the default's "
+        f"{oc.default.cost} at a top-1 drop of {oc.metrics.top1_drop:.4f} "
+        f"over {oc.metrics.n_tokens} tokens; frontier "
+        f"{out['tune']['frontier']}; selected {out['tune']['selected']}; "
+        f"{len(oc.results)} points; gather == cuda and the round trip "
+        f"token-identical on both; K1 launched {k1_sweep} times in the "
+        f"sweep; stages (s) "
+        f"{ {k: round(v, 2) for k, v in tuned['stages'].items()} }")
+
+    # ---- form (a) from the same parameters ---------------------------------
+    args = launcher.parse_args(P19_SERVE)
+    cfg_s, _, _, rng = launcher.setup(args)
+    if cfg_s != cfg0:
+        raise AssertionError("[19] the serving and tuning configs differ")
+    gc.collect()
+    torch.cuda.empty_cache()
+    plans = launcher.build_plans(args, cfg0, params, rng,
+                                 log=lambda m: log("    " + m))
+    cfg = plans.patched_config(cfg0)
+    prng = np.random.default_rng(19)
+    prompts = [[int(t) for t in prng.integers(1, cfg.vocab_size, int(n))]
+               for n in prng.integers(T // 4, T + 1, BATCHER_REQUESTS)]
+
+    # ---- the ladder: no fault, the K4 fault drill (the first fault in
+    # the capture's warm-up, and again inside the graph capture itself), a
+    # corrupted slab --------------------------------------------------------
+    from repro_torch.serve.graphs import WARMUP_STEPS
+
+    point = "cuda:lut_act_multi"
+    in_capture = WARMUP_STEPS * cfg.n_layers    # K4 hits before the capture
+    runs = {}
+    ladder_run(cfg, params, plans, prompts[:BATCHER_SLOTS], dev)  # warm-up
+    clean = runs["clean"] = ladder_run(cfg, params, plans, prompts, dev)
+    runs["drill"] = ladder_run(cfg, params, plans, prompts, dev,
+                               inject=(point, 2, 0))
+    runs["drill in capture"] = ladder_run(cfg, params, plans, prompts, dev,
+                                          inject=(point, 2, in_capture))
+    slab = runs["corrupt slab"] = ladder_run(cfg, params, plans, prompts, dev,
+                                             corrupt=True)
+    if clean["ladder"].demotions or not clean["launches"].get(
+            "lut_act_multi"):
+        raise AssertionError(f"[19] the run with nothing injected: "
+                             f"{clean['ladder'].demotions} demotions "
+                             f"{clean['ladder'].faults}, launches "
+                             f"{clean['launches']}")
+    drills = {}
+    for label, after in (("drill", 0), ("drill in capture", in_capture)):
+        r = runs[label]
+        lad = r["ladder"]
+        rungs = [x for _, x, _ in r["trace"]]
+        promoted = next((i for i, x in enumerate(rungs)
+                         if x == "cuda_fused" and "cuda" in rungs[:i]), None)
+        if (r["fired"] != [(point, after + 1), (point, after + 2)]
+                or lad.demotions != 1 or lad.promotions != 1
+                or lad.faults[0][:2] != ("mlp", "cuda_fused")
+                or "injected fault" not in lad.faults[0][2]
+                or lad.status() != {"mlp": "cuda_fused"}
+                or promoted is None):
+            raise AssertionError(f"[19] the K4 fault {label}: fired "
+                                 f"{r['fired']}, demotions {lad.demotions}, "
+                                 f"promotions {lad.promotions}, faults "
+                                 f"{lad.faults}, rungs by tick {rungs}")
+        # the run with nothing injected launches no K1: every K1 of a
+        # drill ran while the site was demoted
+        d = {"promoted_tick": promoted,
+             "k1_demoted": (r["trace"][promoted][2]["lut_act_stacked"]
+                            - r["trace"][0][2]["lut_act_stacked"]),
+             "k4_after": (r["end"]["lut_act_multi"]
+                          - r["trace"][promoted][2]["lut_act_multi"])}
+        if d["k4_after"] <= 0 or d["k1_demoted"] <= 0:
+            raise AssertionError(f"[19] the {label}'s launches: {d}")
+        drills[label] = d
+    if slab["ladder"].demotions != 1 or slab["ladder"].status() != {
+            "mlp": "cuda"} or "validation vs gather failed" not in (
+            slab["ladder"].health["mlp"].last_fault or ""):
+        raise AssertionError(f"[19] the corrupted super-slab: "
+                             f"{slab['ladder'].status()}, "
+                             f"{slab['ladder'].faults}")
+    for label in ("drill", "drill in capture", "corrupt slab"):
+        if runs[label]["tokens"] != clean["tokens"]:
+            raise AssertionError(f"[19] {label}: the tokens differ from the "
+                                 f"run with nothing injected")
+    for label, r in runs.items():
+        log(f"[19] {stamp()} ladder {label}: {len(prompts)} requests in "
+            f"{r['seconds']:.3f}s, {r['metrics']['ticks']} ticks, "
+            f"{r['metrics']['table_swaps']} table swaps, demotions "
+            f"{r['ladder'].demotions}, promotions {r['ladder'].promotions}, "
+            f"rungs by tick {[x for _, x, _ in r['trace']]}, launches "
+            f"{r['launches']}, fired {r['fired']}")
+    log(f"[19] the K4 fault drill, the first fault in the capture's "
+        f"warm-up and inside the graph capture ({in_capture} K4 calls "
+        f"after): mlp demoted cuda_fused -> cuda at the first fault, "
+        + "; ".join(f"{k}: K1 launched {d['k1_demoted']} times while "
+                    f"demoted, re-promoted at tick {d['promoted_tick']}, "
+                    f"K4 launched {d['k4_after']} times after"
+                    for k, d in drills.items())
+        + f"; the corrupted super-slab caught by revalidation "
+        f"({slab['ladder'].health['mlp'].last_fault}); every request's "
+        f"tokens equal the run with nothing injected; no unforced demotion")
+
+    # ---- hot reload through the launcher: the tuned artifact, a frozen
+    # copy of the active plans, a corrupted file ----------------------------
+    frozen = save_tuned_plan(str(art / "frozen_qwen3_a.npz"),
+                             tuned_plan_from_serving(cfg, plans))
+    reloads = {}
+    for label, path in (("tuned", tuned["path"]), ("frozen", frozen)):
+        rargs = launcher.parse_args(P19_SERVE + ["--reload-plan", path,
+                                                 "--degrade"])
+        r = launcher.serve_with_reload(
+            rargs, cfg, params, None,
+            launcher.serving_tables(rargs, plans, dev, log=lambda m: None),
+            plans, log=lambda m: log("    " + m), prompts=prompts)
+        rec = r["reloader"].records[-1]
+        m = r["metrics"]
+        if (m["dropped"] or m["finished"] != len(prompts)
+                or r["ladder"].demotions
+                or rec.stage not in ("cutover", "gate")):
+            raise AssertionError(f"[19] reload {label}: {rec}, metrics {m}, "
+                                 f"ladder {r['ladder'].faults}")
+        toks = [x.out for x in sorted(r["finished"], key=lambda x: x.rid)]
+        if label == "frozen" and (not rec.ok or toks != clean["tokens"]):
+            raise AssertionError(f"[19] the frozen plan's reload: {rec}; "
+                                 f"tokens equal the clean run's: "
+                                 f"{toks == clean['tokens']}")
+        reloads[label] = {
+            "stage": rec.stage, "ok": rec.ok, "reason": rec.reason,
+            "top1_drop": rec.top1_drop,
+            "token_agreement": rec.token_agreement, "load_s": rec.load_s,
+            "gate_s": rec.gate_s, "tick": rec.tick, "seconds": r["seconds"],
+            "table_swaps": m["table_swaps"],
+            "counters": dict(r["reloader"].counters)}
+        log(f"[19] {stamp()} reload {label}: {rec.summary()}; "
+            f"{m['finished']} finished, dropped 0, {m['table_swaps']} table "
+            f"swaps, ladder {r['ladder'].status()} with no demotion")
+    bad = corrupt_file(tuned["path"], str(art / "tuned_qwen3_bad.npz"))
+    rec = PlanReloader(r["batcher"], cfg, params).reload(bad)
+    if rec.ok or rec.stage != "load" or "tuned_qwen3_bad" not in rec.reason:
+        raise AssertionError(f"[19] the corrupted artifact: {rec}")
+    reloads["corrupt"] = {"stage": rec.stage, "reason": rec.reason}
+    log(f"[19] corrupted artifact rejected at load: {rec.reason}")
+    out["ladder"] = {k: {"seconds": r["seconds"], "tokens": r["tokens"],
+                         "launches": r["launches"], "fired": r["fired"],
+                         "rungs": [x for _, x, _ in r["trace"]],
+                         "demotions": r["ladder"].demotions,
+                         "promotions": r["ladder"].promotions,
+                         "metrics": r["metrics"]}
+                     for k, r in runs.items()}
+    out["drill"] = drills
+    out["reload"] = reloads
+    end = launch_counts()
+    out["launches"] = {k: end[k] - start[k] for k in end
+                       if end[k] != start[k]}
+    log(f"[19] {stamp()} phase 19's launches: {out['launches']}")
+    shutil.rmtree(ROOT / "build" / "p18_ckpt", ignore_errors=True)
+    return out
 
 
 def compact(t) -> dict:
@@ -3994,10 +4314,17 @@ def main() -> int:
             k["launches"] += p18["k8_launches"]
     kernels.append(p18["k8b"])
 
+    # ---- 19. the autotuner and the control plane, from phase 18's
+    # checkpoint; K1's and K4's launches there join their entries
+    log(f"[19] {stamp()}")
+    p19 = run_phase19(dev, stamp, p18["ckpt_dir"])
+    for k in kernels:
+        k["launches"] += p19["launches"].get(k["name"], 0)
+
     summary = {"card": smi, "seconds": time.perf_counter() - t_start,
                "exact": exact, "steps": steps, "logit_drift": drift,
                "batcher": batcher, "moe": moe, "families": fam,
-               "phase17": p17, "phase18": p18["runs"],
+               "phase17": p17, "phase18": p18["runs"], "phase19": p19,
                "forms": {
                    f: {k: v for k, v in r.items() if k != "plans"}
                    for f, r in results.items()}, "kernels": kernels,

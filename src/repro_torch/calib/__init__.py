@@ -17,6 +17,7 @@ from .masks import (
     CalibrationSet,
     calibration_from_capture,
     care_mask_from_hist,
+    fold_hist,
 )
 from .store import load_calibration, save_calibration
 
@@ -40,6 +41,7 @@ __all__ = [
     "capture_model",
     "care_mask_from_hist",
     "current",
+    "fold_hist",
     "load_calibration",
     "model_batch",
     "save_calibration",

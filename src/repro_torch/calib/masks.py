@@ -131,6 +131,36 @@ def care_mask_from_hist(hist: np.ndarray, *, min_count: int = 1,
     return mask
 
 
+def fold_hist(hist: np.ndarray, w_to: int) -> np.ndarray:
+    """Re-bin a ``2**w_from``-bin histogram onto the coarser ``2**w_to``
+    input grid (both uniform over the same ``[x_lo, x_hi]``).
+
+    Each fine bin's count is credited to the coarse code its bin center
+    quantizes to (the runtime quantizer's round-to-nearest rule), so one
+    capture at the widest sweep ``w_in`` serves every narrower candidate
+    without recapturing.  Values inside a fine bin that straddles a
+    coarse boundary go to the center's side: the approximation is one
+    fine bin wide.
+    """
+    h = np.asarray(hist, dtype=np.int64)
+    n_from = h.size
+    if n_from & (n_from - 1):
+        raise ValueError(f"fold_hist: histogram size {n_from} is not a "
+                         f"power of two")
+    w_from = int(np.log2(n_from))
+    if w_to == w_from:
+        return h.copy()
+    if w_to > w_from:
+        raise ValueError(
+            f"fold_hist: cannot refine a w_in={w_from} histogram to "
+            f"w_in={w_to} — capture at the widest grid in the sweep")
+    fine = np.arange(n_from, dtype=np.float64) / (n_from - 1)
+    codes = np.rint(fine * ((1 << w_to) - 1)).astype(np.int64)
+    out = np.zeros(1 << w_to, dtype=np.int64)
+    np.add.at(out, codes, h)
+    return out
+
+
 def calibration_from_capture(cap: ActivationCapture, *, min_count: int = 1,
                              smoothing: int = 0,
                              coverage: float | None = None,

@@ -319,8 +319,8 @@ def _spec_key(spec: TableSpec) -> tuple:
 class PlanCache:
     """Cross-call compression-result cache keyed by table content.
 
-    The autotune sweep (the autotune sweep, not yet ported) compresses the same network
-    many times with different don't-care knobs; any ``(values, care,
+    The autotune sweep (:mod:`repro_torch.tune.sweep`) compresses the
+    same network many times with different don't-care knobs; any ``(values, care,
     w_in, w_out)`` spec that recurs across sweep points — unchanged masks
     for an insensitive site, the default point re-evaluated per assignment
     — is served from here instead of re-searched.  Results are exact

@@ -15,10 +15,14 @@ Counterpart of the reference's ``kernels/ops.py``:
   wrapper raises.  Each wrapper counts its kernel launches in a plain integer
   attribute (``lut_act_stacked.launches``), so a run can show that it went
   through the kernels.
+
+The LUT wrappers are the serving control plane's kernel fault points
+(:func:`fault_hook`).
 """
 from __future__ import annotations
 
 import dataclasses
+import sys
 
 import numpy as np
 import torch
@@ -128,6 +132,22 @@ class PlanArrays:
 # -------------------------------------------------------------------------
 # launch wrappers
 # -------------------------------------------------------------------------
+def fault_hook(point: str) -> None:
+    """Fire ``point`` in the serving control plane's fault injectors
+    (:mod:`repro_torch.serve.faults`): ``cuda:lut_act``,
+    ``cuda:lut_act_stacked``, ``cuda:lut_act_multi`` and
+    ``cuda:lut_reconstruct`` at their wrappers' entry, ``gather:lut_act``
+    in the gather evaluator (``nn/mlp.py::apply_lut_act``).  The module is
+    found through ``sys.modules``, so the kernels never import the
+    serving layer and pay one dict lookup when nothing imported it.  A
+    wrapper's Python runs on an eager call and while a CUDA graph is
+    captured, never at a replay: an armed fault surfaces at an eager step
+    or at (re)capture."""
+    faults = sys.modules.get("repro_torch.serve.faults")
+    if faults is not None and faults._ACTIVE:
+        faults.fault_point(point)
+
+
 def _kernel_operands(name: str, x: torch.Tensor, tables) -> torch.Tensor:
     """Validate a kernel launch: ``x`` on the card in a supported dtype,
     every table tensor on the same card.  Returns ``x`` contiguous."""
@@ -153,6 +173,7 @@ def lut_act(x: torch.Tensor, pa: PlanArrays, *, x_lo: float, x_hi: float,
     launch record of the plan's site entry (``SitePlan.entry`` builds it
     with the entry); without one it is built per call
     (:func:`.lut_act.plan_record`)."""
+    fault_hook("cuda:lut_act")
     if pa.kind != "decomposed":
         raise ValueError("lut_act expects a decomposed plan")
     kw = dict(l=pa.l, w_lb=pa.w_lb, w_hb=pa.w_hb, w_in=pa.w_in,
@@ -172,6 +193,7 @@ def lut_act_stacked(x: torch.Tensor, stacked: dict, layer: int
     entry) over a float tensor of any shape and strides.  The launch
     record is the entry's own (``stacked["k1_record"]``), built with the
     entry; this only reads it."""
+    fault_hook("cuda:lut_act_stacked")
     if x.device.type == "cpu":
         return lut_act_stacked_plain(x, stacked, layer)
     rec = stacked.get("k1_record")
@@ -203,6 +225,7 @@ def lut_act_multi(xs: dict, entry: dict, layer: int) -> dict:
     on the card they must share one dtype (float32 or bfloat16) — a mix
     is refused, not converted.  The launch record is the entry's own
     (``entry["k4_record"]``), built with the entry; this only reads it."""
+    fault_hook("cuda:lut_act_multi")
     order = entry["meta"]["sites"]
     for site in xs:
         if site not in order:
@@ -294,6 +317,7 @@ def lut_reconstruct(x: torch.Tensor, pa: PlanArrays) -> torch.Tensor:
     """Evaluate a compressed table at int addresses ``x`` (any shape):
     K5 (Eq. (1)) for a decomposed plan, K6 (:func:`plain_lookup`) for a
     plain one.  Addresses lie in ``[0, 2^w_in)``."""
+    fault_hook("cuda:lut_reconstruct")
     if pa.kind == "plain":
         return plain_lookup(x, pa)
     if pa.pack is not None:

@@ -10,7 +10,9 @@ ReducedLUT-compressed activations (counterpart of the reference's
       --calib-steps 2 [--lut-sites act|all] \\
       [--logit-softcap S] [--plan-exec stacked|unrolled] [--lut-fuse] \\
       [--lut-backend cuda|gather] [--kv-int8] [--calib-path P] \\
-      [--save-plan P] [--tuned-plan P] [--device cuda|cpu]
+      [--save-plan P] [--tuned-plan P] [--device cuda|cpu] \\
+      [--reload-plan P [--watch] [--degrade] [--slo-ms MS] \\
+       [--reload-max-drop D] [--reload-gate-tokens N]]
 
 ``--lut-act`` serves engine-selected plans for every LUT site in scope:
 the activation sites by default, every registered site (softmax exp,
@@ -42,6 +44,17 @@ decoding starts at position ``n_patches + T`` (the reference's
 frames, which the encoder runs over once in the prefill, and its tokens;
 decoding starts at ``T``.
 
+``--reload-plan`` serves through the continuous batcher (dense and moe)
+with the serving control plane attached: a
+:class:`~repro_torch.serve.reload.PlanReloader` hot-loads the artifact at
+the decode midpoint (or whenever its mtime changes, ``--watch``) behind
+the parity gate (``--reload-max-drop``, ``--reload-gate-tokens``), and
+``--degrade`` chains the per-site backend degradation ladder
+(``cuda_fused -> cuda -> gather -> float``) as the fault supervisor.
+The run exits with status 2 if a request was dropped and 1 if a
+scheduled reload never cut over; ``--slo-ms`` counts latency-objective
+violations.
+
 On the card the decode step is captured in a CUDA graph once, before
 the decode clock starts (its seconds are logged on their own line), and
 replayed per token; on the CPU it runs eagerly.  The run uses the card
@@ -72,6 +85,11 @@ from repro_torch.kernels import launch_counts
 from repro_torch.nn import init_params
 from repro_torch.serve import (
     CapturedStep,
+    CompositeSupervisor,
+    ContinuousBatcher,
+    DegradationLadder,
+    PlanReloader,
+    Request,
     build_serving_plans,
     decode_fn,
     decode_start,
@@ -157,6 +175,27 @@ def build_parser() -> argparse.ArgumentParser:
                     help="min observations for a bin to stay care")
     ap.add_argument("--calib-smoothing", type=int, default=0,
                     help="neighbour-smoothing radius (bins)")
+    ap.add_argument("--reload-plan", default=None, metavar="PATH",
+                    help="serve through the continuous batcher and "
+                         "hot-reload the tuned-plan artifact at PATH "
+                         "mid-decode behind the parity gate")
+    ap.add_argument("--watch", action="store_true",
+                    help="with --reload-plan: poll PATH for mtime changes "
+                         "every tick instead of a one-shot scheduled "
+                         "reload")
+    ap.add_argument("--degrade", action="store_true",
+                    help="attach the per-site backend degradation ladder "
+                         "(cuda_fused -> cuda -> gather -> float) as the "
+                         "batcher's fault supervisor")
+    ap.add_argument("--slo-ms", type=float, default=None,
+                    help="per-request latency objective; violations are "
+                         "counted in the serving metrics")
+    ap.add_argument("--reload-max-drop", type=float, default=0.01,
+                    help="parity-gate budget: max top-1 agreement drop "
+                         "against the active plan (the paper's 0.01)")
+    ap.add_argument("--reload-gate-tokens", type=int, default=4,
+                    help="greedy tokens per shadow row that must match "
+                         "the active plan at the gate")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     return ap
@@ -358,6 +397,82 @@ def serve(args, cfg, params, batch, lut_tables, log=print, *,
                 start=start)
 
 
+def serve_with_reload(args, cfg, params, batch, lut_tables, plans,
+                      log=print, prompts=None) -> dict:
+    """Serve the prompts (the batch's rows, or ``prompts``, token lists)
+    through the continuous batcher (``--batch`` slots, ``--new-tokens``
+    each, replay prefill) with the control plane attached: a
+    :class:`~repro_torch.serve.reload.PlanReloader` for ``--reload-plan``
+    (one-shot at the decode midpoint, or ``--watch``), chained before the
+    :class:`~repro_torch.serve.degrade.DegradationLadder` with
+    ``--degrade``.  Returns ``{"batcher", "reloader", "ladder",
+    "finished", "metrics", "seconds"}``."""
+    if prompts is None:
+        prompts = batch["tokens"].tolist()
+    kernel = ("fused" if args.lut_fuse and args.plan_exec == "stacked"
+              else None)
+    ladder = None
+    if args.degrade:
+        if plans is None:
+            log("--degrade: no LUT plans in this serving config; ladder not "
+                "attached (float path only)")
+        else:
+            top = ("cuda_fused" if kernel == "fused" else
+                   "cuda" if args.lut_backend == "cuda" else "gather")
+            ladder = DegradationLadder(plans, plan_exec=args.plan_exec,
+                                       top_rung=top,
+                                       device=params.embed.device)
+            # the same bits as the flags' tables, composed per site
+            lut_tables = ladder.tables()
+            log(f"degradation ladder attached, top rung {top}")
+    batcher = ContinuousBatcher(
+        cfg, params, args.batch,
+        max(len(p) for p in prompts) + args.new_tokens, eos_token=-1,
+        kv_dtype="int8" if args.kv_int8 else "bfloat16",
+        lut_tables=lut_tables, prefill="replay")
+    reloader = PlanReloader(batcher, cfg, params, backend=args.lut_backend,
+                            plan_exec=args.plan_exec, kernel=kernel,
+                            max_top1_drop=args.reload_max_drop,
+                            gate_tokens=args.reload_gate_tokens,
+                            ladder=ladder)
+    batcher.supervisor = CompositeSupervisor(reloader, ladder)
+    if args.watch:
+        reloader.watch(args.reload_plan)
+        log(f"watching {args.reload_plan} for plan updates")
+    else:
+        at_tick = max(1, args.new_tokens // 2)
+        reloader.schedule(args.reload_plan, at_tick)
+        log(f"hot reload of {args.reload_plan} scheduled at decode tick "
+            f"{at_tick}")
+    for i, row in enumerate(prompts):
+        batcher.submit(Request(rid=i, prompt=list(row),
+                               max_new=args.new_tokens, slo_ms=args.slo_ms))
+    synchronize(batcher.device)
+    t0 = time.perf_counter()
+    finished = batcher.run()
+    synchronize(batcher.device)
+    dt = time.perf_counter() - t0
+    for rec in reloader.records:
+        log(rec.summary())
+    if ladder is not None:
+        log("ladder: " + " ".join(f"{s}={r}" for s, r
+                                  in ladder.status().items())
+            + f" (demotions {ladder.demotions}, promotions "
+              f"{ladder.promotions})")
+    m = batcher.metrics()
+    log(f"served {m['finished']}/{m['submitted']} requests in {dt:.2f}s "
+        f"({m['ticks']} ticks, utilization {m['utilization']:.2f}, "
+        f"{m['table_swaps']} table swaps)")
+    log(f"latency p50 {m['latency_p50_s']:.3f}s p95 "
+        f"{m['latency_p95_s']:.3f}s; SLO violations "
+        f"{m['slo_violations']}/{m['slo_tracked']}")
+    log(f"reload counters: {reloader.counters}")
+    req0 = next(r for r in finished if r.rid == 0)
+    log(f"request 0: {req0.out}")
+    return {"batcher": batcher, "reloader": reloader, "ladder": ladder,
+            "finished": finished, "metrics": m, "seconds": dt}
+
+
 def main(argv=None) -> dict:
     ap = build_parser()
     args = parse_args(argv, ap)
@@ -381,6 +496,23 @@ def main(argv=None) -> dict:
     if plans is not None:
         cfg = plans.patched_config(cfg)
         lut_tables = serving_tables(args, plans, params.embed.device)
+    if args.reload_plan:
+        try:
+            out = serve_with_reload(args, cfg, params, batch, lut_tables,
+                                    plans)
+        except NotImplementedError as e:   # a family the batcher refuses
+            ap.error(f"--reload-plan: {e}")
+        m = out["metrics"]
+        if m["dropped"]:
+            print(f"ERROR: {m['dropped']} request(s) dropped across the "
+                  f"reload")
+            sys.exit(2)
+        if not args.watch and not out["reloader"].counters["reloads_ok"]:
+            print("ERROR: scheduled hot reload never cut over — see the "
+                  "rejection records above")
+            sys.exit(1)
+        print(f"kernel launches: {launch_counts()}")
+        return out
     out = serve(args, cfg, params, batch, lut_tables)
     print(f"kernel launches: {launch_counts()}")
     return out

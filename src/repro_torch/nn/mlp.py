@@ -12,6 +12,11 @@ backends evaluate it:
   wrappers of :mod:`repro_torch.kernels.ops`; it needs tensors on the
   card and raises on a CPU tensor.
 
+The backend is the one named at the top of ``lut_tables``, unless a site
+entry carries its own ``"backend"`` key: the degradation ladder
+(:mod:`repro_torch.serve.degrade`) serves a demoted site on a lower rung
+that way while the others keep theirs.
+
 Layers run in an eager Python loop, so ``layer`` is always a Python int:
 the stacked ``(L, …)`` tables are indexed with it directly and the
 kernels read that layer's meta rows on the card (no host sync).
@@ -53,7 +58,8 @@ def site_tables(lut_tables: dict | None, site: str | None = None,
     Entry forms: shared ``{"meta", "arrays"}``, unrolled per-layer
     ``{"layers": [...]}``, stacked per-layer ``{"stacked": {...}}`` and the
     multi-site marker ``{"multi": site}`` into the shared super-slab; the
-    per-layer forms need ``layer``."""
+    per-layer forms need ``layer``.  An entry's ``"backend"`` key (the
+    ladder's per-site override) is carried into the resolved dict."""
     lut_tables = sites.coerce_site_tables(lut_tables)
     if lut_tables is None:
         return None
@@ -66,11 +72,21 @@ def site_tables(lut_tables: dict | None, site: str | None = None,
         raise ValueError(
             f"per-layer LUT tables for site {site!r} need a layer index")
     if "multi" in entry:
-        return {"multi_entry": lut_tables["multi"], "site": entry["multi"],
-                "layer": layer}
-    if "stacked" in entry:
-        return {"stacked": entry["stacked"], "layer": layer}
-    return entry["layers"][layer]
+        out = {"multi_entry": lut_tables["multi"], "site": entry["multi"],
+               "layer": layer}
+    elif "stacked" in entry:
+        out = {"stacked": entry["stacked"], "layer": layer}
+    else:
+        out = entry["layers"][layer]
+    if "backend" in entry:
+        out = dict(out, backend=entry["backend"])
+    return out
+
+
+def tab_backend(tab: dict, lut_tables: dict) -> str:
+    """The backend one resolved entry runs on: its own ``"backend"`` key,
+    else the one at the top of ``lut_tables``."""
+    return tab.get("backend", lut_tables.get("backend", "gather"))
 
 
 def apply_lut_act(x: torch.Tensor, tab: dict, backend: str = "gather"
@@ -79,9 +95,14 @@ def apply_lut_act(x: torch.Tensor, tab: dict, backend: str = "gather"
 
     ``"gather"`` runs the plain functions, ``"cuda"`` the kernels (K1 for
     stacked entries, K2 for per-plan ones, K4 for a site served out of the
-    multi-site super-slab); both compute the same bits.
-    The backend is the one named at the top of ``lut_tables``."""
+    multi-site super-slab); both compute the same bits.  The entry's own
+    ``"backend"`` key, where it has one, wins over ``backend``.  The
+    gather form is the ``gather:lut_act`` fault point of
+    :mod:`repro_torch.serve.faults` (the kernels' are in their wrappers)."""
+    backend = tab.get("backend", backend)
     _check_backend(backend, x)
+    if backend == "gather":
+        ops.fault_hook("gather:lut_act")
     if "multi_entry" in tab:
         site = tab["site"]
         multi = ops.lut_act_multi if backend == "cuda" else \
@@ -125,7 +146,7 @@ def fused_act_matmul(x: torch.Tensor, w: torch.Tensor, ftab: dict,
     """``act(x @ w)`` (or the gated form) through the matmul-epilogue
     fusion: kernel K3 on the ``"cuda"`` backend, its plain version on
     ``"gather"``."""
-    backend = lut_tables.get("backend", "gather")
+    backend = tab_backend(ftab, lut_tables)
     _check_backend(backend, x)
     if backend == "cuda":
         return ops.fused_matmul_lut(x, w, ftab, gated=gated)
@@ -148,7 +169,7 @@ def make_activation(cfg, lut_tables: dict | None, site: str | None = None,
         if cfg.lut_activation and lut_tables is not None:
             tab = site_tables(lut_tables, site, layer)
             if tab is not None:
-                backend = lut_tables.get("backend", "gather")
+                backend = tab_backend(tab, lut_tables)
                 act = lambda x: apply_lut_act(x, tab, backend)
         cap = calib_capture.current()
     if act is None:
@@ -170,7 +191,7 @@ def site_act(cfg, lut_tables: dict | None, site: str, layer=None):
     if cfg.lut_activation and lut_tables is not None:
         tab = site_tables(lut_tables, site, lyr)
         if tab is not None:
-            backend = lut_tables.get("backend", "gather")
+            backend = tab_backend(tab, lut_tables)
             fn = lambda x: apply_lut_act(x, tab, backend)
     cap = calib_capture.current()
     if fn is None and cap is None:

@@ -27,8 +27,11 @@ replays it per token:
   capture itself (warm-up included) counts none.
 
 Nothing falls back: a capture that fails, or a kernel that fails inside
-it, raises.  CUDA graphs exist only on the card; on the CPU, which a
-caller has to ask for, :func:`decode_fn` returns the eager step.
+it, raises, and leaves no graph behind (the next call captures afresh;
+the serving control plane's ladder answers such a fault with
+``swap_tables``, which captures again).  CUDA graphs exist only on the
+card; on the CPU, which a caller has to ask for, :func:`decode_fn`
+returns the eager step.
 """
 from __future__ import annotations
 
@@ -97,9 +100,9 @@ class CapturedStep:
             with torch.cuda.graph(graph, stream=side):
                 logits, _ = decode_step(self.params, self.cfg, cache, tok,
                                         pos, self.lut_tables)
-            torch.cuda.current_stream(dev).wait_stream(side)
             after = launch_counts()
         finally:
+            torch.cuda.current_stream(dev).wait_stream(side)
             now = launch_counts()
             add_launch_counts({k: before[k] - now[k] for k in now})
         self.per_replay = {k: after[k] - mid[k] for k in after

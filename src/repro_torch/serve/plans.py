@@ -60,6 +60,15 @@ PER_LAYER_FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid", "encdec")
 BACKENDS = ("gather", "cuda")
 
 
+def activation_sites(cfg: ArchConfig) -> list[tuple[str, str]]:
+    """``(site, fn)`` kinds for one architecture config, in registry order:
+    the table keys the nn layer resolves (``nn/mlp.py::site_tables``), as
+    :func:`repro_torch.sites.active_sites` selects them (family, each
+    spec's gate, the config's ``lut_sites`` scope)."""
+    return [(spec.key, spec.fn_name(cfg))
+            for spec in site_registry.active_sites(cfg)]
+
+
 def plan_entry(meta: dict, arrays: dict, *, packed: bool, device) -> dict:
     """One plan's site entry ``{"meta", "arrays"}`` from its meta and its
     padded host component arrays (:meth:`PlanArrays.host_arrays`), as
@@ -236,6 +245,14 @@ class ServingPlans:
     def patched_config(self, cfg: ArchConfig) -> ArchConfig:
         return dataclasses.replace(cfg, lut_activation=True)
 
+    def fused_available(self, plan_exec: str | None = None) -> bool:
+        """True when these plans can serve the multi-site kernel K4
+        (stacked execution and at least one per-layer site): the top rung
+        of the serving degradation ladder (:mod:`.degrade`).  The port
+        serves one device, so no mesh enters the rule."""
+        exec_ = plan_exec or self.plan_exec
+        return exec_ == "stacked" and self.per_layer
+
     @property
     def per_layer(self) -> bool:
         return any(sp.per_layer for sp in self.sites.values())
@@ -308,7 +325,8 @@ def _per_site_specs(cfg, site_specs, calib: CalibrationSet, w_in, w_out,
                     x_lo, x_hi):
     """Per-site calibration: one care mask (and output quantization) per
     ``(layer, site)``, falling back to the site-kind mask where no
-    per-layer key exists."""
+    per-layer key exists.  ``w_out`` may be a per-site-kind dict (a
+    site's layers share one width, so their plans stack)."""
     specs: list[TableSpec] = []
     metas: list[_SpecMeta] = []
     layered = cfg.family in PER_LAYER_FAMILIES
@@ -323,9 +341,10 @@ def _per_site_specs(cfg, site_specs, calib: CalibrationSet, w_in, w_out,
                 f"{calib.sites()}")
         act = sp.fn_name(cfg)
         lo, hi = sp.domain() or (x_lo, x_hi)
+        w_out_site = w_out[sp.key] if isinstance(w_out, dict) else w_out
         name = sp.key if layer is None else f"L{layer}/{sp.key}"
         spec, quant = activation_table(
-            act, care=care, w_in=w_in, w_out=w_out, x_lo=lo, x_hi=hi,
+            act, care=care, w_in=w_in, w_out=w_out_site, x_lo=lo, x_hi=hi,
             name=name)
         specs.append(spec)
         metas.append(_SpecMeta(sp.key, act, quant, sp.per_layer, lo, hi))
@@ -345,7 +364,7 @@ def build_serving_plans(
     calibration: np.ndarray | CalibrationSet,
     *,
     w_in: int | None = None,
-    w_out: int | None = None,
+    w_out: int | dict | None = None,
     x_lo: float = -8.0,
     x_hi: float = 8.0,
     compress_cfg: CompressConfig | None = None,
@@ -360,7 +379,10 @@ def build_serving_plans(
     sample array gives identical per-layer tables that dedupe to one plan
     per site kind; a per-site :class:`~repro_torch.calib.CalibrationSet`
     gives every site its own care mask and the runtime one table per
-    layer.  Host-side only: the tables reach a device in
+    layer.  ``w_out`` may be a dict of per-site-kind output widths (the
+    autotuner's width override, :mod:`repro_torch.tune.sweep`), on the
+    per-site calibration path only; a key that is not a registered site
+    kind raises.  Host-side only: the tables reach a device in
     :meth:`ServingPlans.tables_for_model`."""
     if backend not in BACKENDS:
         raise ValueError(f"build_serving_plans: unknown backend "
@@ -376,8 +398,27 @@ def build_serving_plans(
         x_lo, x_hi = calibration.x_lo, calibration.x_hi
     else:
         w_in = w_in or cfg.lut_act_bits_in
-    w_out = w_out or cfg.lut_act_bits_out
     site_specs = site_registry.active_sites(cfg)
+    if isinstance(w_out, dict):
+        if not per_site:
+            raise ValueError(
+                "build_serving_plans: per-site w_out overrides need a "
+                "per-site CalibrationSet (shared calibration serves one "
+                "table per activation kind)")
+        missing = {sp.key for sp in site_specs} - set(w_out)
+        if missing:
+            raise ValueError(
+                f"build_serving_plans: per-site w_out has no entry for "
+                f"site kind(s) {sorted(missing)} (got {sorted(w_out)})")
+        registered = {sp.key for sp in site_registry.all_sites()}
+        unknown = set(w_out) - registered
+        if unknown:
+            raise ValueError(
+                f"build_serving_plans: per-site w_out has unknown site "
+                f"kind(s) {sorted(unknown)}; registered kinds: "
+                f"{sorted(registered)}")
+    else:
+        w_out = w_out or cfg.lut_act_bits_out
     if per_site:
         specs, metas = _per_site_specs(cfg, site_specs, calibration, w_in,
                                        w_out, x_lo, x_hi)

@@ -1,12 +1,13 @@
-"""Tuned-plan artifacts, bit-exact on disk: the save and load halves of
-the reference's ``tune/artifact.py``, in its ``repro-tuned-plan/v1``
-format, so either package loads the other's files.
+"""Tuned-plan artifacts, bit-exact on disk (PyTorch port of the
+reference's ``tune/artifact.py``), in its ``repro-tuned-plan/v1`` format,
+so either package loads the other's files.
 
 A :class:`TunedPlan` is what ``launch/serve --tuned-plan`` needs to serve
 without recapture or recompression: the per-layer plan arrays (int32,
 saved exactly), their quantization metas, and the knobs, frontier and
-metrics of the tuner that chose them (empty for plans frozen from a
-serving run, :func:`tuned_plan_from_serving`).  The serving forms
+metrics of the tuner that chose them (:func:`tuned_plan_from_outcome`;
+empty for plans frozen from a serving run,
+:func:`tuned_plan_from_serving`).  The serving forms
 (stacked / unrolled, gather / cuda, packed, ``kernel="fused"``) are
 rebuilt from the stored entries, so a loaded artifact decodes
 token-identically to the plans it was saved from.
@@ -16,9 +17,7 @@ One compressed ``.npz`` holds a JSON header plus one array per
 content-checksummed (:mod:`repro_torch.ioutil`).  The stored ``backend``
 uses the reference's names: the port's ``"cuda"`` is written
 ``"pallas"`` and read back as ``"cuda"``, so a file from either package
-serves on the other's default backend.  The autotuner that produces
-tuned plans (``tuned_plan_from_outcome``, ``parity``, ``sweep``,
-``pareto``) is not ported yet (ROADMAP queue A, item 6).
+serves on the other's default backend.
 """
 from __future__ import annotations
 
@@ -137,6 +136,17 @@ class TunedPlan:
                 f"site, config expects {cfg.n_layers}")
         return dataclasses.replace(cfg, lut_activation=True)
 
+    def fused_available(self, plan_exec: str | None = None) -> bool:
+        """True when these plans can serve the multi-site kernel K4
+        (stacked execution and at least one per-layer site): the top rung
+        of the serving degradation ladder."""
+        exec_ = plan_exec or self.plan_exec
+        return exec_ == "stacked" and any(self.per_layer.values())
+
+    @property
+    def total_cost(self) -> int:
+        return int(self.meta.get("cost", 0))
+
     def summary(self) -> str:
         m = self.metrics or {}
         sites = ", ".join(
@@ -149,10 +159,10 @@ class TunedPlan:
                 f"{len(self.frontier)} frontier points")
 
 
-def tuned_plan_from_serving(cfg: ArchConfig, plans) -> TunedPlan:
-    """Freeze built :class:`~repro_torch.serve.plans.ServingPlans` into an
-    artifact without an autotune sweep (``launch/serve --save-plan``).
-    The stored entries are the exact arrays the plans serve."""
+def _frozen_sites(plans) -> tuple[dict, dict]:
+    """``(sites, per_layer)`` of built serving plans: each site kind's
+    per-layer entries (meta and lane-padded int32 component arrays, the
+    exact arrays the plans serve)."""
     sites: dict[str, list[dict]] = {}
     per_layer: dict[str, bool] = {}
     for kind, sp in plans.sites.items():
@@ -166,8 +176,45 @@ def tuned_plan_from_serving(cfg: ArchConfig, plans) -> TunedPlan:
             })
         sites[kind] = entries
         per_layer[kind] = sp.per_layer
+    return sites, per_layer
+
+
+def tuned_plan_from_outcome(cfg: ArchConfig, outcome,
+                            extra_meta: dict | None = None) -> TunedPlan:
+    """Freeze a :class:`~repro_torch.tune.sweep.TuneOutcome` into an
+    artifact: its final plans, the chosen knobs per site kind, the
+    measured frontier and the selection's parity metrics."""
+    sites, per_layer = _frozen_sites(outcome.plans)
+    knobs = {k: {**p.to_dict(), "label": p.label()}
+             for k, p in outcome.assignment.items()}
+    meta = {
+        "budget": outcome.budget,
+        "budget_met": outcome.budget_met,
+        "cost": outcome.cost,
+        "default_cost": outcome.default.cost if outcome.default.ok else None,
+        "default_table_bytes": (outcome.default.table_bytes
+                                if outcome.default.ok else None),
+        "table_bytes": outcome.plans.table_bytes(),
+        "greedy_evals": outcome.greedy.get("evals", 0),
+        **(extra_meta or {}),
+    }
+    return TunedPlan(
+        arch=cfg.name, family=cfg.family, n_layers=cfg.n_layers,
+        backend=outcome.plans.backend, plan_exec=outcome.plans.plan_exec,
+        sites=sites, per_layer=per_layer, knobs=knobs,
+        frontier=[r.to_dict() for r in outcome.frontier],
+        metrics=outcome.metrics.to_dict(), meta=meta)
+
+
+def tuned_plan_from_serving(cfg: ArchConfig, plans,
+                            extra_meta: dict | None = None) -> TunedPlan:
+    """Freeze built :class:`~repro_torch.serve.plans.ServingPlans` into an
+    artifact without an autotune sweep (``launch/serve --save-plan``).
+    The stored entries are the exact arrays the plans serve, so a hot
+    reload of a frozen plan passes the parity gate trivially."""
+    sites, per_layer = _frozen_sites(plans)
     meta = {"cost": plans.total_cost, "source": "serving_plans",
-            "calib": plans.calib}
+            "calib": plans.calib, **(extra_meta or {})}
     return TunedPlan(
         arch=cfg.name, family=cfg.family, n_layers=cfg.n_layers,
         backend=plans.backend, plan_exec=plans.plan_exec,

@@ -35,7 +35,7 @@ def test_importing_every_submodule_pulls_in_no_jax_and_no_reference():
     r = subprocess.run([sys.executable, "-c", _IMPORT_ALL], env=env,
                        capture_output=True, text=True, timeout=240)
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.strip()) >= 72   # every submodule was imported
+    assert int(r.stdout.strip()) >= 87   # every submodule was imported
 
 
 def _imported_modules(path: Path) -> list[str]:
@@ -69,6 +69,8 @@ def _entry_points(tmp_path):
     from repro_torch.launch import lutnn, quickstart
     from repro_torch.launch import serve as launcher
     from repro_torch.launch import train as train_launcher
+    from repro_torch.launch import tune as tune_launcher
+    from repro_torch.serve.degrade import DegradationLadder
     from repro_torch.train import TrainConfig, init_train_state
     from repro_torch.nn import init_params
     from repro_torch.serve import (
@@ -79,6 +81,7 @@ def _entry_points(tmp_path):
     from repro_torch.tune import (
         load_tuned_plan,
         save_tuned_plan,
+        trained_params,
         tuned_plan_from_serving,
     )
 
@@ -100,6 +103,11 @@ def _entry_points(tmp_path):
         "quickstart": lambda: quickstart.main([]),
         "init_train_state": lambda: init_train_state(_cfg(), TrainConfig()),
         "train launcher": lambda: train_launcher.main(["--steps", "1"]),
+        "tune launcher": lambda: tune_launcher.main([]),
+        "trained_params": lambda: trained_params(_cfg(), train_steps=1),
+        "degradation ladder": lambda: DegradationLadder(plans),
+        "launcher --reload-plan": lambda: launcher.main(
+            ["--arch", "qwen3-0.6b", "--lut-act", "--reload-plan", path]),
     }
 
 
@@ -108,7 +116,9 @@ def _entry_points(tmp_path):
                                   "tuned_plan", "launcher",
                                   "launcher --tuned-plan", "lutnn",
                                   "quickstart", "init_train_state",
-                                  "train launcher"])
+                                  "train launcher", "tune launcher",
+                                  "trained_params", "degradation ladder",
+                                  "launcher --reload-plan"])
 def test_entry_point_without_device_needs_the_card(name, tmp_path):
     """Called without ``device`` on a machine with no CUDA, an entry point
     raises instead of running on the CPU."""
