@@ -231,12 +231,39 @@ Phases (any failure exits non-zero; nothing is caught):
      and a frozen copy of the active plans (cut over between ticks,
      tokens equal), no request dropped, no ladder demotion, and a
      corrupted copy of the tuned artifact is rejected at load; the
-     checkpoint is removed after.
+     checkpoint is removed after;
+  20. telemetry on the served path (``repro_torch.obs``), full-width
+     qwen3-0.6b from seed 0 with form (a)'s flags (``--lut-act
+     --calib-steps 2``): (a) ``launch/serve``'s functions with
+     ``--obs-log obs/serve.jsonl`` serve the tokens of the run without it,
+     the port's ``read_events`` accepts the log, every calibration key has
+     a ``drift`` row with lookups > 0, and ``python -m
+     repro_torch.launch.obs`` renders it (its head logged); (b) 8 requests
+     of 16-64 tokens through 4 slots of the batcher (step prefill) in
+     forms (a) (K1) and (d) ``--lut-fuse`` (K3; monitored steps run K3's
+     GEMM alone and K1), telemetry off and under the drift monitor at
+     ``sample_every`` 1 and 4: tokens equal, 0 < sampled lookups < full
+     lookups, the plain graph holds the telemetry-off graph's nodes kind
+     for kind (counted in each graph's DOT dump, the graphs captured in
+     debug mode; the monitored graph's extra nodes and both graphs' replay
+     times logged); (c) one monitored eager prefill and
+     decode step: the card's counters equal a host recount of the same
+     pre-activations key for key, the calibration batches replayed through
+     the capture's forward give 0 don't-care hits and tokens of another
+     seed give some; (d) phase 19's K4 drill and ``--reload-plan
+     --degrade`` of the tuned artifact and of a frozen copy of the plans,
+     then a corrupted copy, each under an obs log (``obs/ladder.jsonl``,
+     ``obs/reload.jsonl``): ``ladder_demote`` then ``ladder_promote``,
+     ``reload_cutover`` and ``reload_reject`` at stage load, the counters
+     equal to the events; (e) batcher new tok/s (replay prefill) with
+     telemetry off, at ``--obs-drift-every`` 128 and at 1, in interleaved
+     repeats.
 The last lines are the kernel JSON, the card's name and power limit, and
-``{"ok": true, "device": {...}}``; the kernels' launches include phase
-19's.  Long logs go to the output directory beside the script
+``{"ok": true, "device": {...}}``; the kernels' launches include phases
+19's and 20's.  Long logs go to the output directory beside the script
 (``OUT_DIR``: every logged line to ``chip_smoke.log``, phase 19's
-``tune_bench/v1`` payload to ``tune_qwen3.json``).
+``tune_bench/v1`` payload to ``tune_qwen3.json``, phase 20's obs logs and
+report under ``obs/``).
 """
 from __future__ import annotations
 
@@ -246,6 +273,7 @@ import functools
 import gc
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -3562,11 +3590,442 @@ def run_phase19(dev, stamp, ckpt_dir) -> dict:
                      for k, r in runs.items()}
     out["drill"] = drills
     out["reload"] = reloads
+    out["tuned_path"] = str(tuned["path"])
     end = launch_counts()
     out["launches"] = {k: end[k] - start[k] for k in end
                        if end[k] != start[k]}
     log(f"[19] {stamp()} phase 19's launches: {out['launches']}")
     shutil.rmtree(ROOT / "build" / "p18_ckpt", ignore_errors=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 20: telemetry on the served path at full width
+# ---------------------------------------------------------------------------
+# form (a) through the launcher and the batcher: 4 slots, 16 new tokens a
+# request (form (d) adds --lut-fuse)
+P20_SERVE = P19_SERVE
+# interleaved repeats of the overhead runs (eager walls vary up to 2x)
+P20_ROUNDS = 3
+
+
+def p20_batcher(cfg, params, tables, prompts, *, monitor=None,
+                prefill="step", batcher=None):
+    """Serve ``prompts`` (``NEW`` tokens each) through ``BATCHER_SLOTS``
+    slots of a :class:`ContinuousBatcher` (``batcher``, whose steps are
+    captured already, or a new one), under a telemetry with ``monitor``
+    when one is given.  Returns the tokens by request, the batcher, the
+    telemetry (or ``None``), the monitor's counts and the seconds of the
+    run (the device synchronized)."""
+    import contextlib
+
+    import torch
+
+    from repro_torch import obs
+    from repro_torch.serve import ContinuousBatcher, Request
+
+    b = batcher or ContinuousBatcher(
+        cfg, params, BATCHER_SLOTS, max(len(p) for p in prompts) + NEW,
+        eos_token=-1, lut_tables=tables, prefill=prefill)
+    n0 = len(b.finished)
+    for i, p in enumerate(prompts):
+        b.submit(Request(rid=i, prompt=p, max_new=NEW))
+    tel = (obs.Telemetry(events=obs.EventLog(), monitor=monitor)
+           if monitor is not None else None)
+    with tel if tel is not None else contextlib.nullcontext():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        done = b.run()[n0:]
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = monitor.counts() if monitor is not None else {}
+    m = b.metrics()
+    if m["dropped"] or len(done) != len(prompts) or any(
+            len(r.out) != NEW for r in done):
+        raise AssertionError(f"[20] batcher run: metrics {m}")
+    return ([r.out for r in sorted(done, key=lambda r: r.rid)], b, tel,
+            counts, secs)
+
+
+def p20_graph_nodes(step, path: Path) -> list:
+    """The kinds of the nodes (kernels, copies, memsets) of a captured
+    step's CUDA graph, one entry a node, from the graph's DOT dump
+    (``cudaGraphDebugDotPrint``; the graph was captured in debug mode,
+    which keeps it): exact, where a profiler trace of one replay can drop
+    events (the whole script's run lost a replay's first 52)."""
+    import re
+
+    step.graph.debug_dump(str(path))
+    if not path.exists():
+        raise AssertionError("[20] the captured graph was not kept: no DOT "
+                             "dump")
+    text = path.read_text()
+    path.unlink()
+    starts = [m.end() for m in re.finditer(
+        r'(?<!-> )"graph_\d+_node_\d+"\s*\[', text)]
+    # a node's kind opens its label (an edge's attributes have none)
+    kinds = [re.match(r'[^\]]*?label="\{?\s*(\w+)', text[i:i + 400])
+             for i in starts]
+    kinds = [k[1] for k in kinds if k]
+    if not kinds:
+        raise AssertionError(f"[20] no labelled node in the DOT dump: "
+                             f"{text[:300]!r}")
+    return kinds
+
+
+def p20_same_graph(form, off, plain) -> None:
+    """The plain graph holds the telemetry-off graph's nodes, kind for
+    kind."""
+    import collections
+
+    if collections.Counter(off) != collections.Counter(plain):
+        raise AssertionError(
+            f"[20] form ({form}): the plain graph has {len(plain)} nodes "
+            f"({dict(collections.Counter(plain))}), the telemetry-off graph "
+            f"{len(off)} ({dict(collections.Counter(off))})")
+
+
+class DebugGraphs:
+    """Inside, every ``torch.cuda.CUDAGraph`` keeps its graph after the
+    capture (``keep_graph=True``: instantiated at the first replay) and is
+    in debug mode, for :func:`p20_graph_nodes`: on the card's PyTorch
+    (2.11), debug mode alone drops the graph at the end of the capture."""
+
+    def __enter__(self):
+        import torch
+
+        self.real = real = torch.cuda.CUDAGraph
+
+        class DebugGraph(real):
+            def __new__(cls, *args, **kw):
+                return super().__new__(cls, keep_graph=True)
+
+            def __init__(self, *args, **kw):
+                super().__init__(keep_graph=True)
+                self.enable_debug_mode()
+
+        torch.cuda.CUDAGraph = DebugGraph
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+
+        torch.cuda.CUDAGraph = self.real
+
+
+def run_phase20(dev, stamp, tuned_path=None) -> dict:
+    """Telemetry on the served path (module docstring, phase 20):
+    full-width qwen3-0.6b, random weights from seed 0, form (a) through
+    the launcher with ``--obs-log`` and through the batcher under the
+    drift monitor (forms (a) and (d)), the card's counts against a host
+    recount, in-distribution and out-of-distribution drift, the control
+    plane's timeline, and the overhead of telemetry on the batcher.
+    Returns the numbers for ``chip_smoke.json`` and the phase's
+    launches."""
+    import collections
+    import subprocess
+
+    import numpy as np
+    import torch
+
+    from repro_torch import obs
+    from repro_torch.calib import synthetic_batches
+    from repro_torch.kernels import launch_counts
+    from repro_torch.launch import serve as launcher
+    from repro_torch.nn.transformer import decoder_forward
+    from repro_torch.serve.faults import corrupt_file
+    from repro_torch.serve.reload import PlanReloader
+    from repro_torch.tune import save_tuned_plan, tuned_plan_from_serving
+
+    quiet = lambda m: None
+    start = launch_counts()
+    obs_dir = OUT_DIR / "obs"
+    obs_dir.mkdir(parents=True, exist_ok=True)
+    for f in obs_dir.iterdir():   # the event logs append
+        f.unlink()
+    art = OUT_DIR / "artifacts"
+    art.mkdir(parents=True, exist_ok=True)
+    out = {}
+
+    # ---- (a) the launcher's functions with --obs-log ----------------------
+    serve_log = obs_dir / "serve.jsonl"
+    args_o = launcher.parse_args(P20_SERVE + ["--obs-log", str(serve_log)])
+    args_a = launcher.parse_args(P20_SERVE)
+    args_d = launcher.parse_args(P20_SERVE + ["--lut-fuse"])
+    cfg0, params, batch, rng = launcher.setup(args_a)
+    tel = launcher.open_telemetry(args_o)
+    with tel:
+        plans = launcher.build_plans(args_o, cfg0, params, rng, log=quiet,
+                                     tel=tel)
+        cfg = plans.patched_config(cfg0)
+        tabs_a = launcher.serving_tables(args_o, plans, dev, log=quiet)
+        on = launcher.serve(args_o, cfg, params, batch, tabs_a, log=quiet)
+    calib = tel.monitor.calib
+    off = launcher.serve(args_a, cfg, params, batch, tabs_a, log=quiet)
+    if on["tokens"] != off["tokens"]:
+        raise AssertionError(f"[20] the launcher's tokens with --obs-log "
+                             f"{on['tokens'][0]} differ from without "
+                             f"{off['tokens'][0]}")
+    recs = obs.read_events(str(serve_log))
+    drift = {r["site"]: r for r in recs if r["event"] == "drift"}
+    missing = [k for k in calib.masks
+               if k not in drift or drift[k]["lookups"] <= 0]
+    if missing:
+        raise AssertionError(f"[20] calibration keys with no served "
+                             f"lookups in the drift rows: {missing}")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    cli = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.obs", str(serve_log),
+         "--limit", "12"], env=env, capture_output=True, text=True,
+        timeout=300)
+    if cli.returncode != 0:
+        raise AssertionError(f"[20] launch.obs failed: {cli.stderr}")
+    (obs_dir / "serve_report.txt").write_text(cli.stdout)
+    served = sum(r["lookups"] for r in drift.values())
+    hits = sum(r["dontcare_hits"] for r in drift.values())
+    out["launcher"] = {
+        "records": len(recs), "drift_keys": len(drift), "lookups": served,
+        "dontcare_hits": hits, "decode_tok_s_on": on["decode_tok_s"],
+        "decode_tok_s_off": off["decode_tok_s"]}
+    log(f"[20] {stamp()} (a) launch/serve --obs-log: tokens equal without "
+        f"it; {len(recs)} records read back; {len(drift)} drift rows, one "
+        f"per calibration key, {served} lookups, {hits} don't-care hits "
+        f"({hits / served:.6f}); decode {on['decode_tok_s']:.1f} tok/s on "
+        f"(every step monitored), {off['decode_tok_s']:.1f} off; "
+        f"launch.obs renders it (head):")
+    for line in cli.stdout.splitlines()[:16]:
+        log(f"      {line}")
+
+    # ---- (b) the batcher under the monitor, forms (a) and (d) --------------
+    cfg_d = form_config(plans, cfg0, args_d)
+    tabs_d = launcher.serving_tables(args_d, plans, dev, log=quiet)
+    prng = np.random.default_rng(20)
+    prompts = [[int(t) for t in prng.integers(1, cfg.vocab_size, int(n))]
+               for n in prng.integers(T // 4, T + 1, BATCHER_REQUESTS)]
+    tok = torch.zeros((BATCHER_SLOTS, 1), dtype=torch.long, device=dev)
+    dot = obs_dir / "graph.dot"
+    out["batcher"] = {}
+    for form, fcfg, ftabs in (("a", cfg, tabs_a), ("d", cfg_d, tabs_d)):
+        with DebugGraphs():
+            base, b_off, _, _, secs_off = p20_batcher(fcfg, params, ftabs,
+                                                      prompts)
+        nodes_off = p20_graph_nodes(b_off._step, dot)
+        k_off = len(nodes_off)
+        row = {"kernels_off": k_off, "seconds_off": secs_off}
+        sums = {}
+        for every in (1, 4):
+            mon = obs.DontCareMonitor(calib, sample_every=every, device=dev)
+            with DebugGraphs():
+                got, b, t, counts, secs = p20_batcher(
+                    fcfg, params, ftabs, prompts, monitor=mon)
+            if got != base:
+                raise AssertionError(f"[20] form ({form}) sample_every "
+                                     f"{every}: tokens differ from the "
+                                     f"run with telemetry off")
+            sums[every] = sum(v[1] for v in counts.values())
+            row[f"lookups_{every}"] = sums[every]
+            row[f"hits_{every}"] = sum(v[0] for v in counts.values())
+            row[f"seconds_{every}"] = secs
+            if every == 4:
+                nodes_plain = p20_graph_nodes(b._step_plain, dot)
+                k_plain = len(nodes_plain)
+                k_mon = len(p20_graph_nodes(b._step, dot))
+                with mon:
+                    row["replay_ms_monitored"] = timed_ms(
+                        lambda: b._step(b.cache, tok, 0), n=20, warmup=2,
+                        reps=3)
+                row["replay_ms_plain"] = timed_ms(
+                    lambda: b._plain(b.cache, tok, 0), n=20, warmup=2,
+                    reps=3)
+                row.update(kernels_plain=k_plain, kernels_monitored=k_mon)
+                p20_same_graph(form, nodes_off, nodes_plain)
+            del b
+        del b_off
+        if not 0 < sums[4] < sums[1]:
+            raise AssertionError(f"[20] form ({form}): sampled lookups "
+                                 f"{sums[4]}, full {sums[1]}")
+        out["batcher"][form] = row
+        log(f"[20] {stamp()} (b) batcher form ({form}), {len(prompts)} "
+            f"requests / {BATCHER_SLOTS} slots: tokens equal with "
+            f"telemetry off and at sample_every 1 and 4; lookups "
+            f"{sums[1]} (1) > {sums[4]} (4) > 0, hits {row['hits_1']} / "
+            f"{row['hits_4']}; graph nodes (kernels, copies, memsets; "
+            f"{dict(collections.Counter(nodes_off))} off): off {k_off}, "
+            f"plain {k_plain} (equal, kind for kind), monitored {k_mon} "
+            f"(+{k_mon - k_off}); replay {row['replay_ms_plain']:.3f} ms "
+            f"plain, {row['replay_ms_monitored']:.3f} ms monitored "
+            f"(CUDA events)")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # ---- (c) the card's counts against a host recount; drift in and out of
+    # distribution --------------------------------------------------------
+    class Recorder(obs.DontCareMonitor):
+        """Counts on the card and keeps a host copy of what it saw."""
+
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            self.seen = []
+
+        def observe(self, site, layer, x):
+            self.seen.append((site, layer, x.detach().cpu()))
+            super().observe(site, layer, x)
+
+    rec = Recorder(calib, device=dev)
+    with rec, torch.no_grad():
+        logits, cache = launcher.prefill(params, cfg, batch,
+                                         max_seq=T + 2, lut_tables=tabs_a)
+        launcher.decode_step(params, cfg, cache,
+                             logits[:, -1].argmax(-1)[:, None], T, tabs_a)
+    host = obs.DontCareMonitor(calib, device="cpu")
+    for site, layer, x in rec.seen:
+        host.observe(site, layer, x)
+    card, recount = rec.counts(), host.counts()
+    if card != recount or not card:
+        raise AssertionError(f"[20] the card's counts differ from the host "
+                             f"recount: {card} vs {recount}")
+    del rec, host, cache
+
+    def forward_hits(seed):
+        mon = obs.DontCareMonitor(calib, device=dev)
+        with mon, torch.no_grad():
+            for bt in synthetic_batches(cfg0, args_a.calib_steps,
+                                        batch_size=args_a.batch,
+                                        seq_len=args_a.prompt_len,
+                                        seed=seed):
+                decoder_forward(params, cfg0, torch.as_tensor(
+                    np.asarray(bt["tokens"], np.int32), device=dev).long())
+        c = mon.counts()
+        return (sum(v[0] for v in c.values()),
+                sum(v[1] for v in c.values()))
+
+    in_hits, in_n = forward_hits(1)     # the calibration's own batches
+    ood_hits, ood_n = forward_hits(9)
+    out["counts"] = {"keys": len(card),
+                     "lookups": sum(v[1] for v in card.values()),
+                     "hits": sum(v[0] for v in card.values()),
+                     "in_distribution": [in_hits, in_n],
+                     "out_of_distribution": [ood_hits, ood_n]}
+    if in_hits != 0 or ood_hits <= 0:
+        raise AssertionError(f"[20] drift: {in_hits} don't-care hits of "
+                             f"{in_n} replaying the calibration batches, "
+                             f"{ood_hits} of {ood_n} out of distribution")
+    log(f"[20] {stamp()} (c) one monitored eager prefill + decode step: "
+        f"the card's counters equal the host recount key for key "
+        f"({len(card)} keys, {out['counts']['lookups']} lookups, "
+        f"{out['counts']['hits']} hits); the calibration batches replayed: "
+        f"{in_hits} hits of {in_n}; tokens of another seed: {ood_hits} "
+        f"of {ood_n} ({ood_hits / ood_n:.6f})")
+
+    # ---- (d) the control plane's timeline ---------------------------------
+    ladder_log = obs_dir / "ladder.jsonl"
+    lt = obs.Telemetry(events=obs.EventLog(str(ladder_log)))
+    with lt:
+        drill = ladder_run(cfg, params, plans, prompts, dev,
+                           inject=("cuda:lut_act_multi", 2, 0))
+    lrecs = obs.read_events(str(ladder_log))
+    names = [r["event"] for r in lrecs]
+    lm = lrecs[-1]["metrics"]
+    lad = drill["ladder"]
+    n_dem = names.count("ladder_demote")
+    n_pro = names.count("ladder_promote")
+    if (lad.demotions != 1 or lad.promotions != 1 or n_dem != 1
+            or n_pro != 1
+            or names.index("ladder_demote") > names.index("ladder_promote")
+            or names.index("serve_fault") > names.index("ladder_demote")
+            or lm["ladder_demotions_total"]['{site="mlp"}'] != n_dem
+            or lm["ladder_promotions_total"]['{site="mlp"}'] != n_pro
+            or lm["batcher_table_swaps_total"][""]
+            != names.count("table_swap")):
+        raise AssertionError(f"[20] the ladder drill's timeline: "
+                             f"{[n for n in names if n != 'tick']}, "
+                             f"metrics {lm}")
+    reload_log = obs_dir / "reload.jsonl"
+    frozen = save_tuned_plan(str(art / "frozen_qwen3_p20.npz"),
+                             tuned_plan_from_serving(cfg, plans))
+    rt = obs.Telemetry(events=obs.EventLog(str(reload_log)))
+    reloads = {}
+    with rt:
+        for label, path in (("tuned", tuned_path), ("frozen", frozen)):
+            if path is None:
+                continue
+            rargs = launcher.parse_args(P20_SERVE + [
+                "--reload-plan", str(path), "--degrade"])
+            r = launcher.serve_with_reload(
+                rargs, cfg, params, None,
+                launcher.serving_tables(rargs, plans, dev, log=quiet),
+                plans, log=quiet, prompts=prompts)
+            if r["metrics"]["dropped"]:
+                raise AssertionError(f"[20] reload {label}: {r['metrics']}")
+            reloads[label] = r["reloader"].records[-1].stage
+        bad = corrupt_file(frozen, str(art / "frozen_qwen3_p20_bad.npz"))
+        reloads["corrupt"] = PlanReloader(r["batcher"], cfg,
+                                          params).reload(bad).stage
+    rrecs = obs.read_events(str(reload_log))
+    rm = rrecs[-1]["metrics"].get("reloads_total", {})
+    by = {}
+    for e in rrecs:
+        if e["event"] == "reload_cutover":
+            by[("cutover", "true")] = by.get(("cutover", "true"), 0) + 1
+        elif e["event"] == "reload_reject":
+            k = (e["stage"], "false")
+            by[k] = by.get(k, 0) + 1
+    counted = {(k.split('stage="')[1].split('"')[0],
+                k.split('ok="')[1].split('"')[0]): v for k, v in rm.items()}
+    if (reloads.get("frozen") != "cutover" or reloads["corrupt"] != "load"
+            or by.get(("cutover", "true"), 0) < 1
+            or by.get(("load", "false")) != 1 or counted != by):
+        raise AssertionError(f"[20] the reload timeline: stages "
+                             f"{reloads}, events {by}, counters {rm}")
+    out["control_plane"] = {"ladder_events": n_dem + n_pro,
+                            "reload_stages": reloads,
+                            "reload_events": {f"{k[0]}/{k[1]}": v
+                                              for k, v in by.items()}}
+    log(f"[20] {stamp()} (d) the K4 drill's timeline "
+        f"(chiprun_out/obs/ladder.jsonl): serve_fault, ladder_demote "
+        f"cuda_fused -> cuda, ladder_promote, in order, counters equal the "
+        f"events; reloads (chiprun_out/obs/reload.jsonl): {reloads}, "
+        f"events {out['control_plane']['reload_events']} equal "
+        f"reloads_total")
+
+    # ---- (e) the overhead: new tok/s off, at every 128 and at every 1, each
+    # setting's batcher and monitor kept across the rounds, so that its
+    # steps are captured once, in an untimed first run --------------------
+    runs = {"off": [], "128": [], "1": []}
+    mons = {m: None if m == "off" else obs.DontCareMonitor(
+        calib, sample_every=int(m), device=dev) for m in runs}
+    warm = {m: p20_batcher(cfg, params, tabs_a, prompts, monitor=mons[m],
+                           prefill="replay")[1] for m in runs}
+    for _ in range(P20_ROUNDS):
+        for mode in runs:
+            got, _, _, _, secs = p20_batcher(
+                cfg, params, tabs_a, prompts, monitor=mons[mode],
+                prefill="replay", batcher=warm[mode])
+            runs[mode].append(len(prompts) * NEW / secs)
+    captures = {m: (b._step.captures, b._step_plain.captures)
+                for m, b in warm.items()}
+    del warm
+    tok_s = {m: statistics.median(v) for m, v in runs.items()}
+    out["overhead"] = {"tok_s": runs, "median_tok_s": tok_s,
+                       "captures": captures}
+    log(f"[20] {stamp()} (e) batcher, replay prefill, form (a), steps "
+        f"captured in a first untimed run (captures, monitored / plain: "
+        f"{captures}): new tok/s (median of {P20_ROUNDS} interleaved "
+        f"runs) off "
+        f"{tok_s['off']:.1f}, --obs-drift-every 128 {tok_s['128']:.1f} "
+        f"({tok_s['128'] / tok_s['off'] - 1:+.3%}), every 1 "
+        f"{tok_s['1']:.1f} ({tok_s['1'] / tok_s['off'] - 1:+.3%}); runs "
+        + "; ".join(f"{m}: {[round(x, 1) for x in v]}"
+                    for m, v in runs.items()))
+
+    end = launch_counts()
+    out["launches"] = {k: end[k] - start[k] for k in end
+                       if end[k] != start[k]}
+    for k in ("lut_act_stacked", "fused_matmul_lut", "lut_act_multi"):
+        if not out["launches"].get(k):
+            raise AssertionError(f"[20] phase 20 launched no {k}: "
+                                 f"{out['launches']}")
+    log(f"[20] {stamp()} phase 20's launches: {out['launches']}")
     return out
 
 
@@ -4321,10 +4780,19 @@ def main() -> int:
     for k in kernels:
         k["launches"] += p19["launches"].get(k["name"], 0)
 
+    # ---- 20. telemetry on the served path (the launcher with --obs-log,
+    # the batcher under the drift monitor, the control plane's timeline);
+    # K1's, K3's and K4's launches there join their entries
+    log(f"[20] {stamp()}")
+    p20 = run_phase20(dev, stamp, p19["tuned_path"])
+    for k in kernels:
+        k["launches"] += p20["launches"].get(k["name"], 0)
+
     summary = {"card": smi, "seconds": time.perf_counter() - t_start,
                "exact": exact, "steps": steps, "logit_drift": drift,
                "batcher": batcher, "moe": moe, "families": fam,
                "phase17": p17, "phase18": p18["runs"], "phase19": p19,
+               "phase20": p20,
                "forms": {
                    f: {k: v for k, v in r.items() if k != "plans"}
                    for f, r in results.items()}, "kernels": kernels,

@@ -30,6 +30,7 @@ from __future__ import annotations
 import dataclasses
 import multiprocessing
 import os
+import sys
 import time
 from concurrent.futures import ProcessPoolExecutor
 
@@ -359,6 +360,39 @@ class PlanCache:
                 f"{self.hits} hits / {self.misses} misses]")
 
 
+def _record_telemetry(report: "CompressReport", cache) -> None:
+    """Compression span + counters into the active telemetry, if any.
+
+    Resolved lazily through ``sys.modules`` (the kernels' fault-hook
+    idiom): the core engine stays importable from spawn-context pool
+    workers with nothing but numpy — it must never pull in the obs package
+    (torch) — and the hook is one dict lookup when telemetry is off."""
+    obs = sys.modules.get("repro_torch.obs.telemetry")
+    if obs is None or not obs._STACK:
+        return
+    t = obs._STACK[-1]
+    r = t.registry
+    r.counter("compress_tables_total",
+              "tables compressed (incl. dedupe/cache clones)").inc(
+        len(report.tables))
+    r.counter("compress_dedup_hits_total").inc(report.dedup_hits)
+    r.counter("compress_cache_hits_total").inc(report.cache_hits)
+    if cache is not None:
+        r.gauge("plan_cache_hits").set(cache.hits)
+        r.gauge("plan_cache_misses").set(cache.misses)
+    hist = r.histogram("compress_table_seconds",
+                       "per-table compression search time")
+    for rep in report.tables:
+        if rep.seconds:
+            hist.observe(rep.seconds, kind=rep.kind)
+    t.event("compress", tables=len(report.tables),
+            n_unique=report.n_unique, dedup_hits=report.dedup_hits,
+            cache_hits=report.cache_hits, workers=report.workers,
+            seconds=round(report.seconds, 4),
+            cost=sum(rep.cost for rep in report.tables),
+            plain_cost=sum(rep.plain_cost for rep in report.tables))
+
+
 def compress_network_report(
     specs: list[TableSpec],
     cfg: CompressConfig | None = None,
@@ -468,6 +502,7 @@ def compress_network_report(
         n_unique=len(uniq_specs), dedup_hits=dedup_hits,
         cache_hits=cache_hits,
     )
+    _record_telemetry(report, cache)
     if verbose:
         for line in report.table_lines():
             print(f"  {line}")

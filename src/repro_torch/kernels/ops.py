@@ -17,10 +17,12 @@ Counterpart of the reference's ``kernels/ops.py``:
   through the kernels.
 
 The LUT wrappers are the serving control plane's kernel fault points
-(:func:`fault_hook`).
+(:func:`fault_hook`), and every launch is a telemetry point
+(:func:`note_launch`: ``kernel_launches_total{backend="cuda"}``).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import sys
 
@@ -148,6 +150,52 @@ def fault_hook(point: str) -> None:
         faults.fault_point(point)
 
 
+# launch tallies of the CUDA graph captures in progress, innermost last
+_RECORDING: list[dict] = []
+
+
+def note_launch(point: str, n: int = 1) -> None:
+    """Count ``n`` launches at ``point`` (``"cuda:lut_act_stacked"``, or a
+    gather evaluator's ``"gather:lut_act"``) in the active telemetry's
+    ``kernel_launches_total``.  Inside :func:`recording` the launches go
+    to the recording's tally instead: a CUDA graph's capture counts
+    nothing itself, and its replays add what it recorded
+    (:func:`note_launches`).  The telemetry module is found through
+    ``sys.modules``, so the kernels never import ``obs`` and pay one dict
+    lookup when nothing imported it."""
+    if _RECORDING:
+        tally = _RECORDING[-1]
+        tally[point] = tally.get(point, 0) + n
+        return
+    obs = sys.modules.get("repro_torch.obs.telemetry")
+    if obs is not None and obs._STACK:
+        obs.kernel_launch(point, n)
+
+
+def note_launches(tally: dict) -> None:
+    """:func:`note_launch` for every ``point: n`` of ``tally``."""
+    for point, n in tally.items():
+        note_launch(point, n)
+
+
+@contextlib.contextmanager
+def recording():
+    """Collect the launch points noted inside into a dict (yielded) instead
+    of counting them: what one captured step launches at each replay."""
+    tally: dict = {}
+    _RECORDING.append(tally)
+    try:
+        yield tally
+    finally:
+        _RECORDING.remove(tally)
+
+
+def _launched(wrapper) -> None:
+    """One launch of ``wrapper``'s kernel: its count and its point."""
+    wrapper.launches += 1
+    note_launch("cuda:" + wrapper.__name__)
+
+
 def _kernel_operands(name: str, x: torch.Tensor, tables) -> torch.Tensor:
     """Validate a kernel launch: ``x`` on the card in a supported dtype,
     every table tensor on the same card.  Returns ``x`` contiguous."""
@@ -213,7 +261,7 @@ def _launch_k1k2(wrapper, entry: str, x: torch.Tensor, rec,
     if x.numel() == 0:
         return torch.empty(x.shape, dtype=x.dtype, device=x.device)
     y = launch_lut(build.entry(entry), wrapper.__name__, x, rec, layer)
-    wrapper.launches += 1
+    _launched(wrapper)
     return y
 
 
@@ -241,7 +289,7 @@ def lut_act_multi(xs: dict, entry: dict, layer: int) -> dict:
     out, call = k4_call(xs, rec, layer)
     if call is not None:
         launch_multi(call, rec)
-        lut_act_multi.launches += 1
+        _launched(lut_act_multi)
     return out
 
 
@@ -270,7 +318,7 @@ def fused_matmul_lut(x: torch.Tensor, w: torch.Tensor, tab: dict, *,
     x2d = _kernel_operands("fused_matmul_lut", x2d, [w])
     out = fused_matmul_lut_cuda(x2d, w.contiguous(), tab, gated=gated,
                                 epilogue=epilogue)
-    fused_matmul_lut.launches += 1
+    _launched(fused_matmul_lut)
     return out.reshape(*lead, out.shape[-1])
 
 
@@ -309,7 +357,7 @@ def plain_lookup(x: torch.Tensor, pa: PlanArrays) -> torch.Tensor:
     if xc.numel() == 0:
         return torch.empty_like(xc)
     out = plain_lookup_cuda(xc, table)
-    plain_lookup.launches += 1
+    _launched(plain_lookup)
     return out
 
 
@@ -331,7 +379,7 @@ def lut_reconstruct(x: torch.Tensor, pa: PlanArrays) -> torch.Tensor:
     if xc.numel() == 0:
         return torch.empty_like(xc)
     out = lut_reconstruct_cuda(xc, a, **kw)
-    lut_reconstruct.launches += 1
+    _launched(lut_reconstruct)
     return out
 
 
@@ -363,7 +411,7 @@ def lutnn_layer(codes: torch.Tensor, conn: torch.Tensor,
     conn = conn.to(torch.int32).contiguous()
     out = lutnn_layer_cuda(cc, conn, tables, bits=bits)
     if out.numel():
-        lutnn_layer.launches += 1
+        _launched(lutnn_layer)
     return out
 
 
@@ -398,7 +446,7 @@ def _wkv_forward(q, k, v, log_w, u, chunk, state):
     f32 = lambda a: _f32(a, q.device)
     y, s = wkv_cuda(f32(q), f32(k), f32(v), f32(log_w), f32(u), chunk,
                     None if state is None else f32(state))
-    wkv.launches += 1
+    _launched(wkv)
     return y, s
 
 
@@ -464,7 +512,7 @@ def wkv_backward(q, k, v, log_w, u, dy, *, state=None):
     f32 = lambda a: _f32(a, q.device)
     out = wkv_backward_cuda(f32(q), f32(k), f32(v), f32(log_w), f32(u),
                             f32(dy), None if state is None else f32(state))
-    wkv_backward.launches += 1
+    _launched(wkv_backward)
     return out
 
 

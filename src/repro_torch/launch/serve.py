@@ -12,7 +12,8 @@ ReducedLUT-compressed activations (counterpart of the reference's
       [--lut-backend cuda|gather] [--kv-int8] [--calib-path P] \\
       [--save-plan P] [--tuned-plan P] [--device cuda|cpu] \\
       [--reload-plan P [--watch] [--degrade] [--slo-ms MS] \\
-       [--reload-max-drop D] [--reload-gate-tokens N]]
+       [--reload-max-drop D] [--reload-gate-tokens N]] \\
+      [--obs-log PATH [--obs-sample N] [--obs-drift-every N]]
 
 ``--lut-act`` serves engine-selected plans for every LUT site in scope:
 the activation sites by default, every registered site (softmax exp,
@@ -55,6 +56,18 @@ The run exits with status 2 if a request was dropped and 1 if a
 scheduled reload never cut over; ``--slo-ms`` counts latency-objective
 violations.
 
+``--obs-log PATH`` writes the run's telemetry (:mod:`repro_torch.obs`):
+the checksummed ``repro-obs/v1`` JSONL event log at PATH (every log line
+below as a structured event, the ``build_plans`` / ``prefill`` /
+``decode`` spans, the batcher's and the control plane's events, one
+``drift`` row per site key) and a Prometheus text dump at
+``PATH.prom`` on exit; ``python -m repro_torch.launch.obs PATH`` renders
+it.  With calibrated plans (``--calib-steps`` / ``--calib-path``) the
+don't-care drift monitor is attached, counting on the device: every
+decode step of the plain path, every ``--obs-drift-every``-th batcher
+tick (and every replayed prompt token) under ``--reload-plan``; the
+served tokens are the same as without it.
+
 On the card the decode step is captured in a CUDA graph once, before
 the decode clock starts (its seconds are logged on their own line), and
 replayed per token; on the CPU it runs eagerly.  The run uses the card
@@ -68,10 +81,12 @@ import dataclasses
 import os
 import sys
 import time
+from contextlib import nullcontext
 
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.calib import (
     capture_calibration,
     load_calibration,
@@ -83,6 +98,7 @@ from repro_torch.configs import ARCH_NAMES, get_config, smoke_config
 from repro_torch.device import resolve_device, synchronize
 from repro_torch.kernels import launch_counts
 from repro_torch.nn import init_params
+from repro_torch.obs.log import as_logger, log as obs_log
 from repro_torch.serve import (
     CapturedStep,
     CompositeSupervisor,
@@ -196,9 +212,41 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--reload-gate-tokens", type=int, default=4,
                     help="greedy tokens per shadow row that must match "
                          "the active plan at the gate")
+    ap.add_argument("--obs-log", default=None, metavar="PATH",
+                    help="write the structured telemetry event log "
+                         "(repro-obs/v1 JSONL) to PATH; a Prometheus "
+                         "text dump lands at PATH.prom on exit; with "
+                         "calibrated LUT serving the don't-care drift "
+                         "monitor is attached (token-identical output)")
+    ap.add_argument("--obs-sample", type=int, default=1, metavar="N",
+                    help="keep every Nth high-frequency tick event in "
+                         "the obs log (counters and gauges are never "
+                         "sampled; drops are accounted on the surviving "
+                         "records)")
+    ap.add_argument("--obs-drift-every", type=int, default=128,
+                    metavar="N",
+                    help="run the drift-monitored decode step on every "
+                         "Nth batcher tick only (1 = count every step); "
+                         "the monitor's counting kernels run inside the "
+                         "captured step, so sampling is what keeps "
+                         "enabled-mode serving within the 5%% "
+                         "decode-overhead budget — the drift fraction is "
+                         "a ratio and stays unbiased")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     return ap
+
+
+def open_telemetry(args) -> "obs.Telemetry | None":
+    """The run's telemetry for ``--obs-log`` (``None`` without it): the
+    event log at the path, sampled by ``--obs-sample``, and the
+    Prometheus dump beside it.  Enter it around the run: leaving it
+    writes the drift rows, the footer and the dump."""
+    if not args.obs_log:
+        return None
+    return obs.Telemetry(
+        events=obs.EventLog(args.obs_log, sample=args.obs_sample),
+        prom_path=args.obs_log + ".prom")
 
 
 def parse_args(argv=None, ap: argparse.ArgumentParser | None = None):
@@ -264,9 +312,10 @@ def calibration(args, cfg, params, log=print):
     """The per-site calibration set: loaded from ``--calib-path`` when an
     artifact is there, else captured over ``max(1, --calib-steps)``
     batches (and saved to ``--calib-path`` when one is named)."""
+    log = as_logger(log)
     if args.calib_path and _exists(args.calib_path):
         calib = load_calibration(args.calib_path)
-        log(f"loaded calibration: {calib.summary()}")
+        log.info("calib_loaded", f"loaded calibration: {calib.summary()}")
         return calib
     steps = max(1, args.calib_steps)
     batches = synthetic_batches(cfg, steps, batch_size=args.batch,
@@ -275,26 +324,39 @@ def calibration(args, cfg, params, log=print):
     calib = capture_calibration(params, cfg, batches,
                                 min_count=args.calib_min_count,
                                 smoothing=args.calib_smoothing)
-    log(f"captured {steps} calibration batches in "
-        f"{time.perf_counter() - t0:.2f}s ({len(calib.masks)} sites)")
+    dt = time.perf_counter() - t0
+    log.info("calib_captured",
+             f"captured {steps} calibration batches in {dt:.2f}s "
+             f"({len(calib.masks)} sites)", steps=steps,
+             seconds=round(dt, 3))
     if args.calib_path:
-        log(f"saved calibration -> "
-            f"{save_calibration(args.calib_path, calib)}")
+        saved = save_calibration(args.calib_path, calib)
+        log.info("calib_saved", f"saved calibration -> {saved}", path=saved)
     return calib
 
 
-def build_plans(args, cfg, params, rng, log=print):
+def build_plans(args, cfg, params, rng, log=print, tel=None):
     """Capture (``--calib-steps``) or load (``--calib-path``) the
-    calibration and compress the serving plans."""
+    calibration and compress the serving plans; with a calibration and a
+    telemetry ``tel`` (``--obs-log``), the don't-care drift monitor is
+    attached to it, counting on the parameters' device and sampled every
+    ``--obs-drift-every`` batcher ticks."""
+    log = as_logger(log)
     if args.calib_steps > 0 or args.calib_path:
         calib = calibration(args, cfg, params, log=log)
+        if tel is not None and calib.w_in is not None:
+            tel.attach_monitor(obs.DontCareMonitor(
+                calib, sample_every=args.obs_drift_every,
+                device=params.embed.device))
     else:
         calib = rng.normal(size=100000) * 3
     t0 = time.perf_counter()
-    plans = build_serving_plans(cfg, calib, backend=args.lut_backend,
-                                plan_exec=args.plan_exec)
-    log(f"plans built in {time.perf_counter() - t0:.2f}s: "
-        f"{plans.summary()}")
+    with obs.span("build_plans", backend=args.lut_backend,
+                  plan_exec=args.plan_exec):
+        plans = build_serving_plans(cfg, calib, backend=args.lut_backend,
+                                    plan_exec=args.plan_exec)
+    log.info("plans_built", f"plans built in {time.perf_counter() - t0:.2f}s"
+             f": {plans.summary()}")
     return plans
 
 
@@ -309,8 +371,9 @@ def load_plan(ap, args, log=print):
         tp = load_tuned_plan(args.tuned_plan)
     except ValueError as e:   # includes ArtifactError (corrupt file)
         ap.error(f"--tuned-plan: {e}")
-    log(f"{tp.summary()} (loaded from {args.tuned_plan} — no "
-        f"recapture/recompression)")
+    as_logger(log).info("tuned_plan",
+                        f"{tp.summary()} (loaded from {args.tuned_plan} — "
+                        f"no recapture/recompression)", path=args.tuned_plan)
     return tp
 
 
@@ -322,8 +385,11 @@ def serving_tables(args, plans, device, log=print) -> dict:
     tables = plans.tables_for_model(backend=args.lut_backend,
                                     plan_exec=args.plan_exec, kernel=kernel,
                                     device=device)
-    log(f"tables: backend={args.lut_backend} plan_exec={args.plan_exec} "
-        f"kernel={tables['kernel']} ({tables_nbytes(tables)} table bytes)")
+    as_logger(log).info(
+        "plan_exec", f"tables: backend={args.lut_backend} "
+        f"plan_exec={args.plan_exec} kernel={tables['kernel']} "
+        f"({tables_nbytes(tables)} table bytes)", plan_exec=args.plan_exec,
+        table_bytes=tables_nbytes(tables))
     return tables
 
 
@@ -337,19 +403,21 @@ def serve(args, cfg, params, batch, lut_tables, log=print, *,
     the prefill, capture and replay seconds, decode tok/s (host clock
     around synchronised work) and the first decoded position.  Decoding starts at
     :func:`~repro_torch.serve.decode_start` (after a vlm's patches)."""
+    log = as_logger(log)
     dev = batch["tokens"].device
     b, t = batch["tokens"].shape
     start = decode_start(cfg, batch)
     max_seq = start + args.new_tokens
     synchronize(dev)
     t0 = time.perf_counter()
-    logits, cache = prefill(params, cfg, batch, max_seq=max_seq,
-                            lut_tables=lut_tables)
-    synchronize(dev)
+    with obs.span("prefill", batch=b, prompt_len=t):
+        logits, cache = prefill(params, cfg, batch, max_seq=max_seq,
+                                lut_tables=lut_tables)
+        synchronize(dev)
     prefill_s = time.perf_counter() - t0
-    log(f"prefill {b}x{t}"
-        + (f" after {start - t} patch embeddings" if start != t else "")
-        + f": {prefill_s:.4f}s")
+    log.info("prefill", f"prefill {b}x{t}"
+             + (f" after {start - t} patch embeddings" if start != t else "")
+             + f": {prefill_s:.4f}s", seconds=round(prefill_s, 4))
     if eager:
         step = lambda c, tk, pos: decode_step(params, cfg, c, tk, pos,
                                               lut_tables)
@@ -358,41 +426,47 @@ def serve(args, cfg, params, batch, lut_tables, log=print, *,
     out = {"prefill_s": prefill_s, "capture_s": None, "replay_s": None}
     int8 = kv_int8_applies(args, cfg)
     if args.kv_int8 and cfg.family == "encdec":
-        log("--kv-int8 does not apply to the encdec family, as in the "
-            "reference's launcher: the self and cross K/V stay in the "
-            "model dtype")
+        log.info("kv_int8", "--kv-int8 does not apply to the encdec "
+                 "family, as in the reference's launcher: the self and "
+                 "cross K/V stay in the model dtype")
     if int8:
         # the decode write path quantizes: replay the prompt into an int8
         # cache through the step the decode then runs
         cache = init_cache(cfg, b, max_seq, device=dev, kv_dtype="int8")
-        log("int8 KV cache enabled (decode writes quantized entries)")
+        log.info("kv_int8",
+                 "int8 KV cache enabled (decode writes quantized entries)")
     if isinstance(step, CapturedStep):
         step.capture(cache, batch["tokens"][:, :1])
         out["capture_s"] = step.capture_s
-        log(f"decode step captured in a CUDA graph: {step.capture_s:.4f}s")
+        log.info("graph_capture", f"decode step captured in a CUDA graph: "
+                 f"{step.capture_s:.4f}s", seconds=round(step.capture_s, 4))
     if int8:
         t0 = time.perf_counter()
         logits, cache = prefill_replay(params, cfg, cache, batch["tokens"],
                                        0, lut_tables, step=step)
         synchronize(dev)
         out["replay_s"] = time.perf_counter() - t0
-        log(f"prefill replay {b}x{t} into the int8 cache: "
-            f"{out['replay_s']:.4f}s")
+        log.info("prefill_replay", f"prefill replay {b}x{t} into the int8 "
+                 f"cache: {out['replay_s']:.4f}s",
+                 seconds=round(out["replay_s"], 4))
     tok = logits[:, -1].argmax(-1)[:, None]
     toks = []
     synchronize(dev)
     t0 = time.perf_counter()
-    for i in range(args.new_tokens):
-        toks.append(tok)
-        logits, cache = step(cache, tok, start + i)
-        tok = logits[:, -1].argmax(-1)[:, None]
-    synchronize(dev)
+    with obs.span("decode", batch=b, new_tokens=args.new_tokens):
+        for i in range(args.new_tokens):
+            toks.append(tok)
+            logits, cache = step(cache, tok, start + i)
+            tok = logits[:, -1].argmax(-1)[:, None]
+        synchronize(dev)
     dt = time.perf_counter() - t0
     tokens = torch.cat(toks, dim=1).tolist() if toks else [[]] * b
     tok_s = args.new_tokens * b / dt if dt > 0 else float("inf")
-    log(f"decode {args.new_tokens} tokens x {b} requests: {dt:.4f}s "
-        f"({tok_s:.1f} tok/s)")
-    log(f"request 0: {tokens[0]}")
+    log.info("decode", f"decode {args.new_tokens} tokens x {b} requests: "
+             f"{dt:.4f}s ({tok_s:.1f} tok/s)", seconds=round(dt, 4),
+             tok_s=round(tok_s, 2))
+    log.info("request_tokens", f"request 0: {tokens[0]}", rid=0,
+             tokens=tokens[0])
     return dict(out, tokens=tokens, decode_s=dt, decode_tok_s=tok_s,
                 start=start)
 
@@ -407,6 +481,7 @@ def serve_with_reload(args, cfg, params, batch, lut_tables, plans,
     :class:`~repro_torch.serve.degrade.DegradationLadder` with
     ``--degrade``.  Returns ``{"batcher", "reloader", "ladder",
     "finished", "metrics", "seconds"}``."""
+    log = as_logger(log)
     if prompts is None:
         prompts = batch["tokens"].tolist()
     kernel = ("fused" if args.lut_fuse and args.plan_exec == "stacked"
@@ -414,8 +489,9 @@ def serve_with_reload(args, cfg, params, batch, lut_tables, plans,
     ladder = None
     if args.degrade:
         if plans is None:
-            log("--degrade: no LUT plans in this serving config; ladder not "
-                "attached (float path only)")
+            log.warn("ladder_skipped", "--degrade: no LUT plans in this "
+                     "serving config; ladder not attached (float path "
+                     "only)")
         else:
             top = ("cuda_fused" if kernel == "fused" else
                    "cuda" if args.lut_backend == "cuda" else "gather")
@@ -424,7 +500,9 @@ def serve_with_reload(args, cfg, params, batch, lut_tables, plans,
                                        device=params.embed.device)
             # the same bits as the flags' tables, composed per site
             lut_tables = ladder.tables()
-            log(f"degradation ladder attached, top rung {top}")
+            log.info("ladder_attached",
+                     f"degradation ladder attached, top rung {top}",
+                     top_rung=top)
     batcher = ContinuousBatcher(
         cfg, params, args.batch,
         max(len(p) for p in prompts) + args.new_tokens, eos_token=-1,
@@ -438,12 +516,14 @@ def serve_with_reload(args, cfg, params, batch, lut_tables, plans,
     batcher.supervisor = CompositeSupervisor(reloader, ladder)
     if args.watch:
         reloader.watch(args.reload_plan)
-        log(f"watching {args.reload_plan} for plan updates")
+        log.info("reload_watch", f"watching {args.reload_plan} for plan "
+                 f"updates", path=args.reload_plan)
     else:
         at_tick = max(1, args.new_tokens // 2)
         reloader.schedule(args.reload_plan, at_tick)
-        log(f"hot reload of {args.reload_plan} scheduled at decode tick "
-            f"{at_tick}")
+        log.info("reload_scheduled", f"hot reload of {args.reload_plan} "
+                 f"scheduled at decode tick {at_tick}",
+                 path=args.reload_plan, at_tick=at_tick)
     for i, row in enumerate(prompts):
         batcher.submit(Request(rid=i, prompt=list(row),
                                max_new=args.new_tokens, slo_ms=args.slo_ms))
@@ -453,22 +533,35 @@ def serve_with_reload(args, cfg, params, batch, lut_tables, plans,
     synchronize(batcher.device)
     dt = time.perf_counter() - t0
     for rec in reloader.records:
-        log(rec.summary())
+        log.info("reload_record", rec.summary())
     if ladder is not None:
-        log("ladder: " + " ".join(f"{s}={r}" for s, r
-                                  in ladder.status().items())
-            + f" (demotions {ladder.demotions}, promotions "
-              f"{ladder.promotions})")
+        log.info("ladder_status",
+                 "ladder: " + " ".join(f"{s}={r}" for s, r
+                                       in ladder.status().items())
+                 + f" (demotions {ladder.demotions}, promotions "
+                   f"{ladder.promotions})", **ladder.status())
     m = batcher.metrics()
-    log(f"served {m['finished']}/{m['submitted']} requests in {dt:.2f}s "
-        f"({m['ticks']} ticks, utilization {m['utilization']:.2f}, "
-        f"{m['table_swaps']} table swaps)")
-    log(f"latency p50 {m['latency_p50_s']:.3f}s p95 "
-        f"{m['latency_p95_s']:.3f}s; SLO violations "
-        f"{m['slo_violations']}/{m['slo_tracked']}")
-    log(f"reload counters: {reloader.counters}")
+    log.info("serve_summary",
+             f"served {m['finished']}/{m['submitted']} requests in "
+             f"{dt:.2f}s ({m['ticks']} ticks, utilization "
+             f"{m['utilization']:.2f}, {m['table_swaps']} table swaps)",
+             finished=m["finished"], submitted=m["submitted"],
+             seconds=round(dt, 3), ticks=m["ticks"],
+             utilization=round(m["utilization"], 4),
+             table_swaps=m["table_swaps"])
+    log.info("serve_latency",
+             f"latency p50 {m['latency_p50_s']:.3f}s p95 "
+             f"{m['latency_p95_s']:.3f}s; SLO violations "
+             f"{m['slo_violations']}/{m['slo_tracked']}",
+             latency_p50_s=m["latency_p50_s"],
+             latency_p95_s=m["latency_p95_s"],
+             slo_violations=m["slo_violations"],
+             slo_tracked=m["slo_tracked"])
+    log.info("reload_counters", f"reload counters: {reloader.counters}",
+             **reloader.counters)
     req0 = next(r for r in finished if r.rid == 0)
-    log(f"request 0: {req0.out}")
+    log.info("request_tokens", f"request 0: {req0.out}", rid=0,
+             tokens=req0.out)
     return {"batcher": batcher, "reloader": reloader, "ladder": ladder,
             "finished": finished, "metrics": m, "seconds": dt}
 
@@ -476,23 +569,33 @@ def serve_with_reload(args, cfg, params, batch, lut_tables, plans,
 def main(argv=None) -> dict:
     ap = build_parser()
     args = parse_args(argv, ap)
+    tel = open_telemetry(args)
+    # the with-block lands the JSONL footer and the Prometheus dump even
+    # on the sys.exit / ap.error paths inside _main
+    with tel if tel is not None else nullcontext():
+        return _main(ap, args, tel)
+
+
+def _main(ap, args, tel) -> dict:
+    log = obs_log
     try:
         cfg, params, batch, rng = setup(args)
     except (RuntimeError, ValueError) as e:
         ap.error(str(e))
-    print(f"{cfg.name}: {param_summary(params)}")
+    log.info("params", f"{cfg.name}: {param_summary(params)}")
     lut_tables = plans = None
     if args.tuned_plan:
         plans = load_plan(ap, args)
     elif args.lut_act:
-        plans = build_plans(args, cfg, params, rng)
+        plans = build_plans(args, cfg, params, rng, tel=tel)
     if args.save_plan:
         if plans is None or args.tuned_plan:
             ap.error("--save-plan needs --lut-act plans built in-process "
                      "(a --tuned-plan artifact already is one)")
         frozen = save_tuned_plan(args.save_plan,
                                  tuned_plan_from_serving(cfg, plans))
-        print(f"saved tuned plan -> {frozen} (reload-ready)")
+        log.info("plan_saved", f"saved tuned plan -> {frozen} "
+                 f"(reload-ready)", path=frozen)
     if plans is not None:
         cfg = plans.patched_config(cfg)
         lut_tables = serving_tables(args, plans, params.embed.device)
@@ -504,17 +607,20 @@ def main(argv=None) -> dict:
             ap.error(f"--reload-plan: {e}")
         m = out["metrics"]
         if m["dropped"]:
-            print(f"ERROR: {m['dropped']} request(s) dropped across the "
-                  f"reload")
+            log.error("requests_dropped", f"ERROR: {m['dropped']} "
+                      f"request(s) dropped across the reload",
+                      dropped=m["dropped"])
             sys.exit(2)
         if not args.watch and not out["reloader"].counters["reloads_ok"]:
-            print("ERROR: scheduled hot reload never cut over — see the "
-                  "rejection records above")
+            log.error("reload_never_cutover", "ERROR: scheduled hot reload "
+                      "never cut over — see the rejection records above")
             sys.exit(1)
-        print(f"kernel launches: {launch_counts()}")
+        log.info("kernel_launches", f"kernel launches: {launch_counts()}",
+                 **launch_counts())
         return out
     out = serve(args, cfg, params, batch, lut_tables)
-    print(f"kernel launches: {launch_counts()}")
+    log.info("kernel_launches", f"kernel launches: {launch_counts()}",
+             **launch_counts())
     return out
 
 

@@ -46,6 +46,7 @@ from repro_torch.calib import capture_model, model_batch, synthetic_batches
 from repro_torch.configs import ARCH_NAMES, get_config, smoke_config
 from repro_torch.device import resolve_device, synchronize
 from repro_torch.kernels import launch_counts
+from repro_torch.obs.log import as_logger
 from repro_torch.serve import verify_backend_equivalence
 from repro_torch.tune import (
     autotune,
@@ -185,6 +186,7 @@ def run(args, log=print, run_setup: dict | None = None) -> dict:
     "stages"}`` (each stage's wall seconds, the device synchronized),
     ``"sweep_launches"`` (the kernels the sweep and selection launched)
     and ``"round_trip"`` (the live tokens and the backends held)."""
+    log = as_logger(log)
     t_start = time.perf_counter()
     s = run_setup or setup(args)
     cfg, dev = s["cfg"], s["device"]
@@ -199,7 +201,7 @@ def run(args, log=print, run_setup: dict | None = None) -> dict:
         cfg, ckpt_dir=args.ckpt_dir, train_steps=args.train_steps,
         batch=args.train_batch, seq=args.train_seq, device=dev)
     stage("restore" if info["source"] == "checkpoint" else "train", t0)
-    log(f"params: {info}")
+    log.info("tune_params", f"params: {info}")
 
     t0 = time.perf_counter()
     cap = capture_model(
@@ -207,7 +209,7 @@ def run(args, log=print, run_setup: dict | None = None) -> dict:
                                        batch_size=args.batch,
                                        seq_len=args.seq, seed=1))
     stage("capture", t0)
-    log(f"capture: {cap.summary()}")
+    log.info("tune_capture", f"capture: {cap.summary()}")
 
     batches = heldout_batches(cfg, args.eval_steps, batch_size=args.batch,
                               seq_len=args.seq)
@@ -217,24 +219,33 @@ def run(args, log=print, run_setup: dict | None = None) -> dict:
     outcome = autotune(cfg, params, cap, batches, grid=grid,
                        budget=args.budget, workers=args.workers,
                        backend=args.backend, plan_exec=args.plan_exec,
-                       verbose=True, log=log)
+                       verbose=True,
+                       log=lambda m: log.info("tune_sweep", m))
     stage("sweep", t0)
     after = launch_counts()
     sweep_launches = {k: after[k] - before[k] for k in after
                       if after[k] != before[k]}
-    log(outcome.summary())
-    log("frontier:")
+    log.info("tune_outcome", outcome.summary())
+    log.info("tune_frontier", "frontier:")
     for r in outcome.frontier:
-        log(f"  {r.point.label()}: cost={r.cost} bytes={r.table_bytes} "
-            f"drop={r.metrics.top1_drop:.4f} kl={r.metrics.kl:.3e} "
-            f"ppl_delta={r.metrics.ppl_delta:+.4f}")
+        log.info("frontier_point",
+                 f"  {r.point.label()}: cost={r.cost} "
+                 f"bytes={r.table_bytes} drop={r.metrics.top1_drop:.4f} "
+                 f"kl={r.metrics.kl:.3e} "
+                 f"ppl_delta={r.metrics.ppl_delta:+.4f}",
+                 label=r.point.label(), cost=r.cost,
+                 table_bytes=r.table_bytes,
+                 top1_drop=round(r.metrics.top1_drop, 6))
     sel = outcome.selected
-    log(f"selected: {sel.point.label() if sel else None}; assignment "
-        f"{ {k: p.label() for k, p in outcome.assignment.items()} }; "
-        f"greedy {outcome.greedy.get('evals', 0)} evaluations: "
-        f"{outcome.greedy.get('history', [])}")
-    log(f"tuned cost {outcome.cost} P-LUTs against the default's "
-        f"{outcome.default.cost}; sweep launches {sweep_launches}")
+    log.info("tune_selected",
+             f"selected: {sel.point.label() if sel else None}; assignment "
+             f"{ {k: p.label() for k, p in outcome.assignment.items()} }; "
+             f"greedy {outcome.greedy.get('evals', 0)} evaluations: "
+             f"{outcome.greedy.get('history', [])}")
+    log.info("tune_cost", f"tuned cost {outcome.cost} P-LUTs against the "
+             f"default's {outcome.default.cost}; sweep launches "
+             f"{sweep_launches}", cost=outcome.cost,
+             default_cost=outcome.default.cost)
 
     rng = np.random.default_rng(0)
     batch = model_batch(cfg, rng, args.batch, min(args.seq, 8))
@@ -244,16 +255,17 @@ def run(args, log=print, run_setup: dict | None = None) -> dict:
         # gather and cuda must give the same tokens on the final plans
         # before they are frozen
         verify_backend_equivalence(cfg, params, outcome.plans, batch, 3)
-        log("backend equivalence: gather == cuda on the tuned plans")
+        log.info("backend_equivalence",
+                 "backend equivalence: gather == cuda on the tuned plans")
     else:
-        log("backend equivalence: the cuda backend needs the card; "
-            "not held on the CPU")
+        log.info("backend_equivalence", "backend equivalence: the cuda "
+                 "backend needs the card; not held on the CPU")
     stage("backend_equivalence", t0)
 
     tp = tuned_plan_from_outcome(cfg, outcome, extra_meta={
         "trained": info, "arch_cli": args.arch})
     path = save_tuned_plan(args.out, tp)
-    log(f"saved tuned plan -> {path}")
+    log.info("plan_saved", f"saved tuned plan -> {path}", path=path)
 
     # round-trip identity: the loaded artifact must decode token-for-token
     # what the in-process plans decode
@@ -273,19 +285,26 @@ def run(args, log=print, run_setup: dict | None = None) -> dict:
         assert got == live, (
             f"tuned-plan round trip diverged [{backend}]: {got} vs {live}")
     stage("round_trip", t0)
-    log(f"artifact round trip: token-identical on {' and '.join(backends)} "
-        f"({ROUND_TRIP_TOKENS} tokens x {args.batch} requests)")
+    log.info("round_trip", f"artifact round trip: token-identical on "
+             f"{' and '.join(backends)} ({ROUND_TRIP_TOKENS} tokens x "
+             f"{args.batch} requests)")
 
     payload = bench_payload(args, cfg, info, outcome,
                             time.perf_counter() - t_start)
     if args.bench_out:
         with open(args.bench_out, "w") as f:
             json.dump(payload, f, indent=1)
-        log(f"wrote {args.bench_out}")
+        log.info("bench_written", f"wrote {args.bench_out}",
+                 path=args.bench_out)
     failures = strict_failures(args, outcome)
     for msg in failures:
-        log(f"{'WARNING' if args.no_strict else 'FAIL'}: {msg}")
-    log(f"stages (s): { {k: round(v, 3) for k, v in stages.items()} }")
+        if args.no_strict:
+            log.warn("tune_warning", f"WARNING: {msg}")
+        else:
+            log.error("tune_failure", f"FAIL: {msg}")
+    log.info("tune_stages", f"stages (s): "
+             f"{ {k: round(v, 3) for k, v in stages.items()} }",
+             **{k: round(v, 3) for k, v in stages.items()})
     return {"cfg": cfg, "params": params, "info": info, "outcome": outcome,
             "path": path, "payload": payload, "failures": failures,
             "stages": stages, "sweep_launches": sweep_launches,

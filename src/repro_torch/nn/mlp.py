@@ -20,6 +20,17 @@ that way while the others keep theirs.
 Layers run in an eager Python loop, so ``layer`` is always a Python int:
 the stacked ``(L, …)`` tables are indexed with it directly and the
 kernels read that layer's meta rows on the card (no host sync).
+
+While a don't-care monitor is active (:mod:`repro_torch.obs.drift`), the
+served sites' activations are wrapped so the monitor counts their inputs
+on the device.  The matmul-epilogue fusion (``--lut-fuse``) hides its
+pre-activation inside kernel K3, and the reference falls back to its
+unfused composition there, which is bit-identical to its fused kernel.
+Here it is not (K3 sums in another order than cuBLAS), so a monitored
+fused call computes the pre-activation with K3's own GEMM
+(``epilogue=False``), lets the monitor see it, and applies K1 (times
+``up``, rounded as K3 rounds): the composition K3 is held bit for bit
+against, so monitored and plain steps serve the same tokens.
 """
 from __future__ import annotations
 
@@ -29,6 +40,7 @@ from repro_torch import sites
 from repro_torch.calib import capture as calib_capture
 from repro_torch.kernels import ops
 from repro_torch.kernels.fused_matmul_lut import fused_matmul_lut_plain
+from repro_torch.obs import drift as obs_drift
 from repro_torch.kernels.lut_act import (
     lut_act_multi_plain,
     lut_act_plain,
@@ -103,6 +115,10 @@ def apply_lut_act(x: torch.Tensor, tab: dict, backend: str = "gather"
     _check_backend(backend, x)
     if backend == "gather":
         ops.fault_hook("gather:lut_act")
+        # the kernels count in their wrappers; the gather form here
+        ops.note_launch("gather:lut_act_multi" if "multi_entry" in tab
+                        else "gather:lut_act_stacked" if "stacked" in tab
+                        else "gather:lut_act")
     if "multi_entry" in tab:
         site = tab["site"]
         multi = ops.lut_act_multi if backend == "cuda" else \
@@ -142,17 +158,46 @@ def fused_matmul_tab(cfg, lut_tables: dict | None, site: str,
 
 
 def fused_act_matmul(x: torch.Tensor, w: torch.Tensor, ftab: dict,
-                     lut_tables: dict, *, gated: bool) -> torch.Tensor:
+                     lut_tables: dict, *, gated: bool, site: str = sites.MLP,
+                     layer: int | None = None) -> torch.Tensor:
     """``act(x @ w)`` (or the gated form) through the matmul-epilogue
     fusion: kernel K3 on the ``"cuda"`` backend, its plain version on
-    ``"gather"``."""
+    ``"gather"``.  Under a drift monitor that wants ``site``, K3's GEMM
+    alone, the monitor, then the LUT (module docstring)."""
     backend = tab_backend(ftab, lut_tables)
     _check_backend(backend, x)
+    mon = obs_drift.current()
+    if mon is not None and mon.wants(site):
+        return _monitored_fused(x, w, ftab, backend, gated=gated,
+                                mon=mon, site=site, layer=layer)
     if backend == "cuda":
         return ops.fused_matmul_lut(x, w, ftab, gated=gated)
     k = x.shape[-1]
     h = fused_matmul_lut_plain(x.reshape(-1, k), w, ftab, gated=gated)
     return h.reshape(*x.shape[:-1], h.shape[-1])
+
+
+def _monitored_fused(x, w, ftab, backend, *, gated, mon, site, layer):
+    """K3's own GEMM (``epilogue=False``; ``torch.matmul``, the plain
+    version's product, on ``"gather"``), the monitor on the pre-activation,
+    then the LUT as K3's epilogue applies it: K1 (or K2 for a per-plan
+    entry) on the activation half, times ``up`` in the model dtype."""
+    if backend == "cuda":
+        h = ops.fused_matmul_lut(x, w, ftab, gated=gated, epilogue=False)
+    else:
+        h = torch.matmul(x, w)
+    pre, up = h.chunk(2, dim=-1) if gated else (h, None)
+    spec = sites.site_spec(site)
+    mon.observe(site, layer if spec.per_layer else None, pre)
+    if "multi_entry" in ftab:
+        # K3's epilogue reads the site's K1 record in the super-slab
+        from repro_torch.serve.stacked import multi_site_stacked_entry
+
+        ftab = {"stacked": multi_site_stacked_entry(ftab["multi_entry"],
+                                                    ftab["site"]),
+                "layer": ftab["layer"]}
+    y = apply_lut_act(pre, ftab, backend)
+    return y * up if gated else y
 
 
 def make_activation(cfg, lut_tables: dict | None, site: str | None = None,
@@ -174,6 +219,11 @@ def make_activation(cfg, lut_tables: dict | None, site: str | None = None,
         cap = calib_capture.current()
     if act is None:
         act = activation_fn(fallback or cfg.activation)
+    mon = obs_drift.current()
+    if mon is not None and spec.active(cfg):
+        # drift monitor: counts this site's don't-care lookups into its
+        # device counters (no host sync, so the step stays capturable)
+        act = mon.wrap(site, layer, act)
     if cap is not None:
         act = cap.wrap(site, layer, act, domain=spec.domain())
     return act
@@ -194,10 +244,16 @@ def site_act(cfg, lut_tables: dict | None, site: str, layer=None):
             backend = tab_backend(tab, lut_tables)
             fn = lambda x: apply_lut_act(x, tab, backend)
     cap = calib_capture.current()
+    # the drift monitor observes served LUT lookups: it wraps only sites
+    # evaluating a compressed table, so the None path stays the exact
+    # inline math of the unmonitored forward
+    mon = obs_drift.current()
     if fn is None and cap is None:
         return None
     if fn is None:
         fn = sites.exact_fn(spec, cfg)
+    elif mon is not None:
+        fn = mon.wrap(site, lyr, fn)
     if cap is not None:
         fn = cap.wrap(site, lyr, fn, domain=spec.domain())
     return fn
@@ -226,7 +282,8 @@ def mlp_block(p: dict, x: torch.Tensor, cfg, lut_tables=None,
     gated = is_gated(cfg.activation)
     ftab = fused_matmul_tab(cfg, lut_tables, sites.MLP, layer)
     if ftab is not None:
-        h = fused_act_matmul(x, p["w_in"], ftab, lut_tables, gated=gated)
+        h = fused_act_matmul(x, p["w_in"], ftab, lut_tables, gated=gated,
+                             layer=layer)
         return torch.matmul(h, p["w_out"])
     act = make_activation(cfg, lut_tables, layer=layer)
     if gated:

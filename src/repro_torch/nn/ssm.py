@@ -130,7 +130,7 @@ def rwkv_channel_mix(p: dict, x, cfg, x_last=None, lut_tables=None,
     ftab = fused_matmul_tab(cfg, lut_tables, sites.FFN, layer)
     if ftab is not None:
         akk = fused_act_matmul(xk, p["w_ffn_k"], ftab, lut_tables,
-                               gated=False)
+                               gated=False, site=sites.FFN, layer=layer)
     else:
         act = make_activation(cfg, lut_tables, site=sites.FFN,
                               fallback="relu2", layer=layer)

@@ -17,10 +17,19 @@ six supervised retries, stall detection, ``utilization`` and
 ``metrics()``.
 
 The step and the replay run through :func:`.graphs.decode_fn`: captured
-on the card, eager on the CPU.  The reference's telemetry (its ``obs``
-counters, events and registry histograms) and the drift monitor's second
-step program are not ported yet (ROADMAP queue A, item 8), and sharded
-serving (``mesh``) is queue A item 11.
+on the card, eager on the CPU.  The reference's telemetry is ported
+(:mod:`repro_torch.obs`): table swaps and serving faults as counters and
+events, the tick counters, gauges and ``batcher_tick_s``, request latency
+and TTFT histograms, the ``prefill_replay`` span.  With a don't-care
+monitor active the batcher keeps two steps, the monitored one and a plain
+one run under ``suppressed()`` (two CUDA graphs sharing one memory pool
+on the card), and a tick takes the monitored one on every
+``sample_every``-th tick (:meth:`ContinuousBatcher._pick_step`).  A
+replay prefill is T calls of the step here, where the reference's is one
+program traced under the monitor, so the replay runs the monitored step
+for every prompt token: per-key lookups then equal the reference's for
+the same traffic.  Sharded serving (``mesh``) is ROADMAP queue A item
+11.
 
 The batcher serves the dense and moe families and refuses the others
 (:data:`REFUSED`), whose reference batcher answers wrongly: its snapshot
@@ -47,7 +56,9 @@ from collections import deque
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.configs.base import ArchConfig
+from repro_torch.obs import drift as obs_drift
 
 from .decode import prefill_replay
 from .graphs import decode_fn
@@ -139,7 +150,10 @@ class ContinuousBatcher:
             cfg, batch_size, max_seq, dtype=torch.bfloat16,
             device=self.device, kv_dtype="int8" if kv_dtype == "int8"
             else None)
-        self._step = None
+        self._step = self._step_plain = None
+        # the monitored and the plain step capture into one memory pool
+        self._pool = (torch.cuda.graph_pool_handle()
+                      if self.device.type == "cuda" else None)
         self._build_step_fns()
         self.slots = [_Slot() for _ in range(batch_size)]
         self.queue: deque[Request] = deque()
@@ -151,13 +165,32 @@ class ContinuousBatcher:
         self.table_swaps = 0
 
     def _build_step_fns(self) -> None:
-        """One step for the tick and the replay (one capture on the card;
-        a replay is T calls of it)."""
-        if self._step is not None and hasattr(self._step, "reset"):
-            self._step.reset()
-        self._step = decode_fn(self.params, self.cfg, self.lut_tables)
+        """The step for the tick and the replay (one capture on the card;
+        a replay is T calls of it, under the ambient monitor), and the
+        plain step the ticks a drift monitor does not sample take: the
+        same step run under ``suppressed()``, captured on first use."""
+        for step in (self._step, self._step_plain):
+            if step is not None and hasattr(step, "reset"):
+                step.reset()
+        self._step = decode_fn(self.params, self.cfg, self.lut_tables,
+                               pool=self._pool)
+        self._step_plain = decode_fn(self.params, self.cfg,
+                                     self.lut_tables, pool=self._pool)
         self._replay = lambda cache, toks: prefill_replay(
             self.params, self.cfg, cache, toks, 0, step=self._step)
+
+    def _plain(self, cache, tokens, pos):
+        with obs_drift.suppressed():
+            return self._step_plain(cache, tokens, pos)
+
+    def _pick_step(self):
+        """The step for this tick: the monitored step on every
+        ``sample_every``-th tick while a drift monitor is active, the
+        plain step otherwise."""
+        mon = obs_drift.current()
+        if mon is not None and self.steps % mon.sample_every != 0:
+            return self._plain
+        return self._step
 
     def swap_tables(self, lut_tables: dict | None,
                     cfg: ArchConfig | None = None) -> None:
@@ -170,6 +203,9 @@ class ContinuousBatcher:
         self.lut_tables = lut_tables
         self._build_step_fns()
         self.table_swaps += 1
+        obs.count("batcher_table_swaps_total")
+        obs.event("table_swap", tick=self.steps, swaps=self.table_swaps,
+                  backend=(lut_tables or {}).get("backend", "float"))
 
     def _guarded(self, thunk):
         """Run one serving call under the supervisor's fault policy: on an
@@ -180,6 +216,9 @@ class ContinuousBatcher:
             try:
                 return thunk()
             except Exception as e:
+                obs.count("serve_faults_total")
+                obs.event("serve_fault", tick=self.steps,
+                          error=f"{type(e).__name__}: {e}")
                 if (self.supervisor is None
                         or not self.supervisor.on_fault(self, e)):
                     raise
@@ -206,6 +245,24 @@ class ContinuousBatcher:
         self.finished.append(req)
         slot.req = None
         slot.pending = None
+        t = obs.current()
+        if t is not None:
+            # latency / TTFT land in registry histograms (the exportable
+            # form) beside the raw per-request stamps metrics() reads
+            if req.latency_s is not None:
+                t.registry.histogram(
+                    "serve_request_latency_s",
+                    "submit-to-eviction request latency").observe(
+                    req.latency_s)
+            if req.ttft_s is not None:
+                t.registry.histogram(
+                    "serve_request_ttft_s",
+                    "submit-to-first-token latency").observe(req.ttft_s)
+            t.event("request_finish", rid=req.rid, tokens=len(req.out),
+                    latency_s=(None if req.latency_s is None
+                               else round(req.latency_s, 6)),
+                    ttft_s=(None if req.ttft_s is None
+                            else round(req.ttft_s, 6)))
 
     def _admit(self) -> None:
         for i, slot in enumerate(self.slots):
@@ -231,6 +288,10 @@ class ContinuousBatcher:
         truncated = len(slot.pending) > self.max_seq
         toks = slot.pending[:self.max_seq]
         n = len(toks)
+        with obs.span("prefill_replay", rid=req.rid, tokens=n):
+            self._replay_slot_body(i, slot, req, truncated, toks, n)
+
+    def _replay_slot_body(self, i, slot, req, truncated, toks, n) -> None:
         tokens = np.zeros((self.b, n), np.int64)
         tokens[i] = toks
         # the replay writes positions [0, n) for EVERY row; rows of other
@@ -260,7 +321,12 @@ class ContinuousBatcher:
 
     def step(self) -> None:
         """One scheduler tick: each active slot ingests its next pending
-        prompt token or decodes one new token."""
+        prompt token or decodes one new token.  Tick telemetry (queue
+        depth, slot utilization, tick duration) is recorded per tick in
+        the registry and as *sampled* timeline events — ``--obs-sample``
+        thins the per-tick records, never the gauges/counters."""
+        t = obs.current()
+        t0 = time.monotonic() if t is not None else 0.0
         self._admit()
         if self.n_active == 0:
             return
@@ -294,7 +360,7 @@ class ContinuousBatcher:
             # the step is looked up inside the thunk: a supervisor's fault
             # handler may swap tables, and the retry must run the new step
             logits, _ = self._guarded(
-                lambda: self._step(self.cache, tokens, pos))
+                lambda: self._pick_step()(self.cache, tokens, pos))
             if others:
                 for name, before in snap.items():
                     self.cache[name][:, others, pos] = before
@@ -319,6 +385,17 @@ class ContinuousBatcher:
                                  or req.out[-1] == self.eos))):
                     self._finish(slot)
         self.steps += 1
+        if t is not None:
+            r = t.registry
+            r.counter("batcher_ticks_total").inc()
+            r.gauge("batcher_queue_depth").set(len(self.queue))
+            r.gauge("batcher_active_slots").set(self.n_active)
+            r.gauge("batcher_slot_utilization").set(self.utilization)
+            r.histogram("batcher_tick_s", "scheduler tick duration"
+                        ).observe(time.monotonic() - t0)
+            t.event("tick", sampled=True, tick=self.steps,
+                    queued=len(self.queue), active=self.n_active,
+                    dur_s=round(time.monotonic() - t0, 6))
 
     def run(self, max_ticks: int = 10000,
             stall_ticks: int = 4) -> list[Request]:

@@ -34,9 +34,11 @@ a :class:`~repro_torch.serve.reload.PlanReloader` with
 :class:`CompositeSupervisor`.  Every demotion or promotion swaps the
 batcher's tables, and the swap captures the decode step again on its
 next call; a fault raised while a step is captured leaves no graph
-behind (:meth:`~repro_torch.serve.graphs.CapturedStep.capture`).  The
-reference's telemetry events are not ported yet (ROADMAP queue A, item
-8).
+behind (:meth:`~repro_torch.serve.graphs.CapturedStep.capture`).  Every
+demotion and promotion lands in the telemetry as the reference's
+``ladder_demotions_total`` / ``ladder_promotions_total{site}`` counters
+and ``ladder_demote`` / ``ladder_promote`` events (:mod:`repro_torch.obs`);
+the ladder decides on its own probes, never on a telemetry counter.
 """
 from __future__ import annotations
 
@@ -44,6 +46,7 @@ import dataclasses
 
 import torch
 
+from repro_torch import obs
 from repro_torch.device import resolve_device
 
 RUNGS = ("cuda_fused", "cuda", "gather", "float")
@@ -250,6 +253,9 @@ class DegradationLadder:
                 if self._probe(site, rung) is None:
                     break
             self.faults.append((site, RUNGS[h.rung], err))
+            obs.count("ladder_demotions_total", site=site)
+            obs.event("ladder_demote", site=site, from_rung=RUNGS[h.rung],
+                      to_rung=RUNGS[rung], error=err)
             h.last_fault = err
             h.rung = rung
             h.demotions += 1
@@ -271,6 +277,10 @@ class DegradationLadder:
         for site, h in self.health.items():
             if h.rung > self.top and self._tick >= h.next_probe:
                 if self._probe(site, h.rung - 1) is None:
+                    obs.count("ladder_promotions_total", site=site)
+                    obs.event("ladder_promote", site=site,
+                              from_rung=RUNGS[h.rung],
+                              to_rung=RUNGS[h.rung - 1])
                     h.rung -= 1
                     h.promotions += 1
                     self.promotions += 1

@@ -24,7 +24,20 @@ replays it per token:
   after ``lut_tables`` or ``cfg`` changed captures again.
 * **Launch counts.** Each wrapper's count stays what eager would show:
   the launches the capture recorded are added on every replay, and the
-  capture itself (warm-up included) counts none.
+  capture itself (warm-up included) counts none.  The telemetry's
+  ``kernel_launches_total`` follows the same rule
+  (:func:`repro_torch.kernels.ops.recording`).
+* **Drift monitor.** A step captured while a don't-care monitor is
+  active (:mod:`repro_torch.obs.drift`) records the monitor's counting
+  ops, which add into its device counters at every replay; the capture
+  key holds the active monitor (``None`` under ``suppressed()``), so
+  another monitor captures again.  The warm-up steps run for real, so
+  the monitor's counters are saved before them and put back after: only
+  served steps count.
+* **Memory pool.** Steps given one ``pool`` (a
+  ``torch.cuda.graph_pool_handle()``) capture into one memory pool: the
+  batcher's monitored and plain steps, which never run at once, share
+  their scratch memory.
 
 Nothing falls back: a capture that fails, or a kernel that fails inside
 it, raises, and leaves no graph behind (the next call captures afresh;
@@ -40,7 +53,8 @@ import time
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.kernels import add_launch_counts, launch_counts
+from repro_torch.kernels import add_launch_counts, launch_counts, ops
+from repro_torch.obs import drift as obs_drift
 
 from .decode import decode_step
 from .kvcache import clone_state, state_leaves
@@ -53,20 +67,23 @@ class CapturedStep:
     replayed CUDA graph; called as ``step(cache, tokens, pos) -> (logits,
     cache)``, like the eager step."""
 
-    def __init__(self, params, cfg: ArchConfig, lut_tables=None):
+    def __init__(self, params, cfg: ArchConfig, lut_tables=None, pool=None):
         self.params = params
         self.cfg = cfg
         self.lut_tables = lut_tables
+        self.pool = pool           # a graph pool handle shared, or None
         self.graph = None
         self.captures = 0          # captures made so far
         self.capture_s = 0.0       # host seconds of the last capture
         self.per_replay = {}       # wrapper -> launches a replay makes
+        self.per_replay_points = {}   # telemetry point -> launches
         self._key = None
 
     def _key_of(self, cache: dict, tokens: torch.Tensor) -> tuple:
         return (tuple((n, t.data_ptr(), tuple(t.shape), t.dtype)
                       for n, t in state_leaves(cache)),
-                tuple(tokens.shape), id(self.lut_tables), self.cfg)
+                tuple(tokens.shape), id(self.lut_tables), self.cfg,
+                obs_drift.current())
 
     def reset(self) -> None:
         """Drop the graph and its memory pool."""
@@ -84,20 +101,23 @@ class CapturedStep:
         self.reset()
         t0 = time.perf_counter()
         before = launch_counts()
+        mon = obs_drift.current()
+        counts = mon.snapshot_counts() if mon is not None else None
         tok = torch.zeros(tokens.shape, dtype=torch.long, device=dev)
         pos = torch.zeros((), dtype=torch.long, device=dev)
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         graph = torch.cuda.CUDAGraph()
         try:
-            with torch.cuda.stream(side):
+            with torch.cuda.stream(side), ops.recording():
                 scratch = clone_state(cache)
                 for _ in range(WARMUP_STEPS):
                     decode_step(self.params, self.cfg, scratch, tok, pos,
                                 self.lut_tables)
                 del scratch
             mid = launch_counts()
-            with torch.cuda.graph(graph, stream=side):
+            with torch.cuda.graph(graph, stream=side, pool=self.pool), \
+                    ops.recording() as points:
                 logits, _ = decode_step(self.params, self.cfg, cache, tok,
                                         pos, self.lut_tables)
             after = launch_counts()
@@ -105,8 +125,11 @@ class CapturedStep:
             torch.cuda.current_stream(dev).wait_stream(side)
             now = launch_counts()
             add_launch_counts({k: before[k] - now[k] for k in now})
+            if mon is not None:
+                mon.restore_counts(counts)
         self.per_replay = {k: after[k] - mid[k] for k in after
                            if after[k] != mid[k]}
+        self.per_replay_points = points
         self.graph, self._logits, self._tokens, self._pos = (
             graph, logits, tok, pos)
         self._key = self._key_of(cache, tokens)
@@ -124,14 +147,16 @@ class CapturedStep:
             self._pos.fill_(pos)
         self.graph.replay()
         add_launch_counts(self.per_replay)
+        ops.note_launches(self.per_replay_points)
         return self._logits, cache
 
 
-def decode_fn(params, cfg: ArchConfig, lut_tables=None):
+def decode_fn(params, cfg: ArchConfig, lut_tables=None, pool=None):
     """The decode step a serving loop calls, ``(cache, tokens, pos) ->
-    (logits, cache)``: a :class:`CapturedStep` where the parameters lie on
-    the card, the eager :func:`decode_step` where they lie on the CPU."""
+    (logits, cache)``: a :class:`CapturedStep` (into ``pool`` when given)
+    where the parameters lie on the card, the eager :func:`decode_step`
+    where they lie on the CPU."""
     if params.embed.device.type == "cuda":
-        return CapturedStep(params, cfg, lut_tables)
+        return CapturedStep(params, cfg, lut_tables, pool=pool)
     return lambda cache, tokens, pos: decode_step(params, cfg, cache, tokens,
                                                   pos, lut_tables)

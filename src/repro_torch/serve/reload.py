@@ -29,15 +29,17 @@ dropping a request.  The protocol:
    bounded retry with doubling backoff.
 
 Every decision is recorded as a :class:`ReloadRecord` (the control
-plane's audit log) and counted in :attr:`PlanReloader.counters`.  The
-reference's telemetry events are not ported yet (ROADMAP queue A,
-item 8).
+plane's audit log) and counted in :attr:`PlanReloader.counters`, and
+lands in the telemetry as the reference's ``reloads_total{stage,ok}``
+counter and ``reload_*`` events (:mod:`repro_torch.obs`).
 """
 from __future__ import annotations
 
 import dataclasses
 import os
 import time
+
+from repro_torch import obs
 
 from . import faults
 
@@ -146,6 +148,9 @@ class PlanReloader:
         self.records.append(rec)
         self.counters[counter] += 1
         self._retry_count = 0
+        obs.count("reloads_total", stage=rec.stage, ok="false")
+        obs.event("reload_reject", path=rec.path, stage=rec.stage,
+                  reason=rec.reason)
         return rec
 
     def reload(self, path: str) -> ReloadRecord:
@@ -153,6 +158,7 @@ class PlanReloader:
         every failure mode becomes a rejection record and the active
         plan keeps serving."""
         t0 = time.monotonic()
+        obs.event("reload_attempt", path=path, tick=self.batcher.steps)
         try:
             faults.fault_point("reload:load")
             from repro_torch.tune import load_tuned_plan
@@ -256,6 +262,11 @@ class PlanReloader:
                            token_agreement=agreement, load_s=load_s,
                            gate_s=gate_s, tick=self.batcher.steps)
         self.records.append(rec)
+        obs.count("reloads_total", stage="cutover", ok="true")
+        obs.event("reload_cutover", path=path, tick=rec.tick,
+                  top1_drop=round(metrics.top1_drop, 6),
+                  token_agreement=round(agreement, 4),
+                  load_s=round(load_s, 4), gate_s=round(gate_s, 4))
         return rec
 
     # -- batcher supervisor protocol ---------------------------------------
@@ -293,10 +304,16 @@ class PlanReloader:
             p["path"], False, "rollback",
             f"post-cutover fault: {type(exc).__name__}: {exc} — "
             f"previous plan restored", tick=batcher.steps))
+        obs.count("reloads_total", stage="rollback", ok="false")
+        obs.event("reload_rollback", path=p["path"], tick=batcher.steps,
+                  reason=f"{type(exc).__name__}: {exc}")
         if p["retries"] < self.max_retries:
             delay = self.retry_backoff_ticks * (2 ** p["retries"])
             self._pending = (p["path"], batcher.steps + delay,
                              p["retries"] + 1)
             self.counters["retries_scheduled"] += 1
+            obs.event("reload_retry_scheduled", path=p["path"],
+                      at_tick=batcher.steps + delay,
+                      retry=p["retries"] + 1)
         self._probation = None
         return True

@@ -5,8 +5,8 @@ config of qwen3-0.6b.
 
 The reference's chaos cases (``tests/test_robust_serve.py``, its
 ``robust`` marker, which tier-1 leaves out) but its three
-``test_timeline_*`` ones, which need the telemetry log (ROADMAP queue A,
-item 8), with its invariants: no request is ever dropped; a reload
+``test_timeline_*`` ones, which read the telemetry log and are in
+``tests/test_torch_obs_serve.py``, with its invariants: no request is ever dropped; a reload
 rejected by the parity gate or by artifact integrity never serves a
 token; demotion above the float rung changes no served token; demoted
 sites come back once the fault clears; a fault inside the probation
@@ -577,7 +577,8 @@ def test_launcher_watch_and_rejected_reload_exit(tmp_path, capsys):
     with pytest.raises(SystemExit) as info:
         _serve(["--reload-plan", garbage])
     assert info.value.code == 1
-    assert "never cut over" in capsys.readouterr().out
+    # an error line goes to stderr, as the reference's log.error sends it
+    assert "never cut over" in capsys.readouterr().err
 
 
 def test_launcher_reload_refuses_a_family_the_batcher_refuses(tmp_path):

@@ -35,7 +35,33 @@ def test_importing_every_submodule_pulls_in_no_jax_and_no_reference():
     r = subprocess.run([sys.executable, "-c", _IMPORT_ALL], env=env,
                        capture_output=True, text=True, timeout=240)
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.strip()) >= 87   # every submodule was imported
+    assert int(r.stdout.strip()) >= 94   # every submodule was imported
+
+
+_IMPORT_ONE = """
+import importlib, sys
+importlib.import_module({name!r})
+bad = sorted(m for m in sys.modules
+             if m.split('.')[0] in ('jax', 'jaxlib', 'repro', 'ml_dtypes'))
+assert not bad, bad
+print(int('torch' in sys.modules),
+      int(any(m.startswith('repro_torch.obs') for m in sys.modules)))
+"""
+
+
+@pytest.mark.parametrize("name,torch_,obs_", [
+    ("repro_torch.obs", 1, 1),
+    ("repro_torch.launch.obs", 1, 1),
+    # the engine's telemetry hook is found through sys.modules: pool
+    # workers import it with numpy alone
+    ("repro_torch.core.engine", 0, 0),
+])
+def test_telemetry_modules_import_alone(name, torch_, obs_):
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    r = subprocess.run([sys.executable, "-c", _IMPORT_ONE.format(name=name)],
+                       env=env, capture_output=True, text=True, timeout=240)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.split() == [str(torch_), str(obs_)]
 
 
 def _imported_modules(path: Path) -> list[str]:

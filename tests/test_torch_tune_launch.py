@@ -381,7 +381,8 @@ def test_launcher_strict_exit_and_no_strict(tmp_path, capsys):
             "--eval-steps", "1", "--grid", "quick", "--budget", "-1",
             "--out", str(tmp_path / "tp.npz")]
     assert tune_launcher.main(argv) == 1
-    assert "FAIL: budget not met" in capsys.readouterr().out
+    # an error line goes to stderr, as the reference's log.error sends it
+    assert "FAIL: budget not met" in capsys.readouterr().err
     assert tune_launcher.main(argv + ["--no-strict"]) == 0
     assert "WARNING: budget not met" in capsys.readouterr().out
 
