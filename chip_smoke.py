@@ -194,10 +194,14 @@ Phases (any failure exits non-zero; nothing is caught):
      (4, 256, 40, 64) (dq, dk, dv, du within 1e-4 of their largest entry,
      dlog_w within 1e-5 of the running sums it is the difference of;
      strong and weak decay, ``log_w = -e`` and ``-30``, ragged T, an
-     initial state; two launches bit-identical), then ``rwkv6-3b`` at full width, ``--remat``, 4 x 256,
-     5 steps, launching K8 64 and K8b 32 times a step, and K8b timed beside
-     its bound (``k8b_work``: bytes, or its products at the 3xTF32
-     tensor-core rate as K8's); ``whisper-small`` at full width and ``deepseek-moe-16b``,
+     initial state, T shorter than a chunk; two launches and a graph
+     replay bit-identical; HMMA in its state and gradient kernels' SASS,
+     checked in phase 2), then ``rwkv6-3b`` at full width, ``--remat``,
+     4 x 256, 5 steps, launching K8 64 and K8b 32 times a step, and K8b
+     timed beside its bound (``k8b_work``: bytes, or its products at the
+     3xTF32 tensor-core rate as K8's) with the CUDA kernels one call runs
+     (``cuda_kernels`` in its entry of the kernel JSON line, counted in a
+     graph of one call); ``whisper-small`` at full width and ``deepseek-moe-16b``,
      ``recurrentgemma-9b`` and ``phi-3-vision-4.2b`` with their depth cut
      (``P18_DEPTH`` gives why), 2 steps each at 4 x 64, losses and gradient
      norms finite; the qwen3-0.6b step-19 checkpoint stays under
@@ -274,6 +278,7 @@ import gc
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -680,22 +685,50 @@ def profile_decode_step(launcher, label, scfg, sparams, sbatch, stab,
     return out
 
 
-def k8_hmma_count(build, lib) -> int:
-    """HMMA instructions (tensor-core mma.sync) in K8's kernel, from the
-    built library's SASS; raises if there are none: y and the state update
-    really run on the tensor cores."""
+def hmma_by_function(build, lib) -> dict[str, int]:
+    """HMMA instructions (tensor-core mma.sync) in each kernel of a built
+    library's SASS (``cuobjdump -sass``), by mangled name."""
     cuobjdump = Path(build.nvcc_path()).parent / "cuobjdump"
     sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], check=True,
                           capture_output=True, text=True).stdout
-    n, inside = 0, False
+    counts, cur = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
-            inside = "wkv_kernel" in line
-        elif inside:
-            n += "HMMA" in line
+            cur = line.split("Function :")[1].strip()
+            counts[cur] = 0
+        elif cur is not None:
+            counts[cur] += "HMMA" in line
+    return counts
+
+
+def k8_hmma_count(build, lib) -> int:
+    """HMMA instructions in K8's kernel; raises if there are none: y and
+    the state update really run on the tensor cores."""
+    n = sum(v for k, v in hmma_by_function(build, lib).items()
+            if "wkv_kernel" in k)
     if n == 0:
         raise AssertionError("K8's kernel has no HMMA in its SASS")
     return n
+
+
+def k8b_hmma_counts(build, lib) -> dict[str, int]:
+    """HMMA instructions in each of K8b's kernels (``csrc/wkv_bwd.cu``,
+    named ``state<N>``, ``scan``, ``grad<N>``); raises unless the state and
+    gradient kernels of every head size hold some: their products run on
+    the tensor cores (the scan has none)."""
+    from repro_torch.kernels.wkv import K8B_HEAD_SIZES
+
+    counts = {}
+    for name, n in hmma_by_function(build, lib).items():
+        m = re.search(r"wkv_bwd_(\w+?)_kernel(?:ILi(\d+)E)?", name)
+        if m:
+            counts[m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")] = n
+    bare = [f"{k}<{n}>" for n in K8B_HEAD_SIZES for k in ("state", "grad")
+            if not counts.get(f"{k}<{n}>")]
+    if bare:
+        raise AssertionError(f"K8b's kernels in SASS: {counts}; without "
+                             f"HMMA: {bare}")
+    return counts
 
 
 # -------------------------------------------------------------------------
@@ -3012,8 +3045,8 @@ def train_run(tl, torch, dev, argv, label, cfg=None) -> dict:
 def k8b_cases(torch, dev, gen):
     """K8b's comparison cases at rwkv6-3b's training shape (4, 256, 40,
     64): random inputs with strong and with weak decay, ``log_w`` at the
-    model's bound ``-e`` and at ``-30`` on every step, a ragged T and a
-    given initial state."""
+    model's bound ``-e`` and at ``-30`` on every step, a ragged T, a
+    given initial state and a T shorter than a chunk (40 of 64)."""
     b, t, h, n = 4, 256, 40, 64
 
     def rnd(hi, tt=t):
@@ -3031,7 +3064,8 @@ def k8b_cases(torch, dev, gen):
             "log_w = -e": (at(-math.e), None),
             "log_w = -30": (at(-30.0), None),
             "ragged T 201": (rnd(0.7, 201), None),
-            "initial state": (weak, s0)}
+            "initial state": (weak, s0),
+            "T 40 (shorter than a chunk)": (rnd(0.7, 40), None)}
 
 
 def check_k8b(dev, gen) -> tuple[float, tuple]:
@@ -3042,7 +3076,8 @@ def check_k8b(dev, gen) -> tuple[float, tuple]:
     of the running sums it is the difference of (``max sum_t |q_t *
     dq_t|`` or ``|k_t * dk_t|``: at ``log_w = -30`` the exact dlog_w is
     about 1e-13 and both sides give the sums' float32 rounding); finite,
-    and two launches bit-identical.  Returns the largest absolute
+    two launches bit-identical, and a CUDA graph's replay of a call equal
+    to the eager call bit for bit.  Returns the largest absolute
     difference and the strong-decay case's inputs (for timing)."""
     import torch
 
@@ -3055,9 +3090,17 @@ def check_k8b(dev, gen) -> tuple[float, tuple]:
         gk = ops.wkv_backward(*args, state=s0)
         g2 = ops.wkv_backward(*args, state=s0)
         gp = wkv_backward_plain(*args, state=s0)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            gg = ops.wkv_backward(*args, state=s0)
+        graph.replay()
         torch.cuda.synchronize()
         if not all(torch.equal(a, c) for a, c in zip(gk, g2)):
             raise AssertionError(f"K8b {name}: two launches differ")
+        if not all(torch.equal(a, c) for a, c in zip(gk, gg)):
+            raise AssertionError(f"K8b {name}: a graph replay differs from "
+                                 f"the eager call")
+        del graph, gg
         if not all(torch.isfinite(a).all() for a in gk):
             raise AssertionError(f"K8b {name}: inf or nan")
         errs = [float((a - p).abs().max()) for a, p in zip(gk, gp)]
@@ -3071,8 +3114,8 @@ def check_k8b(dev, gen) -> tuple[float, tuple]:
             f"max |plain|: "
             + ", ".join(f"{g} {e:.2e} / {t:.3g}" for g, e, t in zip(
                 ("dq", "dk", "dv", "dlog_w", "du"), errs, tops))
-            + f" (dlog_w's running sums {sums:.3g}); two launches "
-              f"bit-identical")
+            + f" (dlog_w's running sums {sums:.3g}); two launches and a "
+              f"graph replay bit-identical")
         if any(e > t for e, t in zip(errs, tols)):
             raise AssertionError(f"K8b differs from its plain version "
                                  f"beyond its tolerance: {name}")
@@ -3091,6 +3134,23 @@ def k8b_work(b, t, h, n) -> tuple[int, int, int]:
     steps = b * h * t
     return (4 * (9 * b * t * h * n + 2 * h * n),
             steps * (2 * n * n + 24 * n), steps * 3 * 10 * n * n)
+
+
+def graph_kinds_of(fn) -> list[str]:
+    """The kinds of the nodes one call of ``fn`` puts in a CUDA graph
+    (after a warm-up call), from the graph's DOT dump (:func:`graph_nodes`):
+    its kernels, copies and memsets."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    with DebugGraphs():
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    return graph_nodes(graph, OUT_DIR / "k8b_graph.dot")
 
 
 KERNEL_KINDS = (("GEMM", ("gemm", "cutlass", "sm90", "nvjet", "xmma")),
@@ -3287,6 +3347,10 @@ def run_phase18(dev, stamp, gen) -> dict:
            "plain_ms": timed_ms(lambda: wkv_backward_plain(
                kq, kk, kv, klw, ku, kdy), n=1, warmup=1, reps=3),
            "bound_ms": bms, "bound_by": by, "library_ms": None}
+    kinds = graph_kinds_of(kfn)
+    k8b["cuda_kernels"] = kinds.count("KERNEL")
+    log(f"[18] K8b: one call runs {k8b['cuda_kernels']} CUDA kernels (the "
+        f"nodes of a graph of one call: {kinds})")
     log(f"[18] K8b at {k8b['shape']}: {k8b['ms'] * 1e3:.2f} us/launch (graph "
         f"{k8b['graph_ms'] * 1e3:.2f} us), bound {bms * 1e3:.2f} us ({by}: "
         f"{nbytes / 1e6:.1f} MB, {nops / 1e9:.2f} GFLOP f32, "
@@ -3647,18 +3711,16 @@ def p20_batcher(cfg, params, tables, prompts, *, monitor=None,
             counts, secs)
 
 
-def p20_graph_nodes(step, path: Path) -> list:
-    """The kinds of the nodes (kernels, copies, memsets) of a captured
-    step's CUDA graph, one entry a node, from the graph's DOT dump
+def graph_nodes(graph, path: Path) -> list:
+    """The kinds of the nodes (kernels, copies, memsets) of a CUDA graph,
+    one entry a node, from the graph's DOT dump
     (``cudaGraphDebugDotPrint``; the graph was captured in debug mode,
     which keeps it): exact, where a profiler trace of one replay can drop
-    events (the whole script's run lost a replay's first 52)."""
-    import re
-
-    step.graph.debug_dump(str(path))
+    events (the whole script's run lost a replay's first 52, and saw none
+    of one K8b call's)."""
+    graph.debug_dump(str(path))
     if not path.exists():
-        raise AssertionError("[20] the captured graph was not kept: no DOT "
-                             "dump")
+        raise AssertionError("the captured graph was not kept: no DOT dump")
     text = path.read_text()
     path.unlink()
     starts = [m.end() for m in re.finditer(
@@ -3668,7 +3730,7 @@ def p20_graph_nodes(step, path: Path) -> list:
              for i in starts]
     kinds = [k[1] for k in kinds if k]
     if not kinds:
-        raise AssertionError(f"[20] no labelled node in the DOT dump: "
+        raise AssertionError(f"no labelled node in the DOT dump: "
                              f"{text[:300]!r}")
     return kinds
 
@@ -3688,7 +3750,7 @@ def p20_same_graph(form, off, plain) -> None:
 class DebugGraphs:
     """Inside, every ``torch.cuda.CUDAGraph`` keeps its graph after the
     capture (``keep_graph=True``: instantiated at the first replay) and is
-    in debug mode, for :func:`p20_graph_nodes`: on the card's PyTorch
+    in debug mode, for :func:`graph_nodes`: on the card's PyTorch
     (2.11), debug mode alone drops the graph at the end of the capture."""
 
     def __enter__(self):
@@ -3809,7 +3871,7 @@ def run_phase20(dev, stamp, tuned_path=None) -> dict:
         with DebugGraphs():
             base, b_off, _, _, secs_off = p20_batcher(fcfg, params, ftabs,
                                                       prompts)
-        nodes_off = p20_graph_nodes(b_off._step, dot)
+        nodes_off = graph_nodes(b_off._step.graph, dot)
         k_off = len(nodes_off)
         row = {"kernels_off": k_off, "seconds_off": secs_off}
         sums = {}
@@ -3827,9 +3889,9 @@ def run_phase20(dev, stamp, tuned_path=None) -> dict:
             row[f"hits_{every}"] = sum(v[0] for v in counts.values())
             row[f"seconds_{every}"] = secs
             if every == 4:
-                nodes_plain = p20_graph_nodes(b._step_plain, dot)
+                nodes_plain = graph_nodes(b._step_plain.graph, dot)
                 k_plain = len(nodes_plain)
-                k_mon = len(p20_graph_nodes(b._step, dot))
+                k_mon = len(graph_nodes(b._step.graph, dot))
                 with mon:
                     row["replay_ms_monitored"] = timed_ms(
                         lambda: b._step(b.cache, tok, 0), n=20, warmup=2,
@@ -4099,7 +4161,9 @@ def main() -> int:
         + ", ".join(f"{k}: {v['HGMMA']} HGMMA, {v['UTMALDG']} UTMALDG"
                     for k, v in sass.items())
         + f"; K8: {k8_hmma_count(build, built['wkv']['path'])} HMMA "
-          f"(TF32 mma.sync)")
+          f"(TF32 mma.sync); K8b: "
+        + ", ".join(f"{k} {v}" for k, v in k8b_hmma_counts(
+            build, built["wkv_bwd"]["path"]).items()) + " HMMA")
 
     # ---- 3. model, calibration, plans ------------------------------------
     common = ["--arch", "qwen3-0.6b", "--full", "--batch", str(B),

@@ -59,9 +59,9 @@ ENTRY_POINTS = {
     "rlut_lut_act_multi_segs": ("lut_act_multi", [_P, _I, _I, _P]
                                 + [_I] * 4 + [_P]),
     "rlut_wkv": ("wkv", [_P] * 8 + [_I] * 7 + [_P]),
-    # (q, k, v, log_w, u, s0, dy, dq, dk, dv, dlog_w, du, B, T, H, N,
-    #  smem, stream)
-    "rlut_wkv_backward": ("wkv_bwd", [_P] * 12 + [_I] * 5 + [_P]),
+    # (q, k, v, log_w, u, s0, dy, dq, dk, dv, dlog_w, du, scratch, B, T,
+    #  H, N, chunk, smem_state, smem_grad, stream)
+    "rlut_wkv_backward": ("wkv_bwd", [_P] * 13 + [_I] * 7 + [_P]),
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}   # process-wide: one load per library

@@ -56,7 +56,6 @@ from .lutnn_layer import (
 )
 from .packing import COMPONENTS, pack_component_dict
 from .wkv import (
-    K8B_HEAD_SIZES,
     wkv_backward_cuda,
     wkv_backward_plain,
     wkv_chunked_plain,
@@ -499,17 +498,14 @@ def wkv_backward(q, k, v, log_w, u, dy, *, state=None):
     """K8b: the backward of :func:`wkv` against ``dy = dL/dy`` (B, T, H,
     N), from the initial ``state`` (``None``: zeros) — ``(dq, dk, dv,
     dlog_w (B, T, H, N), du (H, N))``, float32.  On the card N must be one
-    of ``K8B_HEAD_SIZES``."""
+    of ``K8B_HEAD_SIZES`` (``wkv.k8b_plan`` raises otherwise)."""
     _wkv_check(q, k, v, log_w, u, 1, state)
     if dy.shape != q.shape or dy.device != q.device:
         raise ValueError(f"wkv_backward: dy {tuple(dy.shape)} on "
                          f"{dy.device}, q {tuple(q.shape)} on {q.device}")
     if q.device.type == "cpu":
         return wkv_backward_plain(q, k, v, log_w, u, dy, state=state)
-    if q.shape[-1] not in K8B_HEAD_SIZES:
-        raise ValueError(f"wkv_backward: K8b needs N in {K8B_HEAD_SIZES}, "
-                         f"got {q.shape[-1]}")
-    f32 = lambda a: _f32(a, q.device)
+    f32 = lambda a: _f32(a, q.device)   # k8b_plan refuses other head sizes
     out = wkv_backward_cuda(f32(q), f32(k), f32(v), f32(log_w), f32(u),
                             f32(dy), None if state is None else f32(state))
     _launched(wkv_backward)

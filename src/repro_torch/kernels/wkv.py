@@ -19,14 +19,19 @@ sub-chunks with bounded decay.  The launch wrapper that picks between
 them by the input's device is :func:`repro_torch.kernels.ops.wkv`.
 
 K8b, the backward (training), is :func:`wkv_backward_plain` (the
-recurrence's backward written in PyTorch) and :func:`wkv_backward_cuda`
-(``csrc/wkv_bwd.cu``); :func:`repro_torch.kernels.ops.wkv_backward` picks
-between them, and ``ops.wkv`` is differentiable through them.
+recurrence's backward written in PyTorch, two sequential passes) and
+:func:`wkv_backward_cuda` (``csrc/wkv_bwd.cu``, chunk-parallel on the
+tensor cores with the plan of :func:`k8b_plan`);
+:func:`repro_torch.kernels.ops.wkv_backward` picks between them, and
+``ops.wkv`` is differentiable through them.
+:func:`wkv_backward_chunked_plain` models the kernel's chunked algorithm
+on the CPU for the tests.
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import math
 
 import torch
 
@@ -183,17 +188,84 @@ def wkv_cuda(q, k, v, log_w, u, chunk: int, state=None):
 # -------------------------------------------------------------------------
 # K8b: the backward
 # -------------------------------------------------------------------------
-K8B_THREADS = 256
-K8B_STAGE = 16           # steps staged at a time (csrc/wkv_bwd.cu kStage)
+K8B_THREADS = 256        # state pass and scan
+K8B_GRAD_THREADS = 512   # gradient pass
+K8B_SUB = 16             # sub-chunk length (csrc/wkv_bwd.cu kSub)
+K8B_CHUNKS = (64, 32, 16)
 K8B_HEAD_SIZES = (16, 32, 64, 128)
 
 
-def k8b_smem_bytes(n: int) -> int:
-    """Shared memory of one K8b CTA (``csrc/wkv_bwd.cu::
-    wkv_bwd_smem_floats``): the state with a row stride of N + 1, the
-    staged q, k, v, w, dy and q * dq^st, each staged step's beta and a,
-    and u."""
-    return 4 * (n * (n + 1) + 6 * K8B_STAGE * n + 2 * K8B_STAGE + n)
+def k8b_state_smem_bytes(n: int, chunk: int) -> int:
+    """Shared memory of one CTA of K8b's first pass (``csrc/wkv_bwd.cu::
+    state_smem_floats``): the cumsum and its shift (then k and q decayed
+    to the chunk's end and from its start), v and dy, each ``chunk x (n
+    + 4)``; four of du's partial sums a thread; beta; the cumsum's last
+    row."""
+    return 4 * (4 * chunk * (n + 4) + 4 * K8B_THREADS + chunk + n)
+
+
+def k8b_smem_bytes(n: int, chunk: int) -> int:
+    """Shared memory of one CTA of K8b's gradient pass (``csrc/wkv_bwd.cu
+    ::grad_smem_floats``): q, k, v, dy, the cumsum and its shift, dq and
+    dk's state parts and the anchored operand (``chunk x (n + 4)``
+    each), the boundary state and adjoint (``n x (n + 4)`` each), the
+    pairwise matrices A and dA (``chunk x (chunk + 4)`` each), beta and
+    a (``chunk`` each), u, the cumsum's last row and the dlog_w carry
+    (``n`` each)."""
+    return 4 * (9 * chunk * (n + 4) + 2 * n * (n + 4)
+                + 2 * chunk * (chunk + 4) + 2 * chunk + 3 * n)
+
+
+@dataclasses.dataclass(frozen=True)
+class K8BPlan:
+    """One K8b launch: three CUDA kernels on the launching stream.  The
+    state pass (``grid`` CTAs of ``K8B_THREADS``, one per (batch, head,
+    chunk)) writes each chunk's own state and adjoint contributions and
+    du's partial sums; the scan (``scan_grid`` blocks of ``K8B_THREADS``,
+    a thread per four entries of a state row) turns them into the
+    boundary states, the boundary adjoints, the dlog_w carry and du; the
+    gradient pass (``grid`` CTAs of ``K8B_GRAD_THREADS``) gives dq, dk,
+    dv and dlog_w.  ``scratch_floats``: three ``(B, H, n_chunks, N, N)``
+    arrays and three ``(B, H, n_chunks, N)``."""
+
+    chunk: int
+    n_chunks: int
+    grid: int
+    scan_grid: int
+    smem_state: int
+    smem_grad: int
+    scratch_floats: int
+
+    def ctas_per_sm(self) -> tuple[int, int]:
+        """CTAs an SM holds (state pass, gradient pass), by shared memory
+        and threads."""
+        fit = lambda smem, threads: min(SM_SMEM // (smem + 1024),
+                                        2048 // threads)
+        return (fit(self.smem_state, K8B_THREADS),
+                fit(self.smem_grad, K8B_GRAD_THREADS))
+
+
+def k8b_plan(b: int, t: int, h: int, n: int) -> K8BPlan:
+    """The launch plan of K8b for ``(B, T, H, N)`` inputs: the longest
+    chunk of ``K8B_CHUNKS`` whose gradient pass fits a CTA's shared
+    memory (64 up to N = 64, 16 at N = 128), whatever T is: a ragged
+    last chunk, or a T shorter than the chunk, loads zero rows, which
+    change no gradient.  At rwkv6-3b's training shape (4, 256, 40, 64):
+    4 chunks, 640 CTAs of 222.25 KB in the gradient pass (one to an SM)
+    and of 72.5 KB in the state pass (three), 31.5 MB of scratch.
+    Raises where the kernel cannot run: N not in ``K8B_HEAD_SIZES``
+    (whole mma tiles, a thread a column), or B, T, H below 1."""
+    if min(b, t, h) < 1 or n not in K8B_HEAD_SIZES:
+        raise ValueError(f"wkv_backward: K8b needs B, T, H >= 1 and N in "
+                         f"{K8B_HEAD_SIZES}, got {(b, t, h, n)}")
+    c = next(c for c in K8B_CHUNKS if k8b_smem_bytes(n, c) <= K8_SMEM_LIMIT)
+    nc = -(-t // c)
+    rows = b * h * nc
+    return K8BPlan(chunk=c, n_chunks=nc, grid=rows,
+                   scan_grid=-(-b * h * n * (n // 4) // K8B_THREADS),
+                   smem_state=k8b_state_smem_bytes(n, c),
+                   smem_grad=k8b_smem_bytes(n, c),
+                   scratch_floats=rows * (3 * n * n + 3 * n))
 
 
 def wkv_backward_plain(q, k, v, log_w, u, dy, state=None):
@@ -244,25 +316,154 @@ def wkv_backward_plain(q, k, v, log_w, u, dy, state=None):
     return dq, dk, dv, dlw, du
 
 
+def wkv_backward_chunked_plain(q, k, v, log_w, u, dy, chunk: int,
+                               state=None):
+    """A model of K8b's chunked algorithm (``csrc/wkv_bwd.cu``) in plain
+    PyTorch, step for step, for the tests: it computes what
+    :func:`wkv_backward_plain` computes, and nothing on the card's path
+    calls it.  Per chunk of ``chunk`` steps (a multiple of ``K8B_SUB``;
+    T padded with zero rows), ``Lc`` the inclusive cumsum of ``log_w``,
+    ``Lc_{i-1} = Lc_i - log_w_i`` and ``L`` the last row:
+
+    * state pass: each chunk's own contributions ``U = (k e^{L - Lc})^T
+      v`` to the state at its end and ``W = (q e^{Lc_{i-1}})^T dy`` to
+      the adjoint at its start;
+    * scan: the adjoint at each chunk's end ``G_c`` (``G_{c-1} = e^L G_c
+      + W_c`` from zero) with ``Y_c = rowsum(G_c U_c)``, then the state
+      at each chunk's start ``S_c`` (``S_{c+1} = e^L S_c + U_c`` from
+      ``state``) with ``X_c = rowsum(S_c W_c)``; the dlog_w carry of
+      chunk c is ``sum_{c' > c} (X_c' - Y_c')``, the later chunks' sums
+      of ``q dq^st - k dk^st`` (their within-chunk pairs cancel);
+    * gradient pass: ``dA = dy v^T``; dq's and dk's state parts
+      ``e^{Lc_{i-1}} (S_c dy_i)`` and ``e^{L - Lc_j} (G_c v_j)``; per
+      anchor b (the last row of each sub-chunk but the last), ``X_b`` =
+      ``k e^{Lc_b - Lc}`` on rows up to b and ``q e^{Lc_{i-1} - Lc_b}``
+      after it, which gives the next sub-chunk's rows of A (``X X^T``),
+      of dq (``e^{Lc_{i-1} - Lc_b} (dA X)``) and b's sub-chunk's rows of
+      dk (``e^{Lc_b - Lc_j} (dA^T X)``); the diagonal sub-chunk blocks
+      directly (A an exp a term; dq and dk with the decay as a running
+      product of the steps' ``e^{Lc_r - Lc_{r-1}}``); ``A_jj = a_j``; ``dv = A^T dy + (k e^{L - Lc}) G_c``;
+      dlog_w from the within-chunk suffix sums and the carry.
+
+    Every exponent is at most 0.  Returns ``(dq, dk, dv, dlog_w, du)`` as
+    :func:`wkv_backward_plain` does (float64 in, float64 out)."""
+    b, t_orig, h, n = q.shape
+    if chunk < K8B_SUB or chunk % K8B_SUB:
+        raise ValueError(f"wkv_backward: the chunk must be a multiple of "
+                         f"{K8B_SUB}, got {chunk}")
+    dt = torch.float64 if q.dtype == torch.float64 else torch.float32
+    q, k, v, log_w, dy, u = (a.to(dt) for a in (q, k, v, log_w, dy, u))
+    pad = (-t_orig) % chunk
+    if pad:
+        zpad = lambda a: torch.nn.functional.pad(a, (0, 0, 0, 0, 0, pad))
+        q, k, v, log_w, dy = map(zpad, (q, k, v, log_w, dy))
+    t = q.shape[1]
+    nc, c = t // chunk, chunk
+    # (B, H, chunks, C, N)
+    tiles = lambda a: a.reshape(b, nc, c, h, n).permute(0, 3, 1, 2, 4)
+    q, k, v, lw, dy = map(tiles, (q, k, v, log_w, dy))
+    zeros = lambda *shape: torch.zeros(shape, dtype=dt, device=q.device)
+    lc = torch.cumsum(lw, dim=3)
+    lx = lc - lw
+    last = lc[:, :, :, -1:]                                  # (B,H,nc,1,N)
+    # state pass
+    kt = k * torch.exp(last - lc)
+    ut = torch.einsum("bhcjn,bhcjm->bhcnm", kt, v)
+    wt = torch.einsum("bhcin,bhcim->bhcnm", q * torch.exp(lx), dy)
+    # scan: G (reverse), then S (forward), then the carry (reverse)
+    dec = torch.exp(last[:, :, :, 0])[..., None]             # (B,H,nc,N,1)
+    gs, ys, ss, xs = [None] * nc, [None] * nc, [None] * nc, [None] * nc
+    g = zeros(b, h, n, n)
+    for ci in reversed(range(nc)):
+        gs[ci], ys[ci] = g, torch.sum(g * ut[:, :, ci], dim=-1)
+        g = dec[:, :, ci] * g + wt[:, :, ci]
+    s = zeros(b, h, n, n) if state is None else state.to(dt)
+    for ci in range(nc):
+        ss[ci], xs[ci] = s, torch.sum(s * wt[:, :, ci], dim=-1)
+        s = dec[:, :, ci] * s + ut[:, :, ci]
+    carry, run = [None] * nc, zeros(b, h, n)
+    for ci in reversed(range(nc)):
+        carry[ci] = run
+        run = run + (xs[ci] - ys[ci])
+    big_s, big_g = torch.stack(ss, dim=2), torch.stack(gs, dim=2)
+    carry = torch.stack(carry, dim=2)[:, :, :, None]         # (B,H,nc,1,N)
+    # gradient pass
+    ub = u[None, :, None, None]
+    beta = torch.sum(dy * v, dim=-1)[..., None]              # (B,H,nc,C,1)
+    a = torch.sum(q * (ub * k), dim=-1)
+    da = torch.einsum("bhcin,bhcjn->bhcij", dy, v)
+    dq = torch.exp(lx) * torch.einsum("bhcim,bhcnm->bhcin", dy, big_s)
+    dk = torch.exp(last - lc) * torch.einsum("bhcjm,bhcnm->bhcjn", v, big_g)
+    am = zeros(b, h, nc, c, c)
+    sub = K8B_SUB
+    for s_ in range(c // sub - 1):
+        r0, r1 = sub * s_, sub * (s_ + 1)        # b's sub-chunk; b = r1 - 1
+        lb = lc[:, :, :, r1 - 1:r1]
+        xk = k[:, :, :, :r1] * torch.exp(lb - lc[:, :, :, :r1])
+        xq = q[:, :, :, r1:] * torch.exp(lx[:, :, :, r1:] - lb)
+        rows = slice(r1, r1 + sub)
+        am[..., rows, :r1] = torch.einsum("bhcin,bhcjn->bhcij",
+                                          xq[..., :sub, :], xk)
+        dq[..., rows, :] += torch.exp(lx[..., rows, :] - lb) * torch.einsum(
+            "bhcij,bhcjn->bhcin", da[..., rows, :r1], xk)
+        dk[..., r0:r1, :] += torch.exp(lb - lc[..., r0:r1, :]) * torch.einsum(
+            "bhcij,bhcin->bhcjn", da[..., r1:, r0:r1], xq)
+    below = torch.tril(torch.ones((sub, sub), dtype=torch.bool,
+                                  device=q.device), diagonal=-1)[..., None]
+    for s_ in range(c // sub):
+        r0 = sub * s_
+        rows = slice(r0, r0 + sub)
+        # A: e^{Lc_{i-1} - Lc_j} a term
+        diff = lx[..., rows, None, :] - lc[..., None, rows, :]   # (i, j, N)
+        e = torch.exp(diff.masked_fill(~below, -math.inf))       # j < i
+        am[..., rows, rows] = torch.sum(q[..., rows, None, :]
+                                        * k[..., None, rows, :] * e, dim=-1)
+        # dq, dk: the same decay as a running product of the steps'
+        # e^{Lc_r - Lc_{r-1}}, r = j + 1 .. i - 1
+        w = torch.exp(lc[..., rows, :] - lx[..., rows, :])
+        pr = torch.ones_like(w)                     # pr[jj] at row i
+        for ii in range(1, sub):
+            if ii >= 2:
+                pr[..., :ii - 1, :] *= w[..., ii - 1:ii, :]
+            pr[..., ii - 1, :] = 1.0
+            i, js = r0 + ii, slice(r0, r0 + ii)
+            dai = da[..., i, js, None]                           # (jj, 1)
+            dq[..., i, :] += torch.sum(dai * (k[..., js, :] * pr[..., :ii, :]),
+                                       dim=-2)
+            dk[..., js, :] += dai * (q[..., i:i + 1, :] * pr[..., :ii, :])
+    am = am + torch.diag_embed(a)
+    dv = (torch.einsum("bhcij,bhcim->bhcjm", am, dy)
+          + torch.einsum("bhcjn,bhcnm->bhcjm", kt, big_g))
+    suffix = lambda x: torch.flip(torch.cumsum(torch.flip(x, (3,)), 3), (3,))
+    after = torch.nn.functional.pad(suffix(q * dq)[:, :, :, 1:],
+                                    (0, 0, 0, 1))           # sum_{i' > i}
+    dlw = (after - suffix(k * dk)) + carry
+    du = torch.sum(q * k * beta, dim=(0, 2, 3))
+    dq = dq + (ub * k) * beta
+    dk = dk + (q * ub) * beta
+    back = lambda x: x.permute(0, 2, 3, 1, 4).reshape(b, t, h, n)[:, :t_orig]
+    return back(dq), back(dk), back(dv), back(dlw), du
+
+
 def wkv_backward_cuda(q, k, v, log_w, u, dy, state=None):
     """Launch K8b on contiguous float32 card tensors (the wrapper in
-    :mod:`.ops` validates): one CTA of ``K8B_THREADS`` per (batch, head).
-    Returns ``(dq, dk, dv, dlog_w, du)``, ``du`` summed over the batch
-    from the kernel's per-(batch, head) partial sums."""
+    :mod:`.ops` validates) with :func:`k8b_plan`'s plan: its three
+    kernels, with their scratch allocated here.  Returns ``(dq, dk, dv,
+    dlog_w, du)``."""
     from . import build
 
     b, t, h, n = q.shape
-    if n not in K8B_HEAD_SIZES:
-        raise ValueError(f"wkv_backward: K8b needs N in {K8B_HEAD_SIZES}, "
-                         f"got {n}")
+    p = k8b_plan(b, t, h, n)
     dq, dk, dv, dlw = (torch.empty_like(q) for _ in range(4))
-    du = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
+    du = torch.empty((h, n), dtype=torch.float32, device=q.device)
+    scratch = torch.empty(p.scratch_floats, dtype=torch.float32,
+                          device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     status = build.entry("rlut_wkv_backward")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), log_w.data_ptr(),
         u.data_ptr(), None if state is None else state.data_ptr(),
         dy.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        dlw.data_ptr(), du.data_ptr(), b, t, h, n, k8b_smem_bytes(n),
-        ctypes.c_void_p(stream))
+        dlw.data_ptr(), du.data_ptr(), scratch.data_ptr(), b, t, h, n,
+        p.chunk, p.smem_state, p.smem_grad, ctypes.c_void_p(stream))
     check_status("wkv_backward", status)
-    return dq, dk, dv, dlw, du.sum(dim=0)
+    return dq, dk, dv, dlw, du

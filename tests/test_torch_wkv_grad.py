@@ -28,7 +28,9 @@ import torch
 from repro.nn import ssm as jssm
 from repro_torch.kernels import launch_counts, ops, reset_launch_counts
 from repro_torch.kernels.wkv import (
+    K8_SMEM_LIMIT,
     K8B_HEAD_SIZES,
+    k8b_plan,
     k8b_smem_bytes,
     wkv_backward_cuda,
     wkv_backward_plain,
@@ -222,12 +224,17 @@ def test_no_gradient_keeps_the_serving_path():
 
 
 def test_k8b_plan_limits():
-    """K8b's shared memory (the state with a row stride of N + 1 and 16
-    staged steps) fits the default 48 KB at rwkv6-3b's N = 64; other head
-    sizes than 16, 32, 64, 128 are refused before any build."""
+    """K8b's plan at rwkv6-3b's N = 64: chunks of 64, the gradient pass's
+    shared memory (q, k, v, dy, the cumsum, its shift, dq^st, dk^st and
+    the anchored operand at ``64 x 68`` floats, S_c and G_c at ``64 x 68``,
+    A and dA at ``64 x 68``, beta, a, u, L and the carry) within a CTA's
+    227 KB; other head sizes than 16, 32, 64, 128 are refused before any
+    build, and a ``dy`` of another shape by the wrapper."""
     assert K8B_HEAD_SIZES == (16, 32, 64, 128)
-    assert k8b_smem_bytes(64) == 4 * (64 * 65 + 6 * 16 * 64 + 32 + 64)
-    assert k8b_smem_bytes(64) <= 48 * 1024
+    assert k8b_smem_bytes(64, 64) == 4 * (9 * 64 * 68 + 2 * 64 * 68
+                                          + 2 * 64 * 68 + 2 * 64 + 3 * 64)
+    assert k8b_smem_bytes(64, 64) <= K8_SMEM_LIMIT
+    assert k8b_plan(4, 256, 40, 64).chunk == 64
     x = torch.zeros(1, 4, 1, 48)
     with pytest.raises(ValueError, match="N in"):
         wkv_backward_cuda(x, x, x, x, torch.zeros(1, 48), x)
