@@ -57,14 +57,17 @@ Phases (any failure exits non-zero; nothing is caught):
      two launches and a CUDA-graph replay bit-identical on each route, and
      each launching its route's kernel (at the paper shapes the narrowed
      one, or the unstaged one where a row holds 16 codes);
-  8. the paper's LUT-NN toolflow at full paper width through
+  8. LUT-NN training through the captured step (each step one CUDA graph
+     replay) bit for bit against the eager loop on jsc-2l, jsc-5l and
+     mnist (a few epochs on small data); then the paper's LUT-NN toolflow
+     at full paper width through
      ``repro_torch.launch.lutnn``'s functions (train, extract, don't cares,
      CompressedLUT / ReducedLUT, reconstruction through K5/K6, accuracy
-     through K7, Verilog): jsc-2l, the quickstart, then jsc-5l (100000 /
-     20000 samples) and mnist (30000 / 5000), the reference benchmarks'
-     paper scale; launch counts zeroed before each and read after it (K5
-     / K6 once per plan, K7 once per chunk, layer and pass), every K7
-     call's shape recorded;
+     through K7, Verilog): jsc-2l at the launcher's data sizes, then the
+     quickstart (jsc-5l and mnist at the paper's data scale are phase
+     21's); launch counts zeroed before each and read after it (K5 / K6
+     once per plan, K7 once per chunk, layer and pass), every K7 call's
+     shape recorded;
   9. full-width ``rwkv6-3b`` (32 layers, bf16, random weights from seed
      0): plans for the ``ffn`` site and for every site; K3 non-gated at the
      ``ffn`` shape and around it (ragged M, N = 1000, K = 1032, per-plan
@@ -88,11 +91,12 @@ Phases (any failure exits non-zero; nothing is caught):
      from a CUDA graph; K6: ``torch.take``); K4 and K8 have none; K1 and K2
      on the served input (the ``gate`` view) and on a contiguous copy; K4
      at the shapes form (f) hands it in a prefill and a decode step,
-     recorded from the served calls; K7 at the paper models' layer shapes
-     and at every (layer, shape) the three toolflows handed it, on their
-     own inputs, each held bit for bit against its plain version, beside
-     its bound and beside the route ``k7_plan`` did not choose (timed
-     too, and summed over the path's launches);
+     recorded from the served calls; K5-K7 after phase 21: K7 at the
+     paper models' layer shapes and at every (layer, shape) the toolflow
+     and phase 21's sweeps handed it, on their own inputs, each held bit
+     for bit against its plain version, beside its bound and beside the
+     route ``k7_plan`` did not choose (timed too, and summed over the
+     path's launches);
   12. one profiled decode step (qwen3-0.6b exact, forms (a), (d) and (f);
      rwkv6-3b exact and form (j)): wall time, kernels launched (copies
      among them: form (a) must launch as many as the exact step), device
@@ -261,13 +265,30 @@ Phases (any failure exits non-zero; nothing is caught):
      ``reload_cutover`` and ``reload_reject`` at stage load, the counters
      equal to the events; (e) batcher new tok/s (replay prefill) with
      telemetry off, at ``--obs-drift-every`` 128 and at 1, in interleaved
-     repeats.
+     repeats;
+  21. the paper's sweeps through ``repro_torch.bench``'s functions at
+     ``scale="paper"`` (the paper widths of jsc-2l, jsc-5l and mnist,
+     ``make_jsc(100000, 20000)`` / ``make_mnist_like(30000, 5000)``, 25
+     epochs): each model trained once on the card, then Table 2's six rows
+     per model (baseline, CompressedLUT, random fill, ReducedLUT at
+     exiguity 20 / 150 / 250) and the serial-vs-engine timing on jsc-2l
+     (6 engine processes), Fig. 3's nine rows and the four beyond-paper
+     variants on jsc-2l (``bench/*.json`` in the output directory, a log
+     line per row); every row's training accuracy must be the net's own,
+     CompressedLUT's test accuracy too, the timing ``identical``, and each
+     model's ReducedLUT ex 250 tables, run once more through the plain
+     K5 / K6 and K7 on the same tensors, give the kernels' tables and
+     accuracies bit for bit; launch counts zeroed before the phase and
+     read after it (K5 + K6 once per plan rebuilt, K7 once per chunk,
+     layer and pass, nothing else); a line per model sets the best
+     ReducedLUT row against CompressedLUT, the baseline and the abstract's
+     claim (1.63x, a test drop of at most 0.01), on the synthetic data.
 The last lines are the kernel JSON, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``; the kernels' launches include phases
-19's and 20's.  Long logs go to the output directory beside the script
+19's-21's.  Long logs go to the output directory beside the script
 (``OUT_DIR``: every logged line to ``chip_smoke.log``, phase 19's
 ``tune_bench/v1`` payload to ``tune_qwen3.json``, phase 20's obs logs and
-report under ``obs/``).
+report under ``obs/``, phase 21's results under ``bench/``).
 """
 from __future__ import annotations
 
@@ -987,12 +1008,10 @@ def check_lutnn_layer(dev) -> int:
     return err
 
 
-# the toolflows of phase 8: paper width (model.py::paper_model), jsc-2l at
-# the launcher's data sizes, jsc-5l and mnist at the reference benchmarks'
-# "paper" scale (benchmarks/common.py); every run 12 epochs
-TOOLFLOWS = {"jsc-2l": [],
-             "jsc-5l": ["--n-train", "100000", "--n-test", "20000"],
-             "mnist": ["--n-train", "30000", "--n-test", "5000"]}
+# the toolflow of phase 8: jsc-2l at paper width (model.py::paper_model) and
+# the launcher's data sizes, 12 epochs; jsc-5l and mnist at the paper's
+# data scale are phase 21's
+TOOLFLOWS = {"jsc-2l": []}
 
 
 def run_lutnn(dev, model: str, extra: list) -> dict:
@@ -1066,16 +1085,56 @@ def run_lutnn(dev, model: str, extra: list) -> dict:
     return out
 
 
+def check_captured_training(dev) -> dict:
+    """LUT-NN training through the captured step (``lutnn/train.py::
+    CapturedTrainStep``) against the eager loop (``graph=False``) on the
+    card: each paper model from the same start on the same batches, every
+    parameter and metric bit for bit.  Returns each run's seconds."""
+    import torch
+
+    from repro_torch.data import make_jsc, make_mnist_like
+    from repro_torch.lutnn import train_lutnn
+    from repro_torch.lutnn.model import paper_model
+
+    seconds = {}
+    for model, make, epochs in (("jsc-2l", make_jsc, 3),
+                                ("jsc-5l", make_jsc, 2),
+                                ("mnist", make_mnist_like, 2)):
+        cfg = paper_model(model)
+        data = make(6000, 1000) if make is make_jsc else make(3000, 500)
+        runs = {}
+        for graph in (False, True):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            net, _, metrics = train_lutnn(cfg, *data, epochs=epochs,
+                                          device=dev, graph=graph)
+            torch.cuda.synchronize()
+            seconds[model, graph] = time.perf_counter() - t0
+            runs[graph] = (net.state_dict(), metrics)
+        (eager, m_e), (graph, m_g) = runs[False], runs[True]
+        bad = [k for k in eager if not bits_equal(torch, eager[k], graph[k])]
+        if bad or m_e != m_g:
+            raise AssertionError(f"{model}: captured training differs from "
+                                 f"eager in {bad}, metrics {m_g} vs {m_e}")
+    log("[8] LUT-NN training through the captured step equals the eager "
+        "loop bit for bit (every parameter, loss, accuracies) on jsc-2l, "
+        "jsc-5l and mnist; seconds eager / captured: " + ", ".join(
+            f"{m} {seconds[m, False]:.2f} / {seconds[m, True]:.2f}"
+            for m in ("jsc-2l", "jsc-5l", "mnist")))
+    return {f"{m} {'captured' if g else 'eager'}": v
+            for (m, g), v in seconds.items()}
+
+
 def run_toolflow(dev) -> dict:
     """The paper's LUT-NN toolflow at full paper width through the
-    launcher's functions: jsc-2l, the quickstart, then jsc-5l and mnist
-    at the reference's paper data scale; launch counts zeroed before each
-    and read after it."""
+    launcher's functions: jsc-2l, then the quickstart; launch counts
+    zeroed before each and read after it."""
     import torch
 
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch import quickstart
 
+    training = check_captured_training(dev)
     flows = {"jsc-2l": run_lutnn(dev, "jsc-2l", TOOLFLOWS["jsc-2l"])}
     reset_launch_counts()
     q = quickstart.run(log=lambda m: log("    " + m))
@@ -1088,10 +1147,9 @@ def run_toolflow(dev) -> dict:
     log(f"[8] quickstart: CompressedLUT {q['compressedlut']}, ReducedLUT "
         f"{q['reducedlut_20']} / {q['reducedlut_250']} P-LUTs (ex 20 / 250),"
         f" care-exact {q['care_exact']}; launches {qcounts}")
-    for model in ("jsc-5l", "mnist"):
-        flows[model] = run_lutnn(dev, model, TOOLFLOWS[model])
     # the slice's main path: every entry point
     return {"flows": flows, "quickstart": dict(q, launches=qcounts),
+            "captured_training_s": training,
             "main_launches": {
                 k: qcounts[k] + sum(f["launches"][k] for f in flows.values())
                 for k in qcounts}}
@@ -1165,8 +1223,10 @@ def k7_other_route(dev, codes, conn, tables, bits):
                                    bits=bits, plan=plan)
 
 
-def time_toolflow_kernels(dev, flow, errors) -> list:
-    """Per-kernel times of K5, K6 and K7 at the toolflow's shapes."""
+def time_toolflow_kernels(dev, flow, errors, p21) -> list:
+    """Per-kernel times of K5, K6 and K7 at the toolflow's shapes and at
+    phase 21's; their launches on the main path are phase 8's and phase
+    21's."""
     import numpy as np
     import torch
 
@@ -1174,6 +1234,8 @@ def time_toolflow_kernels(dev, flow, errors) -> list:
     from repro_torch.kernels import PlanArrays, lut_reconstruct, lutnn_layer
     from repro_torch.kernels.lutnn_layer import lutnn_layer_plain
 
+    launches = {k: flow["main_launches"][k] + p21["launches"][k]
+                for k in ("lut_reconstruct", "plain_lookup", "lutnn_layer")}
     plan = next(p for p in flow["flows"]["jsc-2l"]["plan_list"]
                 if p.kind == "decomposed")
     plain = PlainPlan(plan.reconstruct(), plan.w_in, plan.w_out)
@@ -1191,7 +1253,7 @@ def time_toolflow_kernels(dev, flow, errors) -> list:
         entry = {"name": name, "route": "cuda",
                  "source": "src/repro_torch/kernels/csrc/lut_gather.cu",
                  "replaces": f"src/repro/kernels/lut_gather.py:{line}",
-                 "launches": flow["main_launches"][name],
+                 "launches": launches[name],
                  "max_abs_err": errors[name], "shapes": {}}
         for label, x in queries.items():
             nbytes, ops_ = gather_work(pa, x)
@@ -1215,19 +1277,21 @@ def time_toolflow_kernels(dev, flow, errors) -> list:
     entry = {"name": "lutnn_layer", "route": "cuda",
              "source": "src/repro_torch/kernels/csrc/lutnn_layer.cu",
              "replaces": "src/repro/kernels/lutnn_layer.py:40",
-             "launches": flow["main_launches"]["lutnn_layer"],
+             "launches": launches["lutnn_layer"],
              "max_abs_err": errors["lutnn_layer"], "shapes": {}}
     # the paper models' layer shapes on random in-range codes, then every
-    # (layer, shape) the three toolflows handed K7, on their own inputs;
-    # each held bit for bit against the plain version and against the
-    # other route, which is timed beside it
+    # (layer, shape) the toolflow and phase 21's sweeps handed K7, on their
+    # own inputs; each held bit for bit against the plain version and
+    # against the other route, which is timed beside it
     cases = {label: (lutnn_inputs(dev, rng, *shape), shape[-1], 50, 0)
              for label, shape in LUTNN_SHAPES.items()}
-    for model, fl in flow["flows"].items():
-        for (layer, shape), (inputs, calls) in sorted(
-                fl["k7_calls"].items()):
-            cases[f"{model} toolflow L{layer} B {shape[0]}"] = (
-                inputs, shape[-1], 10, calls)
+    sources = [(f"{m} toolflow", fl["k7_calls"])
+               for m, fl in flow["flows"].items()]
+    sources += [(f"{m} bench", c) for m, c in p21["k7_calls"].items()]
+    for tag, k7_calls in sources:
+        for (layer, shape), (inputs, calls) in sorted(k7_calls.items()):
+            cases[f"{tag} L{layer} B {shape[0]}"] = (inputs, shape[-1], 10,
+                                                     calls)
     path = {"calls": 0, "plan_ms": 0.0, "other_ms": 0.0}
     for label, ((codes, conn, tables), bits, n_plain, calls) in \
             cases.items():
@@ -1256,15 +1320,14 @@ def time_toolflow_kernels(dev, flow, errors) -> list:
             entry.update(t)
         entry["shapes"][label] = t
     recorded = sum(1 for t in entry["shapes"].values() if t["calls"])
-    if path["calls"] != flow["main_launches"]["lutnn_layer"]:
+    if path["calls"] != launches["lutnn_layer"]:
         raise AssertionError(f"K7's recorded calls {path} are not the "
-                             f"path's {flow['main_launches']['lutnn_layer']}"
-                             f" launches")
+                             f"path's {launches['lutnn_layer']} launches")
     entry["path"] = path
     log(f"[11] K7 bit-exact against its plain version and its other route "
         f"at {len(cases)} shapes, {recorded} of them the (layer, shape) "
-        f"cases the toolflows recorded; over the path's {path['calls']} "
-        f"launches, from a graph: the plan's routes "
+        f"cases the toolflow and phase 21 recorded; over the path's "
+        f"{path['calls']} launches, from a graph: the plan's routes "
         f"{path['plan_ms'] * 1e3:.2f} us, the other routes "
         f"{path['other_ms'] * 1e3:.2f} us")
     kernels.append(entry)
@@ -1282,7 +1345,8 @@ def time_toolflow_kernels(dev, flow, errors) -> list:
                    f"{t['other_graph_ms'] * 1e3:.2f} us (graph); "
                    f"{t['calls']} calls on the path"
                    if t.get("other_graph_ms") is not None else "")
-                + f"; launches {k['launches']} (toolflows + quickstart)")
+                + f"; launches {k['launches']} (toolflow, quickstart and "
+                  f"phase 21)")
     return kernels
 
 
@@ -4091,6 +4155,268 @@ def run_phase20(dev, stamp, tuned_path=None) -> dict:
     return out
 
 
+# -------------------------------------------------------------------------
+# phase 21: the paper's sweeps (repro_torch.bench) at the paper's scale
+# -------------------------------------------------------------------------
+P21_SCALE = "paper"
+# the engine's processes: the card's host has 8 cores (the reference's
+# default, 2, leaves compression a minute of the phase; 6 a third of that)
+P21_WORKERS = 6
+# the abstract's claim (PAPER.md): up to 1.63x fewer P-LUTs at a
+# test-accuracy drop of at most 0.01
+PAPER_CLAIM = (1.63, 0.01)
+
+
+class LogLines:
+    """A text stream that passes what is written to ``out`` and copies
+    each whole line to ``chip_smoke.log``: under it the sweeps' own row
+    lines (and any ``print``) reach both, as ``log`` lines do."""
+
+    def __init__(self, out):
+        self.out, self.part = out, ""
+
+    def write(self, text: str) -> int:
+        self.out.write(text)
+        *lines, self.part = (self.part + text).split("\n")
+        for f in LOG:
+            f.writelines(line + "\n" for line in lines)
+            f.flush()
+        return len(text)
+
+    def flush(self) -> None:
+        self.out.flush()
+
+
+def plain_check(net, rec) -> None:
+    """One compressed row's tables once more through the plain versions:
+    K5 / K6 on the same addresses and plan arrays, then K7 on the rebuilt
+    tables with the same wiring; tables and both accuracies must equal
+    the kernels' bit for bit."""
+    import torch
+
+    from repro_torch.kernels.lutnn_layer import lutnn_layer_plain
+    from repro_torch.lutnn import inference
+
+    flat = [gather_plain(x, pa) for x, pa in rec["calls"]]
+    k = 0
+    for l, (n, t) in enumerate(zip(net.cfg.layer_sizes, rec["tables"])):
+        if not torch.equal(torch.stack(flat[k:k + n]), t):
+            raise AssertionError(f"{net.cfg.name} L{l}: the plain K5 / K6 "
+                                 f"tables differ from the kernels'")
+        k += n
+    xtr, ytr, xte, yte = net.data
+    orig = inference.lutnn_layer
+    inference.lutnn_layer = lutnn_layer_plain
+    try:
+        acc = (inference.table_accuracy(rec["tables"], net.conn, net.cfg,
+                                        xte, yte),
+               inference.table_accuracy(rec["tables"], net.conn, net.cfg,
+                                        xtr, ytr))
+    finally:
+        inference.lutnn_layer = orig
+    if acc != (rec["row"]["test_acc"], rec["row"]["train_acc"]):
+        raise AssertionError(
+            f"{net.cfg.name}: plain K7 accuracies {acc} differ from the "
+            f"kernels' ({rec['row']['test_acc']}, "
+            f"{rec['row']['train_acc']})")
+
+
+def run_phase21(dev, stamp) -> dict:
+    """The paper's sweeps through ``repro_torch.bench``'s functions at the
+    paper's scale on the card (module docstring, phase 21): Table 2 for
+    jsc-2l, jsc-5l and mnist with the engine timing on jsc-2l, Fig. 3 and
+    the beyond-paper variants on jsc-2l; each model trained once.  Checks
+    the accuracy invariants, ``identical``, the ReducedLUT ex 250 rows
+    against the plain versions and the launch counts; records every K7
+    call's (layer, shape) per model with the first call's inputs, as
+    ``run_lutnn`` does."""
+    import contextlib
+
+    import torch
+
+    from repro_torch.bench import beyond, common, fig3, table2
+    from repro_torch.core.engine import shutdown_pools
+    from repro_torch.kernels import launch_counts, ops, reset_launch_counts
+    from repro_torch.lutnn import inference
+    from repro_torch.lutnn.inference import CHUNK
+
+    out_dir = OUT_DIR / "bench"
+    kw = dict(scale=P21_SCALE, device=dev, out_dir=out_dir)
+    calls = {}        # (conn data_ptr, shape) -> (inputs, calls)
+    recs = []         # one per reconstruct_tables call, in order
+    orig_k7, orig_rt = ops.lutnn_layer_cuda, common.reconstruct_tables
+    orig_k5 = inference.lut_reconstruct
+
+    def spy_k7(codes, conn, tables, *, bits):
+        key = (conn.data_ptr(), (*codes.shape, *conn.shape, bits))
+        inputs, seen = calls.get(key, ((codes, conn, tables), 0))
+        calls[key] = (inputs, seen + 1)
+        return orig_k7(codes, conn, tables, bits=bits)
+
+    def spy_k5(x, pa):
+        recs[-1]["calls"].append((x, pa))
+        return orig_k5(x, pa)
+
+    def spy_rt(plans, cfg, d):
+        recs.append({"model": cfg.name, "plans": plans, "calls": []})
+        recs[-1]["tables"] = orig_rt(plans, cfg, d)
+        return recs[-1]["tables"]
+
+    seconds = {}
+    ops.lutnn_layer_cuda, common.reconstruct_tables = spy_k7, spy_rt
+    inference.lut_reconstruct = spy_k5
+    reset_launch_counts()
+    try:
+        # the sweeps print a line per row; ``print`` here is ``log``
+        with contextlib.redirect_stdout(LogLines(sys.stdout)):
+            nets = {}
+            for model in table2.MODELS:
+                t0 = time.perf_counter()
+                net = nets[model] = common.get_trained(model, P21_SCALE, dev)
+                seconds[f"train {model}"] = time.perf_counter() - t0
+                print(f"[21] {stamp()} {model} ("
+                      f"{'+'.join(map(str, net.cfg.layer_sizes))} neurons, "
+                      f"{len(net.data[0])} / {len(net.data[2])} samples, "
+                      f"{common.EPOCHS[P21_SCALE]} epochs) trained, "
+                      f"extracted and marked in "
+                      f"{seconds[f'train {model}']:.1f} s: test acc "
+                      f"{net.test_acc:.4f}, train acc {net.train_acc:.4f}",
+                      flush=True)
+            sections = {}
+            for name, fn in (
+                    ("table2", lambda: table2.run(
+                        table2.MODELS, workers=P21_WORKERS, **kw)),
+                    ("fig3", lambda: fig3.run("jsc-2l", workers=P21_WORKERS,
+                                              **kw)),
+                    ("beyond", lambda: beyond.run("jsc-2l", **kw))):
+                print(f"[21] {stamp()} {name}", flush=True)
+                t0 = time.perf_counter()
+                sections[name] = fn()
+                seconds[name] = time.perf_counter() - t0
+        torch.cuda.synchronize()
+    finally:
+        ops.lutnn_layer_cuda, common.reconstruct_tables = orig_k7, orig_rt
+        inference.lut_reconstruct = orig_k5
+        shutdown_pools()
+    counts = launch_counts()
+    (rows, timing), f3, bey = (sections[k] for k in ("table2", "fig3",
+                                                    "beyond"))
+
+    # the compressed rows in the order they rebuilt their tables
+    compressed = [("table2", r) for r in rows
+                  if r["method"] in ("compressedlut", "reducedlut")]
+    compressed += [("fig3", r) for r in f3 if r["exiguity"] != "baseline"]
+    if [(r["model"], r["pluts"]) for _, r in compressed] != [
+            (c["model"], sum(p.plut_cost() for p in c["plans"]))
+            for c in recs]:
+        raise AssertionError("phase 21: the rebuilt tables do not follow "
+                             "the compressed rows")
+    for c, (section, r) in zip(recs, compressed):
+        c["section"], c["row"] = section, r
+
+    # accuracy invariants and the timing section
+    for model, net in nets.items():
+        mine = [r for r in rows + f3 if r["model"] == model]
+        bad = [r for r in mine if r["train_acc"] != net.train_acc]
+        if bad:
+            raise AssertionError(f"{model}: training accuracy moved from "
+                                 f"{net.train_acc} in {bad}")
+        comp = next(r for r in mine if r.get("method") == "compressedlut")
+        if comp["test_acc"] != net.test_acc:
+            raise AssertionError(f"{model}: CompressedLUT moved test "
+                                 f"accuracy {net.test_acc} -> "
+                                 f"{comp['test_acc']}")
+    if not all(t["identical"] for t in timing):
+        raise AssertionError(f"phase 21: serial and engine plans differ: "
+                             f"{timing}")
+
+    # launch counts: K5 + K6 once per plan rebuilt, K7 once per chunk,
+    # layer and pass (the marking pass, the net's two accuracies, then two
+    # for every row that is not a baseline); no other kernel
+    chunks = lambda n: -(-n // CHUNK)
+    n_plans = sum(len(c["plans"]) for c in recs)
+    n_dec = sum(p.kind == "decomposed" for c in recs for p in c["plans"])
+    k7 = 0
+    for model, net in nets.items():
+        n_rows = sum(1 for c in recs if c["model"] == model) + sum(
+            1 for r in rows if r["model"] == model
+            and r["method"] == "random")
+        tr, te = chunks(len(net.data[0])), chunks(len(net.data[2]))
+        k7 += len(net.cfg.layer_sizes) * (tr + (1 + n_rows) * (tr + te))
+    want = dict({k: 0 for k in counts}, lut_reconstruct=n_dec,
+                plain_lookup=n_plans - n_dec, lutnn_layer=k7)
+    if counts != want or n_dec == 0:
+        raise AssertionError(f"phase 21 launched {counts}, not {want} (K5 "
+                             f"at least once)")
+    ptrs = {c.data_ptr(): (m, l) for m, net in nets.items()
+            for l, c in enumerate(net.conn)}
+    k7_calls = {m: {} for m in nets}
+    for (ptr, shape), v in calls.items():
+        m, l = ptrs[ptr]
+        k7_calls[m][l, shape] = v
+    if sum(c for _, c in calls.values()) != counts["lutnn_layer"]:
+        raise AssertionError(f"phase 21: {counts['lutnn_layer']} K7 "
+                             f"launches counted, {calls.values()} recorded")
+
+    # the ReducedLUT ex 250 rows of Table 2 once more through the plain
+    # versions, launching nothing
+    checked = []
+    for c in recs:
+        r = c["row"]
+        if (c["section"], r.get("method"), r["exiguity"]) == (
+                "table2", "reducedlut", 250):
+            plain_check(nets[c["model"]], c)
+            checked.append(c["model"])
+        del c["calls"]
+    if checked != list(nets) or launch_counts() != counts:
+        raise AssertionError(f"phase 21: plain checks of {checked}, "
+                             f"launches {launch_counts()} after {counts}")
+
+    # the paper's claim, row by row, on the synthetic stand-ins
+    claims = {}
+    for model, net in nets.items():
+        mine = {(r["method"], r["exiguity"]): r for r in rows
+                if r["model"] == model}
+        base = mine["baseline", None]["pluts"]
+        comp = mine["compressedlut", None]["pluts"]
+        best = min((r for r in mine.values() if r["method"] == "reducedlut"),
+                   key=lambda r: r["pluts"])
+        c = claims[model] = {
+            "exiguity": best["exiguity"], "pluts": best["pluts"],
+            "compressedlut": comp, "baseline": base,
+            "x_vs_compressedlut": comp / best["pluts"],
+            "x_vs_baseline": base / best["pluts"],
+            "test_drop": net.test_acc - best["test_acc"]}
+        log(f"[21] the paper's claim on synthetic data (make_jsc / "
+            f"make_mnist_like stand in for JSC and MNIST), {model}: the "
+            f"best ReducedLUT row (ex {c['exiguity']}) {c['pluts']} P-LUTs, "
+            f"{c['x_vs_compressedlut']:.3f}x fewer than CompressedLUT "
+            f"({comp}) and {c['x_vs_baseline']:.3f}x fewer than the "
+            f"baseline ({base}) (the abstract: up to {PAPER_CLAIM[0]}x "
+            f"fewer); test-accuracy drop {c['test_drop']:+.4f} (the "
+            f"abstract: at most {PAPER_CLAIM[1]})")
+
+    engine = sum(r["compress_seconds"] for _, r in compressed)
+    passes = sum(r["seconds"] for r in rows + f3
+                 if r.get("method", "reducedlut") != "baseline"
+                 and r["exiguity"] != "baseline") - engine
+    log(f"[21] {stamp()} seconds: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items())
+        + f"; the engine in the compressed rows {engine:.1f}, their tables "
+          f"rebuilt (K5 / K6) and the rows' accuracy passes (K7) "
+          f"{passes:.1f}; timing {timing}; launches {want}; K5 / K6 and "
+          f"K7 on the plain versions for the ReducedLUT ex 250 rows of "
+          f"{checked}: tables and accuracies equal; every row's training "
+          f"accuracy the net's own, CompressedLUT's test accuracy too")
+    return {"launches": counts, "k7_calls": k7_calls, "seconds": seconds,
+            "rows": rows, "timing": timing, "fig3": f3, "beyond": bey,
+            "claims": claims, "engine_s": engine, "passes_s": passes,
+            "nets": {m: {"test_acc": n.test_acc, "train_acc": n.train_acc,
+                         "layers": list(n.cfg.layer_sizes),
+                         "samples": [len(n.data[0]), len(n.data[2])]}
+                     for m, n in nets.items()}}
+
+
 def compact(t) -> dict:
     """A timed call's numbers for the kernel JSON line (``chip_smoke.json``
     keeps them all)."""
@@ -4719,7 +5045,7 @@ def main() -> int:
                 f"{t['plain_ms'] * 1e3:.2f} us, library (cuBLAS + K1) "
                 f"{t['library_ms'] * 1e3:.2f} us (graph "
                 f"{t['library_graph_ms'] * 1e3:.2f})")
-    kernels += time_toolflow_kernels(dev, flow, errors)
+    # K5-K7's times come after phase 21, which hands them more shapes
 
     # ---- 12. where a decode step's time goes -------------------------------
     log(f"[12] {stamp()}")
@@ -4852,11 +5178,22 @@ def main() -> int:
     for k in kernels:
         k["launches"] += p20["launches"].get(k["name"], 0)
 
+    # ---- 21. the paper's sweeps at the paper's scale (repro_torch.bench);
+    # then K5-K7's times at the toolflow's and the sweeps' shapes, their
+    # launches phase 8's and phase 21's
+    log(f"[21] {stamp()}")
+    p21 = run_phase21(dev, stamp)
+    log(f"[11] {stamp()} K5-K7")
+    kernels += time_toolflow_kernels(dev, flow, errors, p21)
+
     summary = {"card": smi, "seconds": time.perf_counter() - t_start,
                "exact": exact, "steps": steps, "logit_drift": drift,
                "batcher": batcher, "moe": moe, "families": fam,
                "phase17": p17, "phase18": p18["runs"], "phase19": p19,
                "phase20": p20,
+               "phase21": dict(p21, k7_calls={
+                   m: [[*k, c] for k, (_, c) in sorted(v.items())]
+                   for m, v in p21["k7_calls"].items()}),
                "forms": {
                    f: {k: v for k, v in r.items() if k != "plans"}
                    for f, r in results.items()}, "kernels": kernels,

@@ -23,9 +23,6 @@ import argparse
 import sys
 import time
 
-import numpy as np
-import torch
-
 from repro_torch.core import (
     CompressConfig,
     compress_network_report,
@@ -35,12 +32,13 @@ from repro_torch.core import (
 from repro_torch.core.engine import shutdown_pools
 from repro_torch.data import make_jsc, make_mnist_like
 from repro_torch.device import resolve_device, synchronize
-from repro_torch.kernels import PlanArrays, launch_counts, lut_reconstruct
+from repro_torch.kernels import launch_counts
 from repro_torch.lutnn import (
     device_tables,
     extract_tables,
     mark_observed,
     network_table_specs,
+    reconstruct_tables,
     table_accuracy,
     train_lutnn,
 )
@@ -72,32 +70,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def parse_args(argv=None):
     return build_parser().parse_args(argv)
-
-
-def reconstruct_tables(plans, cfg, dev) -> list[torch.Tensor]:
-    """Every plan's full table on ``dev`` (K5 / K6 at all ``2^w_in``
-    addresses), regrouped per layer and checked against
-    ``plan.reconstruct()``."""
-    addrs = {}
-    flat = []
-    for plan in plans:
-        if plan.w_in not in addrs:
-            addrs[plan.w_in] = torch.arange(1 << plan.w_in,
-                                            dtype=torch.int32, device=dev)
-        flat.append(lut_reconstruct(addrs[plan.w_in],
-                                    PlanArrays.from_plan(plan, device=dev)))
-    tables, k = [], 0
-    for l, n in enumerate(cfg.layer_sizes):
-        t = torch.stack(flat[k:k + n])
-        want = np.stack([p.reconstruct() for p in plans[k:k + n]])
-        if not np.array_equal(t.cpu().numpy(), want):
-            bad = int((t.cpu().numpy() != want).sum())
-            raise AssertionError(
-                f"layer {l}: {bad} reconstructed entries differ from "
-                f"plan.reconstruct()")
-        tables.append(t)
-        k += n
-    return tables
 
 
 def run(args, log=print) -> dict:

@@ -17,6 +17,7 @@ from .inference import (
     pack_codes,
     quantize_codes,
     quantize_input,
+    reconstruct_tables,
     table_accuracy,
     table_forward,
 )
@@ -45,6 +46,7 @@ __all__ = [
     "paper_model",
     "quantize_codes",
     "quantize_input",
+    "reconstruct_tables",
     "specs_to_tables",
     "table_accuracy",
     "table_forward",

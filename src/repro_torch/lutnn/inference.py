@@ -5,14 +5,15 @@ Counterpart of the reference's ``lutnn/inference.py``.
 own numpy copies.  :func:`table_forward` runs the network of truth tables
 layer by layer on the tables' device, each layer through
 :func:`repro_torch.kernels.lutnn_layer` (kernel K7 on the card, its plain
-version on the CPU).
+version on the CPU); :func:`reconstruct_tables` rebuilds compressed tables
+through K5 / K6.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from repro_torch.kernels import lutnn_layer
+from repro_torch.kernels import PlanArrays, lut_reconstruct, lutnn_layer
 from repro_torch.kernels.lutnn_layer import pack_addresses
 
 from .model import LUTNNConfig, device_tables, first_argmax
@@ -100,3 +101,29 @@ def table_accuracy(
     scores = table_forward(tables, conn, cfg, codes)
     hits = first_argmax(scores) == torch.as_tensor(y, device=dev)
     return int(hits.sum()) / len(y)
+
+
+def reconstruct_tables(plans, cfg: LUTNNConfig, dev) -> list[torch.Tensor]:
+    """Every plan's full table on ``dev`` (K5 / K6 at all ``2^w_in``
+    addresses), regrouped per layer and checked against
+    ``plan.reconstruct()``."""
+    addrs = {}
+    flat = []
+    for plan in plans:
+        if plan.w_in not in addrs:
+            addrs[plan.w_in] = torch.arange(1 << plan.w_in,
+                                            dtype=torch.int32, device=dev)
+        flat.append(lut_reconstruct(addrs[plan.w_in],
+                                    PlanArrays.from_plan(plan, device=dev)))
+    tables, k = [], 0
+    for l, n in enumerate(cfg.layer_sizes):
+        t = torch.stack(flat[k:k + n])
+        want = np.stack([p.reconstruct() for p in plans[k:k + n]])
+        if not np.array_equal(t.cpu().numpy(), want):
+            bad = int((t.cpu().numpy() != want).sum())
+            raise AssertionError(
+                f"layer {l}: {bad} reconstructed entries differ from "
+                f"plan.reconstruct()")
+        tables.append(t)
+        k += n
+    return tables

@@ -57,23 +57,52 @@ def adamw_update(grads: list[torch.Tensor], state: dict,
     metrics ``{"grad_norm": tensor, "lr": float32}``."""
     state["count"] += 1
     count = state["count"]
-    gnorm = global_norm(grads)
+    clip = None
     if cfg.grad_clip_norm is not None:
         # tensor / tensor: PyTorch's scalar / tensor is a reciprocal and a
         # multiply, another rounding than the reference's division
-        clip = torch.tensor(_F(cfg.grad_clip_norm), device=gnorm.device)
+        clip = torch.tensor(_F(cfg.grad_clip_norm), device=grads[0].device)
+    c1 = float(_F(1) - _F(cfg.b1) ** _F(count))
+    c2 = float(_F(1) - _F(cfg.b2) ** _F(count))
+    lr = cfg.lr_at(count)
+    gnorm = adamw_apply(grads, state, params, cfg, clip, c1, c2, float(lr))
+    return {"grad_norm": gnorm, "lr": lr}
+
+
+def adamw_step_scalars(cfg: AdamWConfig, count: int) -> np.ndarray:
+    """``[1 / c1, 1 / c2, lr]`` of step ``count`` as float32, for
+    :func:`adamw_apply` inside a captured CUDA graph: a CUDA tensor
+    divided by a Python float ``c`` is multiplied by the float32 ``1 /
+    c``, so these give :func:`adamw_update`'s bits on the card."""
+    c1 = _F(1) - _F(cfg.b1) ** _F(count)
+    c2 = _F(1) - _F(cfg.b2) ** _F(count)
+    return np.array([_F(1) / c1, _F(1) / c2, cfg.lr_at(count)],
+                    dtype=np.float32)
+
+
+@torch.no_grad()
+def adamw_apply(grads: list[torch.Tensor], state: dict,
+                params: list[torch.Tensor], cfg: AdamWConfig, clip,
+                c1, c2, lr) -> torch.Tensor:
+    """The update of :func:`adamw_update` with its step's values given:
+    ``clip`` the clip norm as a tensor on the grads' device (or None),
+    ``c1`` / ``c2`` the bias corrections and ``lr`` as Python floats, or
+    as 0-d float32 tensors on the card holding ``1 / c1``, ``1 / c2`` and
+    ``lr`` (:func:`adamw_step_scalars`), which a captured graph reads
+    afresh at each replay.  Returns the gradients' global norm."""
+    gnorm = global_norm(grads)
+    if clip is not None:
         scale = torch.minimum(torch.ones_like(gnorm),
                               clip / (gnorm + 1e-9))
         grads = [g * scale for g in grads]
+    # tensors c1, c2 hold the reciprocals
+    div = torch.mul if torch.is_tensor(c1) else torch.div
     b1, b2 = cfg.b1, cfg.b2
-    c1 = float(_F(1) - _F(b1) ** _F(count))
-    c2 = float(_F(1) - _F(b2) ** _F(count))
-    lr = cfg.lr_at(count)
     for p, g, m, v in zip(params, grads, state["mu"], state["nu"]):
         m.copy_(b1 * m + (1 - b1) * g.to(m.dtype))
         v.copy_(b2 * v + (1 - b2) * torch.square(g.to(v.dtype)))
-        step = (m / c1) / (torch.sqrt(v / c2) + cfg.eps)
+        step = div(m, c1) / (torch.sqrt(div(v, c2)) + cfg.eps)
         if cfg.weight_decay > 0:
             step = step + cfg.weight_decay * p.to(step.dtype)
-        p.copy_((p.float() - float(lr) * step).to(p.dtype))
-    return {"grad_norm": gnorm, "lr": lr}
+        p.copy_((p.float() - lr * step).to(p.dtype))
+    return gnorm

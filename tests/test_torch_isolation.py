@@ -92,6 +92,7 @@ def _cfg():
 
 
 def _entry_points(tmp_path):
+    from repro_torch.bench import run as bench_run
     from repro_torch.launch import lutnn, quickstart
     from repro_torch.launch import serve as launcher
     from repro_torch.launch import train as train_launcher
@@ -134,6 +135,7 @@ def _entry_points(tmp_path):
         "degradation ladder": lambda: DegradationLadder(plans),
         "launcher --reload-plan": lambda: launcher.main(
             ["--arch", "qwen3-0.6b", "--lut-act", "--reload-plan", path]),
+        "bench run": lambda: bench_run.main([]),
     }
 
 
@@ -144,7 +146,7 @@ def _entry_points(tmp_path):
                                   "quickstart", "init_train_state",
                                   "train launcher", "tune launcher",
                                   "trained_params", "degradation ladder",
-                                  "launcher --reload-plan"])
+                                  "launcher --reload-plan", "bench run"])
 def test_entry_point_without_device_needs_the_card(name, tmp_path):
     """Called without ``device`` on a machine with no CUDA, an entry point
     raises instead of running on the CPU."""
