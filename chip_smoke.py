@@ -283,16 +283,49 @@ Phases (any failure exits non-zero; nothing is caught):
      layer and pass, nothing else); a line per model sets the best
      ReducedLUT row against CompressedLUT, the baseline and the abstract's
      claim (1.63x, a test drop of at most 0.01), on the synthetic data.
+  22. sharded serving (``repro_torch.serve.sharded``) on ranks that share
+     ``cuda:0`` over gloo (``run_ranks``; the kernels built in phase 2,
+     before any rank starts), bf16, random weights from seed 0, 4
+     requests x 64 prompt x 16 new tokens, ``--lut-act --calib-steps
+     2``, under PyTorch's default matmul settings (the ranks' own): (a)
+     full-width qwen3-0.6b on a 2x2 mesh through ``launch/serve --mesh
+     2,2`` (its ranks started by the launcher, rank 0 calibrating and
+     compressing once): gspmd stacked, then through the launcher's rank
+     function ``serve_rank`` (what ``--mesh`` starts): gspmd stacked at a
+     ``PlacementPolicy`` threshold of 0 (the 28-layer slab split over
+     dp=2), gspmd unrolled and shard_map stacked, the cuda backend, each
+     rank's first 8 served K1 (stacked) or K2 (unrolled) calls bit for
+     bit their plain versions; each rank's
+     tokens and logits a step bit for bit the single-device program's on
+     that rank's rows (eager, at the same shapes), every rank's table
+     checksum the single-device tables', K1 (stacked) or K2 (unrolled)
+     launched on every rank; the whole batch on one device, its tokens
+     and largest logit difference recorded; per rank the memory at rest
+     and the parameter bytes against the single-device model's; (b)
+     full-width deepseek-moe-16b on a 1x2 mesh (expert parallel): the
+     single-device run first (its plans frozen), freed, then the ranks,
+     each drawing only its share leaf by leaf: tokens and logits bit for
+     bit, dropped assignments at prefill equal, each rank's expert bytes;
+     (c) the batcher on 2x2 with phase 13's 8 requests through 4 slots
+     (replay prefill, form (a)'s tables from the frozen plans): outputs
+     equal the single-device batcher's on every rank, and each rank's
+     first 8 served K1 calls bit for bit the plain version; (d) (a)'s
+     first run with ``--obs-log obs/mesh.jsonl``: ``mesh_serving``, a
+     ``table_placement`` a site and the ``drift`` rows, whose counts,
+     summed over the ranks, equal the single-device runs' on the same
+     rows.
 The last lines are the kernel JSON, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``; the kernels' launches include phases
-19's-21's.  Long logs go to the output directory beside the script
-(``OUT_DIR``: every logged line to ``chip_smoke.log``, phase 19's
-``tune_bench/v1`` payload to ``tune_qwen3.json``, phase 20's obs logs and
-report under ``obs/``, phase 21's results under ``bench/``).
+19's-22's (phase 22's summed over its ranks).  Long logs go to the
+output directory beside the script (``OUT_DIR``: every logged line to
+``chip_smoke.log``, phase 19's ``tune_bench/v1`` payload to
+``tune_qwen3.json``, phase 20's obs logs and report under ``obs/``,
+phase 21's results under ``bench/``).
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import functools
 import gc
@@ -4424,6 +4457,505 @@ def compact(t) -> dict:
                               "library_graph_ms") if k in t}
 
 
+# -------------------------------------------------------------------------
+# phase 22: sharded serving on a mesh of ranks sharing cuda:0
+# -------------------------------------------------------------------------
+P22_COMMON = ["--full", "--batch", str(B), "--prompt-len", str(T),
+              "--new-tokens", str(NEW), "--lut-act", "--device", "cuda"]
+P22_QWEN = ["--arch", "qwen3-0.6b", *P22_COMMON, "--calib-steps", "2"]
+# (a)'s runs on the 2x2 mesh: (label, extra flags, the gspmd placement
+# threshold in bytes (None: the default policy), the kernels whose served
+# calls each rank holds against their plain versions (none: the run goes
+# through ``launcher.main``, the user's command))
+P22_RUNS = [("gspmd stacked", [], None, ()),
+            ("gspmd stacked threshold 0", [], 0, ("K1",)),
+            ("gspmd unrolled", ["--plan-exec", "unrolled"], None, ("K2",)),
+            ("shard_map stacked", ["--mesh-mode", "shard_map"], None,
+             ("K1",))]
+P22_SAMPLE = 8   # served calls of a kernel a rank holds against its plain
+
+
+@contextlib.contextmanager
+def torch_matmul_defaults():
+    """PyTorch's default matmul settings (bf16 reductions in reduced
+    precision allowed, TF32 cuDNN), which the mesh's fresh rank processes
+    run with, for the single-device runs they are held against; the
+    script's parity settings come back after."""
+    import torch
+
+    m, c = torch.backends.cuda.matmul, torch.backends.cudnn
+    saved = (m.allow_tf32, c.allow_tf32,
+             m.allow_bf16_reduced_precision_reduction)
+    m.allow_tf32, c.allow_tf32 = False, True
+    m.allow_bf16_reduced_precision_reduction = True
+    try:
+        yield
+    finally:
+        (m.allow_tf32, c.allow_tf32,
+         m.allow_bf16_reduced_precision_reduction) = saved
+
+
+def single_device_run(cfg, params, batch, tables, rows=None):
+    """The single-device program, eager, on ``batch``'s ``rows`` (all by
+    default): ``(tokens (b, NEW), last-position logits a step on the
+    host)``."""
+    import torch
+
+    from repro_torch.serve import decode_step, prefill
+
+    if rows is not None:
+        batch = {k: v[rows[0]:rows[-1] + 1] for k, v in batch.items()}
+    logits, cache = prefill(params, cfg, batch, max_seq=T + NEW,
+                            lut_tables=tables)
+    seen = [logits[:, -1].cpu()]
+    tok = logits[:, -1].argmax(-1)[:, None]
+    toks = []
+    for i in range(NEW):
+        toks.append(tok)
+        logits, cache = decode_step(params, cfg, cache, tok, T + i, tables)
+        seen.append(logits[:, -1].cpu())
+        tok = logits[:, -1].argmax(-1)[:, None]
+    return torch.cat(toks, dim=1).tolist(), seen
+
+
+def held_bit_for_bit(label, rank, want, got) -> None:
+    """A rank's tokens and logits a step against the single-device run on
+    its rows."""
+    import torch
+
+    toks, logits = want
+    if rank["rank_tokens"] != toks:
+        raise AssertionError(f"[22] {label}: rank {rank['rank']}'s tokens "
+                             f"{rank['rank_tokens']} differ from the "
+                             f"single-device run's {toks}")
+    for i, (a, b) in enumerate(zip(logits, got)):
+        if not torch.equal(a, b):
+            raise AssertionError(
+                f"[22] {label}: rank {rank['rank']}'s logits at step {i} "
+                f"differ from the single-device run's (max "
+                f"{float((a.float() - b.float()).abs().max())})")
+
+
+def p22_spy(n: int):
+    """Keep the inputs, entries and outputs of the first ``n`` served K1
+    calls (a stacked entry on the ``cuda`` backend) and of the first ``n``
+    K2 calls (a per-plan entry) of the LUT sites' dispatch; the wrappers
+    themselves, whose launches count, are untouched: ``({"K1": [...],
+    "K2": [...]}, restore)``."""
+    from repro_torch.nn import mlp
+
+    orig, recs = mlp.apply_lut_act, {"K1": [], "K2": []}
+
+    def spy(x, tab, backend="gather"):
+        y = orig(x, tab, backend)
+        if (tab.get("backend", backend) == "cuda"
+                and "multi_entry" not in tab):
+            calls = recs["K1" if "stacked" in tab else "K2"]
+            if len(calls) < n:
+                calls.append((x.clone(), tab, y.clone()))
+        return y
+
+    mlp.apply_lut_act = spy
+    return recs, lambda: setattr(mlp, "apply_lut_act", orig)
+
+
+def p22_check(recs, want) -> dict:
+    """The spied calls against their plain versions on the same inputs,
+    bit for bit: ``{kernel: [calls held, largest difference (0.0)]}``;
+    raises where a call differs or a kernel of ``want`` was never
+    called."""
+    import torch
+
+    from repro_torch.kernels.lut_act import (
+        lut_act_plain,
+        lut_act_stacked_plain,
+    )
+
+    for kind in want:
+        if not recs[kind]:
+            raise AssertionError(f"[22] no served {kind} call was recorded")
+    out = {}
+    for kind, calls in recs.items():
+        worst = 0.0
+        for x, tab, y in calls:
+            if kind == "K1":
+                yp = lut_act_stacked_plain(x, tab["stacked"], tab["layer"])
+            else:
+                yp = lut_act_plain(x, tab["arrays"], **tab["meta"])
+            if not torch.equal(y, yp):
+                raise AssertionError(f"[22] a served {kind} call differs "
+                                     f"from its plain version")
+            worst = max(worst, float((y.float() - yp.float()).abs().max()))
+        out[kind] = [len(calls), worst]
+    return out
+
+
+def p22_serve_rank(mesh, argv, threshold, want):
+    """One rank of an (a) run: the launcher's rank function
+    (``launch/serve.py::serve_rank``, what ``--mesh`` starts) with the
+    placement threshold given as a policy, and its first served calls of
+    the kernels in ``want`` held against their plain versions."""
+    from repro_torch.launch import serve as launcher
+    from repro_torch.serve.sharded import PlacementPolicy
+
+    policy = (None if threshold is None
+              else PlacementPolicy(shard_threshold_bytes=threshold))
+    recs, restore = p22_spy(P22_SAMPLE)
+    try:
+        out = launcher.serve_rank(mesh, argv, policy)
+    finally:
+        restore()
+    return dict(out, held=p22_check(recs, want))
+
+
+def p22_batcher_rank(mesh, tuned_path, prompts):
+    """Phase 22 (c) on one rank of the 2x2 mesh: qwen3-0.6b's shares drawn
+    leaf by leaf, form (a)'s tables from the frozen plans, the batcher over
+    the sharded pool (replay prefill), and the first served K1 calls held
+    against the plain version."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts
+    from repro_torch.serve import ContinuousBatcher, Request
+    from repro_torch.serve.sharded import init_params_sharded, rank_memory
+    from repro_torch.tune import load_tuned_plan
+
+    dev = mesh.device
+    cfg0 = get_config("qwen3-0.6b")
+    params = init_params_sharded(cfg0, 0, mesh, dev)
+    tp = load_tuned_plan(tuned_path)
+    cfg = tp.patched_config(cfg0)
+    tables = tp.tables_for_model(backend="cuda", plan_exec="stacked",
+                                 device=dev)
+    at_rest = rank_memory(dev)
+    recs, restore = p22_spy(P22_SAMPLE)
+    try:
+        b = ContinuousBatcher(cfg, params, BATCHER_SLOTS, T + NEW,
+                              eos_token=-1, lut_tables=tables,
+                              prefill="replay", mesh=mesh)
+        for i, p in enumerate(prompts):
+            b.submit(Request(rid=i, prompt=list(p), max_new=NEW))
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        done = b.run()
+        torch.cuda.synchronize(dev)
+        secs = time.perf_counter() - t0
+    finally:
+        restore()
+    return {"rank": mesh.rank, "outs": [r.out for r in sorted(
+        done, key=lambda r: r.rid)], "seconds": secs,
+        "metrics": b.metrics(), "launches": launch_counts(),
+        "held": p22_check(recs, ("K1",)),
+        "memory_at_rest": at_rest}
+
+
+def p22_moe_rank(mesh, tuned_path):
+    """Phase 22 (b) on one rank of the 1x2 mesh: deepseek-moe-16b's shares
+    drawn leaf by leaf (half the experts), the frozen plans' tables, one
+    prefill with its dropped assignments counted and NEW eager steps."""
+    import numpy as np
+    import torch
+
+    from repro_torch.calib import model_batch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts
+    from repro_torch.nn import moe as moe_mod
+    from repro_torch.serve.plans import _greedy
+    from repro_torch.serve.sharded import (
+        ShardedServe,
+        init_params_sharded,
+        rank_memory,
+    )
+    from repro_torch.tune import load_tuned_plan
+
+    dev = mesh.device
+    cfg0 = get_config("deepseek-moe-16b")
+    params = init_params_sharded(cfg0, 0, mesh, dev)
+    torch.cuda.synchronize(dev)
+    at_rest = rank_memory(dev)
+    named = dict(params.named_parameters())
+    expert_bytes = sum(p.numel() * p.element_size()
+                       for n, p in named.items()
+                       if n.rsplit(".", 1)[-1].startswith("moe_"))
+    tp = load_tuned_plan(tuned_path)
+    cfg = tp.patched_config(cfg0)
+    serve = ShardedServe(cfg, mesh, tp.tables_for_model(
+        backend="cuda", plan_exec="stacked", device=dev))
+    rng = np.random.default_rng(0)
+    batch = {k: torch.as_tensor(v, device=dev)
+             for k, v in model_batch(cfg, rng, B, T).items()}
+    batch["tokens"] = batch["tokens"].long()
+    orig, drops = moe_mod.route, []
+
+    def spy(*a, **kw):
+        r = orig(*a, **kw)
+        drops.append(r.dropped())
+        return r
+
+    local = serve.place_batch(batch)
+    with serve.session(params):
+        moe_mod.route = spy
+        try:
+            serve.prefill(params, local, T + NEW)
+        finally:
+            moe_mod.route = orig
+        n_drop = int(torch.stack(drops).sum())
+        t0 = time.perf_counter()
+        toks, logits = _greedy(cfg, params, local, NEW, T + NEW,
+                               serve=serve)
+        torch.cuda.synchronize(dev)
+    return {"rank": mesh.rank, "rank_tokens": toks,
+            "logits": [lg.cpu() for lg in logits], "gather_s": serve.gather_s,
+            "seconds": time.perf_counter() - t0, "drops": n_drop,
+            "expert_bytes": expert_bytes,
+            "param_bytes": sum(p.numel() * p.element_size()
+                               for p in named.values()),
+            "memory_at_rest": at_rest,
+            "memory_peak": torch.cuda.max_memory_allocated(dev),
+            "launches": launch_counts()}
+
+
+def run_phase22(dev, stamp, parts=("a", "c", "b")) -> dict:
+    """Phase 22 (module docstring): sharded serving through
+    ``repro_torch.launch.serve --mesh`` and the batcher, on ranks that
+    share ``cuda:0`` over gloo: ``parts`` of (a) with (d), (c) and (b).
+    Returns the numbers for ``chip_smoke.json`` and the ranks' launches,
+    summed."""
+    import numpy as np
+    import torch
+
+    from repro_torch import obs
+    from repro_torch.launch import serve as launcher
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.serve.sharded import tables_checksum
+    from repro_torch.tune import save_tuned_plan, tuned_plan_from_serving
+
+    quiet = lambda m: None
+    out, launches = {}, {}
+
+    def add_launches(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    art = OUT_DIR / "artifacts"
+    art.mkdir(parents=True, exist_ok=True)
+    obs_dir = OUT_DIR / "obs"
+    obs_dir.mkdir(parents=True, exist_ok=True)
+    mesh_log = obs_dir / "mesh.jsonl"
+    if mesh_log.exists():
+        mesh_log.unlink()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[22] {stamp()} card memory allocated before the phase: "
+        f"{torch.cuda.memory_allocated(dev)} bytes")
+
+    # ---- single-device references (qwen3-0.6b, PyTorch's defaults) ------
+    with torch_matmul_defaults():
+        args_a = launcher.parse_args(P22_QWEN)
+        cfg0, params, batch, rng = launcher.setup(args_a)
+        plans, calib = launcher.compress_plans(args_a, cfg0, params, rng,
+                                               log=quiet)
+        cfg = plans.patched_config(cfg0)
+        tabs = {e: plans.tables_for_model(backend="cuda", plan_exec=e,
+                                          device=dev)
+                for e in ("stacked", "unrolled")}
+        checksum = tables_checksum(tabs["stacked"])
+        full_bytes = sum(p.numel() * p.element_size()
+                         for p in params.parameters())
+        ref = {e: [single_device_run(cfg, params, batch, t, rows)
+                   for rows in ([0, 1], [2, 3])] for e, t in tabs.items()}
+        whole = single_device_run(cfg, params, batch, tabs["stacked"])
+        # (d): the drift counts of the same rows, single-device
+        mon = obs.DontCareMonitor(calib, device=dev)
+        with mon:
+            for rows in ([0, 1], [2, 3]):
+                single_device_run(cfg, params, batch, tabs["stacked"], rows)
+        single_counts = mon.counts()
+    tuned = save_tuned_plan(str(art / "p22_qwen3"),
+                            tuned_plan_from_serving(cfg, plans))
+    log(f"[22] {stamp()} single-device references: qwen3-0.6b "
+        f"{full_bytes} parameter bytes, tables {checksum[:16]}")
+
+    if "a" in parts:
+        # ---- (a) + (d): qwen3-0.6b on 2x2 through the launcher -----------
+        out["a"] = {}
+        for label, extra, threshold, want in P22_RUNS:
+            argv = P22_QWEN + ["--mesh", "2,2", *extra]
+            t0 = time.perf_counter()
+            if not want:
+                argv += ["--obs-log", str(mesh_log)]
+                ranks = launcher.main(argv)["ranks"]
+            else:
+                ranks = run_ranks(p22_serve_rank, (argv, threshold, want),
+                                  dp=2, tp=2)
+            wall = time.perf_counter() - t0
+            form = "unrolled" if "unrolled" in label else "stacked"
+            kernel = "lut_act" if form == "unrolled" else "lut_act_stacked"
+            rows = {}
+            for r in ranks:
+                if r["checksum"] != tables_checksum(tabs[form]):
+                    raise AssertionError(f"[22] {label}: rank {r['rank']}'s "
+                                         f"tables differ from the reference's")
+                d = r["coords"]["data"]
+                held_bit_for_bit(label, r, ref[form][d], r["logits"])
+                if r["launches"][kernel] == 0:
+                    raise AssertionError(f"[22] {label}: rank {r['rank']} "
+                                         f"launched no {kernel}")
+                add_launches(r["launches"])
+                rows[r["rank"]] = {
+                    "memory_at_rest": r["memory_at_rest"],
+                    "param_bytes": r["param_bytes"],
+                    "memory_peak": r["memory_peak"],
+                    "K1": r["launches"]["lut_act_stacked"],
+                    "K2": r["launches"]["lut_act"],
+                    "placement": {s: v["placement"]
+                                  for s, v in r["placement"].items()},
+                    "table_bytes_held": sum(v["per_device_bytes"] for v
+                                            in r["placement"].values()),
+                    "held": r.get("held"),
+                    "prefill_s": r["prefill_s"], "decode_s": r["decode_s"],
+                    "gather_s": r["gather_s"]}
+            tokens = ranks[0]["tokens"]
+            diff = max(float((a.float() - b.float()).abs().max())
+                       for i in range(NEW + 1)
+                       for a, b in [(torch.cat([ranks[0]["logits"][i],
+                                                ranks[2]["logits"][i]]),
+                                     whole[1][i])])
+            out["a"][label] = {"wall_s": wall, "ranks": rows,
+                               "whole_tokens_equal": tokens == whole[0],
+                               "whole_max_logit_diff": diff}
+            placements = {v for r in rows.values()
+                          for v in r["placement"].values()}
+            if "threshold 0" in label and "layer_sharded" not in placements:
+                raise AssertionError(f"[22] {label}: no layer-sharded slab "
+                                     f"({placements})")
+            if "shard_map" in label and placements != {"replicated"}:
+                raise AssertionError(f"[22] {label}: {placements}")
+            log(f"[22] {stamp()} (a) {label}: {wall:.1f}s; each rank's rows "
+                f"bit for bit the single-device run's; per rank "
+                + "; ".join(f"r{k} at rest {v['memory_at_rest']} B "
+                            f"(params {v['param_bytes']} of {full_bytes}), "
+                            f"tables {v['table_bytes_held']} B, "
+                            f"K1 {v['K1']} K2 {v['K2']} (held against "
+                            f"plain {v['held']}), gather "
+                            f"{v['gather_s']:.2f}s, prefill "
+                            f"{v['prefill_s']:.3f}s decode {v['decode_s']:.3f}s"
+                            for k, v in rows.items())
+                + f"; placement {sorted(placements)}; the whole batch on one "
+                  f"device: tokens equal {tokens == whole[0]}, largest logit "
+                  f"difference {diff}")
+
+        # (d): the mesh run's obs log
+        recs = obs.read_events(str(mesh_log))
+        kinds = {r["event"] for r in recs}
+        for ev in ("mesh_serving", "table_placement", "drift"):
+            if ev not in kinds:
+                raise AssertionError(f"[22] (d) no {ev} event in the mesh log")
+        drift = {r["site"]: (r["dontcare_hits"], r["lookups"])
+                 for r in recs if r["event"] == "drift"}
+        want = {k: (v[0], v[1]) for k, v in single_counts.items()}
+        if drift != want:
+            raise AssertionError(f"[22] (d) summed drift counts {drift} differ "
+                                 f"from the single-device runs' {want}")
+        out["d"] = {"events": sorted(kinds), "drift_keys": len(drift),
+                    "lookups": sum(v[1] for v in drift.values()),
+                    "hits": sum(v[0] for v in drift.values())}
+        log(f"[22] {stamp()} (d) the mesh's obs log: "
+            f"{sum(r['event'] == 'table_placement' for r in recs)} "
+            f"table_placement, mesh_serving, {len(drift)} drift rows whose "
+            f"summed counts equal the single-device runs' "
+            f"({out['d']['hits']} hits of {out['d']['lookups']} lookups)")
+
+    if "c" in parts:
+        # ---- (c): the batcher on 2x2 with phase 13's requests ------------
+        prng = np.random.default_rng(13)
+        prompts = [[int(t) for t in prng.integers(1, cfg.vocab_size, int(n))]
+                   for n in prng.integers(T // 4, T + 1, BATCHER_REQUESTS)]
+        with torch_matmul_defaults():
+            want_outs, b1, secs1 = batcher_run(cfg, params, tabs["stacked"],
+                                               prompts, prefill="replay")
+        ranks = run_ranks(p22_batcher_rank, (tuned, prompts), dp=2, tp=2)
+        for r in ranks:
+            if r["outs"] != want_outs:
+                raise AssertionError(f"[22] (c) rank {r['rank']}'s batcher "
+                                     f"outputs differ from the single-device "
+                                     f"batcher's")
+            if r["metrics"]["dropped"] or r["launches"]["lut_act_stacked"] == 0:
+                raise AssertionError(f"[22] (c) rank {r['rank']}: {r['metrics']}"
+                                     f", launches {r['launches']}")
+            add_launches(r["launches"])
+        out["c"] = {"seconds": [r["seconds"] for r in ranks],
+                    "single_seconds": secs1,
+                    "ticks": ranks[0]["metrics"]["ticks"],
+                    "K1": [r["launches"]["lut_act_stacked"] for r in ranks],
+                    "held": [r["held"] for r in ranks]}
+        log(f"[22] {stamp()} (c) the batcher on 2x2 (replay prefill, 8 requests "
+            f"of {[len(p) for p in prompts]} tokens, 4 slots): outputs equal "
+            f"the single-device batcher's on every rank; "
+            f"{ranks[0]['metrics']['ticks']} ticks in "
+            f"{max(r['seconds'] for r in ranks):.1f}s (one device "
+            f"{secs1:.1f}s); K1 launches {out['c']['K1']}; each rank's first "
+            f"{P22_SAMPLE} served K1 calls bit for bit the plain version")
+        del params, tabs, plans, b1
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    if "b" in parts:
+        # ---- (b): deepseek-moe-16b on 1x2 (expert parallel) --------------
+        with torch_matmul_defaults():
+            args_m = launcher.parse_args(["--arch", "deepseek-moe-16b",
+                                          *P22_COMMON, "--calib-steps", "2"])
+            mcfg0, mparams, mbatch, mrng = launcher.setup(args_m)
+            mplans = launcher.build_plans(args_m, mcfg0, mparams, mrng,
+                                          log=quiet)
+            mcfg = mplans.patched_config(mcfg0)
+            mtabs = mplans.tables_for_model(backend="cuda", device=dev)
+            drops_one = prefill_drops(launcher, mparams, mcfg, mbatch, mtabs)
+            mref = single_device_run(mcfg, mparams, mbatch, mtabs)
+            m_full = sum(p.numel() * p.element_size()
+                         for p in mparams.parameters())
+            m_experts = sum(p.numel() * p.element_size()
+                            for n, p in mparams.named_parameters()
+                            if n.rsplit(".", 1)[-1].startswith("moe_"))
+        mtuned = save_tuned_plan(str(art / "p22_moe"),
+                                 tuned_plan_from_serving(mcfg, mplans))
+        del mparams, mtabs, mplans
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"[22] {stamp()} (b) deepseek-moe-16b single-device reference "
+            f"({m_full} parameter bytes, experts {m_experts}); freed: "
+            f"{torch.cuda.memory_allocated(dev)} bytes allocated")
+        ranks = run_ranks(p22_moe_rank, (mtuned,), dp=1, tp=2)
+        for r in ranks:
+            held_bit_for_bit("(b)", r, mref, r["logits"])
+            if r["drops"] != drops_one:
+                raise AssertionError(f"[22] (b) rank {r['rank']} dropped "
+                                     f"{r['drops']} assignments at prefill, "
+                                     f"one device {drops_one}")
+            if r["launches"]["lut_act_stacked"] == 0:
+                raise AssertionError(f"[22] (b) rank {r['rank']} launched "
+                                     f"no K1")
+            add_launches(r["launches"])
+        out["b"] = {"experts_bytes_one_device": m_experts,
+                    "param_bytes_one_device": m_full,
+                    "ranks": {r["rank"]: {k: r[k] for k in (
+                        "expert_bytes", "param_bytes", "memory_at_rest",
+                        "memory_peak", "drops", "seconds")} for r in ranks},
+                    "drops_one_device": drops_one}
+        log(f"[22] {stamp()} (b) deepseek-moe-16b on 1x2: tokens and logits "
+            f"bit for bit the single-device run's; dropped at prefill "
+            f"{[r['drops'] for r in ranks]} (one device {drops_one}); per rank "
+            + "; ".join(f"r{r['rank']} experts {r['expert_bytes']} of "
+                        f"{m_experts} B, params {r['param_bytes']} of {m_full} "
+                        f"B, at rest {r['memory_at_rest']} B, peak "
+                        f"{r['memory_peak']} B, K1 "
+                        f"{r['launches']['lut_act_stacked']}, gather "
+                        f"{r['gather_s']:.2f}s, {NEW} steps "
+                        f"{r['seconds']:.1f}s" for r in ranks))
+    return {"out": out, "launches": launches}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.parse_args()
@@ -5183,6 +5715,14 @@ def main() -> int:
     # launches phase 8's and phase 21's
     log(f"[21] {stamp()}")
     p21 = run_phase21(dev, stamp)
+
+    # ---- 22. sharded serving on a mesh of ranks sharing cuda:0 (the
+    # parent built the kernels in phase 2, before any rank starts); the
+    # ranks' K1 / K2 launches join their entries
+    log(f"[22] {stamp()}")
+    p22 = run_phase22(dev, stamp)
+    for k in kernels:
+        k["launches"] += p22["launches"].get(k["name"], 0)
     log(f"[11] {stamp()} K5-K7")
     kernels += time_toolflow_kernels(dev, flow, errors, p21)
 
@@ -5190,7 +5730,7 @@ def main() -> int:
                "exact": exact, "steps": steps, "logit_drift": drift,
                "batcher": batcher, "moe": moe, "families": fam,
                "phase17": p17, "phase18": p18["runs"], "phase19": p19,
-               "phase20": p20,
+               "phase20": p20, "phase22": p22["out"],
                "phase21": dict(p21, k7_calls={
                    m: [[*k, c] for k, (_, c) in sorted(v.items())]
                    for m, v in p21["k7_calls"].items()}),

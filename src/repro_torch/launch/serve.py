@@ -1,6 +1,6 @@
 """Serving launcher of the port: batched prefill + greedy decode with
 ReducedLUT-compressed activations (counterpart of the reference's
-``launch/serve.py`` on one device).
+``launch/serve.py``), on one device or a mesh of ranks (``--mesh``).
 
   PYTHONPATH=src python -m repro_torch.launch.serve \\
       --arch phi4-mini-3.8b|nemotron-4-15b|deepseek-67b|qwen3-0.6b|\\
@@ -13,7 +13,8 @@ ReducedLUT-compressed activations (counterpart of the reference's
       [--save-plan P] [--tuned-plan P] [--device cuda|cpu] \\
       [--reload-plan P [--watch] [--degrade] [--slo-ms MS] \\
        [--reload-max-drop D] [--reload-gate-tokens N]] \\
-      [--obs-log PATH [--obs-sample N] [--obs-drift-every N]]
+      [--obs-log PATH [--obs-sample N] [--obs-drift-every N]] \\
+      [--mesh DP,TP [--mesh-mode gspmd|shard_map]]
 
 ``--lut-act`` serves engine-selected plans for every LUT site in scope:
 the activation sites by default, every registered site (softmax exp,
@@ -73,6 +74,24 @@ the decode clock starts (its seconds are logged on their own line), and
 replayed per token; on the CPU it runs eagerly.  The run uses the card
 unless ``--device cpu`` is given, and the backend follows the device
 unless named: ``cuda`` on the card, ``gather`` on the CPU.
+
+``--mesh DP,TP`` serves on a ``(data, model)`` mesh of ``DP * TP`` ranks
+(:mod:`repro_torch.serve.sharded`): the launcher starts them itself, or
+joins the one ``torchrun``'s environment describes.  Rank ``r`` serves on
+``cuda:(r % device_count)`` (ranks share a card where there are fewer
+cards; the collective backend, NCCL or gloo, follows the layout and is
+logged).  Rank 0 captures the calibration and compresses the plans (or
+loads ``--tuned-plan``) and hands them to the ranks, whose table bytes
+must agree by checksum; each rank draws only its share of the weights.
+The sharded step runs eagerly: a gloo collective cannot be captured in a
+CUDA graph; the weights are gathered once for the prefill and its decode
+loop (``mesh_gather`` logs the seconds).  ``--mesh-mode shard_map``
+replicates every table slab; the default ``gspmd`` splits large stacked
+slabs by layer over the data axis.
+``--kv-int8`` is refused with ``shard_map``, and ``--lut-fuse`` and
+``--reload-plan`` with ``--mesh``, in the reference's words.  The log has
+one ``mesh_serving`` event and a ``table_placement`` event a site; a mesh
+is never degraded to one device (no ``mesh_unavailable``).
 """
 from __future__ import annotations
 
@@ -98,7 +117,7 @@ from repro_torch.configs import ARCH_NAMES, get_config, smoke_config
 from repro_torch.device import resolve_device, synchronize
 from repro_torch.kernels import launch_counts
 from repro_torch.nn import init_params
-from repro_torch.obs.log import as_logger, log as obs_log
+from repro_torch.obs.log import Logger, as_logger, log as obs_log
 from repro_torch.serve import (
     CapturedStep,
     CompositeSupervisor,
@@ -114,6 +133,13 @@ from repro_torch.serve import (
     prefill,
     prefill_replay,
     tables_nbytes,
+)
+from repro_torch.launch.mesh import (
+    in_launched_rank,
+    join_from_env,
+    make_host_mesh,
+    rank_device,
+    run_ranks,
 )
 from repro_torch.tune import (
     load_tuned_plan,
@@ -232,6 +258,17 @@ def build_parser() -> argparse.ArgumentParser:
                          "enabled-mode serving within the 5%% "
                          "decode-overhead budget — the drift fraction is "
                          "a ratio and stays unbiased")
+    ap.add_argument("--mesh", default=None, metavar="DP,TP",
+                    help="serve on a (data, model) mesh of DP x TP ranks, "
+                         "e.g. 2,2 — data-parallel batch x bit-exact "
+                         "tensor-parallel model with placed LUT tables; "
+                         "the launcher starts the ranks (or joins "
+                         "torchrun's), which share the cards round robin")
+    ap.add_argument("--mesh-mode", choices=("gspmd", "shard_map"),
+                    default="gspmd",
+                    help="gspmd (default; layer-sharded table slabs, "
+                         "replay prefill) or shard_map (replicated "
+                         "tables)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     return ap
@@ -274,6 +311,15 @@ def setup(args):
         raise ValueError(
             f"--lut-backend cuda runs the CUDA kernels and needs "
             f"--device cuda, got --device {args.device}")
+    cfg = served_config(args)
+    params = init_params(cfg, seed=0, device=dev)
+    batch, rng = prompt_batch(args, cfg, dev)
+    return cfg, params, batch, rng
+
+
+def served_config(args):
+    """The flags' architecture config (``--full``, ``--lut-sites``,
+    ``--logit-softcap``, ``--lut-fuse``), ``--kv-int8`` checked."""
     cfg = get_config(args.arch)
     if not args.full:
         cfg = smoke_config(cfg)
@@ -283,12 +329,17 @@ def setup(args):
         cfg = dataclasses.replace(cfg, lut_sites=args.lut_sites,
                                   logit_softcap=args.logit_softcap,
                                   lut_fuse=args.lut_fuse)
-    params = init_params(cfg, seed=0, device=dev)
+    return cfg
+
+
+def prompt_batch(args, cfg, dev):
+    """``(batch, rng)``: the prompt batch on ``dev`` from the seed-0
+    generator, which the shared calibration then draws from."""
     rng = np.random.default_rng(0)
     batch = {k: torch.as_tensor(v, device=dev) for k, v in model_batch(
         cfg, rng, args.batch, args.prompt_len).items()}
     batch["tokens"] = batch["tokens"].long()
-    return cfg, params, batch, rng
+    return batch, rng
 
 
 def param_summary(params) -> str:
@@ -341,13 +392,39 @@ def build_plans(args, cfg, params, rng, log=print, tel=None):
     telemetry ``tel`` (``--obs-log``), the don't-care drift monitor is
     attached to it, counting on the parameters' device and sampled every
     ``--obs-drift-every`` batcher ticks."""
+    plans, calib = compress_plans(args, cfg, params, rng, log=log)
+    attach_monitor(args, tel, calib, params.embed.device)
+    return plans
+
+
+def calibrates(args) -> bool:
+    """Whether the plans come from a per-site calibration (captured or
+    loaded), which the drift monitor reads."""
+    return args.calib_steps > 0 or bool(args.calib_path)
+
+
+def attach_monitor(args, tel, calib, device, mesh=None, split_kinds=()):
+    """The don't-care drift monitor on ``tel`` for a calibration set
+    (nothing without telemetry or for a shared sample); under a ``mesh``
+    it sums the ranks' counters (:meth:`DontCareMonitor.bind_mesh`)."""
+    if tel is None or getattr(calib, "w_in", None) is None:
+        return None
+    mon = obs.DontCareMonitor(calib, sample_every=args.obs_drift_every,
+                              device=device)
+    if mesh is not None:
+        mon.bind_mesh(mesh, split_kinds)
+    tel.attach_monitor(mon)
+    return mon
+
+
+def compress_plans(args, cfg, params, rng, log=print):
+    """``(plans, calibration)``: the calibration (captured on ``params``
+    or loaded; a shared sample drawn from ``rng`` without
+    ``--calib-steps`` / ``--calib-path``) and the plans compressed from
+    it."""
     log = as_logger(log)
-    if args.calib_steps > 0 or args.calib_path:
+    if calibrates(args):
         calib = calibration(args, cfg, params, log=log)
-        if tel is not None and calib.w_in is not None:
-            tel.attach_monitor(obs.DontCareMonitor(
-                calib, sample_every=args.obs_drift_every,
-                device=params.embed.device))
     else:
         calib = rng.normal(size=100000) * 3
     t0 = time.perf_counter()
@@ -357,7 +434,7 @@ def build_plans(args, cfg, params, rng, log=print, tel=None):
                                     plan_exec=args.plan_exec)
     log.info("plans_built", f"plans built in {time.perf_counter() - t0:.2f}s"
              f": {plans.summary()}")
-    return plans
+    return plans, calib
 
 
 def load_plan(ap, args, log=print):
@@ -566,9 +643,46 @@ def serve_with_reload(args, cfg, params, batch, lut_tables, plans,
             "finished": finished, "metrics": m, "seconds": dt}
 
 
+def mesh_shape(ap, args) -> tuple[int, int] | None:
+    """``--mesh``'s ``(dp, tp)``, after the reference's refusals (and
+    ``None`` without it)."""
+    if not args.mesh:
+        return None
+    try:
+        dp, tp = (int(v) for v in args.mesh.split(","))
+    except ValueError:
+        ap.error(f"--mesh expects DP,TP (e.g. 2,2), got {args.mesh!r}")
+    if dp < 1 or tp < 1:
+        ap.error(f"--mesh: dp and tp must be >= 1, got dp={dp} tp={tp}")
+    if args.kv_int8 and args.mesh_mode == "shard_map":
+        ap.error("--kv-int8 prefill replay is served in gspmd mesh "
+                 "mode only (drop --kv-int8 or use --mesh-mode gspmd)")
+    if args.lut_fuse:
+        ap.error("--lut-fuse is the single-device fast path — drop "
+                 "--mesh (the sharded program keeps the gather-"
+                 "shardable unfused form)")
+    if args.reload_plan:
+        ap.error("--reload-plan is single-device — the control plane "
+                 "swaps jitted closures, not placed tables")
+    try:
+        rank_device(0, args.device)
+    except RuntimeError as e:
+        ap.error(str(e))
+    return dp, tp
+
+
 def main(argv=None) -> dict:
     ap = build_parser()
     args = parse_args(argv, ap)
+    shape = mesh_shape(ap, args)
+    if shape is not None:
+        argv = list(sys.argv[1:] if argv is None else argv)
+        if in_launched_rank():
+            return serve_rank(make_host_mesh(
+                *shape, device=join_from_env(args.device)), argv)
+        ranks = run_ranks(serve_rank, (argv,), dp=shape[0], tp=shape[1],
+                          device=args.device)
+        return {"mesh": shape, "ranks": ranks}
     tel = open_telemetry(args)
     # the with-block lands the JSONL footer and the Prometheus dump even
     # on the sys.exit / ap.error paths inside _main
@@ -622,6 +736,167 @@ def _main(ap, args, tel) -> dict:
     log.info("kernel_launches", f"kernel launches: {launch_counts()}",
              **launch_counts())
     return out
+
+
+def serve_rank(mesh, argv, policy=None) -> dict:
+    """One rank of ``--mesh`` serving (every rank runs it): rank 0 logs
+    and writes the obs log; every rank returns its own record — its rows'
+    tokens and last-position logits a step, the gathered tokens, memory at
+    rest, launches, placement and the tables' checksum.  ``policy``: the
+    table :class:`~repro_torch.serve.sharded.PlacementPolicy` of the
+    ``gspmd`` mode (the reference's default without one)."""
+    ap = build_parser()
+    args = parse_args(argv, ap)
+    rank0 = mesh.rank == 0
+    log = obs_log if rank0 else Logger(lambda m: None)
+    # every rank needs a telemetry for its monitor: its counters are summed
+    # over the ranks when rank 0's log takes the drift rows
+    tel = open_telemetry(args) if rank0 else (
+        obs.Telemetry() if args.obs_log else None)
+    with tel if tel is not None else nullcontext():
+        out = _serve_rank(ap, args, mesh, log, tel, policy)
+    if tel is not None and tel.monitor is not None:
+        out["drift_counts"] = tel.monitor.counts()
+    return out
+
+
+def _serve_rank(ap, args, mesh, log, tel, policy) -> dict:
+    import torch.distributed as dist
+
+    from repro_torch import sites
+    from repro_torch.serve.sharded import (
+        ShardedServe,
+        init_params_sharded,
+        rank_memory,
+        shard_params,
+        tables_checksum,
+    )
+
+    dev = mesh.device
+    cfg = served_config(args)
+    batch, rng = prompt_batch(args, cfg, dev)
+    # rank 0 captures and compresses once (on the whole model only when it
+    # calibrates); the ranks receive the plans
+    full = None
+    shared = [None, None]
+    if mesh.rank == 0:
+        if args.tuned_plan:
+            shared[0] = load_plan(ap, args, log)
+        elif args.lut_act:
+            if calibrates(args):
+                full = init_params(cfg, seed=0, device=dev)
+            shared = list(compress_plans(args, cfg, full, rng, log=log))
+    dist.broadcast_object_list(shared, src=0)
+    plans, calib = shared
+    if full is not None:
+        params = shard_params(full, cfg, mesh)
+        del full
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    else:
+        params = init_params_sharded(cfg, 0, mesh, dev)
+    synchronize(dev)
+    at_rest = rank_memory(dev)
+    lut_tables = None
+    if plans is not None:
+        cfg = plans.patched_config(cfg)
+        lut_tables = plans.tables_for_model(backend=args.lut_backend,
+                                            plan_exec=args.plan_exec,
+                                            device=dev)
+    checksum = tables_checksum(lut_tables)
+    sums = [None] * mesh.size
+    dist.all_gather_object(sums, checksum)
+    if len(set(sums)) != 1:
+        raise RuntimeError(f"--mesh: the ranks' table bytes differ "
+                           f"(checksums {sums})")
+    serve = ShardedServe(cfg, mesh, lut_tables, mode=args.mesh_mode,
+                         policy=policy)
+    ep = bool(cfg.moe) and cfg.moe.n_experts % mesh.shape["model"] == 0 \
+        and mesh.shape["model"] > 1
+    attach_monitor(args, tel, calib, dev, mesh,
+                   split_kinds=(sites.EXPERT,) if ep else ())
+    log.info("mesh_serving",
+             f"mesh {mesh.shape} mode={args.mesh_mode} backend "
+             f"{mesh.backend}; table placement:", mode=args.mesh_mode,
+             backend=mesh.backend, dp=mesh.shape["data"],
+             tp=mesh.shape["model"])
+    for site, info in serve.placement.items():
+        log.info("table_placement",
+                 f"  {site}: {info['placement']} ({info['bytes']} B, "
+                 f"{info['per_device_bytes']} B/dev)", site=site,
+                 placement=info["placement"], bytes=info["bytes"])
+    log.info("mesh_eager", "the sharded step runs eagerly: a gloo "
+             "collective cannot be captured in a CUDA graph")
+    local = serve.place_batch(batch)
+    b, t = local["tokens"].shape
+    start = decode_start(cfg, local)
+    max_seq = start + args.new_tokens
+    with serve.session(params):
+        out = _mesh_decode(args, cfg, serve, params, local, start, max_seq,
+                           mesh, log)
+    log.info("mesh_gather", f"weights gathered once for the prefill and "
+             f"the decode loop: {serve.gather_s:.4f}s",
+             seconds=round(serve.gather_s, 4))
+    named = dict(params.named_parameters())
+    return dict(out, rank=mesh.rank, coords=mesh.coords(),
+                backend=mesh.backend, device=str(dev), memory_at_rest=at_rest,
+                memory_peak=(torch.cuda.max_memory_allocated(dev)
+                             if dev.type == "cuda" else None),
+                param_bytes=sum(p.numel() * p.element_size()
+                                for p in named.values()),
+                expert_bytes=sum(p.numel() * p.element_size()
+                                 for n, p in named.items()
+                                 if n.rsplit(".", 1)[-1].startswith("moe_")),
+                launches=launch_counts(), placement=serve.placement,
+                checksum=checksum, gather_s=serve.gather_s)
+
+
+def _mesh_decode(args, cfg, serve, params, local, start, max_seq, mesh,
+                 log) -> dict:
+    """The prefill and the greedy decode of one rank's rows, inside the
+    serving session: its tokens and logits, and the gathered tokens."""
+    from repro_torch.serve.sharded import gather_rows
+
+    dev = local["tokens"].device
+    b, t = local["tokens"].shape
+    synchronize(dev)
+    t0 = time.perf_counter()
+    with obs.span("prefill", batch=b, prompt_len=t):
+        logits, cache = serve.prefill(params, local, max_seq)
+        synchronize(dev)
+    prefill_s = time.perf_counter() - t0
+    log.info("prefill", f"prefill {b}x{t} a data rank: {prefill_s:.4f}s",
+             seconds=round(prefill_s, 4))
+    if kv_int8_applies(args, cfg):
+        cache = serve.place_cache(init_cache(
+            cfg, args.batch, max_seq, device=dev, kv_dtype="int8"))
+        log.info("kv_int8",
+                 "int8 KV cache enabled (decode writes quantized entries)")
+        logits, cache = serve.replay(params, cache, local["tokens"])
+    tok = logits[:, -1].argmax(-1)[:, None]
+    toks, seen = [], [logits[:, -1].cpu()]
+    synchronize(dev)
+    t0 = time.perf_counter()
+    with obs.span("decode", batch=b, new_tokens=args.new_tokens):
+        for i in range(args.new_tokens):
+            toks.append(tok)
+            logits, cache = serve.decode(params, cache, tok, start + i)
+            seen.append(logits[:, -1].cpu())
+            tok = logits[:, -1].argmax(-1)[:, None]
+        synchronize(dev)
+    dt = time.perf_counter() - t0
+    mine = torch.cat(toks, dim=1)
+    tokens = gather_rows(mine, mesh).tolist()
+    tok_s = args.new_tokens * args.batch / dt if dt > 0 else float("inf")
+    log.info("decode", f"decode {args.new_tokens} tokens x {args.batch} "
+             f"requests on the mesh: {dt:.4f}s ({tok_s:.1f} tok/s)",
+             seconds=round(dt, 4), tok_s=round(tok_s, 2))
+    log.info("request_tokens", f"request 0: {tokens[0]}", rid=0,
+             tokens=tokens[0])
+    log.info("kernel_launches", f"kernel launches (rank 0): "
+             f"{launch_counts()}", **launch_counts())
+    return {"tokens": tokens, "rank_tokens": mine.tolist(), "logits": seen,
+            "prefill_s": prefill_s, "decode_s": dt, "start": start}
 
 
 if __name__ == "__main__":

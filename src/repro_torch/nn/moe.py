@@ -25,8 +25,23 @@ graph (:mod:`repro_torch.serve.graphs`):
   no atomic accumulation (``index_add_`` on the card sums a token's bf16
   contributions in a varying order, so its bits would vary run to run).
 
-The two expert-parallel branches of the reference (under a mesh) wait for
-sharded serving (ROADMAP queue A, item 11).
+Under a mesh with a model axis whose size divides the expert count
+(:mod:`repro_torch.serve.sharded`), the expert stacks stay split over the
+model axis: rank ``t`` holds experts ``[t E/tp, (t+1) E/tp)``, routes the
+same local tokens as its model-axis peers, takes into its buffer only the
+assignments of its own experts, and runs their products.  The experts'
+outputs are then gathered over the model axis into the single-device
+``(E, C, d)`` block, and every rank combines them in ascending expert id
+as above: the reference's ``psum`` of each rank's partial sums would
+reassociate a token's adds (at top-6 of deepseek-moe-16b), so the port
+gathers instead and keeps its sharded output bit for bit the
+single-device one.  Capacity follows the local tokens, which under a mesh
+are one data shard's (the reference's ``s_shard = tokens // n_dp``).  Its
+two serving modes run this one branch: the reference's inline branch (in
+its replicated-tables mode) differs from its expert-parallel one only in
+how it averages ``aux``.  ``aux`` comes back as the rank's own: serving
+discards it, and averaging it over the ranks is left to the caller that
+reads it (sharded training, ROADMAP queue A item 11).
 """
 from __future__ import annotations
 
@@ -38,6 +53,7 @@ import torch.nn.functional as F
 from repro_torch import sites
 
 from .mlp import make_activation
+from .sharding import TP_AXIS, current_mesh, gather
 
 
 def _round_up(x: int, m: int) -> int:
@@ -96,25 +112,37 @@ def route(x: torch.Tensor, router_w: torch.Tensor, *, n_experts: int,
 
 def moe_ffn_local(x: torch.Tensor, router_w: torch.Tensor,
                   w_in: torch.Tensor, w_out: torch.Tensor, *,
-                  n_experts: int, top_k: int, capacity: int, act_fn=None):
+                  n_experts: int, top_k: int, capacity: int, act_fn=None,
+                  e0: int = 0, gather_experts=None):
     """Route + gather + expert products + weighted combine of ``x`` (S,
-    d) over all experts (``w_in`` (E, d, 2f) fused gate|up, ``w_out`` (E,
-    f, d); ``act_fn`` the gate's activation, SiLU by default): ``(y (S,
-    d), aux)``, ``aux`` the Switch-style load-balance loss (float32,
-    0-d)."""
+    d) (``w_in`` (E_loc, d, 2f) fused gate|up, ``w_out`` (E_loc, f, d) of
+    the resident experts ``[e0, e0 + E_loc)``; ``act_fn`` the gate's
+    activation, SiLU by default): ``(y (S, d), aux)``, ``aux`` the
+    Switch-style load-balance loss (float32, 0-d).  With fewer resident
+    experts than ``n_experts``, ``gather_experts`` maps their outputs
+    ``(E_loc, C, d)`` to every expert's ``(E, C, d)``."""
     s, d = x.shape
+    e_loc = w_in.shape[0]
     r = route(x, router_w, n_experts=n_experts, top_k=top_k,
               capacity=capacity)
     src = r.order // top_k                                 # token index
+    slot = r.slot
+    if e_loc != n_experts:
+        # the resident experts' assignments only; the rest go to the spare
+        slot = torch.where((slot >= e0 * capacity)
+                           & (slot < (e0 + e_loc) * capacity),
+                           slot - e0 * capacity, e_loc * capacity)
     # one spare row takes every dropped assignment and is discarded
-    buf = torch.zeros((n_experts * capacity + 1, d), dtype=x.dtype,
+    buf = torch.zeros((e_loc * capacity + 1, d), dtype=x.dtype,
                       device=x.device)
-    buf[r.slot] = x[src]
-    tokens = buf[:-1].view(n_experts, capacity, d)
+    buf[slot] = x[src]
+    tokens = buf[:-1].view(e_loc, capacity, d)
 
     act = act_fn if act_fn is not None else F.silu
     gate, up = torch.matmul(tokens, w_in).chunk(2, dim=-1)
     y_exp = torch.matmul(act(gate) * up, w_out)
+    if e_loc != n_experts:
+        y_exp = gather_experts(y_exp)
     y_flat = torch.cat([y_exp.reshape(n_experts * capacity, d),
                         y_exp.new_zeros((1, d))])
 
@@ -142,15 +170,23 @@ def moe_block(params: dict, x: torch.Tensor, cfg, shared_mlp=None,
     the ``expert`` site: its compressed table for ``layer`` when served
     (kernels K1 / K2 / K4 on the card), and seen by an active calibration
     capture, empty capacity slots included.  ``shared_mlp``: the shared
-    experts, added to the routed output."""
+    experts, added to the routed output.  Under a mesh ``aux`` is this
+    rank's, over its data shard's tokens."""
     b, t, d = x.shape
     m = cfg.moe
     act_fn = make_activation(cfg, lut_tables, site=sites.EXPERT,
                              fallback="silu", layer=layer)
+    mesh = current_mesh()
+    n_tp = mesh.shape.get(TP_AXIS, 1) if mesh is not None else 1
+    e_loc = params["w_in"].shape[0]
+    ep = n_tp > 1 and e_loc * n_tp == m.n_experts
     y, aux = moe_ffn_local(
         x.reshape(-1, d), params["router"], params["w_in"],
         params["w_out"], n_experts=m.n_experts, top_k=m.top_k,
-        capacity=moe_capacity(b * t, m), act_fn=act_fn)
+        capacity=moe_capacity(b * t, m), act_fn=act_fn,
+        e0=mesh.index(TP_AXIS) * e_loc if ep else 0,
+        gather_experts=(lambda ye: gather(ye, mesh, TP_AXIS)) if ep
+        else None)
     y = y.reshape(b, t, d)
     if shared_mlp is not None:
         y = y + shared_mlp(x)

@@ -1,0 +1,272 @@
+"""Mesh and placement plumbing for sharded serving on ``torch.distributed``
+(the port's counterpart of the reference's ``nn/sharding.py``).
+
+The reference annotates tensors with *logical* axes (``"dp"``, the
+data-parallel batch; ``"tp"``, the tensor-parallel model dim; ``"fsdp"``;
+``None``, replicated) and lets XLA's partitioner place them on a
+``(data, model)`` device mesh.  The port runs one process per mesh
+position instead (an explicit SPMD program): a :class:`Mesh` is the
+layout plus this process's rank and one process group per axis, and a
+:class:`Placement` (what :func:`named_sharding` returns) says which dims of
+a tensor split over which axes, so a rank can cut its share of a full
+tensor (:meth:`Placement.local`) and put the full tensor back together
+from the shares (:meth:`Placement.gather`).
+
+The rules are the reference's: ``resolve_axis`` maps a logical axis to
+mesh axes, and a dim whose size the axes' product does not divide is
+replicated (``_divisible``).  The port serves only in the reference's
+exact mode (``exact_tp``): its ranks compute at single-device shapes on
+gathered weights, so no float reduction is ever split over the model axis
+and no switch is needed.  The collectives the serving path needs are
+here: :func:`gather`,
+:func:`broadcast` and :func:`all_reduce`.  A gather is one broadcast per
+member of the axis, so it runs on gloo, whose CUDA support covers
+broadcast and all-reduce only, as on NCCL; a failed collective raises.
+
+The reference's ``manual_axes``, ``layer_scan`` / ``SCAN_STATS``,
+``SEQ_PARALLEL``, ``exact_tp`` and ``spec`` / ``shard`` steer XLA's
+partitioner and have no counterpart here (ROADMAP, item 12).
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import math
+import threading
+
+import torch
+import torch.distributed as dist
+
+_STATE = threading.local()
+
+DP_AXES = ("pod", "data")   # data parallelism spans these mesh axes
+TP_AXIS = "model"
+FSDP_AXIS = "data"          # the ZeRO-3 axis of training (within a pod)
+
+
+@dataclasses.dataclass(eq=False)
+class Mesh:
+    """A mesh of ranks, row-major over ``axis_names`` (rank ``r`` of a
+    ``(data, model)`` mesh sits at ``(r // tp, r % tp)``, the order of
+    ``jax.make_mesh``'s devices).
+
+    Without ``rank`` it is a layout only (placement planning); a mesh
+    bound to a process (:func:`repro_torch.launch.mesh.make_host_mesh`)
+    has its rank, its device, the collective backend and, per axis, the
+    process group of the ranks that share every other coordinate."""
+
+    axis_names: tuple
+    sizes: tuple
+    rank: int | None = None
+    device: torch.device | None = None
+    backend: str | None = None
+    groups: dict | None = None
+
+    @property
+    def shape(self) -> dict:
+        return dict(zip(self.axis_names, self.sizes))
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.sizes)
+
+    def coords(self, rank: int | None = None) -> dict:
+        """``{axis: index}`` of ``rank`` (this process's by default)."""
+        r = self.rank if rank is None else rank
+        out = {}
+        for name, n in reversed(list(zip(self.axis_names, self.sizes))):
+            out[name] = r % n
+            r //= n
+        return {a: out[a] for a in self.axis_names}
+
+    def index(self, axis: str) -> int:
+        """This rank's coordinate along ``axis`` (0 for an absent axis)."""
+        return self.coords().get(axis, 0)
+
+    def members(self, axis: str, rank: int | None = None) -> list[int]:
+        """The global ranks along ``axis`` through ``rank`` (this one's),
+        in order of their ``axis`` coordinate."""
+        c = self.coords(rank)
+        out = []
+        for i in range(self.shape.get(axis, 1)):
+            c[axis] = i
+            r = 0
+            for name, n in zip(self.axis_names, self.sizes):
+                r = r * n + c[name]
+            out.append(r)
+        return out
+
+    def group(self, axis: str):
+        if self.groups is None:
+            raise RuntimeError(
+                "Mesh: a layout only (no rank, no process groups); bind one "
+                "with repro_torch.launch.mesh.make_host_mesh")
+        return self.groups[axis]
+
+
+def new_axis_groups(mesh: Mesh) -> dict:
+    """One process group per axis for every rank of ``mesh`` (every rank
+    must call this, in the same order): ``{axis: the group of this
+    rank}``."""
+    groups = {}
+    for axis in mesh.axis_names:
+        seen = set()
+        for r in range(mesh.size):
+            ranks = tuple(mesh.members(axis, r))
+            if ranks in seen:
+                continue
+            seen.add(ranks)
+            g = dist.new_group(list(ranks))
+            if mesh.rank in ranks:
+                groups[axis] = g
+    return groups
+
+
+def current_mesh() -> Mesh | None:
+    return getattr(_STATE, "mesh", None)
+
+
+@contextlib.contextmanager
+def use_mesh(mesh: Mesh | None):
+    prev = current_mesh()
+    _STATE.mesh = mesh
+    try:
+        yield
+    finally:
+        _STATE.mesh = prev
+
+
+def resolve_axis(logical: str | None, mesh):
+    """Map a logical axis name to mesh axes (``None`` if not shardable)."""
+    if logical is None or mesh is None:
+        return None
+    if logical == "dp":
+        axes = tuple(a for a in DP_AXES if a in mesh.axis_names)
+        return axes if axes else None
+    if logical == "tp":
+        return TP_AXIS if TP_AXIS in mesh.axis_names else None
+    if logical == "fsdp":
+        return FSDP_AXIS if FSDP_AXIS in mesh.axis_names else None
+    if logical == "sp":
+        return None   # sequence parallelism is not ported
+    raise ValueError(f"unknown logical axis {logical!r}")
+
+
+def _axes_tuple(axes) -> tuple:
+    if axes is None:
+        return ()
+    return (axes,) if isinstance(axes, str) else tuple(axes)
+
+
+def _divisible(dim: int, mesh, axes) -> bool:
+    n = 1
+    for a in _axes_tuple(axes):
+        n *= mesh.shape[a]
+    return dim % n == 0
+
+
+@dataclasses.dataclass(frozen=True)
+class Placement:
+    """Which mesh axes each dim of a tensor splits over (``spec``, one
+    entry per dim: ``None``, an axis name or a tuple of names)."""
+
+    mesh: Mesh
+    spec: tuple
+
+    def parts(self, dim: int) -> int:
+        return math.prod(self.mesh.shape[a]
+                         for a in _axes_tuple(self.spec[dim]))
+
+    @property
+    def replicated(self) -> bool:
+        return all(self.parts(i) == 1 for i in range(len(self.spec)))
+
+    def local_shape(self, shape) -> tuple:
+        return tuple(n // self.parts(i) for i, n in enumerate(shape))
+
+    def _block(self, dim: int) -> int:
+        """This rank's block index along ``dim`` (row-major over the
+        dim's axes)."""
+        b = 0
+        for a in _axes_tuple(self.spec[dim]):
+            b = b * self.mesh.shape[a] + self.mesh.index(a)
+        return b
+
+    def local(self, full: torch.Tensor) -> torch.Tensor:
+        """This rank's share of ``full``, a contiguous copy."""
+        out = full
+        for i in range(len(self.spec)):
+            n = self.parts(i)
+            if n > 1:
+                size = full.shape[i] // n
+                out = out.narrow(i, self._block(i) * size, size)
+        return out.contiguous() if out is full else out.clone(
+            memory_format=torch.contiguous_format)
+
+    def gather(self, local: torch.Tensor) -> torch.Tensor:
+        """The full tensor from every rank's share (collective over each
+        split dim's axes: every rank of those groups must call it)."""
+        out = local
+        for i in range(len(self.spec)):
+            # the inner axis first: its blocks are the finest
+            for a in reversed(_axes_tuple(self.spec[i])):
+                out = gather(out, self.mesh, a, dim=i)
+        return out
+
+
+def named_sharding(mesh: Mesh, *logical_axes: str | None,
+                   shape: tuple | None = None) -> Placement:
+    """The placement of a tensor annotated with ``logical_axes`` on
+    ``mesh`` (the reference's ``PartitionSpec`` as ``spec``), a dim that
+    ``shape`` says does not divide replicated."""
+    resolved = []
+    for i, a in enumerate(logical_axes):
+        r = resolve_axis(a, mesh)
+        if shape is not None and not _divisible(shape[i], mesh, r):
+            r = None
+        resolved.append(r)
+    return Placement(mesh, tuple(resolved))
+
+
+# -------------------------------------------------------------------------
+# collectives
+# -------------------------------------------------------------------------
+def broadcast(t: torch.Tensor, mesh: Mesh, axis: str, src_index: int
+              ) -> torch.Tensor:
+    """Broadcast ``t`` (contiguous, in place) from the rank at ``axis``
+    coordinate ``src_index`` to every rank along ``axis``, as bytes (any
+    dtype, every bit kept)."""
+    if mesh.shape.get(axis, 1) > 1 and t.numel():
+        dist.broadcast(t.reshape(-1).view(torch.uint8),
+                       src=mesh.members(axis)[src_index],
+                       group=mesh.group(axis))
+    return t
+
+
+def all_reduce(t: torch.Tensor, mesh: Mesh, axis: str | None = None
+               ) -> torch.Tensor:
+    """Sum ``t`` (contiguous, in place) over ``axis`` (every rank when
+    ``None``)."""
+    if axis is None:
+        if mesh.size > 1:
+            dist.all_reduce(t)
+    elif mesh.shape.get(axis, 1) > 1:
+        dist.all_reduce(t, group=mesh.group(axis))
+    return t
+
+
+def gather(t: torch.Tensor, mesh: Mesh, axis: str, dim: int = 0
+           ) -> torch.Tensor:
+    """Every rank's ``t`` along ``axis`` concatenated along ``dim``, in
+    the order of their coordinate: one broadcast per member into a
+    ``(n, *t.shape)`` buffer, so every byte arrives as it was sent."""
+    n = mesh.shape.get(axis, 1)
+    if n == 1:
+        return t
+    buf = torch.empty((n, *t.shape), dtype=t.dtype, device=t.device)
+    me = mesh.index(axis)
+    for j in range(n):
+        if j == me:
+            buf[j].copy_(t)
+        broadcast(buf[j], mesh, axis, j)
+    return buf.movedim(0, dim).flatten(dim, dim + 1)

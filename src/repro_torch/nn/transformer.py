@@ -47,15 +47,27 @@ from .ssm import rwkv_channel_mix, rwkv_time_mix
 
 @dataclasses.dataclass(frozen=True)
 class ParamDef:
+    """A parameter's shape, init scale and logical axes: per dim ``"tp"``
+    (split over the model axis), ``"fsdp"`` (the ZeRO-3 axis of
+    training) or ``None``, the reference's annotations
+    (:mod:`repro_torch.nn.sharding`); empty means all ``None``."""
+
     shape: tuple[int, ...]
     scale: float = 1.0
+    axes: tuple = ()
+
+
+# a column-parallel product's weight (output features over the model axis)
+# and a row-parallel one's (input features)
+_COL = (None, "fsdp", "tp")
+_ROW = (None, "tp", "fsdp")
 
 
 def _rwkv_defs(cfg: ArchConfig) -> dict:
     """RWKV6 block parameters (the reference's ``_rwkv_defs``)."""
     L, d, ff = cfg.n_layers, cfg.d_model, cfg.d_ff
     vec = lambda scale=1.0: ParamDef((L, d), scale)
-    mat = lambda m, n: ParamDef((L, m, n))
+    mat = lambda m, n: ParamDef((L, m, n), axes=_COL)
     defs = {
         "ln1": vec(0.0), "ln2": vec(0.0), "ln_x": vec(0.0),
         "lora_a": ParamDef((L, d, 32)),
@@ -65,9 +77,9 @@ def _rwkv_defs(cfg: ArchConfig) -> dict:
         "bonus": vec(0.5),
         "mu_ffn_k": vec(0.5), "mu_ffn_r": vec(0.5),
         "w_r": mat(d, d), "w_k": mat(d, d), "w_v": mat(d, d),
-        "w_g": mat(d, d), "w_o": mat(d, d),
+        "w_g": mat(d, d), "w_o": ParamDef((L, d, d), axes=_ROW),
         "w_ffn_k": mat(d, ff),
-        "w_ffn_v": mat(ff, d),
+        "w_ffn_v": ParamDef((L, ff, d), axes=_ROW),
         "w_ffn_r": mat(d, d),
     }
     for nm in ("r", "k", "v", "w", "g"):
@@ -79,10 +91,10 @@ def _rwkv_defs(cfg: ArchConfig) -> dict:
 def _attn_defs(cfg: ArchConfig, L: int) -> dict:
     d = cfg.d_model
     defs = {
-        "wq": ParamDef((L, d, cfg.q_dim)),
-        "wk": ParamDef((L, d, cfg.kv_dim)),
-        "wv": ParamDef((L, d, cfg.kv_dim)),
-        "wo": ParamDef((L, cfg.q_dim, d)),
+        "wq": ParamDef((L, d, cfg.q_dim), axes=_COL),
+        "wk": ParamDef((L, d, cfg.kv_dim), axes=_COL),
+        "wv": ParamDef((L, d, cfg.kv_dim), axes=_COL),
+        "wo": ParamDef((L, cfg.q_dim, d), axes=_ROW),
     }
     if cfg.qk_norm:
         defs["q_norm"] = ParamDef((L, cfg.d_head), 0.0)
@@ -92,21 +104,21 @@ def _attn_defs(cfg: ArchConfig, L: int) -> dict:
 
 def _mlp_defs(cfg: ArchConfig, L: int) -> dict:
     ff_in = 2 * cfg.d_ff if is_gated(cfg.activation) else cfg.d_ff
-    return {"w_in": ParamDef((L, cfg.d_model, ff_in)),
-            "w_out": ParamDef((L, cfg.d_ff, cfg.d_model))}
+    return {"w_in": ParamDef((L, cfg.d_model, ff_in), axes=_COL),
+            "w_out": ParamDef((L, cfg.d_ff, cfg.d_model), axes=_ROW)}
 
 
 def _rec_defs(cfg: ArchConfig, L: int) -> dict:
     """A recurrent block's parameters (the reference's ``_rec_defs``)."""
     d, drnn = cfg.d_model, cfg.d_rnn or cfg.d_model
     return {
-        "w_in": ParamDef((L, d, drnn)),
-        "w_gate": ParamDef((L, d, drnn)),
-        "w_out": ParamDef((L, drnn, d)),
-        "conv_w": ParamDef((L, cfg.conv_width, drnn)),
-        "w_a": ParamDef((L, drnn, drnn)),
-        "w_x": ParamDef((L, drnn, drnn)),
-        "lam": ParamDef((L, drnn), 0.5),
+        "w_in": ParamDef((L, d, drnn), axes=_COL),
+        "w_gate": ParamDef((L, d, drnn), axes=_COL),
+        "w_out": ParamDef((L, drnn, d), axes=_ROW),
+        "conv_w": ParamDef((L, cfg.conv_width, drnn), axes=(None, None, "tp")),
+        "w_a": ParamDef((L, drnn, drnn), axes=_COL),
+        "w_x": ParamDef((L, drnn, drnn), axes=_COL),
+        "lam": ParamDef((L, drnn), 0.5, axes=(None, "tp")),
     }
 
 
@@ -170,9 +182,9 @@ def param_defs(cfg: ArchConfig) -> dict:
     ``param_defs``)."""
     L, d = cfg.n_layers, cfg.d_model
     head = {
-        "embed": ParamDef((cfg.vocab_size, d)),
+        "embed": ParamDef((cfg.vocab_size, d), axes=("tp", "fsdp")),
         "final_norm": ParamDef((d,), 0.0),
-        "lm_head": ParamDef((d, cfg.vocab_size)),
+        "lm_head": ParamDef((d, cfg.vocab_size), axes=("fsdp", "tp")),
     }
     if cfg.family == "ssm":
         return dict(head, blocks=_rwkv_defs(cfg))
@@ -188,11 +200,15 @@ def param_defs(cfg: ArchConfig) -> dict:
     if cfg.moe:
         m = cfg.moe
         blocks["router"] = ParamDef((L, d, m.n_experts))
-        blocks["moe_w_in"] = ParamDef((L, m.n_experts, d, 2 * m.d_expert))
-        blocks["moe_w_out"] = ParamDef((L, m.n_experts, m.d_expert, d))
+        blocks["moe_w_in"] = ParamDef((L, m.n_experts, d, 2 * m.d_expert),
+                                      axes=(None, "tp", "fsdp", None))
+        blocks["moe_w_out"] = ParamDef((L, m.n_experts, m.d_expert, d),
+                                       axes=(None, "tp", None, "fsdp"))
         if m.n_shared:
-            blocks["sh_w_in"] = ParamDef((L, d, 2 * m.d_expert * m.n_shared))
-            blocks["sh_w_out"] = ParamDef((L, m.d_expert * m.n_shared, d))
+            blocks["sh_w_in"] = ParamDef((L, d, 2 * m.d_expert * m.n_shared),
+                                         axes=_COL)
+            blocks["sh_w_out"] = ParamDef((L, m.d_expert * m.n_shared, d),
+                                          axes=_ROW)
     else:
         blocks.update(_mlp_defs(cfg, L))
     defs = dict(head, blocks=blocks)
@@ -224,16 +240,22 @@ def _param(shape, dtype, device) -> nn.Parameter:
                         requires_grad=False)
 
 
-def _tree(defs: dict, dtype, device) -> nn.Module:
+def _tree(defs: dict, dtype, device, leaves=None, prefix="") -> nn.Module:
     """A parameter for each leaf of ``defs``, a child module for each
-    sub-tree: an ``nn.ParameterDict`` where every entry is a leaf."""
+    sub-tree: an ``nn.ParameterDict`` where every entry is a leaf.  With
+    ``leaves`` (dotted name -> tensor) each parameter wraps its tensor
+    instead of a new one."""
+    def leaf(k, d):
+        if leaves is None:
+            return _param(d.shape, dtype, device)
+        return nn.Parameter(leaves[prefix + k], requires_grad=False)
+
     if not any(isinstance(d, dict) for d in defs.values()):
-        return nn.ParameterDict({k: _param(d.shape, dtype, device)
-                                 for k, d in defs.items()})
+        return nn.ParameterDict({k: leaf(k, d) for k, d in defs.items()})
     mod = nn.Module()
     for k, d in defs.items():
-        setattr(mod, k, _tree(d, dtype, device) if isinstance(d, dict)
-                else _param(d.shape, dtype, device))
+        setattr(mod, k, _tree(d, dtype, device, leaves, f"{prefix}{k}.")
+                if isinstance(d, dict) else leaf(k, d))
     return mod
 
 
@@ -258,17 +280,24 @@ def _unbind(tree: nn.Module) -> list[dict]:
 class _StackedParams(nn.Module):
     """Parameters of :func:`param_defs` (frozen for serving): the head
     tensors as attributes, each tree of stacks (``blocks``, ``groups``,
-    ``tail``) as a module of the same name."""
+    ``tail``) as a module of the same name.  ``leaves`` (dotted name ->
+    tensor) wraps given tensors instead of allocating: a rank's shares or
+    the weights it gathered (:mod:`repro_torch.serve.sharded`)."""
 
     _views = None   # {tree: [entry dicts]} inside unstacked()
 
-    def __init__(self, cfg: ArchConfig, device=None):
+    def __init__(self, cfg: ArchConfig, device=None, leaves=None):
         super().__init__()
         dev = resolve_device(device)
         dt = torch_dtype(cfg.dtype)
         for name, d in param_defs(cfg).items():
-            setattr(self, name, _tree(d, dt, dev) if isinstance(d, dict)
-                    else _param(d.shape, dt, dev))
+            if isinstance(d, dict):
+                setattr(self, name, _tree(d, dt, dev, leaves, f"{name}."))
+            elif leaves is None:
+                setattr(self, name, _param(d.shape, dt, dev))
+            else:
+                setattr(self, name,
+                        nn.Parameter(leaves[name], requires_grad=False))
 
     def _entry(self, tree: str, i: int) -> dict:
         if self._views is not None:
@@ -345,28 +374,42 @@ def init_params(cfg: ArchConfig, seed: int = 0, device=None
     41 GB).  The bits differ from the reference's (another generator);
     :mod:`repro_torch.bridge` copies reference parameters in exactly."""
     params = params_class(cfg)(cfg, device)
-    dev = params.embed.device
-    gen = torch.Generator(device=dev).manual_seed(seed)
     named = dict(params.named_parameters())
     with torch.no_grad():
-        for name, d, stacked in _flat_defs(param_defs(cfg)):
+        for name, i, v in draw_params(cfg, seed, params.embed.device):
             t = named[name]
-            if d.scale == 0.0:
-                t.zero_()
-                continue
-            narrow = len(d.shape) == 1 or (d.shape[-1] <= 64
-                                           and len(d.shape) == 2)
-            for part in (t.unbind(0) if stacked else (t,)):
-                v = torch.empty(part.shape, dtype=torch.float32, device=dev)
-                if narrow:
-                    v.normal_(0.0, 0.02 * d.scale, generator=gen)
-                else:
-                    nn.init.trunc_normal_(v, 0.0, 1.0, -2.0, 2.0,
-                                          generator=gen)
-                    v.mul_(d.scale / math.sqrt(d.shape[-2]))
+            part = t if i is None else t[i]
+            if v is None:
+                part.zero_()
+            else:
                 part.copy_(v)
-                del v   # before the next layer's draw is allocated
     return params
+
+
+def draw_params(cfg: ArchConfig, seed: int, device):
+    """:func:`init_params`' draws in order, one leaf or one layer of a
+    stack at a time: ``(dotted name, layer index or None, float32 values
+    or None for a zero leaf)``.  The next draw is allocated only after the
+    caller has taken the last, so a caller that keeps a share of each
+    (:func:`repro_torch.serve.sharded.init_params_sharded`) never holds a
+    whole stack."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    for name, d, stacked in _flat_defs(param_defs(cfg)):
+        if d.scale == 0.0:
+            yield name, None, None
+            continue
+        narrow = len(d.shape) == 1 or (d.shape[-1] <= 64
+                                       and len(d.shape) == 2)
+        for i in (range(d.shape[0]) if stacked else (None,)):
+            shape = d.shape[1:] if stacked else d.shape
+            v = torch.empty(shape, dtype=torch.float32, device=device)
+            if narrow:
+                v.normal_(0.0, 0.02 * d.scale, generator=gen)
+            else:
+                nn.init.trunc_normal_(v, 0.0, 1.0, -2.0, 2.0, generator=gen)
+                v.mul_(d.scale / math.sqrt(d.shape[-2]))
+            yield name, i, v
+            del v   # before the next layer's draw is allocated
 
 
 # =========================================================================

@@ -175,6 +175,31 @@ class DontCareMonitor:
         self._levels = float((1 << self.w_in) - 1)
         # key -> int64 [hits, lookups, calls] on the device
         self._counts: dict[str, torch.Tensor] = {}
+        self._mesh = None
+        self._split_kinds: tuple = ()
+
+    def bind_mesh(self, mesh, split_kinds: tuple = ()) -> None:
+        """Count under a mesh: each data rank counts its own rows, and
+        :meth:`counts` sums the ranks' hits and lookups over the data axes
+        (over the model axis too for ``split_kinds``, the sites whose
+        inputs split over it: the experts of an expert-parallel moe), so
+        the sums equal a single-device run's on the same batches.  Every
+        rank then reads the counters at the same points (a collective)."""
+        self._mesh = mesh
+        self._split_kinds = tuple(split_kinds)
+
+    def _sum_ranks(self, keys: list, stacked: torch.Tensor) -> torch.Tensor:
+        from repro_torch.nn.sharding import DP_AXES, TP_AXIS, all_reduce
+
+        hl = stacked[:, :2].contiguous()
+        for a in DP_AXES:
+            all_reduce(hl, self._mesh, a)
+        split = [i for i, k in enumerate(keys)
+                 if _split_key(k)[0] in self._split_kinds]
+        if split:
+            rows = hl[split].contiguous()
+            hl[split] = all_reduce(rows, self._mesh, TP_AXIS)
+        return torch.cat([hl, stacked[:, 2:]], dim=1)
 
     # -- context management --------------------------------------------------
     def __enter__(self) -> "DontCareMonitor":
@@ -261,7 +286,10 @@ class DontCareMonitor:
         keys = [k for k in self._counts]
         if not keys:
             return {}
-        host = torch.stack([self._counts[k] for k in keys]).cpu().tolist()
+        stacked = torch.stack([self._counts[k] for k in keys])
+        if self._mesh is not None:
+            stacked = self._sum_ranks(keys, stacked)
+        host = stacked.cpu().tolist()
         return {k: tuple(v) for k, v in zip(keys, host) if v[2] > 0}
 
     @property

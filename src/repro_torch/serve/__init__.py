@@ -1,7 +1,8 @@
 """Serving runtime of the port: prefill, decode, prefill replay, the KV
 cache, the decode step captured in a CUDA graph, the continuous batcher,
 the compressed-activation serving plans, and the serving control plane
-(hot reload, degradation ladder; fault injection in :mod:`.faults`)."""
+(hot reload, degradation ladder; fault injection in :mod:`.faults`), and
+sharded serving on a mesh of ranks (:mod:`.sharded`)."""
 from .batching import ContinuousBatcher, Request
 from .decode import decode_start, decode_step, prefill, prefill_replay
 from .degrade import CompositeSupervisor, DegradationLadder
@@ -16,6 +17,14 @@ from .plans import (
     verify_backend_equivalence,
 )
 from .reload import PlanReloader, ReloadRecord
+from .sharded import (
+    PlacementPolicy,
+    ShardedServe,
+    place_tables,
+    plan_placement_report,
+    serve_cache_shardings,
+    serve_param_shardings,
+)
 from .stacked import MultiSiteSlabs, StackedPlanArrays, tables_nbytes
 
 __all__ = ["prefill", "decode_step", "decode_start", "prefill_replay",
@@ -25,4 +34,7 @@ __all__ = ["prefill", "decode_step", "decode_start", "prefill_replay",
            "build_serving_plans",
            "greedy_decode", "verify_backend_equivalence", "MultiSiteSlabs",
            "StackedPlanArrays", "tables_nbytes", "CompositeSupervisor",
-           "DegradationLadder", "PlanReloader", "ReloadRecord"]
+           "DegradationLadder", "PlanReloader", "ReloadRecord",
+           "ShardedServe", "PlacementPolicy", "place_tables",
+           "plan_placement_report", "serve_param_shardings",
+           "serve_cache_shardings"]

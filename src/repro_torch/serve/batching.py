@@ -28,8 +28,15 @@ on the card), and a tick takes the monitored one on every
 replay prefill is T calls of the step here, where the reference's is one
 program traced under the monitor, so the replay runs the monitored step
 for every prompt token: per-key lookups then equal the reference's for
-the same traffic.  Sharded serving (``mesh``) is ROADMAP queue A item
-11.
+the same traffic.
+
+With a ``mesh`` (:mod:`repro_torch.launch.mesh`) every rank runs the same
+scheduler over the same requests; the pool's rows split over the data
+axis (B / dp slots a rank, in order), the steps are a
+:class:`~.sharded.ShardedServe`'s (eager: gloo collectives cannot be
+captured), each tick gathers the weights once, and the ranks' next tokens
+are gathered over the data axis so that every rank's scheduler sees every
+slot's token.
 
 The batcher serves the dense and moe families and refuses the others
 (:data:`REFUSED`), whose reference batcher answers wrongly: its snapshot
@@ -48,6 +55,7 @@ the reference.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import time
@@ -130,11 +138,8 @@ class ContinuousBatcher:
             raise NotImplementedError(
                 f"ContinuousBatcher serves the dense and moe families, not "
                 f"{cfg.family!r}: {REFUSED[cfg.family]}")
-        if mesh is not None:
-            raise NotImplementedError(
-                "ContinuousBatcher: sharded serving (mesh) is not yet "
-                "ported to repro_torch (ROADMAP queue A, item 11)")
         self.cfg = cfg
+        self.mesh = mesh
         self.b = batch_size
         self.max_seq = max_seq
         self.eos = eos_token
@@ -150,11 +155,21 @@ class ContinuousBatcher:
             cfg, batch_size, max_seq, dtype=torch.bfloat16,
             device=self.device, kv_dtype="int8" if kv_dtype == "int8"
             else None)
+        self._rows = list(range(batch_size))   # the pool rows held here
+        self._serve = None
+        if mesh is not None:
+            from .sharded import batch_placement
+
+            self._rows = batch_placement(
+                mesh, {"i": torch.arange(batch_size)})["i"].tolist()
         self._step = self._step_plain = None
         # the monitored and the plain step capture into one memory pool
         self._pool = (torch.cuda.graph_pool_handle()
                       if self.device.type == "cuda" else None)
         self._build_step_fns()
+        if mesh is not None:
+            self.params = self._serve.place_params(params)
+            self.cache = self._serve.place_cache(self.cache)
         self.slots = [_Slot() for _ in range(batch_size)]
         self.queue: deque[Request] = deque()
         self.finished: list[Request] = []
@@ -172,6 +187,18 @@ class ContinuousBatcher:
         for step in (self._step, self._step_plain):
             if step is not None and hasattr(step, "reset"):
                 step.reset()
+        if self.mesh is not None:
+            from .sharded import ShardedServe
+
+            serve = self._serve = ShardedServe(
+                self.cfg, self.mesh, self.lut_tables, kv_dtype=self.kv_dtype)
+            self.lut_tables = serve.tables
+            self._step = self._step_plain = (
+                lambda cache, toks, pos: serve.decode(self.params, cache,
+                                                      toks, pos))
+            self._replay = lambda cache, toks: serve.replay(
+                self.params, cache, toks, 0)
+            return
         self._step = decode_fn(self.params, self.cfg, self.lut_tables,
                                pool=self._pool)
         self._step_plain = decode_fn(self.params, self.cfg,
@@ -275,7 +302,30 @@ class ContinuousBatcher:
                     self._replay_slot(i, slot)
 
     def _tokens(self, columns: np.ndarray) -> torch.Tensor:
-        return torch.as_tensor(columns).to(self.device)
+        """This rank's rows of the pool's token columns, on its device."""
+        return torch.as_tensor(columns[self._rows]).to(self.device)
+
+    def _local(self, rows: list[int]) -> list[int]:
+        """This rank's cache rows among the pool rows ``rows``."""
+        mine = {r: i for i, r in enumerate(self._rows)}
+        return [mine[r] for r in rows if r in mine]
+
+    def _next_tokens(self, logits: torch.Tensor) -> list[int]:
+        """The greedy next token of every pool row, from this rank's
+        rows' last-position logits (gathered over the data axis under a
+        mesh)."""
+        nxt = torch.argmax(logits[:, -1], -1)
+        if self.mesh is not None:
+            from .sharded import gather_rows
+
+            nxt = gather_rows(nxt, self.mesh)
+        return nxt.tolist()
+
+    def _tick(self):
+        """One gather of the weights for a tick's steps under a mesh."""
+        if self._serve is None:
+            return contextlib.nullcontext()
+        return self._serve.session(self.params)
 
     def _replay_slot(self, i: int, slot: _Slot) -> None:
         """Ingest an admitted slot's whole prompt through the replayed
@@ -296,7 +346,7 @@ class ContinuousBatcher:
         tokens[i] = toks
         # the replay writes positions [0, n) for EVERY row; rows of other
         # slots must keep their entries: snapshot and restore
-        others = [j for j in range(self.b) if j != i]
+        others = self._local([j for j in range(self.b) if j != i])
         snap = {name: self.cache[name][:, others, :n]
                 for name in self.cache if name in _KV}
         logits, _ = self._guarded(lambda: self._replay(
@@ -304,13 +354,14 @@ class ContinuousBatcher:
         if others:
             for name, before in snap.items():
                 self.cache[name][:, others, :n] = before
+        nxt = self._next_tokens(logits)
         slot.pos = n
         slot.pending = []
         self.replayed_tokens += n
         if truncated:
             self._finish(slot)
             return
-        self._emit(req, int(torch.argmax(logits[i, -1])))
+        self._emit(req, int(nxt[i]))
         if (slot.pos >= self.max_seq or len(req.out) >= req.max_new
                 or req.out[-1] == self.eos):
             self._finish(slot)
@@ -327,9 +378,26 @@ class ContinuousBatcher:
         thins the per-tick records, never the gauges/counters."""
         t = obs.current()
         t0 = time.monotonic() if t is not None else 0.0
-        self._admit()
-        if self.n_active == 0:
-            return
+        with self._tick():
+            self._admit()
+            if self.n_active == 0:
+                return
+            self._step_slots()
+        self.steps += 1
+        if t is not None:
+            r = t.registry
+            r.counter("batcher_ticks_total").inc()
+            r.gauge("batcher_queue_depth").set(len(self.queue))
+            r.gauge("batcher_active_slots").set(self.n_active)
+            r.gauge("batcher_slot_utilization").set(self.utilization)
+            r.histogram("batcher_tick_s", "scheduler tick duration"
+                        ).observe(time.monotonic() - t0)
+            t.event("tick", sampled=True, tick=self.steps,
+                    queued=len(self.queue), active=self.n_active,
+                    dur_s=round(time.monotonic() - t0, 6))
+
+    def _step_slots(self) -> None:
+        """A tick's step calls: one per distinct slot position."""
         tokens = np.zeros((self.b, 1), np.int64)
         for i, slot in enumerate(self.slots):
             if slot.req is None:
@@ -354,7 +422,7 @@ class ContinuousBatcher:
                 f"(max_seq={self.max_seq}); eviction failed to fire")
             # the step writes cache index `pos` for EVERY row; rows outside
             # this position group must keep their entry
-            others = [i for i in range(self.b) if i not in idxs]
+            others = self._local([i for i in range(self.b) if i not in idxs])
             snap = {name: self.cache[name][:, others, pos]
                     for name in self.cache if name in _KV}
             # the step is looked up inside the thunk: a supervisor's fault
@@ -364,7 +432,7 @@ class ContinuousBatcher:
             if others:
                 for name, before in snap.items():
                     self.cache[name][:, others, pos] = before
-            nxt = torch.argmax(logits[:, -1], -1).tolist()
+            nxt = self._next_tokens(logits)
             for i in idxs:
                 slot = self.slots[i]
                 req = slot.req
@@ -384,18 +452,6 @@ class ContinuousBatcher:
                             and (len(req.out) >= req.max_new
                                  or req.out[-1] == self.eos))):
                     self._finish(slot)
-        self.steps += 1
-        if t is not None:
-            r = t.registry
-            r.counter("batcher_ticks_total").inc()
-            r.gauge("batcher_queue_depth").set(len(self.queue))
-            r.gauge("batcher_active_slots").set(self.n_active)
-            r.gauge("batcher_slot_utilization").set(self.utilization)
-            r.histogram("batcher_tick_s", "scheduler tick duration"
-                        ).observe(time.monotonic() - t0)
-            t.event("tick", sampled=True, tick=self.steps,
-                    queued=len(self.queue), active=self.n_active,
-                    dur_s=round(time.monotonic() - t0, 6))
 
     def run(self, max_ticks: int = 10000,
             stall_ticks: int = 4) -> list[Request]:

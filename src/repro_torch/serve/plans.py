@@ -1,5 +1,5 @@
 """Compressed-serving plans: network CompressReport -> decode-ready tables
-(PyTorch port of the reference's ``serve/plans.py``, single device).
+(PyTorch port of the reference's ``serve/plans.py``).
 
 1. **Site enumeration** — every activation site of the architecture is
    tabulated and calibration-quantized into a
@@ -19,8 +19,8 @@
    ``kernel="fused"``.
 
 The host-side arrays are byte-identical to the reference's for the same
-plans; the two backends give the same tokens
-(:func:`verify_backend_equivalence`).
+plans; the two backends give the same tokens, and under a mesh the sharded
+program the single-device one's (:func:`verify_backend_equivalence`).
 """
 from __future__ import annotations
 
@@ -174,7 +174,8 @@ class ServingPlans:
     def tables_for_model(self, backend: str | None = None,
                          plan_exec: str | None = None,
                          packed: bool | None = None,
-                         kernel: str | None = None, device=None) -> dict:
+                         kernel: str | None = None, device=None,
+                         mesh=None, policy=None) -> dict:
         """The ``lut_tables`` dict threaded through prefill/decode.
 
         ``packed`` defaults to True exactly on the ``"cuda"`` backend (the
@@ -183,7 +184,13 @@ class ServingPlans:
         :class:`~repro_torch.serve.stacked.MultiSiteSlabs` super-slab,
         served by the multi-site kernel K4 (and sliced statically by K3
         under ``cfg.lut_fuse``) on ``"cuda"``, and by their plain versions
-        on ``"gather"``; it needs stacked execution."""
+        on ``"gather"``; it needs stacked execution and no mesh (the
+        single-device fast path).
+
+        With a ``mesh``, the tables come back placed for this rank per
+        :mod:`repro_torch.serve.sharded`'s ``policy``: small tables
+        replicated, large stacked slabs split by layer over the data axis
+        (a collective-free cut; the step gathers them)."""
         exec_ = plan_exec or self.plan_exec
         if exec_ not in self._FORMS:
             raise ValueError(
@@ -208,6 +215,10 @@ class ServingPlans:
             raise ValueError(
                 "tables_for_model: kernel='fused' needs plan_exec='stacked' "
                 "(the super-slab is layer-indexed)")
+        if kernel == "fused" and mesh is not None:
+            raise ValueError(
+                "tables_for_model: kernel='fused' is the single-device "
+                "fast path — build without a mesh")
         dev = resolve_device(device)
         form = self._FORMS[exec_]
         tables = {
@@ -226,6 +237,10 @@ class ServingPlans:
                     grouped).entry(device=dev)
                 for k in grouped:
                     tables["sites"][k] = {"multi": k}
+        if mesh is not None:
+            from .sharded import place_tables
+
+            tables, _, _ = place_tables(tables, mesh, policy)
         return tables
 
     def table_bytes(self, plan_exec: str | None = None,
@@ -248,8 +263,10 @@ class ServingPlans:
     def fused_available(self, plan_exec: str | None = None) -> bool:
         """True when these plans can serve the multi-site kernel K4
         (stacked execution and at least one per-layer site): the top rung
-        of the serving degradation ladder (:mod:`.degrade`).  The port
-        serves one device, so no mesh enters the rule."""
+        of the serving degradation ladder (:mod:`.degrade`), on one
+        device.  Under a mesh :func:`~repro_torch.serve.sharded.
+        place_tables` refuses the super-slab, so every site goes through
+        K1 / K2."""
         exec_ = plan_exec or self.plan_exec
         return exec_ == "stacked" and self.per_layer
 
@@ -459,20 +476,35 @@ def greedy_decode(cfg, params, prompt, n_new: int,
     with its ``"tokens"``, decoding then from ``n_patches + T``; an
     encdec model's ``"frames"``).
     The tokens stay on the device until the end (one host sync)."""
+    return _greedy(cfg, params, prompt, n_new, max_seq, lut_tables)[0]
+
+
+def _greedy(cfg, params, prompt, n_new: int, max_seq: int | None = None,
+            lut_tables=None, serve=None):
+    """``(tokens (B, n_new) as lists, last-position logits of the prefill
+    and of every step)``; with ``serve`` (a
+    :class:`~repro_torch.serve.sharded.ShardedServe`) through its sharded
+    steps on this rank's rows."""
     from .decode import decode_start, decode_step, prefill
 
     batch = prompt if isinstance(prompt, dict) else {"tokens": prompt}
     t = decode_start(cfg, batch)
     max_seq = max_seq or (t + n_new)
-    logits, cache = prefill(params, cfg, batch, max_seq, lut_tables)
+    if serve is not None:
+        logits, cache = serve.prefill(params, batch, max_seq)
+        step = lambda c, tk, pos: serve.decode(params, c, tk, pos)
+    else:
+        logits, cache = prefill(params, cfg, batch, max_seq, lut_tables)
+        step = lambda c, tk, pos: decode_step(params, cfg, c, tk, pos,
+                                              lut_tables)
     tok = logits[:, -1].argmax(-1)[:, None]
-    toks = []
+    toks, seen = [], [logits[:, -1]]
     for i in range(n_new):
         toks.append(tok)
-        logits, cache = decode_step(params, cfg, cache, tok, t + i,
-                                    lut_tables)
+        logits, cache = step(cache, tok, t + i)
+        seen.append(logits[:, -1])
         tok = logits[:, -1].argmax(-1)[:, None]
-    return torch.cat(toks, dim=1).tolist()
+    return torch.cat(toks, dim=1).tolist(), seen
 
 
 def verify_backend_equivalence(
@@ -483,12 +515,32 @@ def verify_backend_equivalence(
     n_new: int,
     max_seq: int | None = None,
     plan_exec: str | None = None,
+    mesh=None,
+    table_overrides: dict | None = None,
+    backends: tuple[str, ...] = BACKENDS,
 ) -> list[list[int]]:
-    """Decode ``n_new`` greedy tokens with the ``gather`` backend and with
-    the ``cuda`` kernels on the parameters' device and assert they agree
-    token for token.  Returns the ``(B, n_new)`` token lists.  ``prompt``
-    may be a batch dict of numpy arrays for a family whose prefill takes
-    more than tokens (vlm patches, encdec frames), as in the reference.
+    """Decode ``n_new`` greedy tokens with each of ``backends`` (the
+    ``gather`` functions and the ``cuda`` kernels by default) on the
+    parameters' device and assert they agree token for token.  Returns the
+    first backend's ``(B, n_new)`` token lists.  The ``cuda`` backend
+    needs the card (it raises on a CPU tensor), so a CPU caller names
+    ``backends=("gather",)``: one backend is then held against no other,
+    only, under a ``mesh``, its sharded run against its single-device one.
+    ``prompt`` may be a batch dict of numpy arrays for a family whose
+    prefill takes more than tokens (vlm patches, encdec frames), as in the
+    reference.
+
+    With ``mesh`` (every rank calls it, with the full ``params``), each
+    backend also serves through :class:`~repro_torch.serve.sharded.
+    ShardedServe` with policy-placed tables, and each rank asserts its
+    rows' greedy tokens equal the single-device program's on the whole
+    batch, and their per-step logits bit for bit wherever each data rank
+    holds at least 2 rows (within ``atol=1e-4`` otherwise, where a one-row
+    product may take another code path), as the reference does.  Holding
+    the sharded run against the single-device one (not the two sharded
+    backends against each other) is what catches a mis-replicated table:
+    a failure on any rank raises on every rank.  ``table_overrides`` maps
+    a backend to placed tables for its sharded run only.
 
     The matmul-epilogue form (``cfg.lut_fuse``) is not held to this: its
     GEMM sums in another order than ``torch.matmul``, so a GEMM output at a
@@ -499,13 +551,67 @@ def verify_backend_equivalence(
     batch = {k: torch.as_tensor(np.asarray(v), device=dev)
              for k, v in raw.items()}
     batch["tokens"] = batch["tokens"].long()
+    unknown = set(backends) - set(BACKENDS)
+    if not backends or unknown:
+        raise ValueError(f"verify_backend_equivalence: backends {backends} "
+                         f"(expected a non-empty subset of {BACKENDS})")
     outs = {}
-    for backend in BACKENDS:
+    for backend in backends:
         tables = plans.tables_for_model(backend=backend, plan_exec=plan_exec,
                                         device=dev)
-        outs[backend] = greedy_decode(cfg, params, batch, n_new, max_seq,
-                                      tables)
-    for r, (a, b) in enumerate(zip(outs["gather"], outs["cuda"])):
-        assert a == b, (
-            f"backend divergence on request {r}: gather={a} cuda={b}")
-    return outs["gather"]
+        outs[backend], logits = _greedy(cfg, params, batch, n_new, max_seq,
+                                        tables)
+        if mesh is not None:
+            _verify_sharded(cfg, params, plans, batch, n_new, max_seq,
+                            plan_exec, mesh, backend, outs[backend], logits,
+                            (table_overrides or {}).get(backend))
+    first = backends[0]
+    for other in backends[1:]:
+        for r, (a, b) in enumerate(zip(outs[first], outs[other])):
+            assert a == b, (f"backend divergence on request {r}: "
+                            f"{first}={a} {other}={b}")
+    return outs[first]
+
+
+def _verify_sharded(cfg, params, plans, batch, n_new, max_seq, plan_exec,
+                    mesh, backend, toks, logits, s_tables) -> None:
+    """One backend's sharded run against its single-device ``toks`` /
+    ``logits`` on this rank's rows (see :func:`verify_backend_equivalence`);
+    raises on every rank if any rank diverges."""
+    from .sharded import ShardedServe, all_ranks_ok, batch_placement
+
+    if s_tables is None:
+        s_tables = plans.tables_for_model(backend=backend,
+                                          plan_exec=plan_exec,
+                                          device=params.embed.device,
+                                          mesh=mesh)
+    serve = ShardedServe(cfg, mesh, s_tables)
+    s_toks, s_logits = _greedy(cfg, serve.place_params(params),
+                               serve.place_batch(batch), n_new, max_seq,
+                               serve=serve)
+    b = batch["tokens"].shape[0]
+    rows = batch_placement(mesh, {"i": torch.arange(b)})["i"].tolist()
+    n_data = b // len(rows)
+    bits = n_data == 1 or (b % n_data == 0 and b // n_data >= 2)
+    err = None
+    if s_toks != [toks[r] for r in rows]:
+        err = (f"sharded {backend} decode diverges from the single-device "
+               f"reference on rows {rows}: {s_toks} != "
+               f"{[toks[r] for r in rows]}")
+    for i, (ref, got) in enumerate(zip(logits, s_logits)):
+        if err is not None:
+            break
+        ref = ref[rows]
+        diff = float((ref.float() - got.float()).abs().max())
+        if bits and not torch.equal(ref, got):
+            err = (f"sharded {backend} logits not bit-identical to the "
+                   f"single-device reference at step {i} on rows {rows} "
+                   f"(max |diff| {diff})")
+        elif not bits and not diff <= 1e-4:
+            err = (f"sharded {backend} logits diverge from the "
+                   f"single-device reference at step {i} on rows {rows} "
+                   f"beyond ulp tolerance (max |diff| {diff})")
+    if not all_ranks_ok(mesh, err is None):
+        raise AssertionError(
+            err or f"sharded {backend} decode diverges from the "
+                   f"single-device reference on another rank")

@@ -531,21 +531,27 @@ def test_captured_step_is_for_the_card(model):
 
 
 def test_batcher_swap_tables_and_mesh(model, lut):
-    """``swap_tables`` rebuilds the step between ticks and serves on;
-    sharded serving is refused with its queue item."""
+    """``swap_tables`` rebuilds the step between ticks and serves on, and
+    on a mesh (one rank here: the sharded steps, rebuilt by the swap; more
+    ranks in tests/test_torch_sharded.py) the same outputs come out."""
+    from repro_torch.launch.mesh import make_host_mesh
+
     _, ct, _, pt = model
-    rng = np.random.default_rng(15)
-    b = ContinuousBatcher(ct, pt, batch_size=2, max_seq=16, eos_token=-1)
-    for i in range(3):
-        b.submit(Request(rid=i, prompt=list(rng.integers(1, 256, 4)),
-                         max_new=3))
-    b.step()
-    b.swap_tables(lut[1], cfg=lut[3])
-    done = b.run()
-    assert len(done) == 3 and b.metrics()["table_swaps"] == 1
-    assert b.metrics()["dropped"] == 0
-    with pytest.raises(NotImplementedError, match="item 11"):
-        ContinuousBatcher(ct, pt, batch_size=1, max_seq=8, mesh=object())
+    outs = {}
+    for mesh in (None, make_host_mesh(1, 1, device="cpu")):
+        rng = np.random.default_rng(15)
+        b = ContinuousBatcher(ct, pt, batch_size=2, max_seq=16, eos_token=-1,
+                              mesh=mesh)
+        for i in range(3):
+            b.submit(Request(rid=i, prompt=list(rng.integers(1, 256, 4)),
+                             max_new=3))
+        b.step()
+        b.swap_tables(lut[1], cfg=lut[3])
+        done = b.run()
+        assert len(done) == 3 and b.metrics()["table_swaps"] == 1
+        assert b.metrics()["dropped"] == 0
+        outs[mesh is None] = {r.rid: r.out for r in done}
+    assert outs[True] == outs[False]
 
 
 @pytest.mark.parametrize("arch, family, why", [

@@ -97,6 +97,7 @@ def _entry_points(tmp_path):
     from repro_torch.launch import serve as launcher
     from repro_torch.launch import train as train_launcher
     from repro_torch.launch import tune as tune_launcher
+    from repro_torch.launch.mesh import run_ranks
     from repro_torch.serve.degrade import DegradationLadder
     from repro_torch.train import TrainConfig, init_train_state
     from repro_torch.nn import init_params
@@ -136,6 +137,9 @@ def _entry_points(tmp_path):
         "launcher --reload-plan": lambda: launcher.main(
             ["--arch", "qwen3-0.6b", "--lut-act", "--reload-plan", path]),
         "bench run": lambda: bench_run.main([]),
+        "launcher --mesh": lambda: launcher.main(
+            ["--arch", "qwen3-0.6b", "--mesh", "2,2"]),
+        "mesh ranks": lambda: run_ranks(print, dp=2, tp=2),
     }
 
 
@@ -146,7 +150,8 @@ def _entry_points(tmp_path):
                                   "quickstart", "init_train_state",
                                   "train launcher", "tune launcher",
                                   "trained_params", "degradation ladder",
-                                  "launcher --reload-plan", "bench run"])
+                                  "launcher --reload-plan", "bench run",
+                                  "launcher --mesh", "mesh ranks"])
 def test_entry_point_without_device_needs_the_card(name, tmp_path):
     """Called without ``device`` on a machine with no CUDA, an entry point
     raises instead of running on the CPU."""
