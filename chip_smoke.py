@@ -124,8 +124,9 @@ Phases (any failure exits non-zero; nothing is caught):
      a step: ``expert`` and the shared experts' ``mlp``), (b) unrolled
      (K2), (d) ``--lut-fuse`` (K3 on the shared MLP, the expert site
      through K4), (f) ``--lut-sites all --lut-fuse`` (K3 + K4) and (k)
-     ``--kv-int8``, then ``qwen3-moe-30b-a3b`` (48 layers, 128 experts
-     top-8 at d_expert 768, no shared expert) exact and (a); each form
+     ``--kv-int8``, then ``qwen3-moe-30b-a3b`` (24 of its 48 layers,
+     ``SERVE_DEPTH``; 128 experts top-8 at d_expert 768, no shared expert)
+     exact and (a); each form
      captured and eager as in phase 5, (a) and (b) token-identical to the
      gather backend, every form launching the LUT kernels as often as its
      sites imply; every K1 / K2 / K4 call of a prefill and a decode step
@@ -139,15 +140,16 @@ Phases (any failure exits non-zero; nothing is caught):
      (exact and (a));
   16. (run after phase 15, once the moe models are freed) the vlm and
      hybrid families at full width, random weights from seed 0, bf16, the
-     same 4 x 64 x 16: ``phi-3-vision-4.2b`` (32 layers, d_model 3072, 32
-     heads x 96, d_ff 8192 swiglu, 256 patch embeddings from
+     same 4 x 64 x 16: ``phi-3-vision-4.2b`` (16 of 32 layers, d_model
+     3072, 32 heads x 96, d_ff 8192 swiglu, 256 patch embeddings from
      ``model_batch`` before each prompt, so decoding starts at position
      256 + 64) in forms exact, (a), (b), (e) ``--lut-sites all`` (every
      site through K1) and (f) ``--lut-sites all --lut-fuse`` (K3 + K4),
-     then ``recurrentgemma-9b`` (38 layers: 12 groups of (rec, rec, attn)
-     and a 2-layer rec tail, d_model = d_rnn 4096, 16 heads x 256 with one
-     KV head, window 2048, d_ff 12288 geglu) in forms exact, (a), (b), (d)
-     ``--lut-fuse`` (K3 with the gelu table) and (f); each form captured
+     then ``recurrentgemma-9b`` (14 of 38 layers: 4 of its 12 groups of
+     (rec, rec, attn) and its 2-layer rec tail, d_model = d_rnn 4096, 16
+     heads x 256 with one KV head, window 2048, d_ff 12288 geglu) in
+     forms exact, (a), (b), (d) ``--lut-fuse`` (K3 with the gelu table)
+     and (f); each form captured
      and eager as in phase 5 (the hybrid's nested state compared tensor by
      tensor), (a), (b) and (e) token-identical to the gather backend, every
      form launching the LUT kernels as often as its sites imply; one
@@ -169,10 +171,11 @@ Phases (any failure exits non-zero; nothing is caught):
      (K3 without a gate), (e) ``--lut-sites all`` and (f) ``--lut-sites all
      --lut-fuse`` (K4 on the cross-attention's scores over the 1500
      frames), its encoder timed apart from its decoder prefill; then
-     ``phi4-mini-3.8b`` and ``nemotron-4-15b`` (relu2 without a gate, d_ff
-     24576) in forms exact, (a), (b) and (d), and ``deepseek-67b`` with its
-     depth cut to 40 of 95 layers (134.9 GB in bf16 at full depth) in forms
-     exact and (a); each form captured and eager as in phase 5 (whisper's
+     ``phi4-mini-3.8b`` and ``nemotron-4-15b`` (16 of 32 layers; relu2
+     without a gate, d_ff 24576) in forms exact, (a), (b) and (d), and
+     ``deepseek-67b`` with its depth cut to 20 of 95 layers (134.9 GB in
+     bf16 at full depth) in forms exact and (a) (the depth cuts:
+     ``SERVE_DEPTH``); each form captured and eager as in phase 5 (whisper's
      cross K/V as prefill wrote them, bit for bit), (a), (b), (e)
      token-identical to the gather backend, every form launching the LUT
      kernels as often as its sites imply; every K1 / K2 / K4 call of a
@@ -191,8 +194,9 @@ Phases (any failure exits non-zero; nothing is caught):
      state saved and restored bit for bit,
      5 steps each with ``--remat`` (step 0's loss bit-identical),
      ``--microbatch 2`` and ``--grad-compress``, and a ``Supervisor`` run
-     (``launch.train.run``) of 10 steps checkpointing every 5 (after its
-     starting state) whose step 7 raises once, ending
+     (``launch.train.run``, the widths at ``P18_SUP_DEPTH`` layers) of 10
+     steps checkpointing every 5 (after its starting state) whose step 7
+     raises once, ending
      bit-identical (parameters, moments, count, step) to an uninterrupted
      10-step run; K8b (K8's backward) held against its plain version at
      (4, 256, 40, 64) (dq, dk, dv, du within 1e-4 of their largest entry,
@@ -291,7 +295,8 @@ Phases (any failure exits non-zero; nothing is caught):
      full-width qwen3-0.6b on a 2x2 mesh through ``launch/serve --mesh
      2,2`` (its ranks started by the launcher, rank 0 calibrating and
      compressing once): gspmd stacked, then through the launcher's rank
-     function ``serve_rank`` (what ``--mesh`` starts): gspmd stacked at a
+     function ``serve_rank`` (what ``--mesh`` starts), three runs one after
+     another in one start of the ranks: gspmd stacked at a
      ``PlacementPolicy`` threshold of 0 (the 28-layer slab split over
      dp=2), gspmd unrolled and shard_map stacked, the cuda backend, each
      rank's first 8 served K1 (stacked) or K2 (unrolled) calls bit for
@@ -314,9 +319,40 @@ Phases (any failure exits non-zero; nothing is caught):
      ``table_placement`` a site and the ``drift`` rows, whose counts,
      summed over the ranks, equal the single-device runs' on the same
      rows.
+  23. sharded training (``repro_torch.train`` on a mesh) through
+     ``launch/train``'s functions (``setup(args, mesh=...)``, ``run``) on
+     ranks that share ``cuda:0`` over gloo, bf16, random weights from seed
+     0, each part held bit for bit against its single-device counterpart
+     (run first, under PyTorch's default matmul settings, the ranks' own;
+     every rank's shares held against the single-device state cut to that
+     mesh by ``bits_hash``, a 128-bit position-weighted sum of the bits
+     computed on the card, so no state is gathered or moved to compare it):
+     (a) full-width qwen3-0.6b on 2x2 with ``--remat``, phase 18's 8 x 512
+     tokens, 3 steps, against ``--microbatch 2``: losses, gradient norms and
+     the state after step 3, the state at step 2 saved as a checkpoint
+     (rank 0 writes full leaves); a rank's state bytes and card
+     memory at rest against one device's, its peak, its step split into
+     weight gather, forward and backward, gradient reduction and update;
+     (b) ``--grad-compress`` on 2x2, 3 steps: the first loss (a)'s, the
+     losses falling, step 1's mean gradient of ``P23_RECOUNT``'s leaves
+     on every rank equal to the ranks' int8 codes summed and scaled on the
+     host; (c) (a)'s checkpoint restored onto 1x1 (the files' crc32
+     verified) and 2x1, each the single-device state after 2 steps, step 3
+     on 2x1 (a)'s; (d) a supervised run on 2 ranks
+     (``P23_SUP``), rank 1 failing once at the end of a step: every rank
+     restores and the end state is the uninterrupted single-device
+     ``--microbatch 2`` run's; (e) rwkv6-3b
+     at its published widths, 4 of 32 layers (``P23_RWKV``), ``--remat``,
+     4 x 256, dp 2, 3 steps against ``--microbatch 2``, each rank's first
+     2 K8 and 2 K8b launches held against ``wkv_chunked_plain`` /
+     ``wkv_backward_plain`` (phase 11's and 18's tolerances), K8 8 and K8b
+     4 launches a rank a step; (f) deepseek-moe-16b at 2 layers (phase
+     18's cut), 4 x 64, 2 steps, on 1x2 (expert parallel, against the
+     plain step) and 2x1 (against ``--microbatch 2``); (c) on one device
+     and (f) on 1x2 run in threads beside the 2x1 ranks.
 The last lines are the kernel JSON, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``; the kernels' launches include phases
-19's-22's (phase 22's summed over its ranks).  Long logs go to the
+19's-23's (phases 22's and 23's summed over their ranks).  Long logs go to the
 output directory beside the script (``OUT_DIR``: every logged line to
 ``chip_smoke.log``, phase 19's ``tune_bench/v1`` payload to
 ``tune_qwen3.json``, phase 20's obs logs and report under ``obs/``,
@@ -325,6 +361,7 @@ phase 21's results under ``bench/``).
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import contextlib
 import dataclasses
 import functools
@@ -2461,19 +2498,22 @@ def run_moe_model(launcher, dev, arch, totals, results, stamp) -> dict:
             "d": parse(lut + ["--lut-fuse"]),
             "f": parse(lut + ["--lut-sites", "all", "--lut-fuse"]),
             "k": parse(lut + ["--kv-int8"])}
+    depth, why = SERVE_DEPTH.get(arch, (None, None))
     torch.cuda.init()   # the allocator, before its peak is reset
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    cfg0, params, batch, rng = launcher.setup(args["exact"])
+    cfg0, params, batch, rng = setup_model(launcher, args["exact"], depth)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     m = cfg0.moe
     n_params = sum(p.numel() for p in params.parameters())
     out = {"arch": arch, "init_s": init_s, "n_params": n_params,
+           "n_layers": cfg0.n_layers, "depth_cut": why,
            "param_bytes": sum(p.numel() * p.element_size()
                               for p in params.parameters()),
            "peak_after_params": torch.cuda.max_memory_allocated(dev)}
-    log(f"[15] {cfg0.name}: {cfg0.n_layers} layers, d_model {cfg0.d_model}, "
+    log(f"[15] {cfg0.name}: {cfg0.n_layers} layers"
+        + (f" (cut: {why})" if depth else "") + f", d_model {cfg0.d_model}, "
         f"{cfg0.n_heads}/{cfg0.n_kv_heads} heads x {cfg0.d_head}, "
         f"{m.n_experts} experts top-{m.top_k} at d_expert {m.d_expert}, "
         f"{m.n_shared} shared, vocab {cfg0.vocab_size}, {cfg0.dtype}; "
@@ -2725,10 +2765,11 @@ def run_family_model(launcher, dev, arch, totals, results, stamp) -> dict:
             "b": parse(lut + ["--plan-exec", "unrolled"]),
             "d": parse(lut + ["--lut-fuse"]), "e": parse(lut_all),
             "f": parse(lut_all + ["--lut-fuse"])}
+    depth, why = SERVE_DEPTH.get(arch, (None, None))
     torch.cuda.init()   # the allocator, before its peak is reset
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    cfg0, params, batch, rng = launcher.setup(args["exact"])
+    cfg0, params, batch, rng = setup_model(launcher, args["exact"], depth)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     vlm = cfg0.family == "vlm"
@@ -2737,6 +2778,7 @@ def run_family_model(launcher, dev, arch, totals, results, stamp) -> dict:
         raise AssertionError(f"{arch}: decoding would start at {start}, not "
                              f"{T + cfg0.n_patches}")
     out = {"arch": arch, "init_s": init_s, "decode_start": start,
+           "n_layers": cfg0.n_layers, "depth_cut": why,
            "n_params": sum(p.numel() for p in params.parameters()),
            "param_bytes": sum(p.numel() * p.element_size()
                               for p in params.parameters()),
@@ -2745,7 +2787,8 @@ def run_family_model(launcher, dev, arch, totals, results, stamp) -> dict:
              f"(decoding from {start})" if vlm else
              f"pattern {cfg0.block_pattern}, d_rnn {cfg0.d_rnn}, window "
              f"{cfg0.local_window}")
-    log(f"[16] {cfg0.name}: {cfg0.n_layers} layers, d_model {cfg0.d_model}, "
+    log(f"[16] {cfg0.name}: {cfg0.n_layers} layers"
+        + (f" (cut: {why})" if depth else "") + f", d_model {cfg0.d_model}, "
         f"{cfg0.n_heads}/{cfg0.n_kv_heads} heads x {cfg0.d_head}, d_ff "
         f"{cfg0.d_ff} {cfg0.activation}, vocab {cfg0.vocab_size}, "
         f"{cfg0.dtype}; {shape}; {launcher.param_summary(params)}; built "
@@ -2845,11 +2888,23 @@ P17_REFS = {"exact": None, "a": "gather", "b": "gather", "e": "gather",
 # rope_table four times (sine and cosine of q and of k); the encoder
 # serves no tables
 P17_ALL_SITE_CALLS = 10
-# depth cuts, with their reason: deepseek-67b's 95 layers at d_model 8192
-# are 67.4 G parameters, 134.9 GB in bf16, and one 80 GB card holds 40 of
-# them (58.7 GB) beside the decode state and the calibration's work
-P17_DEPTH = {"deepseek-67b": (40, "95 layers are 134.9 GB in bf16; one "
-                                  "80 GB card holds 40 (58.7 GB)")}
+# depth cuts of the served models (phases 15-17), with their reason; the
+# widths stay the published ones.  deepseek-67b's 95 layers at d_model 8192
+# are 67.4 G parameters, 134.9 GB in bf16, more than one 80 GB card holds;
+# the others are cut so that the script, with phase 23, stays within its
+# 1200 s (PERF.md section 4 lists them): every check of the phases is
+# per layer or per step, so half the depth leaves each of them in place
+SERVE_TIME = "the script's 1200 s with phase 23"
+SERVE_DEPTH = {
+    "qwen3-moe-30b-a3b": (24, f"48 layers, 61.1 GB; {SERVE_TIME}"),
+    "phi-3-vision-4.2b": (16, f"32 layers; {SERVE_TIME}"),
+    "recurrentgemma-9b": (14, f"38 layers, 12 (rec, rec, attn) groups and "
+                              f"2 tail; 4 groups and the tail: "
+                              f"{SERVE_TIME}"),
+    "nemotron-4-15b": (16, f"32 layers; {SERVE_TIME}"),
+    "deepseek-67b": (20, "95 layers are 134.9 GB in bf16, more than one "
+                         f"80 GB card; 20 (29.4 GB): {SERVE_TIME}"),
+}
 P17_TAGS = {"whisper-small": "wsp", "phi4-mini-3.8b": "phi4",
             "nemotron-4-15b": "nem", "deepseek-67b": "ds67"}
 
@@ -2897,7 +2952,7 @@ def encoder_split(launcher, params, cfg, batch, reps=3) -> dict:
 
 def run_phase17_model(launcher, dev, arch, totals, results, stamp) -> dict:
     """Phase 17 for one configuration at full width (random weights from
-    seed 0, bf16; deepseek-67b's depth cut, ``P17_DEPTH``): plans from 2
+    seed 0, bf16; depth cuts in ``SERVE_DEPTH``): plans from 2
     calibration batches (``mlp``; every site for whisper's (e) / (f)); the
     forms ``P17_FORMS[arch]`` through :func:`serve_form`, each captured
     and eager (whisper's cross K/V left as prefill wrote them), with the
@@ -2920,7 +2975,7 @@ def run_phase17_model(launcher, dev, arch, totals, results, stamp) -> dict:
             "b": parse(lut + ["--plan-exec", "unrolled"]),
             "d": parse(lut + ["--lut-fuse"]), "e": parse(lut_all),
             "f": parse(lut_all + ["--lut-fuse"])}
-    depth, why = P17_DEPTH.get(arch, (None, None))
+    depth, why = SERVE_DEPTH.get(arch, (None, None))
     torch.cuda.init()   # the allocator, before its peak is reset
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
@@ -3054,6 +3109,9 @@ P18_DEPTH = {
                              "gradients and moments); 2 of 32 layers keep "
                              "the phase within its time"),
 }
+# the supervised run's depth: its three checkpoints of the full depth took
+# 44 s (4.5 GB each); phase 23 (d) runs the restart on ranks at this depth
+P18_SUP_DEPTH = 2
 P18_OTHERS = ["--full", "--batch", "4", "--seq", "64", "--steps", "2",
               "--device", "cuda"]
 
@@ -3378,13 +3436,16 @@ def run_phase18(dev, stamp, gen) -> dict:
         f"{res['qwen3 remat']['peak_gb']:.2f} GB against {q['peak_gb']:.2f} "
         f"GB without")
 
-    # a supervised run that fails once at step 7 against an uninterrupted one
+    # a supervised run that fails once at step 7 against an uninterrupted
+    # one, at P18_SUP_DEPTH layers
     args10 = tl.parse_args(P18_QWEN + ["--steps", "10"])
-    ref = tl.setup(args10)
+    sup_cfg = dataclasses.replace(get_config("qwen3-0.6b"),
+                                  n_layers=P18_SUP_DEPTH)
+    ref = tl.setup(args10, cfg=sup_cfg)
     for i in range(10):
         ref["state"], _ = ref["step"](ref["state"], ref["batch_at"](i))
     raised = []
-    s2 = tl.setup(args10)
+    s2 = tl.setup(args10, cfg=sup_cfg)
 
     def once(state, batch):
         if state["step"] == 7 and not raised:
@@ -3402,7 +3463,8 @@ def run_phase18(dev, stamp, gen) -> dict:
                              f"differs from the uninterrupted one in {bad}")
     res["supervisor"] = {"restarts": 1, "seconds": time.perf_counter() - t0,
                          "losses": out["losses"]}
-    log(f"[18] {stamp()} supervisor: 10 steps, checkpoints every 5, step 7 "
+    log(f"[18] {stamp()} supervisor ({P18_SUP_DEPTH} of 28 layers): 10 "
+        f"steps, checkpoints every 5, step 7 "
         f"raised once, resumed from step 4; parameters, moments, count and "
         f"step bit-identical to the uninterrupted run "
         f"({res['supervisor']['seconds']:.1f}s)")
@@ -4608,6 +4670,26 @@ def p22_serve_rank(mesh, argv, threshold, want):
     return dict(out, held=p22_check(recs, want))
 
 
+def p22_serve_ranks(mesh, specs) -> list:
+    """Several (a) runs, ``(argv, threshold, want)`` each, one after
+    another in one start of the ranks: each with its launch counts and
+    peak memory from zero and its seconds (``wall_s``)."""
+    import torch
+
+    from repro_torch.kernels import reset_launch_counts
+
+    out = []
+    for argv, threshold, want in specs:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(mesh.device)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        rec = p22_serve_rank(mesh, argv, threshold, want)
+        out.append(dict(rec, wall_s=time.perf_counter() - t0))
+    return out
+
+
 def p22_batcher_rank(mesh, tuned_path, prompts):
     """Phase 22 (c) on one rank of the 2x2 mesh: qwen3-0.6b's shares drawn
     leaf by leaf, form (a)'s tables from the frozen plans, the batcher over
@@ -4778,18 +4860,27 @@ def run_phase22(dev, stamp, parts=("a", "c", "b")) -> dict:
         f"{full_bytes} parameter bytes, tables {checksum[:16]}")
 
     if "a" in parts:
-        # ---- (a) + (d): qwen3-0.6b on 2x2 through the launcher -----------
+        # ---- (a) + (d): qwen3-0.6b on 2x2 through the launcher, then the
+        # other runs through its rank function in one start of the ranks --
         out["a"] = {}
+        runs = {}
         for label, extra, threshold, want in P22_RUNS:
-            argv = P22_QWEN + ["--mesh", "2,2", *extra]
-            t0 = time.perf_counter()
             if not want:
-                argv += ["--obs-log", str(mesh_log)]
-                ranks = launcher.main(argv)["ranks"]
-            else:
-                ranks = run_ranks(p22_serve_rank, (argv, threshold, want),
-                                  dp=2, tp=2)
-            wall = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                runs[label] = (launcher.main(
+                    P22_QWEN + ["--mesh", "2,2", *extra, "--obs-log",
+                                str(mesh_log)])["ranks"],
+                    time.perf_counter() - t0)
+        rest = [(label, (P22_QWEN + ["--mesh", "2,2", *extra], threshold,
+                         want))
+                for label, extra, threshold, want in P22_RUNS if want]
+        per_rank = run_ranks(p22_serve_ranks, ([spec for _, spec in rest],),
+                             dp=2, tp=2)
+        for i, (label, _) in enumerate(rest):
+            ranks = [recs[i] for recs in per_rank]
+            runs[label] = (ranks, ranks[0]["wall_s"])
+        for label, extra, threshold, want in P22_RUNS:
+            ranks, wall = runs[label]
             form = "unrolled" if "unrolled" in label else "stacked"
             kernel = "lut_act" if form == "unrolled" else "lut_act_stacked"
             rows = {}
@@ -4955,6 +5046,639 @@ def run_phase22(dev, stamp, parts=("a", "c", "b")) -> dict:
                         f"{r['seconds']:.1f}s" for r in ranks))
     return {"out": out, "launches": launches}
 
+
+
+# -------------------------------------------------------------------------
+# phase 23: sharded training on a mesh of ranks sharing cuda:0
+# -------------------------------------------------------------------------
+# (a) / (b) / (c): phase 18's qwen3-0.6b tokens (8 x 512) for 3 steps,
+# under --remat: without it four ranks at 4 x 512 each (about 18 GB a rank,
+# from phase 18's 24.3 GB at --microbatch 2) do not fit one 80 GB card
+P23_QWEN = ["--arch", "qwen3-0.6b", "--full", "--batch", "8", "--seq", "512",
+            "--steps", "3", "--remat", "--device", "cuda"]
+# (d): the supervised run at qwen3-0.6b's widths, depth cut so that its
+# three checkpoints (the start, step 1, the end) take 2 GB each, not 4.5
+P23_SUP = (2, ["--arch", "qwen3-0.6b", "--full", "--batch", "4", "--seq",
+               "128", "--steps", "3", "--ckpt-every", "2", "--device",
+               "cuda"])
+# (e): rwkv6-3b's published widths; two ranks with full-depth state (each
+# the whole model's parameters and gradients in the compute) do not fit
+# one 80 GB card, so 4 of its 32 layers
+P23_RWKV = (4, ["--arch", "rwkv6-3b", "--full", "--remat", "--batch", "4",
+                "--seq", "256", "--steps", "3", "--device", "cuda"])
+# (f): phase 18's cut of deepseek-moe-16b (P18_DEPTH), 2 steps at 4 x 64
+P23_MOE = (2, ["--arch", "deepseek-moe-16b", "--full", "--batch", "4",
+               "--seq", "64", "--steps", "2", "--device", "cuda"])
+# (b): the leaves whose step-1 mean gradient is recounted on the host
+P23_RECOUNT = ("final_norm", "blocks.ln1", "blocks.wk")
+P23_SAMPLE = 2   # K8 / K8b calls a rank holds against their plain versions
+
+
+def p23_cut(argv_depth):
+    """(config with the depth cut, argv) of a ``(depth, argv)`` pair."""
+    from repro_torch.configs import get_config
+
+    depth, argv = argv_depth
+    arch = argv[argv.index("--arch") + 1]
+    return dataclasses.replace(get_config(arch), n_layers=depth), argv
+
+
+# a position-weighted sum of a tensor's bits, on the card, in chunks of
+# 2^26 words: two 64-bit sums with odd weights (a changed word always
+# moves both), so states are compared bit for bit without moving them
+P23_HASH_CHUNK = 1 << 26
+P23_HASH_MULT = (-7046029254386353131, 6364136223846793005)
+
+
+def bits_hash(t) -> tuple:
+    """``(shape, dtype, h1, h2)`` of ``t``'s bits: ``h = sum_i (w_i + 1)
+    * ((i * m) | 1) mod 2^64`` over its words ``w_i`` (int16 for bf16,
+    int32 for float32) for each of ``P23_HASH_MULT``'s ``m``."""
+    import torch
+
+    w = t.detach().contiguous().reshape(-1)
+    w = w.view({1: torch.int8, 2: torch.int16, 4: torch.int32,
+                8: torch.int64}[w.element_size()])
+    h = [0, 0]
+    for s0 in range(0, w.numel(), P23_HASH_CHUNK):
+        c = w[s0:s0 + P23_HASH_CHUNK].to(torch.int64) + 1
+        i = torch.arange(s0, s0 + c.numel(), dtype=torch.int64,
+                         device=c.device)
+        for j, m in enumerate(P23_HASH_MULT):
+            h[j] = (h[j] + int((c * torch.bitwise_or(i * m, 1)).sum())) \
+                % 2 ** 64
+    return tuple(t.shape), str(t.dtype), h[0], h[1]
+
+
+def p23_hashes(state, cfg=None, tcfg=None, layout=None) -> list:
+    """:func:`bits_hash` of every leaf of ``state`` (the counters as they
+    are), in checkpoint order: a rank's own shares, or with ``layout``
+    ``(dp, tp)`` a full state cut to each rank's shares of that mesh (a
+    list a rank)."""
+    from repro_torch.nn.sharding import Mesh
+    from repro_torch.train import train_state_shardings
+    from repro_torch.train.checkpoint import leaf_placements, state_leaves
+
+    def one(pls):
+        return [bits_hash(pl.local(leaf) if pl is not None else leaf)
+                if hasattr(leaf, "dtype") else leaf
+                for (_, leaf), pl in zip(state_leaves(state), pls)]
+
+    if layout is None:
+        return one(leaf_placements(state, None))
+    dp, tp = layout
+    return [one(leaf_placements(state, train_state_shardings(
+        cfg, tcfg, Mesh(("data", "model"), (dp, tp), rank=r))))
+        for r in range(dp * tp)]
+
+
+def p23_steps(s, start, stop, after=None) -> dict:
+    """Steps ``start .. stop - 1`` of ``setup(...)['step']`` on
+    ``setup(...)['batch_at']``, each timed on the host clock with the
+    device synchronized, the sharded step's split beside it;
+    ``after(step, state)`` runs after each."""
+    import torch
+
+    out = {"metrics": [], "seconds": [], "splits": []}
+    timings = getattr(s["step"], "timings", None)
+    for i in range(start, stop):
+        batch = s["batch_at"](i)
+        t0 = time.perf_counter()
+        s["state"], m = s["step"](s["state"], batch)
+        torch.cuda.synchronize(s["device"])
+        out["seconds"].append(time.perf_counter() - t0)
+        out["metrics"].append((float(m["loss"]), float(m["grad_norm"])))
+        if timings is not None:
+            out["splits"].append(dict(timings))
+        if after is not None:
+            after(i, s["state"])
+    return out
+
+
+def p23_reference(argv, cfg=None, layouts=None) -> dict:
+    """The single-device run of ``argv`` (PyTorch's default matmul
+    settings, the ranks' own): its metrics a step, its state bytes and
+    peak memory, and ``layouts`` ``{steps done: [(dp, tp), ...]}``: the
+    state's hashes after that many steps cut to each layout's shares
+    (``(1, 1)``: the whole state)."""
+    import torch
+
+    from repro_torch.launch import train as tl
+
+    layouts = layouts or {}
+    hashes = {}
+
+    def after(i, st):
+        for lay in layouts.get(i + 1, ()):
+            hashes[i + 1, lay] = (p23_hashes(st) if lay == (1, 1) else
+                                  p23_hashes(st, s["cfg"], s["tcfg"], lay))
+
+    with torch_matmul_defaults():
+        args = tl.parse_args(argv)
+        s = tl.setup(args, cfg=cfg)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        run = p23_steps(s, 0, args.steps, after=after)
+    out = dict(run, hashes=hashes, state_bytes=tl.state_bytes(s["state"]),
+               peak=torch.cuda.max_memory_allocated())
+    del s
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def p23_held(label, ranks, want) -> None:
+    """Every rank's shares (``ranks``: a hash list a rank, in rank
+    order) bit for bit the single-device state's cut to that mesh."""
+    for r, (got, exp) in enumerate(zip(ranks, want)):
+        bad = [i for i, (g, e) in enumerate(zip(got, exp)) if g != e]
+        if bad or len(got) != len(exp):
+            raise AssertionError(f"[23] {label}: rank {r}'s leaves {bad} "
+                                 f"differ from the single-device state's")
+
+
+def p23_same(label, got, want) -> None:
+    if got != want:
+        raise AssertionError(f"[23] {label}: {got} != {want}")
+
+
+def p23_rank_setup(argv, mesh, cfg=None):
+    import torch
+
+    from repro_torch.launch import train as tl
+    from repro_torch.serve.sharded import rank_memory
+
+    s = tl.setup(tl.parse_args(argv), cfg=cfg, mesh=mesh)
+    torch.cuda.synchronize(mesh.device)
+    torch.cuda.reset_peak_memory_stats(mesh.device)
+    return s, {"state_bytes": tl.state_bytes(s["state"]),
+               "memory_at_rest": rank_memory(mesh.device)}
+
+
+def p23_free(mesh):
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(mesh.device)
+
+
+def p23_mesh22_rank(mesh, ckpt_dir):
+    """(a) and (b) on one rank of the 2x2 mesh."""
+    import torch
+
+    from repro_torch.train import save_checkpoint
+    from repro_torch.train import step as step_mod
+    from repro_torch.train.compression import ef_compress_grads
+
+    dev = mesh.device
+    t0 = time.perf_counter()
+    s, a = p23_rank_setup(P23_QWEN + ["--dp", "2", "--tp", "2"], mesh)
+    a["setup_s"] = time.perf_counter() - t0
+
+    def save_at_2(i, state):
+        if i == 1:
+            t = time.perf_counter()
+            save_checkpoint(ckpt_dir, state, 2, shardings=s["shardings"])
+            a["save_s"] = time.perf_counter() - t
+
+    a.update(p23_steps(s, 0, 3, after=save_at_2))
+    a["peak"] = torch.cuda.max_memory_allocated(dev)
+    a["hashes"] = p23_hashes(s["state"])
+    del s
+    p23_free(mesh)
+
+    # (b): --grad-compress; step 1's codes, scales and mean of a few leaves
+    s, b = p23_rank_setup(P23_QWEN + ["--dp", "2", "--tp", "2",
+                                      "--grad-compress"], mesh)
+    names = [n for n, _ in s["state"]["params"].named_parameters()]
+    calls = []
+    orig = step_mod.compressed_dp_mean
+
+    def spy(g, e, *rest):
+        mean, new_e = orig(g, e, *rest)
+        i = len(calls)
+        if i < len(names):
+            rec = None
+            if names[i] in P23_RECOUNT:
+                q, sc, _ = ef_compress_grads(g, e)
+                rec = (names[i], q[0].cpu(), sc[0].cpu(), mean[0].cpu())
+            calls.append(rec)
+        return mean, new_e
+
+    step_mod.compressed_dp_mean = spy
+    try:
+        b.update(p23_steps(s, 0, 3))
+    finally:
+        step_mod.compressed_dp_mean = orig
+    b["recount"] = [c for c in calls if c is not None]
+    b["peak"] = torch.cuda.max_memory_allocated(dev)
+    return {"rank": mesh.rank, "coords": mesh.coords(), "a": a, "b": b}
+
+
+def p23_wkv_spy():
+    """Keep the inputs and outputs of the first ``P23_SAMPLE`` K8 and K8b
+    launches (the kernels' own calls inside the wrappers, whose launch
+    counts are untouched): ``(records, restore)``."""
+    from repro_torch.kernels import ops
+
+    recs = {"K8": [], "K8b": []}
+    orig = {"K8": ops.wkv_cuda, "K8b": ops.wkv_backward_cuda}
+
+    def make(kind):
+        def spy(*args):
+            out = orig[kind](*args)
+            if len(recs[kind]) < P23_SAMPLE:
+                recs[kind].append((
+                    [a.clone() if hasattr(a, "clone") else a for a in args],
+                    [o.clone() for o in out]))
+            return out
+        return spy
+
+    ops.wkv_cuda, ops.wkv_backward_cuda = make("K8"), make("K8b")
+
+    def restore():
+        ops.wkv_cuda, ops.wkv_backward_cuda = orig["K8"], orig["K8b"]
+    return recs, restore
+
+
+def p23_wkv_held(recs) -> dict:
+    """The sampled K8 calls against ``wkv_chunked_plain`` (rtol = atol =
+    1e-4, phase 11's) and the K8b calls against ``wkv_backward_plain``
+    (phase 18's: dq, dk, dv, du within 1e-4 of their largest entry, dlog_w
+    within 1e-5 of its running sums): ``{kernel: [calls, largest
+    difference]}``."""
+    import torch
+
+    from repro_torch.kernels.wkv import wkv_backward_plain, wkv_chunked_plain
+
+    out = {}
+    worst = 0.0
+    for args, (y, st) in recs["K8"]:
+        q, k, v, lw, u, chunk, s0 = args
+        yp, sp = wkv_chunked_plain(q, k, v, lw, u, chunk=chunk, state=s0)
+        if not (torch.allclose(y, yp, rtol=1e-4, atol=1e-4)
+                and torch.allclose(st, sp, rtol=1e-4, atol=1e-4)):
+            raise AssertionError("[23] (e) a K8 call differs from its plain "
+                                 "version beyond rtol = atol = 1e-4")
+        worst = max(worst, float((y - yp).abs().max()),
+                    float((st - sp).abs().max()))
+    out["K8"] = [len(recs["K8"]), worst]
+    worst = 0.0
+    for args, gk in recs["K8b"]:
+        q, k, v, lw, u, dy, s0 = args
+        gp = wkv_backward_plain(q, k, v, lw, u, dy, state=s0)
+        errs = [float((a - p).abs().max()) for a, p in zip(gk, gp)]
+        tols = [1e-4 * float(p.abs().max()) for p in gp]
+        tols[3] = 1e-5 * max(float((q * gp[0]).abs().sum(1).max()),
+                             float((k * gp[1]).abs().sum(1).max()))
+        if any(e > t for e, t in zip(errs, tols)):
+            raise AssertionError(f"[23] (e) a K8b call differs from its "
+                                 f"plain version: {errs} against {tols}")
+        worst = max([worst] + errs)
+    out["K8b"] = [len(recs["K8b"]), worst]
+    for kind in ("K8", "K8b"):
+        if out[kind][0] < P23_SAMPLE:
+            raise AssertionError(f"[23] (e) {out[kind][0]} {kind} calls "
+                                 f"recorded, not {P23_SAMPLE}")
+    return out
+
+
+def p23_mesh21_rank(mesh, ckpt_dir, sup_dir):
+    """(c), (d), (e) and (f) at 2x1 on one rank of the 2x1 mesh."""
+    import torch
+
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import train as tl
+    from repro_torch.train import Supervisor, restore_checkpoint
+
+    out = {"rank": mesh.rank}
+    # (c): (a)'s step-2 checkpoint onto 2x1, then step 3
+    t0 = time.perf_counter()
+    s, c = p23_rank_setup(P23_QWEN + ["--dp", "2"], mesh)
+    s["state"], c["step"] = restore_checkpoint(ckpt_dir, s["state"],
+                                               shardings=s["shardings"])
+    c["restore_s"] = time.perf_counter() - t0
+    c["restored"] = p23_hashes(s["state"])
+    c.update(p23_steps(s, c["step"], 3))
+    c["hashes"] = p23_hashes(s["state"])
+    out["c"] = c
+    del s
+    p23_free(mesh)
+
+    # (d): the supervised run with rank 1 failing once
+    cfg, argv = p23_cut(P23_SUP)
+    argv = argv + ["--dp", "2"]
+    s, d = p23_rank_setup(argv, mesh, cfg)
+    raised = []
+
+    def once(state, batch):
+        state, m = s["step"](state, batch)
+        if mesh.rank == 1 and state["step"] == 3 and not raised:
+            raised.append(True)
+            raise RuntimeError("injected failure on rank 1 at step 2")
+        return state, m
+
+    t0 = time.perf_counter()
+    run = tl.run(tl.parse_args(argv), s, log=lambda m: None,
+                 supervisor=Supervisor(sup_dir, ckpt_every=2,
+                                       shardings=s["shardings"]),
+                 step_fn=once)
+    d["supervised_s"] = time.perf_counter() - t0
+    d["restarts"] = run["stats"]["restarts"]
+    d["losses"] = run["losses"]
+    d["grad_norms"] = run["grad_norms"]
+    d["hashes"] = p23_hashes(run["state"])
+    out["d"] = d
+    del s, run
+    p23_free(mesh)
+
+    # (e): rwkv6-3b, 4 layers, K8 / K8b held against their plain versions
+    cfg, argv = p23_cut(P23_RWKV)
+    s, e = p23_rank_setup(argv + ["--dp", "2"], mesh, cfg)
+    recs, restore = p23_wkv_spy()
+    reset_launch_counts()
+    try:
+        e.update(p23_steps(s, 0, 3))
+    finally:
+        restore()
+    e["launches"] = {k: v for k, v in launch_counts().items() if v}
+    e["held"] = p23_wkv_held(recs)
+    e["peak"] = torch.cuda.max_memory_allocated(mesh.device)
+    e["hashes"] = p23_hashes(s["state"])
+    out["e"] = e
+    del s, recs
+    p23_free(mesh)
+
+    # (f) at 2x1
+    out["f"] = p23_moe(mesh, ["--dp", "2"])
+    return out
+
+
+def p23_moe(mesh, flags) -> dict:
+    """(f): deepseek-moe-16b, 2 layers, 2 steps on this mesh."""
+    import torch
+
+    cfg, argv = p23_cut(P23_MOE)
+    s, f = p23_rank_setup(argv + flags, mesh, cfg)
+    f.update(p23_steps(s, 0, 2))
+    f["peak"] = torch.cuda.max_memory_allocated(mesh.device)
+    f["hashes"] = p23_hashes(s["state"])
+    del s
+    p23_free(mesh)
+    return f
+
+
+def p23_mesh12_rank(mesh):
+    """(f) at 1x2 on one rank of the 1x2 mesh (expert parallel)."""
+    return {"rank": mesh.rank, "f": p23_moe(mesh, ["--tp", "2"])}
+
+
+def p23_split(splits) -> str:
+    """A step's split, the median of each part over the steps."""
+    keys = ("gather_s", "forward_backward_s", "reduce_s", "update_s")
+    med = lambda k: statistics.median(sp[k] for sp in splits)
+    return ", ".join(f"{k[:-2]} {med(k):.2f}" for k in keys) + " s"
+
+
+def run_phase23(dev, stamp) -> dict:
+    """Phase 23 (module docstring): sharded training through
+    ``repro_torch.launch.train``'s functions on ranks that share
+    ``cuda:0`` over gloo, each part held bit for bit against its
+    single-device counterpart (every rank's shares against the
+    single-device state cut to that mesh, by :func:`bits_hash`).  Returns
+    the numbers for ``chip_smoke.json`` and the ranks' K8 / K8b launches,
+    summed."""
+    import shutil
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.train import (
+        TrainConfig,
+        init_train_state,
+        restore_checkpoint,
+    )
+
+    root = ROOT / "build" / "p23_ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+    ckpt_dir, sup_dir = str(root / "a"), str(root / "sup")
+    out, t_phase = {}, time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- single-device references (PyTorch's default matmul settings) --
+    t0 = time.perf_counter()
+    ref_a = p23_reference(P23_QWEN + ["--microbatch", "2"], layouts={
+        2: [(1, 1), (2, 1)], 3: [(2, 2), (2, 1)]})
+    rwkv_cfg, rwkv_argv = p23_cut(P23_RWKV)
+    ref_e = p23_reference(rwkv_argv + ["--microbatch", "2"], rwkv_cfg,
+                          layouts={3: [(2, 1)]})
+    sup_cfg, sup_argv = p23_cut(P23_SUP)
+    ref_d = p23_reference(sup_argv + ["--microbatch", "2"], sup_cfg,
+                          layouts={3: [(2, 1)]})
+    moe_cfg, moe_argv = p23_cut(P23_MOE)
+    ref_f = {"2x1": p23_reference(moe_argv + ["--microbatch", "2"], moe_cfg,
+                                  layouts={2: [(2, 1)]}),
+             "1x2": p23_reference(moe_argv, moe_cfg, layouts={2: [(1, 2)]})}
+    refs_s = time.perf_counter() - t0
+    log(f"[23] {stamp()} single-device references in {refs_s:.1f}s: "
+        f"qwen3-0.6b --microbatch 2 {ref_a['state_bytes']} state bytes, "
+        f"peak {ref_a['peak']} B, steps "
+        f"{[round(x, 3) for x in ref_a['seconds']]} s, metrics "
+        f"{ref_a['metrics']}")
+
+    # ---- (a) + (b): qwen3-0.6b on 2x2 ----------------------------------
+    t0 = time.perf_counter()
+    ranks = run_ranks(p23_mesh22_rank, (ckpt_dir,), dp=2, tp=2)
+    wall22 = time.perf_counter() - t0
+    for r in ranks:
+        p23_same(f"(a) rank {r['rank']}'s losses and gradient norms",
+                 r["a"]["metrics"], ref_a["metrics"])
+    p23_held("(a) the state after step 3", [r["a"]["hashes"] for r in ranks],
+             ref_a["hashes"][3, (2, 2)])
+    a0 = ranks[0]["a"]
+    out["a"] = {"wall_s": wall22,
+                "one_device_state_bytes": ref_a["state_bytes"],
+                "one_device_peak": ref_a["peak"],
+                "one_device_seconds": ref_a["seconds"],
+                "metrics": a0["metrics"],
+                "ranks": {r["rank"]: {k: r["a"][k] for k in (
+                    "state_bytes", "memory_at_rest", "peak", "seconds",
+                    "splits", "setup_s", "save_s")} for r in ranks}}
+    log(f"[23] {stamp()} (a) qwen3-0.6b on 2x2 ({wall22:.1f}s for (a) and "
+        f"(b)): every rank's losses, gradient norms and shares of the state "
+        f"after step 3 bit for bit the single-device --microbatch 2 run's; "
+        f"per rank "
+        + "; ".join(f"r{r['rank']} state at rest {r['a']['state_bytes']} B "
+                    f"of {ref_a['state_bytes']} (card "
+                    f"{r['a']['memory_at_rest']} B), peak {r['a']['peak']} "
+                    f"B, steps {[round(x, 2) for x in r['a']['seconds']]} s "
+                    f"({p23_split(r['a']['splits'])})" for r in ranks)
+        + f"; one device: peak {ref_a['peak']} B, steps "
+          f"{[round(x, 3) for x in ref_a['seconds']]} s; set-up "
+          f"{a0['setup_s']:.1f}s, the step-2 checkpoint {a0['save_s']:.1f}s")
+
+    b = [r["b"] for r in ranks]
+    b_losses = [m[0] for m in b[0]["metrics"]]
+    if b_losses[0] != a0["metrics"][0][0]:
+        raise AssertionError(f"[23] (b) first loss {b_losses[0]!r} != (a)'s "
+                             f"{a0['metrics'][0][0]!r}")
+    if not b_losses[-1] < b_losses[0]:
+        raise AssertionError(f"[23] (b) losses do not fall: {b_losses}")
+    for j in range(len(b[0]["recount"])):
+        name = b[0]["recount"][j][0]
+        for col in (0, 1):       # model columns: ranks (0, 2) and (1, 3)
+            r0, r1 = b[col]["recount"][j], b[2 + col]["recount"][j]
+            summed = r0[1].to(torch.int32) + r1[1].to(torch.int32)
+            mean = (summed.float() * torch.maximum(r0[2], r1[2])
+                    / torch.tensor(2.0))
+            for r in (r0, r1):
+                if not torch.equal(r[3], mean):
+                    raise AssertionError(f"[23] (b) {name}: a rank's step-1 "
+                                         f"mean gradient is not its codes "
+                                         f"recounted")
+    out["b"] = {"losses": b_losses,
+                "recounted": [c[0] for c in b[0]["recount"]],
+                "ranks": {r["rank"]: {"seconds": r["b"]["seconds"],
+                                      "peak": r["b"]["peak"],
+                                      "splits": r["b"]["splits"]}
+                          for r in ranks}}
+    log(f"[23] {stamp()} (b) --grad-compress on 2x2: losses "
+        f"{[round(x, 4) for x in b_losses]} (the first (a)'s, bit for bit; "
+        f"falling); step 1's mean gradient of {out['b']['recounted']} on "
+        f"every rank equal to the int8 codes summed over the data ranks "
+        f"times the largest scale over 2, recounted on the host; steps "
+        f"{[round(x, 2) for x in b[0]['seconds']]} s "
+        f"({p23_split(b[0]['splits'])}), peak {b[0]['peak']} B")
+    del ranks, b
+
+    # ---- (c) on one device and (f) on 1x2, each in a thread beside (c)-(f)
+    # on 2x1 (their peaks, about 4.5 + 2 x 13 + 2 x 16 GB, fit the card) ---
+    def restore_1x1():
+        t = time.perf_counter()
+        one = init_train_state(get_config("qwen3-0.6b"),
+                               TrainConfig(remat=True), device=dev)
+        one, step = restore_checkpoint(ckpt_dir, one)
+        p23_same("(c) 1x1: step", step, 2)
+        p23_held("(c) 1x1: the restored state (files' digests verified)",
+                 [p23_hashes(one)], [ref_a["hashes"][2, (1, 1)]])
+        return time.perf_counter() - t
+
+    def ranks_1x2():
+        t = time.perf_counter()
+        return run_ranks(p23_mesh12_rank, (), dp=1, tp=2), \
+            time.perf_counter() - t
+
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        fut1, fut12 = pool.submit(restore_1x1), pool.submit(ranks_1x2)
+        t0 = time.perf_counter()
+        ranks = run_ranks(p23_mesh21_rank, (ckpt_dir, sup_dir), dp=2, tp=1)
+        wall21 = time.perf_counter() - t0
+        one_s = fut1.result()
+        ranks12, wall12 = fut12.result()
+    gc.collect()
+    torch.cuda.empty_cache()
+    c0 = ranks[0]["c"]
+    p23_held("(c) 2x1: the restored state", [r["c"]["restored"]
+                                              for r in ranks],
+             ref_a["hashes"][2, (2, 1)])
+    for r in ranks:
+        p23_same(f"(c) rank {r['rank']}'s step 3", r["c"]["metrics"],
+                 a0["metrics"][2:])
+    p23_held("(c) 2x1: the state after step 3", [r["c"]["hashes"]
+                                                  for r in ranks],
+             ref_a["hashes"][3, (2, 1)])
+    out["c"] = {"step": c0["step"], "restore_2x1_s": c0["restore_s"],
+                "restore_1x1_s": one_s, "step3": c0["metrics"],
+                "seconds": c0["seconds"]}
+    log(f"[23] {stamp()} (c) elastic re-mesh: the 2x2 checkpoint of step 2 "
+        f"(the files' digests verified) restored onto 1x1 ({one_s:.1f}s) "
+        f"and 2x1 ({c0['restore_s']:.1f}s with its set-up), each the "
+        f"single-device state after 2 steps bit for bit; step 3 on 2x1 "
+        f"(a)'s ({c0['metrics']}) and its shares the single-device state's")
+
+    d = ranks[0]["d"]
+    for r in ranks:
+        if r["d"]["restarts"] != 1:
+            raise AssertionError(f"[23] (d) rank {r['rank']}: "
+                                 f"{r['d']['restarts']} restarts, not 1")
+        p23_same(f"(d) rank {r['rank']}'s restarted metrics",
+                 list(zip(r["d"]["losses"], r["d"]["grad_norms"])),
+                 ref_d["metrics"])
+    p23_held("(d) the restarted run's state", [r["d"]["hashes"]
+                                                for r in ranks],
+             ref_d["hashes"][3, (2, 1)])
+    out["d"] = {"restarts": 1, "seconds": d["supervised_s"],
+                "losses": d["losses"]}
+    log(f"[23] {stamp()} (d) supervised run on 2 ranks (qwen3-0.6b widths at "
+        f"{P23_SUP[0]} layers, 3 steps, checkpoints every 2): rank 1 failed "
+        f"once at the end of step 2, both ranks agreed, restored step 1 and "
+        f"ended bit for bit the uninterrupted single-device --microbatch 2 "
+        f"run ({d['supervised_s']:.1f}s)")
+
+    launches = {}
+    for r in ranks:
+        e = r["e"]
+        p23_same(f"(e) rank {r['rank']}'s metrics", e["metrics"],
+                 ref_e["metrics"])
+        want = {"wkv": 3 * 2 * rwkv_cfg.n_layers,
+                "wkv_backward": 3 * rwkv_cfg.n_layers}
+        p23_same(f"(e) rank {r['rank']}'s launches in 3 steps", e["launches"],
+                 want)
+        for k, v in e["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    p23_held("(e) the state after 3 steps", [r["e"]["hashes"] for r in ranks],
+             ref_e["hashes"][3, (2, 1)])
+    out["e"] = {"depth": rwkv_cfg.n_layers,
+                "metrics": ranks[0]["e"]["metrics"],
+                "ranks": {r["rank"]: {k: r["e"][k] for k in (
+                    "state_bytes", "memory_at_rest", "peak", "seconds",
+                    "splits", "launches", "held")} for r in ranks},
+                "one_device_state_bytes": ref_e["state_bytes"],
+                "one_device_peak": ref_e["peak"]}
+    log(f"[23] {stamp()} (e) rwkv6-3b (published widths, {rwkv_cfg.n_layers} "
+        f"of 32 layers, --remat, 4 x 256) on 2x1: bit for bit the "
+        f"single-device --microbatch 2 run; per rank "
+        + "; ".join(f"r{r['rank']} K8 {r['e']['launches']['wkv'] // 3} and "
+                    f"K8b {r['e']['launches']['wkv_backward'] // 3} launches "
+                    f"a step, sampled calls held against plain "
+                    f"{r['e']['held']}, steps "
+                    f"{[round(x, 2) for x in r['e']['seconds']]} s "
+                    f"({p23_split(r['e']['splits'])}), peak "
+                    f"{r['e']['peak']} B" for r in ranks))
+
+    out["f"] = {}
+    for shape, layout, rs in (("2x1", (2, 1), [r["f"] for r in ranks]),
+                              ("1x2", (1, 2), [r["f"] for r in ranks12])):
+        for i, f in enumerate(rs):
+            p23_same(f"(f) {shape} rank {i}'s metrics", f["metrics"],
+                     ref_f[shape]["metrics"])
+        p23_held(f"(f) {shape}: the state after 2 steps",
+                 [f["hashes"] for f in rs], ref_f[shape]["hashes"][2, layout])
+        out["f"][shape] = {
+            "metrics": rs[0]["metrics"],
+            "one_device_state_bytes": ref_f[shape]["state_bytes"],
+            "ranks": [{k: f[k] for k in ("state_bytes", "memory_at_rest",
+                                         "peak", "seconds", "splits")}
+                      for f in rs]}
+        log(f"[23] {stamp()} (f) deepseek-moe-16b ({moe_cfg.n_layers} layers) "
+            f"on {shape}: 2 steps bit for bit the single-device "
+            f"{'--microbatch 2 ' if shape == '2x1' else ''}run; per rank "
+            + "; ".join(f"state at rest {f['state_bytes']} B of "
+                        f"{ref_f[shape]['state_bytes']}, peak {f['peak']} B, "
+                        f"steps {[round(x, 2) for x in f['seconds']]} s "
+                        f"({p23_split(f['splits'])})" for f in rs))
+    out["seconds"] = time.perf_counter() - t_phase
+    out["walls"] = {"references": refs_s, "2x2": wall22, "1x1": one_s,
+                    "2x1": wall21, "1x2": wall12}
+    shutil.rmtree(root, ignore_errors=True)
+    log(f"[23] {stamp()} phase 23 in {out['seconds']:.0f}s (references "
+        f"{refs_s:.0f}s, the 2x2 ranks {wall22:.0f}s, then 1x1 {one_s:.0f}s "
+        f"and the 2x1 ranks {wall21:.0f}s beside the 1x2 ranks "
+        f"{wall12:.0f}s); the ranks' K8 / K8b launches {launches}")
+    return {"out": out, "launches": launches}
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -5723,6 +6447,13 @@ def main() -> int:
     p22 = run_phase22(dev, stamp)
     for k in kernels:
         k["launches"] += p22["launches"].get(k["name"], 0)
+
+    # ---- 23. sharded training on meshes of ranks sharing cuda:0; the
+    # ranks' K8 / K8b launches (rwkv6-3b's, part (e)) join their entries
+    log(f"[23] {stamp()}")
+    p23 = run_phase23(dev, stamp)
+    for k in kernels:
+        k["launches"] += p23["launches"].get(k["name"], 0)
     log(f"[11] {stamp()} K5-K7")
     kernels += time_toolflow_kernels(dev, flow, errors, p21)
 
@@ -5731,6 +6462,7 @@ def main() -> int:
                "batcher": batcher, "moe": moe, "families": fam,
                "phase17": p17, "phase18": p18["runs"], "phase19": p19,
                "phase20": p20, "phase22": p22["out"],
+               "phase23": p23["out"],
                "phase21": dict(p21, k7_calls={
                    m: [[*k, c] for k, (_, c) in sorted(v.items())]
                    for m, v in p21["k7_calls"].items()}),

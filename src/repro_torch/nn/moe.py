@@ -26,22 +26,30 @@ graph (:mod:`repro_torch.serve.graphs`):
   contributions in a varying order, so its bits would vary run to run).
 
 Under a mesh with a model axis whose size divides the expert count
-(:mod:`repro_torch.serve.sharded`), the expert stacks stay split over the
-model axis: rank ``t`` holds experts ``[t E/tp, (t+1) E/tp)``, routes the
-same local tokens as its model-axis peers, takes into its buffer only the
-assignments of its own experts, and runs their products.  The experts'
-outputs are then gathered over the model axis into the single-device
-``(E, C, d)`` block, and every rank combines them in ascending expert id
-as above: the reference's ``psum`` of each rank's partial sums would
-reassociate a token's adds (at top-6 of deepseek-moe-16b), so the port
-gathers instead and keeps its sharded output bit for bit the
-single-device one.  Capacity follows the local tokens, which under a mesh
-are one data shard's (the reference's ``s_shard = tokens // n_dp``).  Its
-two serving modes run this one branch: the reference's inline branch (in
+(:mod:`repro_torch.serve.sharded`, :mod:`repro_torch.train.step`), the
+expert stacks stay split over the model axis: rank ``t`` holds experts
+``[t E/tp, (t+1) E/tp)``.  Every model rank routes the same local tokens
+into the single-device ``(E, C, d)`` buffer, takes its own experts' rows
+and runs their products; the experts' outputs are then gathered over the
+model axis into the single-device ``(E, C, d)`` block, and every rank
+combines them in ascending expert id as above: the reference's ``psum`` of
+each rank's partial sums would reassociate a token's adds (at top-6 of
+deepseek-moe-16b), so the port gathers instead and keeps its sharded
+output bit for bit the single-device one.  Both collectives carry
+gradients (:class:`_ExpertRows`, :class:`_ExpertGather`): in exact mode
+every model rank holds the same output gradient, so the gather's backward
+is the rank's own rows, and the take's backward gathers every rank's rows
+of the buffer's gradient, so the gradient reaching the tokens is the
+single-device one; an expert stack's gradient is its rank's experts'
+(training gathers them over the model axis for the norm).  Capacity
+follows the local tokens, which under a mesh are one data shard's (the
+reference's ``s_shard = tokens // n_dp``).  ``aux`` is computed over the
+local tokens on every model rank, so it needs no sum over the model axis
+(the reference's ``psum / n_tp`` of equal values); training averages it
+over the data axis with the loss (the reference's ``pmean``).  The
+reference's two serving modes run this one branch: its inline branch (in
 its replicated-tables mode) differs from its expert-parallel one only in
-how it averages ``aux``.  ``aux`` comes back as the rank's own: serving
-discards it, and averaging it over the ranks is left to the caller that
-reads it (sharded training, ROADMAP queue A item 11).
+how it averages ``aux``.
 """
 from __future__ import annotations
 
@@ -110,39 +118,65 @@ def route(x: torch.Tensor, router_w: torch.Tensor, *, n_experts: int,
     return Routing(probs, top_p, top_ids, order, slot, keep, counts)
 
 
+class _ExpertRows(torch.autograd.Function):
+    """This model rank's experts' rows ``[e0, e0 + e_loc)`` of the ``(E,
+    C, d)`` buffer; the backward gathers every rank's rows of the
+    gradient (each rank's own experts' contribution)."""
+
+    @staticmethod
+    def forward(ctx, tokens, mesh, e0, e_loc):
+        ctx.mesh = mesh
+        return tokens[e0:e0 + e_loc]
+
+    @staticmethod
+    def backward(ctx, grad):
+        return gather(grad.contiguous(), ctx.mesh, TP_AXIS), None, None, None
+
+
+class _ExpertGather(torch.autograd.Function):
+    """Every model rank's experts' outputs ``(E_loc, C, d)`` gathered into
+    ``(E, C, d)``; the backward is this rank's rows of the gradient, which
+    every model rank holds whole in exact mode."""
+
+    @staticmethod
+    def forward(ctx, y_loc, mesh, e0):
+        ctx.e0, ctx.e_loc = e0, y_loc.shape[0]
+        return gather(y_loc, mesh, TP_AXIS)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad[ctx.e0:ctx.e0 + ctx.e_loc], None, None
+
+
 def moe_ffn_local(x: torch.Tensor, router_w: torch.Tensor,
                   w_in: torch.Tensor, w_out: torch.Tensor, *,
                   n_experts: int, top_k: int, capacity: int, act_fn=None,
-                  e0: int = 0, gather_experts=None):
+                  e0: int = 0, mesh=None):
     """Route + gather + expert products + weighted combine of ``x`` (S,
     d) (``w_in`` (E_loc, d, 2f) fused gate|up, ``w_out`` (E_loc, f, d) of
     the resident experts ``[e0, e0 + E_loc)``; ``act_fn`` the gate's
     activation, SiLU by default): ``(y (S, d), aux)``, ``aux`` the
     Switch-style load-balance loss (float32, 0-d).  With fewer resident
-    experts than ``n_experts``, ``gather_experts`` maps their outputs
-    ``(E_loc, C, d)`` to every expert's ``(E, C, d)``."""
+    experts than ``n_experts``, the ``mesh``'s model ranks hold the rest
+    and their outputs are gathered over its model axis."""
     s, d = x.shape
     e_loc = w_in.shape[0]
     r = route(x, router_w, n_experts=n_experts, top_k=top_k,
               capacity=capacity)
     src = r.order // top_k                                 # token index
-    slot = r.slot
-    if e_loc != n_experts:
-        # the resident experts' assignments only; the rest go to the spare
-        slot = torch.where((slot >= e0 * capacity)
-                           & (slot < (e0 + e_loc) * capacity),
-                           slot - e0 * capacity, e_loc * capacity)
     # one spare row takes every dropped assignment and is discarded
-    buf = torch.zeros((e_loc * capacity + 1, d), dtype=x.dtype,
+    buf = torch.zeros((n_experts * capacity + 1, d), dtype=x.dtype,
                       device=x.device)
-    buf[slot] = x[src]
-    tokens = buf[:-1].view(e_loc, capacity, d)
+    buf[r.slot] = x[src]
+    tokens = buf[:-1].view(n_experts, capacity, d)
+    if e_loc != n_experts:
+        tokens = _ExpertRows.apply(tokens, mesh, e0, e_loc)
 
     act = act_fn if act_fn is not None else F.silu
     gate, up = torch.matmul(tokens, w_in).chunk(2, dim=-1)
     y_exp = torch.matmul(act(gate) * up, w_out)
     if e_loc != n_experts:
-        y_exp = gather_experts(y_exp)
+        y_exp = _ExpertGather.apply(y_exp, mesh, e0)
     y_flat = torch.cat([y_exp.reshape(n_experts * capacity, d),
                         y_exp.new_zeros((1, d))])
 
@@ -171,7 +205,7 @@ def moe_block(params: dict, x: torch.Tensor, cfg, shared_mlp=None,
     (kernels K1 / K2 / K4 on the card), and seen by an active calibration
     capture, empty capacity slots included.  ``shared_mlp``: the shared
     experts, added to the routed output.  Under a mesh ``aux`` is this
-    rank's, over its data shard's tokens."""
+    rank's, over its data shard's tokens (equal on its model ranks)."""
     b, t, d = x.shape
     m = cfg.moe
     act_fn = make_activation(cfg, lut_tables, site=sites.EXPERT,
@@ -184,9 +218,7 @@ def moe_block(params: dict, x: torch.Tensor, cfg, shared_mlp=None,
         x.reshape(-1, d), params["router"], params["w_in"],
         params["w_out"], n_experts=m.n_experts, top_k=m.top_k,
         capacity=moe_capacity(b * t, m), act_fn=act_fn,
-        e0=mesh.index(TP_AXIS) * e_loc if ep else 0,
-        gather_experts=(lambda ye: gather(ye, mesh, TP_AXIS)) if ep
-        else None)
+        e0=mesh.index(TP_AXIS) * e_loc if ep else 0, mesh=mesh)
     y = y.reshape(b, t, d)
     if shared_mlp is not None:
         y = y + shared_mlp(x)

@@ -1,5 +1,6 @@
-"""Mesh and placement plumbing for sharded serving on ``torch.distributed``
-(the port's counterpart of the reference's ``nn/sharding.py``).
+"""Mesh and placement plumbing for sharded serving and training on
+``torch.distributed`` (the port's counterpart of the reference's
+``nn/sharding.py``).
 
 The reference annotates tensors with *logical* axes (``"dp"``, the
 data-parallel batch; ``"tp"``, the tensor-parallel model dim; ``"fsdp"``;
@@ -14,14 +15,15 @@ from the shares (:meth:`Placement.gather`).
 
 The rules are the reference's: ``resolve_axis`` maps a logical axis to
 mesh axes, and a dim whose size the axes' product does not divide is
-replicated (``_divisible``).  The port serves only in the reference's
-exact mode (``exact_tp``): its ranks compute at single-device shapes on
-gathered weights, so no float reduction is ever split over the model axis
-and no switch is needed.  The collectives the serving path needs are
-here: :func:`gather`,
-:func:`broadcast` and :func:`all_reduce`.  A gather is one broadcast per
-member of the axis, so it runs on gloo, whose CUDA support covers
-broadcast and all-reduce only, as on NCCL; a failed collective raises.
+replicated (``_divisible``).  The port serves and trains only in the
+reference's exact mode (``exact_tp``): its ranks compute at single-device
+shapes on gathered weights, so no float reduction is ever split over the
+model axis and no switch is needed.  The collectives both paths need are
+here: :func:`gather`, :func:`broadcast`, :func:`all_reduce` (sum or max)
+and :func:`each_member` (every member's tensor in rank order, which
+training sums in that order).  A gather is one broadcast per member of
+the axis, so it runs on gloo, whose CUDA support covers broadcast and
+all-reduce only, as on NCCL; a failed collective raises.
 
 The reference's ``manual_axes``, ``layer_scan`` / ``SCAN_STATS``,
 ``SEQ_PARALLEL``, ``exact_tp`` and ``spec`` / ``shard`` steer XLA's
@@ -31,6 +33,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import itertools
 import math
 import threading
 
@@ -203,15 +206,31 @@ class Placement:
         return out.contiguous() if out is full else out.clone(
             memory_format=torch.contiguous_format)
 
-    def gather(self, local: torch.Tensor) -> torch.Tensor:
+    def gather(self, local: torch.Tensor, keep: tuple = ()) -> torch.Tensor:
         """The full tensor from every rank's share (collective over each
-        split dim's axes: every rank of those groups must call it)."""
+        split dim's axes: every rank of those groups must call it).  Axes
+        in ``keep`` stay split: a dim split over ``keep`` only is left as
+        this rank's share (training keeps the moe expert stacks split over
+        the model axis through the compute)."""
         out = local
         for i in range(len(self.spec)):
+            axes = _axes_tuple(self.spec[i])
+            if any(a in keep for a in axes):
+                if not all(a in keep for a in axes):
+                    raise ValueError(f"Placement.gather: dim {i} splits over "
+                                     f"{axes}; keep all or none of them")
+                continue
             # the inner axis first: its blocks are the finest
-            for a in reversed(_axes_tuple(self.spec[i])):
+            for a in reversed(axes):
                 out = gather(out, self.mesh, a, dim=i)
         return out
+
+    def only(self, axes: tuple) -> "Placement":
+        """This placement with every split but those over ``axes``
+        dropped (replicated)."""
+        return Placement(self.mesh, tuple(
+            s if any(a in axes for a in _axes_tuple(s)) else None
+            for s in self.spec))
 
 
 def named_sharding(mesh: Mesh, *logical_axes: str | None,
@@ -243,16 +262,46 @@ def broadcast(t: torch.Tensor, mesh: Mesh, axis: str, src_index: int
     return t
 
 
-def all_reduce(t: torch.Tensor, mesh: Mesh, axis: str | None = None
-               ) -> torch.Tensor:
-    """Sum ``t`` (contiguous, in place) over ``axis`` (every rank when
-    ``None``)."""
+def all_reduce(t: torch.Tensor, mesh: Mesh, axis: str | None = None,
+               op: str = "sum") -> torch.Tensor:
+    """Reduce ``t`` (contiguous, in place) over ``axis`` (every rank when
+    ``None``) by ``op``: ``"sum"`` or ``"max"``."""
+    rop = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
     if axis is None:
         if mesh.size > 1:
-            dist.all_reduce(t)
+            dist.all_reduce(t, op=rop)
     elif mesh.shape.get(axis, 1) > 1:
-        dist.all_reduce(t, group=mesh.group(axis))
+        dist.all_reduce(t, op=rop, group=mesh.group(axis))
     return t
+
+
+def all_ranks_ok(mesh: Mesh, ok: bool) -> bool:
+    """True on every rank when ``ok`` holds on every rank (an all-reduce
+    of the failures)."""
+    dev = mesh.device or torch.device("cpu")
+    bad = torch.tensor([0 if ok else 1], dtype=torch.int32, device=dev)
+    return int(all_reduce(bad, mesh)) == 0
+
+
+def each_member(t: torch.Tensor, mesh: Mesh, axes: tuple):
+    """Every rank's ``t`` along ``axes`` (row-major over them, the order
+    of their ranks), one at a time in one buffer: member ``(i, j)`` is
+    broadcast over the inner axis from ``j`` (each rank at inner index
+    ``j`` sends its own) and then over the outer from ``i``.  The buffer
+    is reused: use each member before asking for the next.  Every rank of
+    those groups must run the loop to its end."""
+    axes = tuple(a for a in axes if mesh.shape.get(a, 1) > 1)
+    if not axes:
+        yield t
+        return
+    me = tuple(mesh.index(a) for a in axes)
+    buf = torch.empty_like(t, memory_format=torch.contiguous_format)
+    for idx in itertools.product(*(range(mesh.shape[a]) for a in axes)):
+        if me[-1] == idx[-1]:
+            buf.copy_(t)
+        for k in reversed(range(len(axes))):
+            broadcast(buf, mesh, axes[k], idx[k])
+        yield buf
 
 
 def gather(t: torch.Tensor, mesh: Mesh, axis: str, dim: int = 0

@@ -42,6 +42,7 @@ from .mlp import mlp_block, project_logits, site_act
 from .moe import moe_block
 from .rglru import recurrent_block, recurrent_block_step
 from .rope import apply_rope
+from .sharding import current_mesh, use_mesh
 from .ssm import rwkv_channel_mix, rwkv_time_mix
 
 
@@ -530,8 +531,17 @@ def _decoder_embed(params: DecoderParams, cfg: ArchConfig,
 def _run(fn, remat: bool, *args):
     """``fn(*args)``; with ``remat`` its activations are recomputed in the
     backward instead of kept (the reference's ``jax.checkpoint`` of a
-    layer body), through ``torch.utils.checkpoint``."""
+    layer body), through ``torch.utils.checkpoint``.  The recompute runs in
+    the autograd engine's thread, so it is handed the caller's mesh (a
+    thread's own, :func:`~repro_torch.nn.sharding.use_mesh`)."""
     if remat:
+        mesh = current_mesh()
+        if mesh is not None:
+            body = fn
+
+            def fn(*a):
+                with use_mesh(mesh):
+                    return body(*a)
         return checkpoint(fn, *args, use_reentrant=False)
     return fn(*args)
 

@@ -45,16 +45,27 @@ def adamw_init(params: list[torch.Tensor]) -> dict:
             "count": 0}
 
 
+def square_sum(t: torch.Tensor) -> torch.Tensor:
+    """One leaf's term of :func:`global_norm`."""
+    return torch.sum(torch.square(t.float()))
+
+
 def global_norm(tensors: list[torch.Tensor]) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(t.float()))
-                          for t in tensors))
+    """``sqrt(0 + s_0 + s_1 + ...)`` over the leaves' :func:`square_sum`
+    in order (a sharded step adds the same terms of its full gradients
+    leaf by leaf)."""
+    return torch.sqrt(sum(square_sum(t) for t in tensors))
 
 
 @torch.no_grad()
 def adamw_update(grads: list[torch.Tensor], state: dict,
-                 params: list[torch.Tensor], cfg: AdamWConfig) -> dict:
+                 params: list[torch.Tensor], cfg: AdamWConfig,
+                 gnorm: torch.Tensor | None = None) -> dict:
     """One AdamW step, in place on ``params`` and ``state``.  Returns the
-    metrics ``{"grad_norm": tensor, "lr": float32}``."""
+    metrics ``{"grad_norm": tensor, "lr": float32}``.  ``gnorm``: the
+    gradients' global norm when ``grads`` are a rank's shares of them (a
+    sharded step takes it over the full gradients; shares are not normed
+    alone)."""
     state["count"] += 1
     count = state["count"]
     clip = None
@@ -65,7 +76,8 @@ def adamw_update(grads: list[torch.Tensor], state: dict,
     c1 = float(_F(1) - _F(cfg.b1) ** _F(count))
     c2 = float(_F(1) - _F(cfg.b2) ** _F(count))
     lr = cfg.lr_at(count)
-    gnorm = adamw_apply(grads, state, params, cfg, clip, c1, c2, float(lr))
+    gnorm = adamw_apply(grads, state, params, cfg, clip, c1, c2, float(lr),
+                        gnorm=gnorm)
     return {"grad_norm": gnorm, "lr": lr}
 
 
@@ -83,14 +95,17 @@ def adamw_step_scalars(cfg: AdamWConfig, count: int) -> np.ndarray:
 @torch.no_grad()
 def adamw_apply(grads: list[torch.Tensor], state: dict,
                 params: list[torch.Tensor], cfg: AdamWConfig, clip,
-                c1, c2, lr) -> torch.Tensor:
+                c1, c2, lr, gnorm: torch.Tensor | None = None
+                ) -> torch.Tensor:
     """The update of :func:`adamw_update` with its step's values given:
     ``clip`` the clip norm as a tensor on the grads' device (or None),
     ``c1`` / ``c2`` the bias corrections and ``lr`` as Python floats, or
     as 0-d float32 tensors on the card holding ``1 / c1``, ``1 / c2`` and
     ``lr`` (:func:`adamw_step_scalars`), which a captured graph reads
-    afresh at each replay.  Returns the gradients' global norm."""
-    gnorm = global_norm(grads)
+    afresh at each replay.  Returns the gradients' global norm, ``gnorm``
+    when given (see :func:`adamw_update`)."""
+    if gnorm is None:
+        gnorm = global_norm(grads)
     if clip is not None:
         scale = torch.minimum(torch.ones_like(gnorm),
                               clip / (gnorm + 1e-9))

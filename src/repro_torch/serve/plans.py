@@ -578,7 +578,9 @@ def _verify_sharded(cfg, params, plans, batch, n_new, max_seq, plan_exec,
     """One backend's sharded run against its single-device ``toks`` /
     ``logits`` on this rank's rows (see :func:`verify_backend_equivalence`);
     raises on every rank if any rank diverges."""
-    from .sharded import ShardedServe, all_ranks_ok, batch_placement
+    from repro_torch.nn.sharding import all_ranks_ok
+
+    from .sharded import ShardedServe, batch_placement
 
     if s_tables is None:
         s_tables = plans.tables_for_model(backend=backend,

@@ -63,7 +63,6 @@ from repro_torch.nn.sharding import (
     TP_AXIS,
     Mesh,
     Placement,
-    all_reduce,
     broadcast,
     gather,
     named_sharding,
@@ -360,13 +359,15 @@ def shard_params(params, cfg: ArchConfig, mesh):
     return _local_params(cfg, leaves, params.embed.device)
 
 
-def init_params_sharded(cfg: ArchConfig, seed: int, mesh, device):
+def init_params_sharded(cfg: ArchConfig, seed: int, mesh, device,
+                        placements: dict | None = None):
     """This rank's shares of :func:`~repro_torch.nn.init_params`'s
     parameters, drawn leaf by leaf (a stack layer by layer) with the same
     generator, so the shares hold the single-device bits and no rank ever
     holds the whole model: each draw is cut to this rank's share and
-    dropped."""
-    pl = serve_param_shardings(cfg, mesh)
+    dropped.  ``placements``: ``{dotted name: Placement}``, serving's
+    (:func:`serve_param_shardings`) by default."""
+    pl = placements or serve_param_shardings(cfg, mesh)
     dt = torch_dtype(cfg.dtype)
     leaves = {}
     for name, d, stacked in _flat_defs(param_defs(cfg)):
@@ -498,14 +499,6 @@ class ShardedServe:
                 full, self.cfg, c, tk, pos, lut_tables=self.tables)
             return prefill_replay(full, self.cfg, cache, tokens, start_pos,
                                   self.tables, step=step)
-
-
-def all_ranks_ok(mesh, ok: bool) -> bool:
-    """True on every rank when ``ok`` holds on every rank (an all-reduce
-    of the failures)."""
-    dev = mesh.device or torch.device("cpu")
-    bad = torch.tensor([0 if ok else 1], dtype=torch.int32, device=dev)
-    return int(all_reduce(bad, mesh)) == 0
 
 
 def rank_memory(device) -> int | None:

@@ -19,6 +19,14 @@ the array, and the digest, that the reference writes for the same state.
 Restore checks the leaf count, every digest and shape (and the dtype name
 against the state's), all before it writes into the state; it never reads
 the tree description.
+
+A rank's state on a mesh (``shardings=``, :func:`repro_torch.train.state.
+train_state_shardings`) is saved as full leaves, gathered one leaf at a
+time and written by rank 0, so the files are those of a single-device
+checkpoint; every rank returns once rank 0 has committed ``LATEST``.
+Restore with ``shardings=`` loads the full leaves and keeps each rank's
+share: the reference's elastic re-mesh, a checkpoint of any mesh (or of
+one device, of either package) restored onto any other.
 """
 from __future__ import annotations
 
@@ -29,6 +37,7 @@ import zlib
 
 import numpy as np
 import torch
+
 
 def _sorted_names(params: torch.nn.Module) -> list[tuple[str, int]]:
     """``(dotted name, index in the module's order)``, sorted by key path
@@ -63,6 +72,37 @@ def state_leaves(state: dict) -> list[tuple[str, object]]:
     return leaves
 
 
+def leaf_placements(state: dict, shardings: dict | None) -> list:
+    """The placement of each of :func:`state_leaves`' leaves under
+    ``shardings`` (all ``None`` without)."""
+    leaves = state_leaves(state)
+    if shardings is None:
+        return [None] * len(leaves)
+    by_path = {"opt.count": shardings["opt"]["count"],
+               "step": shardings["step"]}
+    for prefix, tree in (("params", shardings["params"]),
+                         ("opt.mu", shardings["opt"]["mu"]),
+                         ("opt.nu", shardings["opt"]["nu"]),
+                         ("ef_error", shardings.get("ef_error", {}))):
+        by_path.update({f"{prefix}.{n}": pl for n, pl in tree.items()})
+    return [by_path[p] for p, _ in leaves]
+
+
+def full_leaves(state: dict, shardings: dict | None = None):
+    """``(path, full leaf)`` in :func:`state_leaves`' order, a rank's
+    shares gathered one leaf at a time under ``shardings`` (a collective:
+    every rank of the mesh runs the loop to its end)."""
+    for (path, leaf), pl in zip(state_leaves(state),
+                                leaf_placements(state, shardings)):
+        if pl is not None and isinstance(leaf, torch.Tensor):
+            leaf = pl.gather(leaf.detach())
+        yield path, leaf
+
+
+def _mesh_of(shardings: dict | None):
+    return None if shardings is None else shardings["step"].mesh
+
+
 def _to_storable(leaf) -> tuple[np.ndarray, str]:
     if not isinstance(leaf, torch.Tensor):
         return np.asarray(leaf, np.int32), "int32"
@@ -83,37 +123,48 @@ def _from_storable(arr: np.ndarray, dtype_name: str) -> torch.Tensor:
     return torch.from_numpy(np.array(arr))
 
 
-def save_checkpoint(ckpt_dir: str, state: dict, step: int) -> str:
-    """Write ``state`` as ``step_<step>`` and commit it in ``LATEST``."""
-    os.makedirs(ckpt_dir, exist_ok=True)
+def save_checkpoint(ckpt_dir: str, state: dict, step: int,
+                    shardings: dict | None = None) -> str:
+    """Write ``state`` as ``step_<step>`` and commit it in ``LATEST``.
+    With ``shardings`` (a rank's state on a mesh) every rank calls it:
+    the leaves are gathered one at a time, rank 0 writes them, and all
+    return after the commit."""
+    mesh = _mesh_of(shardings)
+    writer = mesh is None or mesh.rank == 0
     final = os.path.join(ckpt_dir, f"step_{step}")
     tmp = final + ".tmp"
-    if os.path.exists(tmp):
-        shutil.rmtree(tmp)
-    os.makedirs(tmp)
-    leaves = state_leaves(state)
-    manifest = {"step": step,
-                "treedef": "repro_torch train state: "
-                           + ", ".join(p for p, _ in leaves),
-                "leaves": []}
-    for i, (path, leaf) in enumerate(leaves):
-        stored, dtype_name = _to_storable(leaf)
-        np.save(os.path.join(tmp, f"leaf_{i}.npy"), stored)
-        manifest["leaves"].append({
-            "shape": list(stored.shape),
-            "dtype": dtype_name,
-            "crc32": zlib.crc32(stored.tobytes()),
-            "path": path,
-        })
-    with open(os.path.join(tmp, "manifest.json"), "w") as f:
-        json.dump(manifest, f)
-    if os.path.exists(final):
-        shutil.rmtree(final)
-    os.rename(tmp, final)
-    with open(os.path.join(ckpt_dir, "LATEST.tmp"), "w") as f:
-        f.write(str(step))
-    os.replace(os.path.join(ckpt_dir, "LATEST.tmp"),
-               os.path.join(ckpt_dir, "LATEST"))
+    if writer:
+        os.makedirs(ckpt_dir, exist_ok=True)
+        if os.path.exists(tmp):
+            shutil.rmtree(tmp)
+        os.makedirs(tmp)
+    leaves = []
+    for i, (path, leaf) in enumerate(full_leaves(state, shardings)):
+        if writer:
+            stored, dtype_name = _to_storable(leaf)
+            np.save(os.path.join(tmp, f"leaf_{i}.npy"), stored)
+            leaves.append({"shape": list(stored.shape), "dtype": dtype_name,
+                           "crc32": zlib.crc32(stored.tobytes()),
+                           "path": path})
+    if writer:
+        manifest = {"step": step,
+                    "treedef": "repro_torch train state: "
+                               + ", ".join(m["path"] for m in leaves),
+                    "leaves": leaves}
+        with open(os.path.join(tmp, "manifest.json"), "w") as f:
+            json.dump(manifest, f)
+        if os.path.exists(final):
+            shutil.rmtree(final)
+        os.rename(tmp, final)
+        with open(os.path.join(ckpt_dir, "LATEST.tmp"), "w") as f:
+            f.write(str(step))
+        os.replace(os.path.join(ckpt_dir, "LATEST.tmp"),
+                   os.path.join(ckpt_dir, "LATEST"))
+    if mesh is not None:
+        from repro_torch.nn.sharding import all_reduce
+
+        # the ranks wait for rank 0's commit
+        all_reduce(torch.zeros(1, device=mesh.device or "cpu"), mesh)
     return final
 
 
@@ -126,12 +177,15 @@ def latest_step(ckpt_dir: str) -> int | None:
 
 
 def restore_checkpoint(ckpt_dir: str, state: dict, step: int | None = None,
-                       verify: bool = True):
+                       verify: bool = True, shardings: dict | None = None):
     """Restore ``step`` (default: ``LATEST``) into ``state``, in place
     (tensors copied into, counters set).  Returns ``(state, step)``.
     Raises ``FileNotFoundError`` without a checkpoint, ``ValueError`` on
     a leaf count, shape or dtype that differs from the state's, ``IOError``
-    on a digest mismatch; the state is untouched when it raises."""
+    on a digest mismatch; the state is untouched when it raises.  With
+    ``shardings`` ``state`` is a rank's shares on a mesh: each full leaf
+    must have the shape those shares make up, and the rank keeps its
+    share (elastic re-mesh)."""
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
@@ -145,13 +199,15 @@ def restore_checkpoint(ckpt_dir: str, state: dict, step: int | None = None,
             f"checkpoint has {len(manifest['leaves'])} leaves, "
             f"state expects {len(leaves)}")
     loaded = []
-    for i, (meta, (path, like)) in enumerate(zip(manifest["leaves"],
-                                                 leaves)):
+    for i, (meta, (path, like), pl) in enumerate(zip(
+            manifest["leaves"], leaves, leaf_placements(state, shardings))):
         arr = np.load(os.path.join(d, f"leaf_{i}.npy"))
         if verify and zlib.crc32(arr.tobytes()) != meta["crc32"]:
             raise IOError(f"digest mismatch on leaf {i} of step {step}")
         t = _from_storable(arr, meta["dtype"])
         shape = tuple(like.shape) if isinstance(like, torch.Tensor) else ()
+        if pl is not None:
+            shape = tuple(n * pl.parts(j) for j, n in enumerate(shape))
         if tuple(t.shape) != shape:
             raise ValueError(f"leaf {i} ({path}): checkpoint shape "
                              f"{tuple(t.shape)} != {shape}")
@@ -159,7 +215,7 @@ def restore_checkpoint(ckpt_dir: str, state: dict, step: int | None = None,
         if t.dtype != want:
             raise ValueError(f"leaf {i} ({path}): checkpoint dtype "
                              f"{meta['dtype']}, the state holds {want}")
-        loaded.append(t)
+        loaded.append(pl.local(t) if pl is not None and t.dim() else t)
     with torch.no_grad():
         for (path, like), t in zip(leaves, loaded):
             if path == "opt.count":

@@ -1,14 +1,14 @@
 """Int8 error-feedback gradient compression (the reference's
-``train/compression.py``, its single-device form).
+``train/compression.py``).
 
 Each gradient leaf is quantized to int8 against a per-leaf float32 scale,
 with an error-feedback accumulator carrying what the rounding lost into
-the next step.  :func:`compressed_mean_local` is the reference's
-compressed data-parallel mean with one data shard: the int32 sum and the
-scales' maximum over one shard are the shard's own, and the mean divides
-by ``n_dp = 1``, in the reference's order of operations.  The mesh form
-(``compressed_dp_mean``, int8 collectives over the data axes) waits for
-sharded training (ROADMAP queue A, item 11).
+the next step.  :func:`compressed_dp_mean` is the reference's compressed
+data-parallel mean on a mesh of ranks: each rank quantizes its own data
+shard's gradients, the int8 codes (sent as int8) are summed as int32
+over the data axes (exact, so the order of the sum does not matter) and
+the scales' maximum taken, and the mean is ``summed * s_max / n_dp`` in
+the reference's order of operations.  :func:`compressed_mean_local` is its one-shard form.
 """
 from __future__ import annotations
 
@@ -41,10 +41,43 @@ def ef_compress_grads(grads: list, error: list):
     return qs, ss, es
 
 
+def _mean(summed: list, s_max: list, n_dp: int) -> list:
+    """``float32(summed) * s_max / n_dp``, the division tensor by tensor
+    (a true division, as XLA's)."""
+    div = s_max[0].new_tensor(float(n_dp)) if s_max else None
+    return [q.float() * s / div for q, s in zip(summed, s_max)]
+
+
 def compressed_mean_local(grads: list, error: list):
     """The compressed mean over one data shard: ``(mean, new_error)``,
     ``mean = int32(q) * scale / n_dp`` with ``n_dp = 1``."""
-    n_dp = 1
     q8, scales, new_e = ef_compress_grads(grads, error)
-    mean = [q.to(torch.int32).float() * s / n_dp for q, s in zip(q8, scales)]
-    return mean, new_e
+    return _mean([q.to(torch.int32) for q in q8], scales, 1), new_e
+
+
+def compressed_dp_mean(grads: list, error: list, mesh, dp_axes: tuple):
+    """Error-feedback int8 mean over the data axes ``dp_axes`` of
+    ``mesh`` (every rank of the mesh calls it with its own data shard's
+    full gradients and its error buffers, lists in one order): ``(mean,
+    new_error)``, the mean equal on every rank, ``new_error`` the rank's
+    own (what its rounding lost).  The codes travel as int8, one member's
+    at a time, into int32 sums (the reference's ``psum`` of the codes as
+    int32 is the same sum: integers add exactly in any order)."""
+    from repro_torch.nn.sharding import all_reduce, each_member
+
+    axes = tuple(a for a in dp_axes if a in mesh.axis_names)
+    n_dp = 1
+    for a in axes:
+        n_dp *= mesh.shape[a]
+    q8, scales, new_e = ef_compress_grads(grads, error)
+    summed = []
+    for q in q8:
+        acc = torch.zeros(q.shape, dtype=torch.int32, device=q.device)
+        for m in each_member(q, mesh, axes):
+            acc.add_(m.to(torch.int32))
+        summed.append(acc)
+    s_max = torch.stack(scales) if scales else None
+    if s_max is not None:
+        for a in axes:
+            all_reduce(s_max, mesh, a, op="max")
+    return _mean(summed, list(s_max.unbind()) if scales else [], n_dp), new_e

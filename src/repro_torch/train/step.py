@@ -1,14 +1,48 @@
-"""The train step on one device (the reference's ``train/step.py``).
+"""The train step (the reference's ``train/step.py``), on one device or
+as one rank of a mesh.
 
 :func:`make_train_step` returns ``step(state, batch) -> (state,
 metrics)``: the family's loss (:func:`repro_torch.nn.transformer.loss_fn`)
 and its gradients by autograd, ``remat`` as activation checkpointing per
 layer, microbatches as a Python loop that sums the gradients in float32
 and divides by ``microbatch`` (the reference's ``lax.scan`` with float32
-accumulators), the single-device form of the int8 error-feedback
-compression under ``grad_compress``, and :func:`repro_torch.optim.
-adamw_update` in place.  The metrics are the reference's: ``loss``,
-``grad_norm`` (0-d tensors, no host read) and ``lr`` (float32).
+accumulators), the int8 error-feedback compression under
+``grad_compress``, and :func:`repro_torch.optim.adamw_update` in place.
+The metrics are the reference's: ``loss``, ``grad_norm`` (0-d tensors, no
+host read) and ``lr`` (float32).
+
+With a ``mesh`` the step is an explicit SPMD program in the exact mode of
+sharded serving (:mod:`repro_torch.serve.sharded`): a rank's state is its
+shares (:func:`~repro_torch.train.state.train_state_shardings`), and each
+step
+
+1. gathers the parameters into full tensors (the moe expert stacks stay
+   split over the model axis: :mod:`repro_torch.nn.moe`);
+2. takes the rank's rows of the global batch (:func:`batch_shardings`,
+   dim 0 over the data axes, as the reference's jit shards one batch);
+3. runs the forward and autograd at single-device shapes (microbatches
+   within the rank's rows);
+4. casts the gradients to float32 and sums them over the data axes in
+   rank order, ``0 + g_0 + g_1 + ...``, then divides by ``n_dp`` (one
+   member's gradient at a time into one accumulator:
+   :func:`~repro_torch.nn.sharding.each_member`); the loss is averaged
+   the same way;
+5. takes the global norm over the full mean gradients, leaf by leaf;
+6. runs AdamW on the rank's own shares with that norm.
+
+So at ``microbatch=None`` a sharded step on any ``(dp, tp)`` is bit for
+bit the single-device step with ``microbatch=dp`` (the same float32 sums
+in the same order), and at dp 1 the single-device step itself.  Under
+``grad_compress`` each rank compresses its own gradients against the full
+error buffers and the ranks meet in :func:`~repro_torch.train.
+compression.compressed_dp_mean`; a rank keeps its share of its own new
+error buffer, which is what the reference's ``ef_error`` holds after its
+step (its per-shard buffers leave the ``shard_map`` under a replicated
+spec, and the step's output placement keeps each device's slice of its
+own).  Gloo collectives cannot be captured in a CUDA graph, so the
+sharded step runs eagerly; ``step.timings`` holds the last call's
+seconds (host clock, the device synchronized) of the weight gather, the
+forward and backward, the gradient reduction and the update.
 
 Serving's counterparts of the reference's ``make_serve_step`` and
 ``make_prefill`` are :func:`repro_torch.serve.decode_step` (captured in a
@@ -17,17 +51,30 @@ CUDA graph by :class:`repro_torch.serve.CapturedStep`) and
 """
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.data.tokens import lm_batch_specs
-from repro_torch.device import resolve_device
-from repro_torch.nn.transformer import loss_fn
+from repro_torch.device import resolve_device, synchronize
+from repro_torch.nn.sharding import (
+    DP_AXES,
+    TP_AXIS,
+    each_member,
+    named_sharding,
+    use_mesh,
+)
+from repro_torch.nn.transformer import loss_fn, params_class
 from repro_torch.optim import adamw_update
+from repro_torch.optim.adamw import square_sum
 
-from .compression import compressed_mean_local
-from .state import TrainConfig
+from .compression import compressed_dp_mean, compressed_mean_local
+from .state import TrainConfig, train_state_shardings
+
+# the moe expert stacks: split over the model axis through the compute
+_EXPERT_PARAMS = ("moe_w_in", "moe_w_out")
 
 
 def input_batch_specs(cfg: ArchConfig, global_batch: int, seq_len: int
@@ -42,6 +89,14 @@ def input_batch_specs(cfg: ArchConfig, global_batch: int, seq_len: int
         extra["frames"] = ((global_batch, cfg.n_frames, cfg.d_model),
                            np.dtype(np.float32))
     return lm_batch_specs(global_batch, seq_len, extra)
+
+
+def batch_shardings(cfg: ArchConfig, mesh, batch_specs: dict) -> dict:
+    """``{name: Placement}`` of a global batch (``{name: (shape,
+    dtype)}``, :func:`input_batch_specs`): dim 0 over the data axes."""
+    return {name: named_sharding(mesh, "dp", *(None,) * (len(shape) - 1),
+                                 shape=shape)
+            for name, (shape, _) in batch_specs.items()}
 
 
 def batch_to_device(batch: dict, device) -> dict:
@@ -66,11 +121,13 @@ def _split_micro(batch: dict, n_micro: int) -> list[dict]:
 
 
 def make_train_step(cfg: ArchConfig, tcfg: TrainConfig, device=None,
-                    lut_tables=None):
+                    lut_tables=None, mesh=None):
     """``step(state, batch) -> (state, metrics)``, updating ``state`` in
     place.  ``lut_tables`` (compressed activations in the forward) must use
     the ``gather`` backend: the kernels' entries have no gradient (neither
-    have the reference's Pallas entries)."""
+    have the reference's Pallas entries).  ``mesh``: this rank's mesh
+    (:func:`repro_torch.launch.mesh.make_host_mesh`), ``state`` its
+    shares and ``batch`` the global batch (module docstring)."""
     dev = resolve_device(device)
     if lut_tables is not None and lut_tables.get("backend") != "gather":
         raise ValueError(
@@ -106,6 +163,9 @@ def make_train_step(cfg: ArchConfig, tcfg: TrainConfig, device=None,
         div = torch.tensor(n_micro, dtype=torch.float32, device=dev)
         return torch.mean(torch.stack(losses)), [a / div for a in acc]
 
+    if mesh is not None:
+        return _sharded_step(cfg, tcfg, dev, mesh, grads_of)
+
     def step(state: dict, batch: dict):
         batch = batch_to_device(batch, dev)
         params = state["params"]
@@ -118,4 +178,86 @@ def make_train_step(cfg: ArchConfig, tcfg: TrainConfig, device=None,
         state["step"] += 1
         return state, {"loss": loss, **metrics}
 
+    return step
+
+
+def _sharded_step(cfg: ArchConfig, tcfg: TrainConfig, dev, mesh, grads_of):
+    """The step on ``mesh`` (module docstring), around the single-device
+    ``grads_of`` of the rank's rows."""
+    pl = train_state_shardings(cfg, tcfg, mesh)["params"]
+    dp_axes = tuple(a for a in DP_AXES if a in mesh.axis_names)
+    n_dp = 1
+    for a in dp_axes:
+        n_dp *= mesh.shape[a]
+    # an expert stack split over the model axis stays split in the compute
+    keep = {n: (TP_AXIS,) if (n.rsplit(".", 1)[-1] in _EXPERT_PARAMS
+                              and not pl[n].only((TP_AXIS,)).replicated)
+            else () for n in pl}
+    div = torch.tensor(n_dp, dtype=torch.float32, device=dev)
+    timings = {}
+
+    def mark(key, t0):
+        synchronize(dev)
+        now = time.perf_counter()
+        timings[key] = now - t0
+        return now
+
+    def rows(batch: dict) -> dict:
+        batch = batch_to_device(batch, dev)
+        for k, v in batch.items():
+            if v.shape[0] % n_dp:
+                raise ValueError(f"sharded train step: the global batch of "
+                                 f"{v.shape[0]} does not divide over "
+                                 f"{n_dp} data ranks")
+        placed = batch_shardings(cfg, mesh, {k: (tuple(v.shape), v.dtype)
+                                             for k, v in batch.items()})
+        return {k: placed[k].local(v) for k, v in batch.items()}
+
+    def rank_order_mean(t: torch.Tensor) -> torch.Tensor:
+        """``(0 + t_0 + t_1 + ...) / n_dp`` in float32 over the data
+        ranks (the single-device microbatch sum)."""
+        acc = torch.zeros(t.shape, dtype=torch.float32, device=t.device)
+        for m in each_member(t, mesh, dp_axes):
+            acc.add_(m.float())
+        return acc / div
+
+    def step(state: dict, batch: dict):
+        t0 = time.perf_counter()
+        named = list(state["params"].named_parameters())
+        params = params_class(cfg)(cfg, dev, leaves={
+            n: pl[n].gather(p.detach(), keep=keep[n]) for n, p in named})
+        params.requires_grad_(True)
+        t0 = mark("gather_s", t0)
+        with use_mesh(mesh):
+            loss, g = grads_of(params, rows(batch))
+        del params
+        t0 = mark("forward_backward_s", t0)
+        if n_dp > 1:
+            loss = torch.mean(torch.stack(
+                [m.clone() for m in each_member(loss, mesh, dp_axes)]))
+        sqs, shares, errs = [], [], []
+        for i, (n, _) in enumerate(named):
+            gi, g[i] = g[i], None
+            if keep[n]:     # every expert's gradient, for the norm
+                gi = pl[n].only((TP_AXIS,)).gather(gi)
+            if tcfg.grad_compress:
+                (gi,), (e,) = compressed_dp_mean(
+                    [gi], [pl[n].gather(state["ef_error"][i])], mesh,
+                    dp_axes)
+                errs.append(pl[n].local(e))
+            elif n_dp > 1:
+                gi = rank_order_mean(gi)
+            sqs.append(square_sum(gi))
+            shares.append(pl[n].local(gi))
+        gnorm = torch.sqrt(sum(sqs))
+        if tcfg.grad_compress:
+            state["ef_error"] = errs
+        t0 = mark("reduce_s", t0)
+        metrics = adamw_update(shares, state["opt"], [p for _, p in named],
+                               tcfg.optimizer, gnorm=gnorm)
+        state["step"] += 1
+        mark("update_s", t0)
+        return state, {"loss": loss, **metrics}
+
+    step.timings = timings
     return step

@@ -99,8 +99,13 @@ def _entry_points(tmp_path):
     from repro_torch.launch import tune as tune_launcher
     from repro_torch.launch.mesh import run_ranks
     from repro_torch.serve.degrade import DegradationLadder
-    from repro_torch.train import TrainConfig, init_train_state
     from repro_torch.nn import init_params
+    from repro_torch.nn.sharding import Mesh
+    from repro_torch.train import (
+        TrainConfig,
+        init_train_state,
+        make_train_step,
+    )
     from repro_torch.serve import (
         ContinuousBatcher,
         build_serving_plans,
@@ -140,6 +145,14 @@ def _entry_points(tmp_path):
         "launcher --mesh": lambda: launcher.main(
             ["--arch", "qwen3-0.6b", "--mesh", "2,2"]),
         "mesh ranks": lambda: run_ranks(print, dp=2, tp=2),
+        "train launcher --dp --tp": lambda: train_launcher.main(
+            ["--steps", "1", "--dp", "2", "--tp", "2"]),
+        "sharded train state": lambda: init_train_state(
+            _cfg(), TrainConfig(), mesh=Mesh(("data", "model"), (1, 2),
+                                             rank=0)),
+        "sharded train step": lambda: make_train_step(
+            _cfg(), TrainConfig(), mesh=Mesh(("data", "model"), (1, 2),
+                                             rank=0)),
     }
 
 
@@ -151,7 +164,10 @@ def _entry_points(tmp_path):
                                   "train launcher", "tune launcher",
                                   "trained_params", "degradation ladder",
                                   "launcher --reload-plan", "bench run",
-                                  "launcher --mesh", "mesh ranks"])
+                                  "launcher --mesh", "mesh ranks",
+                                  "train launcher --dp --tp",
+                                  "sharded train state",
+                                  "sharded train step"])
 def test_entry_point_without_device_needs_the_card(name, tmp_path):
     """Called without ``device`` on a machine with no CUDA, an entry point
     raises instead of running on the CPU."""

@@ -1,8 +1,9 @@
 """The port's token stream, batch specs, LUT tables in training and the
 training launcher, on the CPU: ``TokenStream`` bit for bit against the
-reference's, the launcher's flags, batches, checkpoints and its status 2
-for meshes (the train step against the reference's:
-``tests/test_torch_train_step.py``)."""
+reference's, the launcher's flags, batches, checkpoints, a 2x2 mesh run
+and its status 2 for meshes it cannot build (the train step against the
+reference's: ``tests/test_torch_train_step.py``; on meshes:
+``tests/test_torch_train_sharded.py``)."""
 import dataclasses
 
 import numpy as np
@@ -144,10 +145,49 @@ def test_launcher_resumes_from_its_checkpoint_directory(tmp_path):
                 else a == b)
 
 
-@pytest.mark.parametrize("flags", [["--dp", "2"], ["--tp", "4"],
-                                   ["--production-mesh"], ["--multi-pod"]])
+# flags the launcher refuses, and what its message must say
+REFUSED = {("--production-mesh",): "needs 256 ranks",
+           ("--multi-pod",): "512 ranks",
+           ("--production-mesh", "--multi-pod"): "needs 512 ranks",
+           ("--tp", "0"): "must be >= 1"}
+
+
+@pytest.mark.parametrize("flags", [list(k) for k in REFUSED])
 def test_launcher_refuses_meshes_with_status_2(flags, capsys):
+    """A mesh that cannot be built here exits with status 2 and says
+    why: the production meshes need their 256 (two pods: 512) ranks,
+    ``--multi-pod`` alone names the two-pod mesh it needs, a mesh axis
+    below 1."""
     with pytest.raises(SystemExit) as info:
         launcher.parse_args(["--device", "cpu"] + flags)
     assert info.value.code == 2
-    assert "item 11" in capsys.readouterr().err
+    assert REFUSED[tuple(flags)] in capsys.readouterr().err
+
+
+def test_launcher_refuses_torchrun_ranks_that_miss_the_mesh(monkeypatch,
+                                                           capsys):
+    """Under ``torchrun`` the ranks must make ``DP x TP``: 3 for a 2x2
+    mesh exits with status 2 before any rank joins."""
+    monkeypatch.setenv("RANK", "0")
+    monkeypatch.setenv("WORLD_SIZE", "3")
+    with pytest.raises(SystemExit) as info:
+        launcher.parse_args(["--device", "cpu", "--dp", "2", "--tp", "2"])
+    assert info.value.code == 2
+    assert "needs 4 ranks, torchrun started 3" in capsys.readouterr().err
+
+
+def test_launcher_trains_on_a_2x2_mesh():
+    """``--dp 2 --tp 2 --device cpu`` runs 2 steps on four spawned ranks:
+    every rank reports the same losses, those of the single-device run
+    with ``--microbatch 2``, and holds its shares of the state."""
+    argv = ["--device", "cpu", "--steps", "2", "--batch", "4", "--seq", "16"]
+    ranks = launcher.train_mesh(argv + ["--dp", "2", "--tp", "2"])
+    one = launcher.run(launcher.parse_args(argv + ["--microbatch", "2"]),
+                       log=lambda m: None)
+    assert [r["rank"] for r in ranks] == [0, 1, 2, 3]
+    for r in ranks:
+        assert r["losses"] == one["losses"] and len(r["losses"]) == 2
+        assert r["grad_norms"] == one["grad_norms"]
+        assert r["state_bytes"] < launcher.state_bytes(one["state"]) / 2
+        assert set(r["splits"][0]) == {"gather_s", "forward_backward_s",
+                                       "reduce_s", "update_s"}
