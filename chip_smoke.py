@@ -119,12 +119,12 @@ Phases (any failure exits non-zero; nothing is caught):
      forms (a) and (f) token-identically to the in-process plans;
   15. (run last, once the earlier models are freed) the moe family at
      full width, random weights from seed 0, bf16, the same 4 x 64 x 16:
-     ``deepseek-moe-16b`` (28 layers, 64 routed experts top-6 at d_expert
-     1408, 2 shared) in forms exact, (a) stacked + cuda (K1 twice a layer
+     ``deepseek-moe-16b`` (10 of its 28 layers, ``SERVE_DEPTH``; 64 routed
+     experts top-6 at d_expert 1408, 2 shared) in forms exact, (a) stacked + cuda (K1 twice a layer
      a step: ``expert`` and the shared experts' ``mlp``), (b) unrolled
      (K2), (d) ``--lut-fuse`` (K3 on the shared MLP, the expert site
      through K4), (f) ``--lut-sites all --lut-fuse`` (K3 + K4) and (k)
-     ``--kv-int8``, then ``qwen3-moe-30b-a3b`` (24 of its 48 layers,
+     ``--kv-int8``, then ``qwen3-moe-30b-a3b`` (12 of its 48 layers,
      ``SERVE_DEPTH``; 128 experts top-8 at d_expert 768, no shared expert)
      exact and (a); each form
      captured and eager as in phase 5, (a) and (b) token-identical to the
@@ -140,12 +140,12 @@ Phases (any failure exits non-zero; nothing is caught):
      (exact and (a));
   16. (run after phase 15, once the moe models are freed) the vlm and
      hybrid families at full width, random weights from seed 0, bf16, the
-     same 4 x 64 x 16: ``phi-3-vision-4.2b`` (16 of 32 layers, d_model
+     same 4 x 64 x 16: ``phi-3-vision-4.2b`` (8 of 32 layers, d_model
      3072, 32 heads x 96, d_ff 8192 swiglu, 256 patch embeddings from
      ``model_batch`` before each prompt, so decoding starts at position
      256 + 64) in forms exact, (a), (b), (e) ``--lut-sites all`` (every
      site through K1) and (f) ``--lut-sites all --lut-fuse`` (K3 + K4),
-     then ``recurrentgemma-9b`` (14 of 38 layers: 4 of its 12 groups of
+     then ``recurrentgemma-9b`` (8 of 38 layers: 2 of its 12 groups of
      (rec, rec, attn) and its 2-layer rec tail, d_model = d_rnn 4096, 16
      heads x 256 with one KV head, window 2048, d_ff 12288 geglu) in
      forms exact, (a), (b), (d) ``--lut-fuse`` (K3 with the gelu table)
@@ -171,10 +171,10 @@ Phases (any failure exits non-zero; nothing is caught):
      (K3 without a gate), (e) ``--lut-sites all`` and (f) ``--lut-sites all
      --lut-fuse`` (K4 on the cross-attention's scores over the 1500
      frames), its encoder timed apart from its decoder prefill; then
-     ``phi4-mini-3.8b`` and ``nemotron-4-15b`` (16 of 32 layers; relu2
-     without a gate, d_ff 24576) in forms exact, (a), (b) and (d), and
-     ``deepseek-67b`` with its depth cut to 20 of 95 layers (134.9 GB in
-     bf16 at full depth) in forms exact and (a) (the depth cuts:
+     ``phi4-mini-3.8b`` (16 of 32 layers) and ``nemotron-4-15b`` (8 of 32
+     layers; relu2 without a gate, d_ff 24576) in forms exact, (a), (b)
+     and (d), and ``deepseek-67b`` with its depth cut to 10 of 95 layers
+     (134.9 GB in bf16 at full depth) in forms exact and (a) (the depth cuts:
      ``SERVE_DEPTH``); each form captured and eager as in phase 5 (whisper's
      cross K/V as prefill wrote them, bit for bit), (a), (b), (e)
      token-identical to the gather backend, every form launching the LUT
@@ -350,9 +350,30 @@ Phases (any failure exits non-zero; nothing is caught):
      18's cut), 4 x 64, 2 steps, on 1x2 (expert parallel, against the
      plain step) and 2x1 (against ``--microbatch 2``); (c) on one device
      and (f) on 1x2 run in threads beside the 2x1 ranks.
+  24. the dry run (``repro_torch.launch.dryrun.trace_step``: the port's
+     own step traced on ``meta`` tensors, the kernels' abstract
+     route, the roofline's cost counter and ``MemTracker``) against the
+     card: each case is traced at its shape on one device, and its first
+     step then runs on the card under the same counter; the FLOPs, HBM
+     bytes, operations and launches a kernel point must be equal (the
+     same program under the same counter), the predicted peak within 1%
+     plus 64 MiB of the card's (the bytes at rest plus the allocator's
+     high-water mark over the step), and the step's measured ms at least
+     the roofline bound (``bound_s`` from an H100's peaks; the share
+     printed): (a) (run after phase 12, while phase 5's model lives)
+     qwen3-0.6b's decode step at 4 requests and a cache of 64 + 16,
+     exact and form (a), against phase 12's captured replay, K1's
+     launches a step equal to phase 12's; (b) qwen3-0.6b's training step
+     at phase 18's 8 x 512 against phase 18's step; (c) rwkv6-3b's with
+     ``--remat`` at 4 x 256, K8 64 and K8b 32 launches a step as phase
+     18 counted; (d) qwen3-0.6b's step with ``set_fast_stream(True)``:
+     its loss within 1e-2 of (b)'s (the CPU test's bound against the
+     reference), the dry run's change in HBM bytes beside the change in
+     the measured step's median (3 steps each, on and off in turns on one
+     state), with no pass or fail on the speed.
 The last lines are the kernel JSON, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``; the kernels' launches include phases
-19's-23's (phases 22's and 23's summed over their ranks).  Long logs go to the
+19's-24's (phases 22's and 23's summed over their ranks).  Long logs go to the
 output directory beside the script (``OUT_DIR``: every logged line to
 ``chip_smoke.log``, phase 19's ``tune_bench/v1`` payload to
 ``tune_qwen3.json``, phase 20's obs logs and report under ``obs/``,
@@ -380,11 +401,19 @@ ROOT = Path(__file__).resolve().parent
 OUT_DIR = ROOT / "chiprun_out"
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s, bf16 and TF32
-# tensor-core and f32 CUDA-core FLOP/s.
-PEAK_BYTES_S = 3.35e12
-PEAK_BF16_FLOPS = 989e12
-PEAK_TF32_FLOPS = 495e12
-PEAK_F32_FLOPS = 67e12
+# tensor-core and f32 CUDA-core FLOP/s: the port's roofline constants, one
+# source for the kernels' bounds here and the dry run's terms (phase 24).
+# Run alone, without the checkout, there are none, and main() says why.
+sys.path.insert(0, str(ROOT / "src"))
+try:
+    from repro_torch.roofline.analysis import (
+        HBM_BW as PEAK_BYTES_S,
+        PEAK_F32_FLOPS,
+        PEAK_FLOPS as PEAK_BF16_FLOPS,
+        PEAK_TF32_FLOPS,
+    )
+except ImportError:
+    PEAK_BYTES_S = PEAK_BF16_FLOPS = PEAK_TF32_FLOPS = PEAK_F32_FLOPS = None
 
 B, T, NEW = 4, 64, 16
 
@@ -2894,16 +2923,18 @@ P17_ALL_SITE_CALLS = 10
 # the others are cut so that the script, with phase 23, stays within its
 # 1200 s (PERF.md section 4 lists them): every check of the phases is
 # per layer or per step, so half the depth leaves each of them in place
-SERVE_TIME = "the script's 1200 s with phase 23"
+SERVE_TIME = "the script's 1200 s with phases 23-24"
 SERVE_DEPTH = {
-    "qwen3-moe-30b-a3b": (24, f"48 layers, 61.1 GB; {SERVE_TIME}"),
-    "phi-3-vision-4.2b": (16, f"32 layers; {SERVE_TIME}"),
-    "recurrentgemma-9b": (14, f"38 layers, 12 (rec, rec, attn) groups and "
-                              f"2 tail; 4 groups and the tail: "
-                              f"{SERVE_TIME}"),
-    "nemotron-4-15b": (16, f"32 layers; {SERVE_TIME}"),
-    "deepseek-67b": (20, "95 layers are 134.9 GB in bf16, more than one "
-                         f"80 GB card; 20 (29.4 GB): {SERVE_TIME}"),
+    "deepseek-moe-16b": (10, f"28 layers, 33.8 GB; {SERVE_TIME}"),
+    "qwen3-moe-30b-a3b": (12, f"48 layers, 61.1 GB; {SERVE_TIME}"),
+    "phi-3-vision-4.2b": (8, f"32 layers; {SERVE_TIME}"),
+    "recurrentgemma-9b": (8, f"38 layers, 12 (rec, rec, attn) groups and "
+                             f"2 tail; 2 groups and the tail: "
+                             f"{SERVE_TIME}"),
+    "phi4-mini-3.8b": (16, f"32 layers; {SERVE_TIME}"),
+    "nemotron-4-15b": (8, f"32 layers; {SERVE_TIME}"),
+    "deepseek-67b": (10, "95 layers are 134.9 GB in bf16, more than one "
+                         f"80 GB card; 10: {SERVE_TIME}"),
 }
 P17_TAGS = {"whisper-small": "wsp", "phi4-mini-3.8b": "phi4",
             "nemotron-4-15b": "nem", "deepseek-67b": "ds67"}
@@ -3532,7 +3563,220 @@ def run_phase18(dev, stamp, gen) -> dict:
     for r in res.values():
         r.pop("_args", None)
     return {"runs": res, "k8b": k8b, "k8_launches": counts["wkv"],
+            "rwkv_step_launches": {f"cuda:{k}": v // 5
+                                   for k, v in counts.items()},
             "ckpt_dir": main_dir}
+
+
+# ---------------------------------------------------------------------------
+# phase 24: the dry run (repro_torch.launch.dryrun) against the card
+# ---------------------------------------------------------------------------
+# the predicted peak against the card's: within 1% of the card's plus
+# 64 MiB.  The trace counts each tensor's bytes; the caching allocator
+# rounds every block up to 512 bytes, and a library workspace (cuBLAS /
+# cuBLASLt, up to 32 MiB a handle on Hopper) first taken inside the step
+# counts there only
+P24_PEAK_RTOL = 0.01
+P24_PEAK_ATOL = 64 * 2**20
+# how far the fast stream may move a bf16 training loss: the CPU test's
+# bound against the reference (tests/test_torch_dryrun.py, FAST_LOSS_RTOL)
+P24_FAST_LOSS_RTOL = 1e-2
+P24_FAST_STEPS = 3
+
+
+def p24_real(run, rest, dev):
+    """One step ``run()`` on the card under the roofline's cost counter:
+    ``(costs, peak bytes, output)``, the peak the bytes of ``rest`` (the
+    step's state and inputs at rest, as the dry run counts them) plus the
+    allocator's high-water mark over the step above what was allocated
+    before it (so other residents of the card do not count)."""
+    import torch
+
+    from repro_torch.launch.dryrun import _storages
+    from repro_torch.roofline.costs import count_costs
+
+    torch.cuda.synchronize(dev)
+    before = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    with count_costs(dev) as c:
+        out = run()
+    torch.cuda.synchronize(dev)
+    temp = torch.cuda.max_memory_allocated(dev) - before
+    return c, sum(_storages(rest).values()) + temp, out
+
+
+def p24_check(label, tr, real, real_peak, step_ms, what,
+              want_launches=None) -> dict:
+    """The dry run's trace ``tr`` of a step against the card's run of it:
+    FLOPs, HBM bytes and launches a kernel point equal (the same program
+    under the same counter), the predicted peak within P24_PEAK_*, and
+    ``step_ms`` (``what`` says whose time it is) at least the bound."""
+    fake = tr["costs"]
+    ops_ = set(fake.per_comp_hbm) | set(real.per_comp_hbm)
+    diff = {k: (fake.per_comp_hbm.get(k), real.per_comp_hbm.get(k))
+            for k in sorted(ops_)
+            if fake.per_comp_hbm.get(k) != real.per_comp_hbm.get(k)}
+    if ((fake.flops, fake.hbm_bytes, fake.launches, fake.n_ops)
+            != (real.flops, real.hbm_bytes, real.launches, real.n_ops)
+            or diff):
+        raise AssertionError(
+            f"[24] {label}: the dry run counts {fake.flops} FLOPs, "
+            f"{fake.hbm_bytes} bytes, {fake.n_ops} ops, {fake.launches}; "
+            f"the card's step {real.flops}, {real.hbm_bytes}, {real.n_ops}"
+            f", {real.launches}; bytes differ at {diff}")
+    if want_launches is not None and fake.launches != want_launches:
+        raise AssertionError(f"[24] {label}: the dry run prices "
+                             f"{fake.launches}, the card launched "
+                             f"{want_launches}")
+    pred = tr["peak_bytes"]
+    tol = P24_PEAK_RTOL * real_peak + P24_PEAK_ATOL
+    if abs(pred - real_peak) > tol:
+        raise AssertionError(f"[24] {label}: predicted peak {pred} bytes, "
+                             f"the card's {real_peak} (tolerance {tol:.0f})")
+    terms = tr["terms"]
+    bound_ms = terms.bound_s * 1e3
+    share = bound_ms / step_ms
+    if share > 1.0:
+        raise AssertionError(f"[24] {label}: {what} {step_ms:.3f} ms is "
+                             f"below the bound {bound_ms:.3f} ms")
+    out = {"flops": fake.flops, "hbm_bytes": fake.hbm_bytes,
+           "n_ops": fake.n_ops, "launches": dict(fake.launches),
+           "predicted_peak_bytes": pred, "card_peak_bytes": real_peak,
+           "peak_diff_bytes": pred - real_peak, "bound_ms": bound_ms,
+           "dominant": terms.dominant, "step_ms": step_ms,
+           "step_ms_is": what, "bound_share": share,
+           "trace_s": tr["trace_s"]}
+    log(f"[24] {label}: dry run == card: {fake.flops:.6g} FLOPs, "
+        f"{fake.hbm_bytes:.6g} HBM bytes, {fake.n_ops} ops, launches "
+        f"{dict(fake.launches)}; peak predicted {pred / 1e9:.4f} GB, card "
+        f"{real_peak / 1e9:.4f} GB (diff {(pred - real_peak) / 2**20:+.2f} "
+        f"MiB); bound {bound_ms:.4f} ms ({terms.dominant}) against "
+        f"{what} {step_ms:.4f} ms: share {share:.4f}; traced in "
+        f"{tr['trace_s']:.1f}s")
+    return out
+
+
+def run_phase24_decode(dev, cfg0, plans, params, steps) -> dict:
+    """Phase 24 (a): qwen3-0.6b's decode step at phase 5's shape (4
+    requests, a cache of 64 + 16), exact and form (a) (``plans``' stacked
+    tables on the cuda backend: K1), traced without data and run on the
+    card under the same counter.  The bound is held against phase 12's
+    replay of the same form's captured step (its cache of 64 + 2 a little
+    smaller: the bound at 80 is the larger)."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.dryrun import trace_step
+    from repro_torch.serve import decode_step, init_cache
+
+    with ops.abstract():   # the trace's tables: same slabs, no data
+        traced = plans.tables_for_model(backend="cuda", device="meta")
+    tables = plans.tables_for_model(backend="cuda", device=dev)
+    cfg = plans.patched_config(cfg0)
+    out = {}
+    seq = T + NEW
+    for label, scfg, tab, ttab in (("exact", cfg0, None, None),
+                                   ("a", cfg, tables, traced)):
+        tr = trace_step(scfg, "decode", B, seq, lut_tables=ttab)
+        cache = init_cache(scfg, B, seq, device=dev)
+        tok = torch.zeros((B, 1), dtype=torch.long, device=dev)
+        pos = torch.tensor(seq - 1, dtype=torch.long, device=dev)
+        real, peak, _ = p24_real(
+            lambda: decode_step(params, scfg, cache, tok, pos,
+                                lut_tables=tab),
+            (params, (cache, tok, pos), tab), dev)
+        want = {f"cuda:{k}": v for k, v in steps[label]["launches"].items()}
+        out[label] = p24_check(
+            f"(a) qwen3-0.6b decode {label}", tr, real, peak,
+            steps[label]["captured"]["replay_ms"],
+            "phase 12's captured replay", want)
+        del cache
+    return out
+
+
+def run_phase24_train(dev, stamp, p18) -> dict:
+    """Phase 24 (b)-(d): qwen3-0.6b's training step at phase 18's 8 x 512
+    and rwkv6-3b's with ``--remat`` at 4 x 256, each traced without data
+    and its first step run on the card under the same counter, the
+    bound held against phase 18's step times; then qwen3-0.6b's step with
+    the fast stream on and off (losses within P24_FAST_LOSS_RTOL, the dry
+    run's HBM bytes beside the measured step ms)."""
+    import torch
+
+    from repro_torch.launch import train as tl
+    from repro_torch.launch.dryrun import trace_step
+    from repro_torch.nn.layers import set_fast_stream
+    from repro_torch.train.step import batch_to_device
+
+    runs = p18["runs"]
+    out = {}
+
+    def case(argv, label, step_ms, want=None, fast=False):
+        """Trace, count and check one step; with ``step_ms`` ``None``,
+        time P24_FAST_STEPS pairs of steps after it on the same state,
+        the fast stream on and off in turns."""
+        args = tl.parse_args(argv)
+        set_fast_stream(fast)
+        times = {True: [], False: []}
+        try:
+            s = tl.setup(args)
+            cfg, tcfg = s["cfg"], s["tcfg"]
+            tr = trace_step(cfg, "train", args.batch, args.seq, tcfg=tcfg)
+            state = s["state"]
+            batch = batch_to_device(s["batch_at"](0), dev)
+            real, peak, (_, m) = p24_real(
+                lambda: s["step"](state, batch), (state, batch), dev)
+            for _ in range(P24_FAST_STEPS if step_ms is None else 0):
+                for on in (True, False):
+                    set_fast_stream(on)
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    s["step"](state, batch)
+                    torch.cuda.synchronize()
+                    times[on].append(time.perf_counter() - t0)
+        finally:
+            set_fast_stream(False)
+        med = {on: statistics.median(v) * 1e3 for on, v in times.items()
+               if v}
+        r = p24_check(label, tr, real, peak,
+                      med[fast] if step_ms is None else step_ms,
+                      "phase 18's step" if step_ms is not None
+                      else "the step's median", want)
+        r.update(loss=float(m["loss"]), median_ms=med)
+        del s, state, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+        return r
+
+    args_q = P18_QWEN + ["--steps", "1"]
+    out["b"] = case(args_q, "(b) qwen3-0.6b train 8x512",
+                    runs["qwen3"]["step_s"] * 1e3)
+    log(f"[24] {stamp()}")
+    out["c"] = case(P18_RWKV, "(c) rwkv6-3b train remat 4x256",
+                    runs["rwkv6"]["step_s"] * 1e3,
+                    p18["rwkv_step_launches"])
+    log(f"[24] {stamp()}")
+    # (d): the fast stream's step against (b)'s, from the same state and
+    # batch; then steps with it on and off in turns
+    d = case(args_q, "(d) qwen3-0.6b train 8x512 fast stream", None,
+             fast=True)
+    lf, lo = d["loss"], out["b"]["loss"]
+    if abs(lf - lo) > P24_FAST_LOSS_RTOL * abs(lo):
+        raise AssertionError(f"[24] (d) the fast stream's loss {lf} is not "
+                             f"within {P24_FAST_LOSS_RTOL} of {lo}")
+    d_bytes = d["hbm_bytes"] - out["b"]["hbm_bytes"]
+    on_ms, off_ms = d["median_ms"][True], d["median_ms"][False]
+    out["d"] = dict(d, loss_rel_diff=abs(lf - lo) / abs(lo),
+                    hbm_bytes_change=d_bytes, step_ms_change=on_ms - off_ms)
+    log(f"[24] (d) fast stream: loss {lf:.6f} against {lo:.6f} off "
+        f"(relative {abs(lf - lo) / abs(lo):.2e}, within "
+        f"{P24_FAST_LOSS_RTOL}); the dry run's HBM bytes change by "
+        f"{d_bytes:+.6g} ({d_bytes / out['b']['hbm_bytes']:+.2%}, "
+        f"{d_bytes / PEAK_BYTES_S * 1e3:+.3f} ms at the HBM peak); the "
+        f"step's median of {P24_FAST_STEPS}, on and off in turns, by "
+        f"{on_ms - off_ms:+.3f} ms ({on_ms:.3f} against {off_ms:.3f}; no "
+        f"pass or fail on the speed)")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -6334,6 +6578,15 @@ def main() -> int:
         raise AssertionError(f"form (f)'s decode step launched no K4: "
                              f"{steps['f']['launches']}")
 
+    # ---- 24 (a). the dry run against the card: qwen3-0.6b's decode step
+    # (run here, while phase 5's model and form (a)'s tables live); the
+    # counted steps' K1 launches join its entry
+    log(f"[24] {stamp()}")
+    p24 = {"a": run_phase24_decode(dev, cfg0, plans, params, steps)}
+    for k in kernels:
+        k["launches"] += p24["a"]["a"]["launches"].get(f"cuda:{k['name']}",
+                                                       0)
+
     # ---- 15. the moe family, after the others (their models freed first)
     log(f"[15] {stamp()}")
     del (params, rparams, sparams, s_params, cases, w_in, rws, st, stacks)
@@ -6454,6 +6707,17 @@ def main() -> int:
     p23 = run_phase23(dev, stamp)
     for k in kernels:
         k["launches"] += p23["launches"].get(k["name"], 0)
+
+    # ---- 24 (b)-(d). the dry run against the card: training steps; the
+    # counted steps' K8 / K8b launches join their entries
+    t24 = time.perf_counter()
+    log(f"[24] {stamp()}")
+    p24.update(run_phase24_train(dev, stamp, p18))
+    for part in ("b", "c"):
+        for k in kernels:
+            k["launches"] += p24[part]["launches"].get(f"cuda:{k['name']}",
+                                                       0)
+    log(f"[24] {stamp()} (b)-(d) in {time.perf_counter() - t24:.0f}s")
     log(f"[11] {stamp()} K5-K7")
     kernels += time_toolflow_kernels(dev, flow, errors, p21)
 
@@ -6462,7 +6726,7 @@ def main() -> int:
                "batcher": batcher, "moe": moe, "families": fam,
                "phase17": p17, "phase18": p18["runs"], "phase19": p19,
                "phase20": p20, "phase22": p22["out"],
-               "phase23": p23["out"],
+               "phase23": p23["out"], "phase24": p24,
                "phase21": dict(p21, k7_calls={
                    m: [[*k, c] for k, (_, c) in sorted(v.items())]
                    for m, v in p21["k7_calls"].items()}),

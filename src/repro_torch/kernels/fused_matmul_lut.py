@@ -30,6 +30,7 @@ import functools
 
 import torch
 
+from .abstract import is_abstract, traced_sm_count
 from .lut_act import (
     DTYPE_CODES,
     check_status,
@@ -249,9 +250,10 @@ def fused_matmul_lut_cuda(x2d, w, tab, *, gated: bool,
     m, k = x2d.shape
     n = w.shape[1]
     plan, shape = k3_launch(m, k, n, gated=gated, epilogue=epilogue,
-                            dtype=x2d.dtype, sm_count=sm_count(x2d.device))
+                            dtype=x2d.dtype,
+                            sm_count=traced_sm_count(x2d.device, sm_count))
     tile = (0, 0, 0)
-    if plan is not None:
+    if plan is not None and not is_abstract():
         for name, t in (("x", x2d), ("w", w)):
             if t.data_ptr() % 16:
                 raise ValueError(f"fused_matmul_lut: {name}'s data pointer "
@@ -263,6 +265,8 @@ def fused_matmul_lut_cuda(x2d, w, tab, *, gated: bool,
                          f"on {x2d.device} — tables must live on the "
                          f"input's card")
     out = torch.empty(shape, dtype=x2d.dtype, device=x2d.device)
+    if is_abstract():
+        return out
     stream = torch.cuda.current_stream(x2d.device).cuda_stream
     status = build.entry("rlut_fused_matmul_lut")(
         x2d.data_ptr(), w.data_ptr(), out.data_ptr(), m, k, n, int(gated),

@@ -43,6 +43,7 @@ import functools
 import numpy as np
 import torch
 
+from .abstract import is_abstract
 from .packing import COMPONENTS, unpack_take
 
 # dtype codes of the C interface (csrc/lut_eval.cuh)
@@ -243,15 +244,22 @@ class LutLaunch:
     record points at — held, so that the record never outlives them.
     The table entries carry theirs, built with the entry
     (``StackedPlanArrays.entry``, ``MultiSiteSlabs.entry``,
-    ``SitePlan.entry``)."""
+    ``SitePlan.entry``).  Inside :func:`.abstract.abstract` (tensors
+    without data, no pointers) ``rec`` is ``None``: the record keeps its
+    device, layer count and tensors only.  ``layer_bytes``: the table
+    bytes one launch reads, one row of each tensor."""
 
-    def __init__(self, rec: LutRecord, device: torch.device, tensors):
+    def __init__(self, rec: LutRecord | None, device: torch.device, tensors,
+                 n_layers: int | None = None):
         self.rec = rec
-        self.addr = ctypes.addressof(rec)
+        self.addr = 0 if rec is None else ctypes.addressof(rec)
         self.device = device
-        self.n_layers = rec.n_layers
+        self.n_layers = rec.n_layers if rec is not None else n_layers
         self.tensors = tuple(tensors)
-        self.sm_count = sm_count(device) if device.type == "cuda" else 0
+        self.layer_bytes = sum(t.shape[-1] * t.element_size()
+                               for t in self.tensors)
+        self.sm_count = (sm_count(device) if device.type == "cuda"
+                         and rec is not None else 0)
 
 
 @functools.lru_cache(maxsize=None)
@@ -319,6 +327,8 @@ def stacked_record(stacked: dict) -> LutLaunch:
         raise ValueError("lut_act_stacked: meta tables must be (L, 3) int32 "
                          "[l, w_lb, w_hb] and (L, 2) float32 [y_lo, span]")
     _check_record_tensors("lut_act_stacked", stacks + [mi, mf], mi.device)
+    if is_abstract():
+        return LutLaunch(None, mi.device, stacks + [mi, mf], n_layers)
     rec = _record(stacks, meta.get("pack"), any_lb=meta["any_lb"],
                   w_in=meta["w_in"], w_out=meta["w_out"], x_lo=meta["x_lo"],
                   x_hi=meta["x_hi"],
@@ -337,6 +347,8 @@ def plan_record(arrays: dict, pack: dict | None, *, l, w_lb, w_hb, w_in,
             raise ValueError(f"lut_act: component row {tuple(t.shape)} "
                              f"{t.dtype} is not a 1-D int32 row")
     _check_record_tensors("lut_act", rows, rows[0].device)
+    if is_abstract():
+        return LutLaunch(None, rows[0].device, rows, 1)
     rec = _record(rows, pack, any_lb=w_lb > 0, w_in=w_in, w_out=w_out,
                   x_lo=x_lo, x_hi=x_hi, l=l, w_lb=w_lb, w_hb=w_hb,
                   y_lo=y_lo, span=y_hi - y_lo)
@@ -411,7 +423,9 @@ def launch_lut(fn, name: str, x: torch.Tensor, rec: LutLaunch,
                layer: int) -> torch.Tensor:
     """Run K1 / K2 (``fn`` is the bound C entry point) over ``x`` (any
     shape and strides on the record's card) at ``layer``; the output is
-    contiguous, of ``x``'s shape."""
+    contiguous, of ``x``'s shape.  ``fn`` ``None`` (the abstract route)
+    validates, reads ``x`` as the kernel would and returns the empty
+    output without a launch."""
     if x.device != rec.device:
         raise ValueError(f"{name}: input on {x.device}, tables on "
                          f"{rec.device} — the kernel runs on the tables' "
@@ -429,6 +443,8 @@ def launch_lut(fn, name: str, x: torch.Tensor, rec: LutLaunch,
         view = k1_view(x)
     rows, cols, ld = view
     y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    if fn is None:
+        return y
     ptr = x.data_ptr()
     aligned = ptr % 16 == 0 and (rows == 1 or ld * x.element_size() % 16
                                  == 0)
@@ -474,8 +490,12 @@ class MultiLaunch:
                 raise ValueError(
                     "lut_act_multi: the sites' records disagree on the "
                     "device or the layer count")
-        self.recs = (LutRecord * len(sites))(*(r.rec for r in self.records))
-        self.addr = ctypes.addressof(self.recs)
+        if first.rec is None:   # the abstract route's records
+            self.recs, self.addr = tuple(self.records), 0
+        else:
+            self.recs = (LutRecord * len(sites))(
+                *(r.rec for r in self.records))
+            self.addr = ctypes.addressof(self.recs)
         self.device, self.sm_count = first.device, first.sm_count
         self.n_layers = first.n_layers
 
@@ -539,9 +559,11 @@ def k4_call(xs: dict, rec: MultiLaunch, layer: int):
                          f"takes 1 to {MAX_SEGMENTS}")
     if not segs:
         return out, None
+    held = tuple(x for x, _, _ in segs)
+    if is_abstract():
+        return out, ("abstract", (), held)
     threads, vec, blocks = k4_plan(tuple(x.numel() for x, _, _ in segs),
                                    dtype, sm_count=rec.sm_count)
-    held = tuple(x for x, _, _ in segs)
     if len(segs) == 1:
         (x, y, sid), = segs
         return out, ("rlut_lut_act_multi",

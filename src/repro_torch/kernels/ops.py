@@ -18,7 +18,12 @@ Counterpart of the reference's ``kernels/ops.py``:
 
 The LUT wrappers are the serving control plane's kernel fault points
 (:func:`fault_hook`), and every launch is a telemetry point
-(:func:`note_launch`: ``kernel_launches_total{backend="cuda"}``).
+(:func:`note_launch`: ``kernel_launches_total{backend="cuda"}``) and a
+cost point of the roofline's counter (:mod:`repro_torch.roofline.costs`:
+the bytes the kernel reads and writes, K3's product's operations).
+Inside :func:`abstract` (a dry run on tensors without data) each wrapper
+validates, tells the counter and returns an empty result without a launch
+(:mod:`.abstract`).
 """
 from __future__ import annotations
 
@@ -32,7 +37,12 @@ import torch
 from repro_torch.core.plan import DecomposedPlan, Plan, PlainPlan
 from repro_torch.device import resolve_device
 
-from .fused_matmul_lut import fused_matmul_lut_cuda, fused_matmul_lut_plain
+from .abstract import abstract, check_data, is_abstract, on_card
+from .fused_matmul_lut import (
+    fused_matmul_lut_cuda,
+    fused_matmul_lut_plain,
+    lut_record,
+)
 from .lut_act import (
     DTYPE_CODES,
     k4_call,
@@ -189,16 +199,30 @@ def recording():
         _RECORDING.remove(tally)
 
 
-def _launched(wrapper) -> None:
-    """One launch of ``wrapper``'s kernel: its count and its point."""
+def _launched(wrapper, reads=(), writes=(), table_bytes: int = 0,
+              flops: float = 0) -> None:
+    """One launch of ``wrapper``'s kernel: its count and its point, and
+    its cost for the roofline's counter (found through ``sys.modules``,
+    as telemetry is): the tensors it reads and writes, ``table_bytes`` of
+    tables read through a launch record (or a function giving them, asked
+    only while the counter runs), ``flops``.  Inside
+    :func:`abstract` only the counter hears of it: nothing launched."""
+    point = "cuda:" + wrapper.__name__
+    costs = sys.modules.get("repro_torch.roofline.costs")
+    if costs is not None and costs._ACTIVE:
+        if callable(table_bytes):
+            table_bytes = table_bytes()
+        costs.note_kernel(point, reads, writes, table_bytes, flops)
+    if is_abstract():
+        return
     wrapper.launches += 1
-    note_launch("cuda:" + wrapper.__name__)
+    note_launch(point)
 
 
 def _kernel_operands(name: str, x: torch.Tensor, tables) -> torch.Tensor:
     """Validate a kernel launch: ``x`` on the card in a supported dtype,
     every table tensor on the same card.  Returns ``x`` contiguous."""
-    if x.device.type != "cuda":
+    if not on_card(x.device):
         raise ValueError(
             f"{name}: input on {x.device}; the kernel runs on a CUDA "
             f"tensor and the plain version on a CPU one")
@@ -259,8 +283,10 @@ def _launch_k1k2(wrapper, entry: str, x: torch.Tensor, rec,
 
     if x.numel() == 0:
         return torch.empty(x.shape, dtype=x.dtype, device=x.device)
-    y = launch_lut(build.entry(entry), wrapper.__name__, x, rec, layer)
-    _launched(wrapper)
+    check_data(wrapper.__name__, x)
+    fn = None if is_abstract() else build.entry(entry)
+    y = launch_lut(fn, wrapper.__name__, x, rec, layer)
+    _launched(wrapper, (x,), (y,), rec.layer_bytes)
     return y
 
 
@@ -285,10 +311,14 @@ def lut_act_multi(xs: dict, entry: dict, layer: int) -> dict:
         raise ValueError(
             "lut_act_multi: the entry carries no launch record "
             "('k4_record'); build it with MultiSiteSlabs.entry()")
+    check_data("lut_act_multi", *xs.values())
     out, call = k4_call(xs, rec, layer)
     if call is not None:
-        launch_multi(call, rec)
-        _launched(lut_act_multi)
+        if not is_abstract():
+            launch_multi(call, rec)
+        _launched(lut_act_multi, call[2], [out[s] for s in xs],
+                  sum(rec.records[rec.site_ids[s]].layer_bytes
+                      for s, x in xs.items() if x.numel()))
     return out
 
 
@@ -315,9 +345,12 @@ def fused_matmul_lut(x: torch.Tensor, w: torch.Tensor, tab: dict, *,
     if k == 0:
         raise ValueError("fused_matmul_lut: empty contraction (K = 0)")
     x2d = _kernel_operands("fused_matmul_lut", x2d, [w])
-    out = fused_matmul_lut_cuda(x2d, w.contiguous(), tab, gated=gated,
-                                epilogue=epilogue)
-    _launched(fused_matmul_lut)
+    check_data("fused_matmul_lut", x2d, w)
+    w = w.contiguous()
+    out = fused_matmul_lut_cuda(x2d, w, tab, gated=gated, epilogue=epilogue)
+    _launched(fused_matmul_lut, (x2d, w), (out,),
+              (lambda: lut_record(tab)[0].layer_bytes) if epilogue else 0,
+              2.0 * x2d.shape[0] * w.shape[1] * k)
     return out.reshape(*lead, out.shape[-1])
 
 
@@ -325,7 +358,7 @@ def _int_operands(name: str, x: torch.Tensor, tables) -> torch.Tensor:
     """Validate an integer-kernel launch: ``x`` of an integer dtype,
     every table a contiguous int32 tensor on ``x``'s card.  Returns ``x``
     as contiguous int32."""
-    if x.device.type != "cuda":
+    if not on_card(x.device):
         raise ValueError(
             f"{name}: input on {x.device}; the kernel runs on a CUDA "
             f"tensor and the plain version on a CPU one")
@@ -353,10 +386,12 @@ def plain_lookup(x: torch.Tensor, pa: PlanArrays) -> torch.Tensor:
     if x.device.type == "cpu":
         return plain_lookup_plain(x, table)
     xc = _int_operands("plain_lookup", x, [table])
+    check_data("plain_lookup", xc, table)
     if xc.numel() == 0:
         return torch.empty_like(xc)
-    out = plain_lookup_cuda(xc, table)
-    _launched(plain_lookup)
+    out = (torch.empty_like(xc) if is_abstract()
+           else plain_lookup_cuda(xc, table))
+    _launched(plain_lookup, (xc, table), (out,))
     return out
 
 
@@ -375,10 +410,12 @@ def lut_reconstruct(x: torch.Tensor, pa: PlanArrays) -> torch.Tensor:
     if x.device.type == "cpu":
         return lut_reconstruct_plain(x, *(a[c] for c in COMPONENTS), **kw)
     xc = _int_operands("lut_reconstruct", x, a.values())
+    check_data("lut_reconstruct", xc, *a.values())
     if xc.numel() == 0:
         return torch.empty_like(xc)
-    out = lut_reconstruct_cuda(xc, a, **kw)
-    _launched(lut_reconstruct)
+    out = (torch.empty_like(xc) if is_abstract()
+           else lut_reconstruct_cuda(xc, a, **kw))
+    _launched(lut_reconstruct, (xc, *a.values()), (out,))
     return out
 
 
@@ -404,13 +441,15 @@ def lutnn_layer(codes: torch.Tensor, conn: torch.Tensor,
     if codes.device.type == "cpu":
         return lutnn_layer_plain(codes, conn, tables, bits=bits)
     cc = _int_operands("lutnn_layer", codes, [tables])
+    check_data("lutnn_layer", cc, conn, tables)
     if conn.device != cc.device:
         raise ValueError(f"lutnn_layer: conn on {conn.device}, codes on "
                          f"{cc.device}")
     conn = conn.to(torch.int32).contiguous()
-    out = lutnn_layer_cuda(cc, conn, tables, bits=bits)
+    out = (torch.empty((cc.shape[0], n), dtype=torch.int32, device=cc.device)
+           if is_abstract() else lutnn_layer_cuda(cc, conn, tables, bits=bits))
     if out.numel():
-        _launched(lutnn_layer)
+        _launched(lutnn_layer, (cc, conn, tables), (out,))
     return out
 
 
@@ -425,7 +464,7 @@ def _wkv_check(q, k, v, log_w, u, chunk, state) -> None:
         raise ValueError(
             f"wkv: u {tuple(u.shape)} must be ({h}, {n}), chunk {chunk} "
             f">= 1, state (B, H, N, N) or None")
-    if q.device.type not in ("cpu", "cuda"):
+    if q.device.type != "cpu" and not on_card(q.device):
         raise ValueError(f"wkv: input on {q.device}")
     for a in (k, v, log_w, u) + (() if state is None else (state,)):
         if a.device != q.device:
@@ -433,19 +472,22 @@ def _wkv_check(q, k, v, log_w, u, chunk, state) -> None:
 
 
 def _f32(a, dev):
-    """``a`` as a contiguous float32 tensor on ``dev``, 16-byte aligned."""
+    """``a`` as a contiguous float32 tensor on ``dev``, 16-byte aligned (a
+    tensor of the abstract route has no pointer: the caching allocator's
+    blocks are aligned, so a fresh one would be)."""
     a = a.to(device=dev, dtype=torch.float32).contiguous()
-    return a.clone() if a.data_ptr() % 16 else a
+    return a.clone() if not is_abstract() and a.data_ptr() % 16 else a
 
 
 def _wkv_forward(q, k, v, log_w, u, chunk, state):
     if q.device.type == "cpu":
         return wkv_chunked_plain(q, k, v, log_w, u, chunk=chunk,
                                  state=state)
-    f32 = lambda a: _f32(a, q.device)
-    y, s = wkv_cuda(f32(q), f32(k), f32(v), f32(log_w), f32(u), chunk,
-                    None if state is None else f32(state))
-    _launched(wkv)
+    check_data("wkv", q, k, v, log_w, u, state)
+    ins = [_f32(a, q.device) for a in (q, k, v, log_w, u)]
+    st = None if state is None else _f32(state, q.device)
+    y, s = wkv_cuda(*ins, chunk, st)
+    _launched(wkv, (*ins, st), (y, s))
     return y, s
 
 
@@ -505,10 +547,12 @@ def wkv_backward(q, k, v, log_w, u, dy, *, state=None):
                          f"{dy.device}, q {tuple(q.shape)} on {q.device}")
     if q.device.type == "cpu":
         return wkv_backward_plain(q, k, v, log_w, u, dy, state=state)
-    f32 = lambda a: _f32(a, q.device)   # k8b_plan refuses other head sizes
-    out = wkv_backward_cuda(f32(q), f32(k), f32(v), f32(log_w), f32(u),
-                            f32(dy), None if state is None else f32(state))
-    _launched(wkv_backward)
+    check_data("wkv_backward", q, k, v, log_w, u, dy, state)
+    # k8b_plan refuses other head sizes
+    ins = [_f32(a, q.device) for a in (q, k, v, log_w, u, dy)]
+    st = None if state is None else _f32(state, q.device)
+    out = wkv_backward_cuda(*ins, st)
+    _launched(wkv_backward, (*ins, st), out)
     return out
 
 

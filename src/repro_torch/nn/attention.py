@@ -77,7 +77,12 @@ def decode_attend(q, k_cache, v_cache, pos, exp_fn=None, k_scale=None,
     host read).  An int8 cache (``k_scale`` / ``v_scale`` ``(B, Tmax,
     KV)`` given) is dequantized at the read, as the reference does: values
     and scales cast to ``q``'s dtype and multiplied there (rounded in
-    ``q``'s dtype), then contracted in float32 as the other caches are."""
+    ``q``'s dtype), then contracted in float32 as the other caches are.
+    Under :data:`~repro_torch.nn.layers.FAST_STREAM` the scores are
+    rounded to the stream dtype before the float32 softmax (the
+    contraction is only Dh wide); the value contraction stays float32."""
+    from .layers import FAST_STREAM
+
     b, tmax, kvh, dh = k_cache.shape
     h = q.shape[2]
     g = h // kvh
@@ -85,7 +90,10 @@ def decode_attend(q, k_cache, v_cache, pos, exp_fn=None, k_scale=None,
     if k_scale is not None:
         k_cache = k_cache.to(q.dtype) * k_scale[..., None].to(q.dtype)
         v_cache = v_cache.to(q.dtype) * v_scale[..., None].to(q.dtype)
-    s = torch.einsum("bqkgd,btkd->bkgqt", qg.float(), k_cache.float())
+    if FAST_STREAM:
+        s = torch.einsum("bqkgd,btkd->bkgqt", qg, k_cache).float()
+    else:
+        s = torch.einsum("bqkgd,btkd->bkgqt", qg.float(), k_cache.float())
     s = s * (dh ** -0.5)
     valid = torch.arange(tmax, device=q.device)[None] <= pos
     s = torch.where(valid[None, None, None], s, torch.full_like(s, NEG_INF))

@@ -56,7 +56,7 @@ def _check_backend(backend: str, x: torch.Tensor) -> None:
     if backend not in BACKENDS:
         raise ValueError(f"unknown LUT backend {backend!r}; expected one "
                          f"of {BACKENDS}")
-    if backend == "cuda" and x.device.type != "cuda":
+    if backend == "cuda" and not ops.on_card(x.device):
         raise ValueError(
             f"LUT backend 'cuda' runs the CUDA kernels and needs tensors on "
             f"the card, got one on {x.device} (use backend 'gather' on the "

@@ -18,7 +18,11 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
     """x: (..., T, H, Dh); positions: broadcastable to (..., T).
 
     ``sin_fn`` overrides the sine (the rope-table LUT site, tabulated over
-    one wrapped period); the cosine reuses it a quarter period ahead."""
+    one wrapped period); the cosine reuses it a quarter period ahead.
+    Under :data:`~repro_torch.nn.layers.FAST_STREAM` the rotation runs in
+    ``x``'s dtype (the angles stay float32)."""
+    from .layers import FAST_STREAM
+
     d_head = x.shape[-1]
     freqs = rope_freqs(d_head, theta, x.device)            # (Dh/2,)
     angles = positions[..., None].float() * freqs          # (..., T, Dh/2)
@@ -30,6 +34,10 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
         tau = 2.0 * pi
         sin = sin_fn(torch.remainder(angles, tau))[..., None, :]
         cos = sin_fn(torch.remainder(angles + 0.5 * pi, tau))[..., None, :]
+    if FAST_STREAM:
+        cos, sin = cos.to(x.dtype), sin.to(x.dtype)
+        x1, x2 = torch.chunk(x, 2, dim=-1)
+        return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)

@@ -23,11 +23,17 @@ here: :func:`gather`, :func:`broadcast`, :func:`all_reduce` (sum or max)
 and :func:`each_member` (every member's tensor in rank order, which
 training sums in that order).  A gather is one broadcast per member of
 the axis, so it runs on gloo, whose CUDA support covers broadcast and
-all-reduce only, as on NCCL; a failed collective raises.
+all-reduce only, as on NCCL; a failed collective raises.  Each call tells
+the roofline's cost counter what it sends (:mod:`repro_torch.roofline.
+costs`, found through ``sys.modules``); inside the kernels' abstract
+route (a dry run on tensors without data,
+:mod:`repro_torch.kernels.abstract`) that is all it does: no data moves.
 
 The reference's ``manual_axes``, ``layer_scan`` / ``SCAN_STATS``,
 ``SEQ_PARALLEL``, ``exact_tp`` and ``spec`` / ``shard`` steer XLA's
-partitioner and have no counterpart here (ROADMAP, item 12).
+partitioner and have no counterpart in an explicit SPMD program (ROADMAP
+queue C: sequence parallelism, the dry run's one lever of them, is
+skipped there).
 """
 from __future__ import annotations
 
@@ -35,10 +41,13 @@ import contextlib
 import dataclasses
 import itertools
 import math
+import sys
 import threading
 
 import torch
 import torch.distributed as dist
+
+from repro_torch.kernels.abstract import is_abstract
 
 _STATE = threading.local()
 
@@ -250,12 +259,22 @@ def named_sharding(mesh: Mesh, *logical_axes: str | None,
 # -------------------------------------------------------------------------
 # collectives
 # -------------------------------------------------------------------------
-def broadcast(t: torch.Tensor, mesh: Mesh, axis: str, src_index: int
-              ) -> torch.Tensor:
+def _sent(kind: str, t: torch.Tensor) -> bool:
+    """Tell the cost counter about one collective of ``kind`` over ``t``;
+    False inside the abstract route, where nothing is sent."""
+    costs = sys.modules.get("repro_torch.roofline.costs")
+    if costs is not None and costs._ACTIVE:
+        costs.note_collective(kind, t.numel() * t.element_size())
+    return not is_abstract()
+
+
+def broadcast(t: torch.Tensor, mesh: Mesh, axis: str, src_index: int,
+              kind: str = "broadcast") -> torch.Tensor:
     """Broadcast ``t`` (contiguous, in place) from the rank at ``axis``
     coordinate ``src_index`` to every rank along ``axis``, as bytes (any
-    dtype, every bit kept)."""
-    if mesh.shape.get(axis, 1) > 1 and t.numel():
+    dtype, every bit kept); ``kind``: what the cost counter files it
+    under (a gather's broadcasts are an ``"all-gather"``)."""
+    if mesh.shape.get(axis, 1) > 1 and t.numel() and _sent(kind, t):
         dist.broadcast(t.reshape(-1).view(torch.uint8),
                        src=mesh.members(axis)[src_index],
                        group=mesh.group(axis))
@@ -268,9 +287,9 @@ def all_reduce(t: torch.Tensor, mesh: Mesh, axis: str | None = None,
     ``None``) by ``op``: ``"sum"`` or ``"max"``."""
     rop = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
     if axis is None:
-        if mesh.size > 1:
+        if mesh.size > 1 and _sent("all-reduce", t):
             dist.all_reduce(t, op=rop)
-    elif mesh.shape.get(axis, 1) > 1:
+    elif mesh.shape.get(axis, 1) > 1 and _sent("all-reduce", t):
         dist.all_reduce(t, op=rop, group=mesh.group(axis))
     return t
 
@@ -317,5 +336,5 @@ def gather(t: torch.Tensor, mesh: Mesh, axis: str, dim: int = 0
     for j in range(n):
         if j == me:
             buf[j].copy_(t)
-        broadcast(buf[j], mesh, axis, j)
+        broadcast(buf[j], mesh, axis, j, kind="all-gather")
     return buf.movedim(0, dim).flatten(dim, dim + 1)

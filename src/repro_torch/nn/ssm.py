@@ -22,8 +22,15 @@ from repro_torch.kernels import ops
 from .layers import rms_norm
 from .mlp import fused_act_matmul, fused_matmul_tab, make_activation
 
-# The model's WKV chunk length (the reference's WKV_CHUNK).
+# The model's WKV chunk length (the reference's WKV_CHUNK), a lever of the
+# dry run's hill climb (repro_torch.launch.hillclimb); on the card a
+# chunk K8 cannot take raises (kernels/wkv.py::k8_plan).
 WKV_CHUNK = 64
+
+
+def set_wkv_chunk(c: int) -> None:
+    global WKV_CHUNK
+    WKV_CHUNK = c
 
 
 def wkv_scan_ref(q, k, v, log_w, u):

@@ -387,6 +387,22 @@ def init_params(cfg: ArchConfig, seed: int = 0, device=None
     return params
 
 
+def abstract_params(cfg: ArchConfig, device="meta", placements=None
+                    ) -> _StackedParams:
+    """:func:`init_params`' parameters without data (a dry run's): on the
+    ``meta`` device, or fake tensors on any device inside a
+    ``FakeTensorMode``; nothing drawn, nothing allocated.  With
+    ``placements`` (``{dotted name: Placement}``) each leaf is a rank's
+    share."""
+    if placements is None:
+        return params_class(cfg)(cfg, device)
+    dt = torch_dtype(cfg.dtype)
+    return params_class(cfg)(cfg, device, leaves={
+        name: torch.empty(placements[name].local_shape(d.shape), dtype=dt,
+                          device=device)
+        for name, d, _ in _flat_defs(param_defs(cfg))})
+
+
 def draw_params(cfg: ArchConfig, seed: int, device):
     """:func:`init_params`' draws in order, one leaf or one layer of a
     stack at a time: ``(dotted name, layer index or None, float32 values

@@ -7,7 +7,7 @@ from .batching import ContinuousBatcher, Request
 from .decode import decode_start, decode_step, prefill, prefill_replay
 from .degrade import CompositeSupervisor, DegradationLadder
 from .graphs import CapturedStep, decode_fn
-from .kvcache import clone_state, init_cache, state_leaves
+from .kvcache import abstract_cache, clone_state, init_cache, state_leaves
 from .plans import (
     ServingPlans,
     SitePlan,
@@ -28,7 +28,7 @@ from .sharded import (
 from .stacked import MultiSiteSlabs, StackedPlanArrays, tables_nbytes
 
 __all__ = ["prefill", "decode_step", "decode_start", "prefill_replay",
-           "init_cache", "clone_state", "state_leaves",
+           "init_cache", "abstract_cache", "clone_state", "state_leaves",
            "CapturedStep", "decode_fn", "ContinuousBatcher", "Request",
            "ServingPlans", "SitePlan", "activation_sites",
            "build_serving_plans",

@@ -66,6 +66,14 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
             for n in ("k", "v")}
 
 
+def abstract_cache(cfg: ArchConfig, batch: int, max_seq: int,
+                   dtype: torch.dtype = torch.bfloat16, device="meta",
+                   kv_dtype: str | None = None) -> dict:
+    """:func:`init_cache` without data (the ``meta`` device, or fake
+    tensors inside a ``FakeTensorMode``): a dry run's decode state."""
+    return init_cache(cfg, batch, max_seq, dtype, device, kv_dtype)
+
+
 def _hybrid_state(cfg: ArchConfig, batch: int, dtype, dev) -> dict:
     from repro_torch.nn.transformer import block_pattern, hybrid_layout
 

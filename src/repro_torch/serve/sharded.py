@@ -45,7 +45,9 @@ on that rank's rows.  Three pieces:
   gather of qwen3-0.6b's weights takes about a second (PERF.md §6).
 
 The reference's ``split_table_operands`` and ``lower_decode`` serve
-``jax.jit`` and have no counterpart (ROADMAP, item 12).
+``jax.jit`` and have no counterpart: the dry run
+(:mod:`repro_torch.launch.dryrun`) traces :class:`ShardedServe`'s own
+steps in place of a lowering (ROADMAP queue C).
 """
 from __future__ import annotations
 
@@ -157,7 +159,7 @@ class LayerShardedSlab:
                 rows = buf[j * blk:(j + 1) * blk]
                 if j == me:
                     rows.copy_(shard)
-                broadcast(rows, mesh, self.axis, j)
+                broadcast(rows, mesh, self.axis, j, kind="all-gather")
 
 
 def place_tables(lut_tables: dict | None, mesh,

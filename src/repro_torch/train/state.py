@@ -16,8 +16,9 @@ parameters' ``"tp"`` and ``"fsdp"`` (ZeRO-3) axes both kept, the moments
 and ``ef_error`` placed as the parameters, the counters replicated.  At
 rest a rank holds only its shares (:func:`init_train_state` with a mesh
 draws the parameters leaf by leaf into them; :func:`shard_train_state`
-cuts them from a full state).  ``abstract_train_state`` (the reference's
-``eval_shape`` for dry runs) waits for ROADMAP queue A, item 12.
+cuts them from a full state).  :func:`abstract_train_state` (the
+reference's ``eval_shape`` for dry runs) builds the same state without
+data.
 """
 from __future__ import annotations
 
@@ -29,7 +30,12 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.nn import init_params
 from repro_torch.nn.sharding import Placement, named_sharding
-from repro_torch.nn.transformer import _flat_defs, param_defs, params_class
+from repro_torch.nn.transformer import (
+    _flat_defs,
+    abstract_params,
+    param_defs,
+    params_class,
+)
 from repro_torch.optim import AdamWConfig, adamw_init
 
 
@@ -82,6 +88,19 @@ def init_train_state(cfg: ArchConfig, tcfg: TrainConfig, device=None,
         cfg, tcfg.seed, mesh,
         resolve_device(device if device is not None else mesh.device),
         placements=train_param_shardings(cfg, mesh)), tcfg)
+
+
+def abstract_train_state(cfg: ArchConfig, tcfg: TrainConfig,
+                         device="meta", mesh=None) -> dict:
+    """:func:`init_train_state` without data (the reference's
+    ``eval_shape`` for dry runs): the same keys, leaves, shapes and dtypes
+    (a rank's shares with a ``mesh``) on the ``meta`` device, or as fake
+    tensors on any device inside a ``FakeTensorMode``; nothing allocated,
+    and the draws skipped (:func:`~repro_torch.nn.transformer.
+    abstract_params`)."""
+    return state_for(abstract_params(
+        cfg, device, None if mesh is None
+        else train_param_shardings(cfg, mesh)), tcfg)
 
 
 def state_for(params: torch.nn.Module, tcfg: TrainConfig) -> dict:

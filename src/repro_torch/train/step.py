@@ -91,6 +91,18 @@ def input_batch_specs(cfg: ArchConfig, global_batch: int, seq_len: int
     return lm_batch_specs(global_batch, seq_len, extra)
 
 
+def abstract_batch(cfg: ArchConfig, global_batch: int, seq_len: int,
+                   device="meta") -> dict:
+    """A batch of :func:`input_batch_specs`' shapes without data (the
+    ``meta`` device, or fake tensors inside a ``FakeTensorMode``), as
+    :func:`batch_to_device` leaves it: integer leaves int64, float leaves
+    float32.  The dry run's input."""
+    return {name: torch.empty(shape, device=device, dtype=(
+                torch.float32 if np.dtype(dt).kind == "f" else torch.long))
+            for name, (shape, dt) in input_batch_specs(
+                cfg, global_batch, seq_len).items()}
+
+
 def batch_shardings(cfg: ArchConfig, mesh, batch_specs: dict) -> dict:
     """``{name: Placement}`` of a global batch (``{name: (shape,
     dtype)}``, :func:`input_batch_specs`): dim 0 over the data axes."""

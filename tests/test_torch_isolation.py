@@ -55,6 +55,11 @@ print(int('torch' in sys.modules),
     # the engine's telemetry hook is found through sys.modules: pool
     # workers import it with numpy alone
     ("repro_torch.core.engine", 0, 0),
+    # the dry run and the roofline: no telemetry, no process group at
+    # import (the hill climb imports torch only when a variant runs)
+    ("repro_torch.launch.dryrun", 1, 0),
+    ("repro_torch.launch.hillclimb", 0, 0),
+    ("repro_torch.roofline.report", 1, 0),
 ])
 def test_telemetry_modules_import_alone(name, torch_, obs_):
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -154,6 +159,36 @@ def _entry_points(tmp_path):
             _cfg(), TrainConfig(), mesh=Mesh(("data", "model"), (1, 2),
                                              rank=0)),
     }
+
+
+def test_dry_run_entry_points_allocate_nothing(tmp_path):
+    """The dry run's entry points run without a card by design: the
+    card's program is traced on the meta device (no data, no kernel
+    launched, no process group left behind)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.dryrun import SHAPES, dryrun_cell
+    from repro_torch.launch.hillclimb import run_variant
+    from repro_torch.serve import abstract_cache
+    from repro_torch.train import (
+        TrainConfig,
+        abstract_batch,
+        abstract_train_state,
+    )
+
+    state = abstract_train_state(_cfg(), TrainConfig())
+    leaves = list(state["params"].parameters()) + state["opt"]["mu"]
+    assert {t.device.type for t in leaves} == {"meta"}
+    assert {t.device.type for t in abstract_batch(_cfg(), 2, 8).values()
+            } == {"meta"}
+    assert abstract_cache(_cfg(), 1, 8)["k"].device.type == "meta"
+    info = dict(SHAPES["decode_32k"], seq=16, batch=2)
+    cell = dryrun_cell("qwen3-0.6b", "decode_32k", False, quiet=True,
+                       cfg=_cfg(), info=info, mesh_shape=(1, 2))
+    assert cell["status"] == "ok" and not dist.is_initialized()
+    res = run_variant("qwen3-0.6b", "decode_32k", "v", cfg=_cfg(),
+                      info=info, mesh_shape=(1, 2), out_dir=str(tmp_path))
+    assert res["status"] == "ok"
 
 
 @pytest.mark.parametrize("name", ["init_params", "init_cache",
