@@ -2,6 +2,7 @@
 """Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
   python3 chip_smoke.py            # from the repository root, one card
+  python3 chip_smoke.py --cards 4  # phase 2, then phase 25 on four cards
 
 Phases (any failure exits non-zero; nothing is caught):
   1. card, power limit, torch and CUDA versions;
@@ -371,8 +372,42 @@ Phases (any failure exits non-zero; nothing is caught):
      reference), the dry run's change in HBM bytes beside the change in
      the measured step's median (3 steps each, on and off in turns on one
      state), with no pass or fail on the speed.
+  25. (``--cards 4`` only: the build, then this phase alone; fewer than
+     four cards visible exits non-zero and names the count) the sharded
+     programs on four cards, rank ``r`` on ``cuda:r``, over NCCL, bf16,
+     random weights from seed 0; each single-device reference first, in a
+     process of its own on ``cuda:0`` (PyTorch's default matmul
+     settings, the ranks' own), then one start of the four ranks runs
+     every case, each rank's memory at rest and at peak and each case's
+     seconds printed: (a) qwen3-0.6b at full width on 2x2 through
+     ``launch/serve``'s rank function (phase 22's flags, rank 0
+     calibrating), the decode step captured in a CUDA graph and once
+     more eager: each data rank's tokens and logits bit for bit the
+     single-device run's on its rows, the replay bit for bit eager, each
+     rank's first 8 served K1 calls bit for bit ``lut_act_stacked_plain``,
+     the gather seconds a session, decode tok/s captured and eager, the
+     capture seconds; (d) the batcher on (a)'s mesh and frozen tables
+     (phase 13's requests, replay prefill, the captured sharded step):
+     outputs equal the single-device batcher's, new tok/s and the gather
+     seconds a tick; (e) rwkv6-3b at 32 layers, ``--remat``, 4 x 256, 3
+     steps on 2x2: bit for bit the single-device ``--microbatch 2`` run
+     (every rank's shares by ``bits_hash``), 2 sampled K8 / K8b calls a
+     rank against their plain versions, step ms with its splits; (g)
+     qwen3-0.6b training, phase 23's 8 x 512 ``--remat``: 2 steps on
+     2x2, the checkpoint, restored onto 1x4 and a third step, bit for bit
+     the single-device 2 steps at ``--microbatch 2`` then one at 1; then
+     on a 1x4 mesh over the same ranks (a quarter of the experts a rank):
+     (b) qwen3-moe-30b-a3b and (c) deepseek-moe-16b at full depth, exact
+     and form (a) (the reference's frozen plans), eager then captured in
+     one session: bit for bit the single-device run, the replay's expert
+     all-gathers counted inside the capture (one a layer); (f)
+     deepseek-moe-16b training, 4 x 64, 2 steps at ``P25_MOE_TRAIN``'s
+     depth (the dry run's reason there): the first loss bit for bit the
+     single-device forward, and a 2-layer cut bit for bit the
+     single-device step.
 The last lines are the kernel JSON, the card's name and power limit, and
-``{"ok": true, "device": {...}}``; the kernels' launches include phases
+``{"ok": true, "device": {...}}``; with ``--cards 4`` the first is phase
+25's summary and ``count`` is 4; the kernels' launches include phases
 19's-24's (phases 22's and 23's summed over their ranks).  Long logs go to the
 output directory beside the script (``OUT_DIR``: every logged line to
 ``chip_smoke.log``, phase 19's ``tune_bench/v1`` payload to
@@ -4824,20 +4859,23 @@ def single_device_run(cfg, params, batch, tables, rows=None):
     return torch.cat(toks, dim=1).tolist(), seen
 
 
-def held_bit_for_bit(label, rank, want, got) -> None:
+def held_bit_for_bit(label, rank, want, got, phase="22") -> None:
     """A rank's tokens and logits a step against the single-device run on
     its rows."""
     import torch
 
     toks, logits = want
     if rank["rank_tokens"] != toks:
-        raise AssertionError(f"[22] {label}: rank {rank['rank']}'s tokens "
-                             f"{rank['rank_tokens']} differ from the "
+        raise AssertionError(f"[{phase}] {label}: rank {rank['rank']}'s "
+                             f"tokens {rank['rank_tokens']} differ from the "
                              f"single-device run's {toks}")
+    if len(got) != len(logits):
+        raise AssertionError(f"[{phase}] {label}: {len(got)} steps of "
+                             f"logits, not {len(logits)}")
     for i, (a, b) in enumerate(zip(logits, got)):
         if not torch.equal(a, b):
             raise AssertionError(
-                f"[22] {label}: rank {rank['rank']}'s logits at step {i} "
+                f"[{phase}] {label}: rank {rank['rank']}'s logits at step {i} "
                 f"differ from the single-device run's (max "
                 f"{float((a.float() - b.float()).abs().max())})")
 
@@ -5924,9 +5962,790 @@ def run_phase23(dev, stamp) -> dict:
         f"{wall12:.0f}s); the ranks' K8 / K8b launches {launches}")
     return {"out": out, "launches": launches}
 
-def main() -> int:
+
+# -------------------------------------------------------------------------
+# phase 25: the sharded programs on four cards, a card a rank, over NCCL
+# -------------------------------------------------------------------------
+P25_CARDS = 4
+# (b) / (c): the moe configurations served whole on 1x4, exact and form (a)
+P25_MOE = ("qwen3-moe-30b-a3b", "deepseek-moe-16b")
+# (e): rwkv6-3b at its 32 layers on 2x2 (two ranks sharing a card did not
+# fit in phase 23; one rank a card does: 18.5 GB a rank by the dry run)
+P25_RWKV = ["--arch", "rwkv6-3b", "--full", "--remat", "--batch", "4",
+            "--seq", "256", "--steps", "3", "--device", "cuda"]
+# (f): deepseek-moe-16b on 1x4, 4 x 64, 2 steps.  The step gathers each
+# expert stack's gradient whole for the global norm and squares it in
+# float32 (moe_w_in: 369 M elements a layer).  The dry run
+# (launch/dryrun.py's trace_step on the meta device, a fake four-rank
+# group) gives a rank a peak of 133.4 GB at 28 layers, 67.1 at 14 and
+# 48.2 at 10.  On the card 14 layers ran out of memory: 43.5 GiB
+# allocated and 18.0 GiB reserved but free (the allocator's cached
+# blocks) when the float32 copy asked for 19.25 GiB.  A smaller batch
+# does not lower it, so the depth is cut to 10
+P25_MOE_TRAIN = (10, ["--arch", "deepseek-moe-16b", "--full", "--batch",
+                      "4", "--seq", "64", "--steps", "2", "--device",
+                      "cuda"])
+P25_MOE_CUT = 2   # (f)'s cut held against the single-device step
+
+
+def p25_in_process(fn, *args):
+    """``fn(*args)`` in a fresh process on ``cuda:0`` (spawn; PyTorch's
+    default matmul settings, the ranks' own), so that its memory is gone
+    before the ranks start."""
+    import multiprocessing
+
+    with concurrent.futures.ProcessPoolExecutor(
+            1, mp_context=multiprocessing.get_context("spawn")) as ex:
+        return ex.submit(fn, *args).result()
+
+
+def p25_ref_qwen(art: str) -> dict:
+    """(a) and (d)'s single-device references: qwen3-0.6b through the
+    launcher's set-up and compression, each data rank's rows decoded
+    eagerly, the frozen plans saved, and the single-device batcher on
+    phase 13's requests."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch import serve as launcher
+    from repro_torch.serve.sharded import tables_checksum
+    from repro_torch.tune import save_tuned_plan, tuned_plan_from_serving
+
+    dev = torch.device("cuda", 0)
+    args = launcher.parse_args(P22_QWEN)
+    cfg0, params, batch, rng = launcher.setup(args)
+    plans, _ = launcher.compress_plans(args, cfg0, params, rng,
+                                       log=lambda m: None)
+    cfg = plans.patched_config(cfg0)
+    tabs = plans.tables_for_model(backend="cuda", plan_exec="stacked",
+                                  device=dev)
+    rows = [single_device_run(cfg, params, batch, tabs, r)
+            for r in ([0, 1], [2, 3])]
+    tuned = save_tuned_plan(str(Path(art) / "p25_qwen3"),
+                            tuned_plan_from_serving(cfg, plans))
+    prng = np.random.default_rng(13)
+    prompts = [[int(t) for t in prng.integers(1, cfg.vocab_size, int(n))]
+               for n in prng.integers(T // 4, T + 1, BATCHER_REQUESTS)]
+    outs, b, secs = batcher_run(cfg, params, tabs, prompts, prefill="replay")
+    return {"rows": rows, "checksum": tables_checksum(tabs), "tuned": tuned,
+            "prompts": prompts, "batcher_outs": outs, "batcher_s": secs,
+            "batcher_ticks": b.metrics()["ticks"],
+            "param_bytes": sum(p.numel() * p.element_size()
+                               for p in params.parameters())}
+
+
+def p25_ref_moe(arch: str, art: str) -> dict:
+    """(b) / (c)'s single-device reference: ``arch`` at its full depth,
+    exact and form (a) (the plans frozen for the ranks), decoded eagerly;
+    its parameter and expert bytes and the peak."""
+    import torch
+
+    from repro_torch.launch import serve as launcher
+    from repro_torch.tune import save_tuned_plan, tuned_plan_from_serving
+
+    dev = torch.device("cuda", 0)
+    args = launcher.parse_args(["--arch", arch, *P22_COMMON,
+                                "--calib-steps", "2"])
+    cfg0, params, batch, rng = launcher.setup(args)
+    named = dict(params.named_parameters())
+    out = {"layers": cfg0.n_layers,
+           "param_bytes": sum(p.numel() * p.element_size()
+                              for p in named.values()),
+           "expert_bytes": sum(p.numel() * p.element_size()
+                               for n, p in named.items()
+                               if n.rsplit(".", 1)[-1].startswith("moe_")),
+           "exact": single_device_run(cfg0, params, batch, None)}
+    plans = launcher.build_plans(args, cfg0, params, rng, log=lambda m: None)
+    cfg = plans.patched_config(cfg0)
+    out["a"] = single_device_run(cfg, params, batch, plans.tables_for_model(
+        backend="cuda", plan_exec="stacked", device=dev))
+    out["tuned"] = save_tuned_plan(str(Path(art) / f"p25_{arch}"),
+                                   tuned_plan_from_serving(cfg, plans))
+    out["peak"] = torch.cuda.max_memory_allocated(dev)
+    return out
+
+
+def p25_ref_rwkv() -> dict:
+    """(e)'s reference: rwkv6-3b, 32 layers, ``--microbatch 2``, 3 steps,
+    the state cut to 2x2 after them."""
+    return p23_reference(P25_RWKV + ["--microbatch", "2"],
+                         layouts={3: [(2, 2)]})
+
+
+def p25_ref_moe_train() -> dict:
+    """(f)'s references: the first step's loss as one forward at (f)'s
+    depth (parameters only, no state), and the 2-layer cut's single-device
+    run with its state cut to 1x4 after 2 steps."""
+    import torch
+
+    from repro_torch.launch import train as tl
+    from repro_torch.nn import init_params
+    from repro_torch.nn.transformer import loss_fn
+    from repro_torch.train.step import batch_to_device
+
+    dev = torch.device("cuda", 0)
+    cfg, argv = p23_cut(P25_MOE_TRAIN)
+    args = tl.parse_args(argv)
+    tcfg = tl.train_config(args)
+    params = init_params(cfg, tcfg.seed, dev)
+    batch = batch_to_device(tl.batch_fn(cfg, args)(0), dev)
+    with torch.no_grad():
+        loss = float(loss_fn(cfg)(params, batch=batch, remat=tcfg.remat,
+                                  chunk_q=tcfg.chunk_q, lut_tables=None))
+    out = {"loss": loss, "depth": cfg.n_layers,
+           "param_bytes": sum(p.numel() * p.element_size()
+                              for p in params.parameters()),
+           "peak": torch.cuda.max_memory_allocated(dev)}
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    cut = dataclasses.replace(cfg, n_layers=P25_MOE_CUT)
+    out["cut"] = p23_reference(argv, cut, layouts={2: [(1, 4)]})
+    return out
+
+
+def p25_ref_qwen_train() -> dict:
+    """(g)'s reference: qwen3-0.6b, phase 23's 8 x 512 with ``--remat``, 2
+    steps at ``--microbatch 2`` and a third at ``--microbatch 1`` on the
+    same state; the state cut to 1x4 after steps 2 and 3."""
+    import torch
+
+    from repro_torch.launch import train as tl
+    from repro_torch.train import make_train_step
+
+    args = tl.parse_args(P23_QWEN + ["--microbatch", "2"])
+    s = tl.setup(args)
+    run = p23_steps(s, 0, 2)
+    h2 = p23_hashes(s["state"], s["cfg"], s["tcfg"], (1, 4))
+    tcfg1 = dataclasses.replace(s["tcfg"], microbatch=None)
+    s["step"] = make_train_step(s["cfg"], tcfg1, s["device"])
+    run3 = p23_steps(s, 2, 3)
+    h3 = p23_hashes(s["state"], s["cfg"], s["tcfg"], (1, 4))
+    return {"metrics": run["metrics"] + run3["metrics"], "hashes2": h2,
+            "hashes3": h3, "peak": torch.cuda.max_memory_allocated()}
+
+
+def p25_rank_reset(mesh):
+    """Free what the last case left, zero the launch counts and the peak."""
+    import torch
+
+    from repro_torch.kernels import reset_launch_counts
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(mesh.device)
+    reset_launch_counts()
+
+
+def p25_collective_spy():
+    """Count the gathers' all-gather calls, in a CUDA graph capture and
+    outside one: ``(counts, restore)``."""
+    import torch
+
+    from repro_torch.nn import sharding as sh
+
+    orig, counts = sh._all_gather, {"captured": 0, "eager": 0}
+
+    def spy():
+        fn = orig()
+
+        def call(*a, **kw):
+            counts["captured" if torch.cuda.is_current_stream_capturing()
+                   else "eager"] += 1
+            return fn(*a, **kw)
+        return call
+
+    sh._all_gather = spy
+    return counts, lambda: setattr(sh, "_all_gather", orig)
+
+
+def p25_serve(mesh, argv, eager: bool) -> dict:
+    """(a) on one rank: the launcher's rank function (captured under NCCL,
+    or eager), its first served K1 calls held against the plain
+    version."""
+    import torch
+
+    from repro_torch.launch import serve as launcher
+
+    p25_rank_reset(mesh)
+    recs, restore = p22_spy(P22_SAMPLE)
+    t0 = time.perf_counter()
+    try:
+        out = launcher.serve_rank(mesh, argv, eager=eager)
+    finally:
+        restore()
+    return dict(out, wall_s=time.perf_counter() - t0,
+                held=p22_check(recs, ("K1",)),
+                memory_peak=torch.cuda.max_memory_allocated(mesh.device))
+
+
+def p25_batcher(mesh, tuned_path, prompts) -> dict:
+    """(d) on one rank: p22_batcher_rank's batcher over NCCL (the captured
+    sharded step), each tick's gather seconds."""
+    from repro_torch.serve import ContinuousBatcher
+
+    p25_rank_reset(mesh)
+    ticks = []
+    orig = ContinuousBatcher.step
+
+    def step(self):
+        orig(self)
+        if self._serve is not None and self._serve.gather_s is not None:
+            ticks.append(self._serve.gather_s)
+
+    ContinuousBatcher.step = step
+    try:
+        out = p22_batcher_rank(mesh, tuned_path, prompts)
+    finally:
+        ContinuousBatcher.step = orig
+    return dict(out, tick_gather_s=ticks)
+
+
+def p25_moe_serve(mesh, arch, tuned_path) -> dict:
+    """(b) / (c) on one rank of 1x4: ``arch`` at full depth, its experts a
+    quarter a rank, exact and form (a) (the frozen plans); each form's
+    prefill and NEW greedy steps eagerly, then through the captured
+    step in the same session; the all-gathers counted inside the
+    capture."""
+    import numpy as np
+    import torch
+
+    from repro_torch.calib import model_batch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts
+    from repro_torch.serve.sharded import (
+        ShardedCapturedStep,
+        ShardedServe,
+        init_params_sharded,
+        rank_memory,
+    )
+    from repro_torch.tune import load_tuned_plan
+
+    p25_rank_reset(mesh)
+    dev = mesh.device
+    cfg0 = get_config(arch)
+    t0 = time.perf_counter()
+    params = init_params_sharded(cfg0, 0, mesh, dev)
+    torch.cuda.synchronize(dev)
+    out = {"rank": mesh.rank, "backend": mesh.backend,
+           "init_s": time.perf_counter() - t0,
+           "memory_at_rest": rank_memory(dev)}
+    named = dict(params.named_parameters())
+    out["expert_bytes"] = sum(p.numel() * p.element_size()
+                              for n, p in named.items()
+                              if n.rsplit(".", 1)[-1].startswith("moe_"))
+    out["param_bytes"] = sum(p.numel() * p.element_size()
+                             for p in named.values())
+    rng = np.random.default_rng(0)
+    batch = {k: torch.as_tensor(v, device=dev)
+             for k, v in model_batch(cfg0, rng, B, T).items()}
+    batch["tokens"] = batch["tokens"].long()
+    tp = load_tuned_plan(tuned_path)
+    for form in ("exact", "a"):
+        cfg = cfg0 if form == "exact" else tp.patched_config(cfg0)
+        tabs = None if form == "exact" else tp.tables_for_model(
+            backend="cuda", plan_exec="stacked", device=dev)
+        serve = ShardedServe(cfg, mesh, tabs)
+        local = serve.place_batch(batch)
+        rec = {}
+        counts, restore = p25_collective_spy()
+        try:
+            with serve.session(params):
+                rec["gather_s"] = serve.gather_s
+                for how in ("eager", "captured"):
+                    step = (serve.decode_fn(params) if how == "captured"
+                            else lambda c, tk, pos: serve.decode(
+                                params, c, tk, pos))
+                    if how == "captured" and not isinstance(
+                            step, ShardedCapturedStep):
+                        raise AssertionError(f"[25] {arch}: no captured "
+                                             f"step under {mesh.backend}")
+                    logits, cache = serve.prefill(params, local, T + NEW)
+                    seen = [logits[:, -1].cpu()]
+                    tok = logits[:, -1].argmax(-1)[:, None]
+                    toks = []
+                    if how == "captured":
+                        before = dict(counts)
+                        step.capture(cache, tok)
+                        rec["capture_s"] = step.capture_s
+                        rec["captured_all_gathers"] = (
+                            counts["captured"] - before["captured"])
+                    torch.cuda.synchronize(dev)
+                    t0 = time.perf_counter()
+                    for i in range(NEW):
+                        toks.append(tok)
+                        logits, cache = step(cache, tok, T + i)
+                        seen.append(logits[:, -1].cpu())
+                        tok = logits[:, -1].argmax(-1)[:, None]
+                    torch.cuda.synchronize(dev)
+                    secs = time.perf_counter() - t0
+                    rec[how] = {"rank_tokens": torch.cat(toks, 1).tolist(),
+                                "logits": seen, "decode_s": secs,
+                                "tok_s": B * NEW / secs}
+                    del step, cache
+        finally:
+            restore()
+        rec["launches"] = launch_counts()
+        out[form] = rec
+        del serve, tabs
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["memory_peak"] = torch.cuda.max_memory_allocated(dev)
+    return out
+
+
+def p25_train_rwkv(mesh) -> dict:
+    """(e) on one rank of 2x2: rwkv6-3b at 32 layers, 3 steps, the first
+    K8 / K8b launches held against their plain versions."""
+    import torch
+
+    from repro_torch.kernels import launch_counts
+
+    p25_rank_reset(mesh)
+    s, e = p23_rank_setup(P25_RWKV + ["--dp", "2", "--tp", "2"], mesh)
+    recs, restore = p23_wkv_spy()
+    try:
+        e.update(p23_steps(s, 0, 3))
+    finally:
+        restore()
+    e["launches"] = {k: v for k, v in launch_counts().items() if v}
+    e["held"] = p23_wkv_held(recs)
+    e["peak"] = torch.cuda.max_memory_allocated(mesh.device)
+    e["hashes"] = p23_hashes(s["state"])
+    return e
+
+
+def p25_train_qwen22(mesh, ckpt_dir) -> dict:
+    """(g)'s first half on one rank of 2x2: 2 steps, the step-2
+    checkpoint."""
+    import torch
+
+    from repro_torch.train import save_checkpoint
+
+    p25_rank_reset(mesh)
+    s, g = p23_rank_setup(P23_QWEN + ["--dp", "2", "--tp", "2"], mesh)
+    g.update(p23_steps(s, 0, 2))
+    t0 = time.perf_counter()
+    save_checkpoint(ckpt_dir, s["state"], 2, shardings=s["shardings"])
+    g["save_s"] = time.perf_counter() - t0
+    g["peak"] = torch.cuda.max_memory_allocated(mesh.device)
+    return g
+
+
+def p25_train_qwen14(mesh, ckpt_dir) -> dict:
+    """(g)'s second half on one rank of 1x4: the 2x2 checkpoint restored,
+    step 3."""
+    from repro_torch.train import restore_checkpoint
+
+    p25_rank_reset(mesh)
+    t0 = time.perf_counter()
+    s, g = p23_rank_setup(P23_QWEN + ["--tp", "4"], mesh)
+    s["state"], g["step"] = restore_checkpoint(ckpt_dir, s["state"],
+                                               shardings=s["shardings"])
+    g["restore_s"] = time.perf_counter() - t0
+    g["restored"] = p23_hashes(s["state"])
+    g.update(p23_steps(s, g["step"], 3))
+    g["hashes"] = p23_hashes(s["state"])
+    return g
+
+
+def p25_train_moe(mesh) -> dict:
+    """(f) on one rank of 1x4: deepseek-moe-16b at (f)'s depth, 2 steps;
+    then the 2-layer cut, 2 steps, its state hashed."""
+    import torch
+
+    p25_rank_reset(mesh)
+    cfg, argv = p23_cut(P25_MOE_TRAIN)
+    s, f = p23_rank_setup(argv + ["--tp", "4"], mesh, cfg)
+    f.update(p23_steps(s, 0, 2))
+    f["peak"] = torch.cuda.max_memory_allocated(mesh.device)
+    del s
+    p25_rank_reset(mesh)
+    cut = dataclasses.replace(cfg, n_layers=P25_MOE_CUT)
+    s, c = p23_rank_setup(argv + ["--tp", "4"], mesh, cut)
+    c.update(p23_steps(s, 0, 2))
+    c["hashes"] = p23_hashes(s["state"])
+    f["cut"] = c
+    return f
+
+
+def p25_rank(mesh, spec) -> dict:
+    """Every case of phase 25 on one rank: the 2x2 cases on the mesh
+    ``run_ranks`` made, then the 1x4 cases on a second mesh over the same
+    ranks; each case's seconds."""
+    from repro_torch.launch.mesh import make_host_mesh
+
+    if mesh.backend != "nccl":
+        raise AssertionError(f"[25] rank {mesh.rank}: backend "
+                             f"{mesh.backend}, not nccl")
+    out, walls = {"rank": mesh.rank, "device": str(mesh.device)}, {}
+    parts = spec["parts"]
+
+    def timed(key, fn, *args):
+        t0 = time.perf_counter()
+        out[key] = fn(*args)
+        walls[key] = time.perf_counter() - t0
+
+    argv = P22_QWEN + ["--mesh", "2,2"]
+    if "a" in parts:
+        timed("a_captured", p25_serve, mesh, argv, False)
+        timed("a_eager", p25_serve, mesh, argv, True)
+    if "d" in parts:
+        timed("d", p25_batcher, mesh, spec["qwen_tuned"], spec["prompts"])
+    if "e" in parts:
+        timed("e", p25_train_rwkv, mesh)
+    if "g" in parts:
+        timed("g22", p25_train_qwen22, mesh, spec["ckpt_dir"])
+    mesh14 = make_host_mesh(1, 4, device=mesh.device)
+    if "g" in parts:
+        timed("g14", p25_train_qwen14, mesh14, spec["ckpt_dir"])
+    for part, arch in zip("bc", P25_MOE):
+        if part in parts:
+            timed(part, p25_moe_serve, mesh14, arch, spec["moe_tuned"][arch])
+    if "f" in parts:
+        timed("f", p25_train_moe, mesh14)
+    p25_rank_reset(mesh)
+    out["walls"] = walls
+    return out
+
+
+def p25_split(split: dict) -> str:
+    """One step's split (``train/step.py``'s timings), in ms."""
+    return ", ".join(f"{k[:-2]} {v * 1e3:.1f}" for k, v in split.items()) \
+        + " ms"
+
+
+def p25_mem(recs, key_rest="memory_at_rest", key_peak="memory_peak") -> str:
+    return ", ".join(f"r{i} {r.get(key_rest)} / {r.get(key_peak)} B"
+                     for i, r in enumerate(recs))
+
+
+def run_phase25(stamp, parts=("a", "b", "c", "d", "e", "f", "g")) -> dict:
+    """Phase 25 (module docstring): the references, each in a process of
+    its own on ``cuda:0``, then the four ranks (a card each, NCCL) run
+    ``parts``; every case held as the table in ``PERF.md`` section 4
+    says.  Returns the numbers for ``chip_smoke.json`` and the ranks'
+    launches, summed."""
+    import shutil
+
+    import torch
+
+    from repro_torch.launch.mesh import run_ranks
+
+    t_phase = time.perf_counter()
+    art = OUT_DIR / "artifacts"
+    art.mkdir(parents=True, exist_ok=True)
+    ckpt = ROOT / "build" / "p25_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    refs, ref_s = {}, {}
+
+    def ref(key, fn, *args):
+        t0 = time.perf_counter()
+        refs[key] = p25_in_process(fn, *args)
+        ref_s[key] = time.perf_counter() - t0
+        log(f"[25] {stamp()} reference {key} in {ref_s[key]:.1f}s "
+            f"(its own process on cuda:0)")
+
+    if {"a", "d"} & set(parts):
+        ref("qwen", p25_ref_qwen, str(art))
+    for part, arch in zip("bc", P25_MOE):
+        if part in parts:
+            ref(arch, p25_ref_moe, arch, str(art))
+    if "e" in parts:
+        ref("rwkv", p25_ref_rwkv)
+    if "f" in parts:
+        ref("moe_train", p25_ref_moe_train)
+    if "g" in parts:
+        ref("qwen_train", p25_ref_qwen_train)
+
+    spec = {"parts": tuple(parts), "ckpt_dir": str(ckpt),
+            "qwen_tuned": refs.get("qwen", {}).get("tuned"),
+            "prompts": refs.get("qwen", {}).get("prompts"),
+            "moe_tuned": {a: refs[a]["tuned"] for a in P25_MOE if a in refs}}
+    t0 = time.perf_counter()
+    ranks = run_ranks(p25_rank, (spec,), dp=2, tp=2, timeout=900)
+    wall = time.perf_counter() - t0
+    shutil.rmtree(ckpt, ignore_errors=True)
+    log(f"[25] {stamp()} the four ranks ran {list(parts)} in {wall:.1f}s: "
+        f"devices {[r['device'] for r in ranks]}, backend nccl; cases "
+        + ", ".join(f"{k} {v:.1f}s" for k, v in ranks[0]["walls"].items()))
+    out = {"references_s": ref_s, "ranks_s": wall,
+           "walls": [r["walls"] for r in ranks]}
+    launches = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    if "a" in parts:
+        q = refs["qwen"]
+        rows = {}
+        for how in ("captured", "eager"):
+            recs = [r[f"a_{how}"] for r in ranks]
+            for r in recs:
+                if r["backend"] != "nccl" or r["checksum"] != q["checksum"]:
+                    raise AssertionError(f"[25] (a) {how} rank {r['rank']}: "
+                                         f"backend {r['backend']}, tables "
+                                         f"{r['checksum'][:16]}")
+                held_bit_for_bit(f"(a) {how}", r,
+                                 q["rows"][r["coords"]["data"]], r["logits"],
+                                 phase="25")
+                if r["launches"]["lut_act_stacked"] == 0:
+                    raise AssertionError(f"[25] (a) rank {r['rank']} "
+                                         f"launched no K1")
+                add(r["launches"])
+            if how == "captured" and any(r["capture_s"] is None
+                                         for r in recs):
+                raise AssertionError("[25] (a) a rank did not capture")
+            rows[how] = {r["rank"]: {k: r[k] for k in (
+                "gather_s", "prefill_s", "decode_s", "decode_tok_s",
+                "capture_s", "memory_at_rest", "memory_peak", "held",
+                "wall_s")} for r in recs}
+        for r in ranks:
+            c, e = r["a_captured"], r["a_eager"]
+            if c["rank_tokens"] != e["rank_tokens"] or not all(
+                    torch.equal(x, y) for x, y in zip(c["logits"],
+                                                      e["logits"])):
+                raise AssertionError(f"[25] (a) rank {r['rank']}: the "
+                                     f"captured replay differs from eager")
+        out["a"] = rows
+        cap, eag = rows["captured"], rows["eager"]
+        log(f"[25] {stamp()} (a) qwen3-0.6b on 2x2 through launch/serve's "
+            f"rank function, backend nccl: every rank's tokens and logits "
+            f"bit for bit the single-device run's on its rows, captured "
+            f"and eager, and the captured replay bit for bit eager; each "
+            f"rank's first {P22_SAMPLE} served K1 calls bit for bit "
+            f"lut_act_stacked_plain; gather a session: the first, with "
+            f"the communicators' set-up, "
+            + ", ".join(f"r{k} {v['gather_s']:.4f}s" for k, v in cap.items())
+            + ", the second "
+            + ", ".join(f"r{k} {v['gather_s']:.4f}s" for k, v in eag.items())
+            + "; decode tok/s captured "
+            + ", ".join(f"{v['decode_tok_s']:.1f}" for v in cap.values())
+            + ", eager "
+            + ", ".join(f"{v['decode_tok_s']:.1f}" for v in eag.values())
+            + "; capture "
+            + ", ".join(f"{v['capture_s']:.3f}s" for v in cap.values())
+            + "; memory at rest / peak " + p25_mem(list(cap.values())))
+
+    if "d" in parts:
+        q = refs["qwen"]
+        recs = [r["d"] for r in ranks]
+        for r in recs:
+            if r["outs"] != q["batcher_outs"]:
+                raise AssertionError(f"[25] (d) rank {r['rank']}'s batcher "
+                                     f"outputs differ from the single-device "
+                                     f"batcher's")
+            if r["metrics"]["dropped"] or r["launches"]["lut_act_stacked"] == 0:
+                raise AssertionError(f"[25] (d) rank {r['rank']}: "
+                                     f"{r['metrics']}, {r['launches']}")
+            add(r["launches"])
+        new_tok = sum(len(o) for o in recs[0]["outs"])
+        out["d"] = {"seconds": [r["seconds"] for r in recs],
+                    "single_seconds": q["batcher_s"],
+                    "ticks": recs[0]["metrics"]["ticks"],
+                    "new_tok_s": [new_tok / r["seconds"] for r in recs],
+                    "single_new_tok_s": new_tok / q["batcher_s"],
+                    "tick_gather_s": [statistics.median(r["tick_gather_s"])
+                                      for r in recs],
+                    "held": [r["held"] for r in recs],
+                    "memory_at_rest": [r["memory_at_rest"] for r in recs]}
+        log(f"[25] {stamp()} (d) the batcher on 2x2 over NCCL (replay "
+            f"prefill, {BATCHER_REQUESTS} requests, {BATCHER_SLOTS} slots, "
+            f"the captured sharded step): outputs equal the single-device "
+            f"batcher's on every rank; {out['d']['ticks']} ticks, new tok/s "
+            + ", ".join(f"{x:.1f}" for x in out["d"]["new_tok_s"])
+            + f" (one device {out['d']['single_new_tok_s']:.1f}); gather a "
+              f"tick (median) "
+            + ", ".join(f"{x:.4f}s" for x in out["d"]["tick_gather_s"]))
+
+    for part, arch in zip("bc", P25_MOE):
+        if part not in parts:
+            continue
+        m = refs[arch]
+        recs = [r[part] for r in ranks]
+        n_moe = m["layers"]
+        form_out = {}
+        for form in ("exact", "a"):
+            want = m[form]
+            for r in recs:
+                f = r[form]
+                for how in ("eager", "captured"):
+                    held_bit_for_bit(f"({part}) {arch} {form} {how}",
+                                     dict(f[how], rank=r["rank"]), want,
+                                     f[how]["logits"], phase="25")
+                if f["captured_all_gathers"] != n_moe:
+                    raise AssertionError(
+                        f"[25] ({part}) {arch} {form}: rank {r['rank']} "
+                        f"captured {f['captured_all_gathers']} expert "
+                        f"all-gathers a step, not {n_moe}")
+                if form == "a" and f["launches"]["lut_act_stacked"] == 0:
+                    raise AssertionError(f"[25] ({part}) rank {r['rank']} "
+                                         f"launched no K1")
+                add(f["launches"])
+            form_out[form] = {
+                "gather_s": [r[form]["gather_s"] for r in recs],
+                "capture_s": [r[form]["capture_s"] for r in recs],
+                "captured_all_gathers": recs[0][form]["captured_all_gathers"],
+                "tok_s_eager": [r[form]["eager"]["tok_s"] for r in recs],
+                "tok_s_captured": [r[form]["captured"]["tok_s"]
+                                   for r in recs]}
+        out[part] = {"arch": arch, "layers": n_moe,
+                     "one_device_param_bytes": m["param_bytes"],
+                     "one_device_expert_bytes": m["expert_bytes"],
+                     "one_device_peak": m["peak"],
+                     "expert_bytes": [r["expert_bytes"] for r in recs],
+                     "param_bytes": [r["param_bytes"] for r in recs],
+                     "memory_at_rest": [r["memory_at_rest"] for r in recs],
+                     "memory_peak": [r["memory_peak"] for r in recs],
+                     "init_s": [r["init_s"] for r in recs], **form_out}
+        o = out[part]
+        log(f"[25] {stamp()} ({part}) {arch} ({n_moe} layers, the whole "
+            f"model) on 1x4, backend nccl, experts "
+            f"{o['expert_bytes'][0]} of {m['expert_bytes']} B a rank: exact "
+            f"and form (a), eager and captured, every rank's tokens and "
+            f"logits bit for bit the single-device run's (peak "
+            f"{m['peak']} B); {o['a']['captured_all_gathers']} expert "
+            f"all-gathers captured a step; " + "; ".join(
+                f"{form}: gather {statistics.median(o[form]['gather_s']):.4f}"
+                f"s, capture {statistics.median(o[form]['capture_s']):.3f}s, "
+                f"decode tok/s captured "
+                f"{statistics.median(o[form]['tok_s_captured']):.1f} / eager "
+                f"{statistics.median(o[form]['tok_s_eager']):.1f}"
+                for form in ("exact", "a"))
+            + f"; memory at rest / peak "
+            + ", ".join(f"r{i} {a} / {p} B" for i, (a, p) in enumerate(
+                zip(o["memory_at_rest"], o["memory_peak"]))))
+
+    if "e" in parts:
+        rf = refs["rwkv"]
+        recs = [r["e"] for r in ranks]
+        for i, e in enumerate(recs):
+            p23_same(f"(e) rank {i}'s metrics", e["metrics"], rf["metrics"])
+            p23_same(f"(e) rank {i}'s launches in 3 steps", e["launches"],
+                     {"wkv": 3 * 2 * 32, "wkv_backward": 3 * 32})
+            add(e["launches"])
+        p23_held("(e) the state after 3 steps", [e["hashes"] for e in recs],
+                 rf["hashes"][3, (2, 2)])
+        out["e"] = {"metrics": recs[0]["metrics"],
+                    "one_device_seconds": rf["seconds"],
+                    "one_device_peak": rf["peak"],
+                    "ranks": [{k: e[k] for k in (
+                        "state_bytes", "memory_at_rest", "peak", "seconds",
+                        "splits", "launches", "held")} for e in recs]}
+        log(f"[25] {stamp()} (e) rwkv6-3b (32 layers, --remat, 4 x 256) on "
+            f"2x2 over NCCL: 3 steps bit for bit the single-device "
+            f"--microbatch 2 run (metrics, every rank's shares); per rank "
+            + "; ".join(f"r{i} steps {[round(x * 1e3, 1) for x in e['seconds']]}"
+                        f" ms (step 3: {p25_split(e['splits'][-1])}), "
+                        f"sampled K8 / K8b "
+                        f"{e['held']}, at rest {e['memory_at_rest']} B, peak "
+                        f"{e['peak']} B" for i, e in enumerate(recs))
+            + f"; one device steps "
+              f"{[round(x * 1e3, 1) for x in rf['seconds']]} ms, peak "
+              f"{rf['peak']} B")
+
+    if "f" in parts:
+        rf = refs["moe_train"]
+        recs = [r["f"] for r in ranks]
+        for i, f in enumerate(recs):
+            if f["metrics"][0][0] != rf["loss"]:
+                raise AssertionError(f"[25] (f) rank {i}'s first loss "
+                                     f"{f['metrics'][0][0]!r} != the "
+                                     f"single-device forward's "
+                                     f"{rf['loss']!r}")
+            p23_same(f"(f) cut rank {i}'s metrics", f["cut"]["metrics"],
+                     rf["cut"]["metrics"])
+        p23_held("(f) cut: the state after 2 steps",
+                 [f["cut"]["hashes"] for f in recs],
+                 rf["cut"]["hashes"][2, (1, 4)])
+        out["f"] = {"depth": rf["depth"], "loss": rf["loss"],
+                    "metrics": recs[0]["metrics"],
+                    "one_device_forward_peak": rf["peak"],
+                    "ranks": [{k: f[k] for k in (
+                        "state_bytes", "memory_at_rest", "peak", "seconds",
+                        "splits")} for f in recs]}
+        log(f"[25] {stamp()} (f) deepseek-moe-16b ({rf['depth']} of 28 "
+            f"layers, 4 x 64) on 1x4 over NCCL: the first loss "
+            f"{rf['loss']!r} bit for bit the single-device forward's, and "
+            f"the {P25_MOE_CUT}-layer cut's 2 steps bit for bit the "
+            f"single-device step; per rank "
+            + "; ".join(f"r{i} steps {[round(x * 1e3, 1) for x in f['seconds']]}"
+                        f" ms (step 2: {p25_split(f['splits'][-1])}), state "
+                        f"{f['state_bytes']} B, peak {f['peak']} B"
+                        for i, f in enumerate(recs)))
+
+    if "g" in parts:
+        rf = refs["qwen_train"]
+        r22 = [r["g22"] for r in ranks]
+        r14 = [r["g14"] for r in ranks]
+        for i, (a, b) in enumerate(zip(r22, r14)):
+            p23_same(f"(g) rank {i}'s steps 1-3", a["metrics"] + b["metrics"],
+                     rf["metrics"])
+            p23_same(f"(g) rank {i}'s restored step", b["step"], 2)
+        p23_held("(g) 1x4: the restored state", [b["restored"] for b in r14],
+                 rf["hashes2"])
+        p23_held("(g) 1x4: the state after step 3",
+                 [b["hashes"] for b in r14], rf["hashes3"])
+        out["g"] = {"metrics": rf["metrics"],
+                    "splits_2x2": [a["splits"] for a in r22],
+                    "save_s": r22[0]["save_s"],
+                    "restore_s": [b["restore_s"] for b in r14],
+                    "seconds_2x2": [a["seconds"] for a in r22],
+                    "seconds_1x4": [b["seconds"] for b in r14],
+                    "peak_2x2": [a["peak"] for a in r22]}
+        log(f"[25] {stamp()} (g) qwen3-0.6b training: 2 steps on 2x2, the "
+            f"step-2 checkpoint ({r22[0]['save_s']:.1f}s) restored onto 1x4 "
+            f"(the single-device state after 2 steps, every rank's shares), "
+            f"step 3 there: the metrics and the state after it bit for bit "
+            f"the single-device 2 steps at --microbatch 2 and a third at "
+            f"--microbatch 1; the 2x2 steps "
+            + "; ".join(f"r{i} {[round(x * 1e3, 1) for x in a['seconds']]} ms"
+                        f" (step 2: {p25_split(a['splits'][-1])})"
+                        for i, a in enumerate(r22))
+            + f"; the 1x4 step "
+            + ", ".join(f"{b['seconds'][0] * 1e3:.1f}" for b in r14)
+            + " ms")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[25] {stamp()} phase 25 in {out['seconds']:.0f}s (references "
+        + ", ".join(f"{k} {v:.0f}s" for k, v in ref_s.items())
+        + f", the ranks {wall:.0f}s); the ranks' launches {launches}")
+    return {"out": out, "launches": launches}
+
+
+def main_cards(smi, stamp, t_start) -> int:
+    """``--cards 4``: phase 25 alone, after the build; its numbers in
+    ``chip_smoke.json``, its summary on the line before the card's."""
+    import torch
+
+    log(f"[25] {stamp()} {torch.cuda.device_count()} cards: "
+        + ", ".join(torch.cuda.get_device_name(i)
+                    for i in range(torch.cuda.device_count())))
+    p25 = run_phase25(stamp)
+    summary = {"card": smi, "seconds": time.perf_counter() - t_start,
+               "phase25": p25["out"], "launches": p25["launches"]}
+    (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
+        summary, indent=1, default=str))
+    log(f"done in {time.perf_counter() - t_start:.0f}s")
+    print(json.dumps({"phase25": sig4({
+        "seconds": p25["out"]["seconds"], "launches": p25["launches"],
+        **{k: p25["out"][k] for k in ("a", "b", "c", "d", "e", "f", "g")
+           if k in p25["out"]}})}, separators=(",", ":"), default=str),
+        flush=True)
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.parse_args()
+    ap.add_argument("--cards", type=int, choices=(1, P25_CARDS), default=1,
+                    help="1 (default): phases 1-24 on cuda:0; 4: the "
+                         "kernels' build (phase 2) and phase 25 on four "
+                         "cards, a card a rank, over NCCL")
+    args = ap.parse_args(argv)
     import torch
 
     if not torch.cuda.is_available():
@@ -5936,6 +6755,12 @@ def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         print(f"chip_smoke: no src/repro_torch beside {__file__} — run it "
               f"from a checkout of the repository", file=sys.stderr)
+        return 2
+    n_cards = torch.cuda.device_count()
+    if n_cards < args.cards:
+        print(f"chip_smoke: --cards {args.cards} needs {args.cards} cards, "
+              f"and {n_cards} card(s) are visible: phase 25 runs a card a "
+              f"rank and never on fewer cards", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     import numpy as np
@@ -5977,6 +6802,8 @@ def main() -> int:
         f"(per source: "
         + ", ".join(f"{k} {v['seconds']:.1f}s" for k, v in built.items())
         + ")")
+    if args.cards == P25_CARDS:
+        return main_cards(smi, stamp, t_start)
     ptxas = "\n".join(v["log"] for v in built.values())
     (OUT_DIR / "ptxas.log").write_text(ptxas)
     for line in ptxas.splitlines():

@@ -4,12 +4,20 @@ the way to start them.
 A mesh position is a process.  :func:`run_ranks` starts ``dp * tp`` of
 them from this one (``spawn``), or a launcher such as ``torchrun`` starts
 them and each joins with :func:`join_from_env`.  Rank ``r`` serves on
-``cuda:(r % device_count)``, set explicitly before anything touches the
-card, or on the CPU.  The collective backend follows the layout
-(:func:`choose_backend`): NCCL when every rank has a card of its own, gloo
-where ranks share a card (NCCL refuses two ranks on one device) and on the
-CPU.  The choice is logged, and nothing switches backend after a failure:
-a failed collective raises, and a rank that fails fails the run.
+``cuda:(r % device_count)`` (``cuda:r`` where there are as many cards as
+ranks), made the current device before the process group is joined, so
+``broadcast_object_list`` and ``all_gather_object`` run on it; or on the
+CPU.  The collective backend follows the layout (:func:`choose_backend`):
+NCCL when every rank has a card of its own, gloo where ranks share a card
+(NCCL refuses two ranks on one device) and on the CPU.  The choice is
+logged, and nothing switches backend after a failure: a failed collective
+raises, and a rank that fails fails the run.
+
+NCCL's ranks live on one host and need no network: :data:`NCCL_ENV`
+(set where the environment does not set it already) keeps its bootstrap
+on the loopback device and skips the InfiniBand probe; the transfers go
+card to card over NVLink / PCIe peer access.  The process group's store
+is ``tcp://localhost``.
 
 Importing this module starts nothing and touches no device.
 """
@@ -27,6 +35,10 @@ import torch.distributed as dist
 from repro_torch.nn.sharding import Mesh, new_axis_groups
 
 HOST_AXES = ("data", "model")
+
+# NCCL on one host without a network: bootstrap over the loopback device,
+# no InfiniBand probe (defaults; the environment's own values win)
+NCCL_ENV = {"NCCL_SOCKET_IFNAME": "lo", "NCCL_IB_DISABLE": "1"}
 
 
 def choose_backend(device_type: str, world: int, n_cards: int) -> str:
@@ -117,12 +129,18 @@ def join(rank: int, world: int, addr: str, port: int, device: str,
         torch.cuda.set_device(dev)
     n_cards = torch.cuda.device_count() if dev.type == "cuda" else 0
     backend = choose_backend(dev.type, world, n_cards)
+    kw = {}
+    if backend == "nccl":
+        for k, v in NCCL_ENV.items():
+            os.environ.setdefault(k, v)
+        kw["device_id"] = dev
     if rank == 0:
         log(f"mesh: {world} ranks on {dev.type}"
             + (f" ({n_cards} card(s), {world} rank(s))"
                if dev.type == "cuda" else "")
-            + f", collective backend {backend}")
-    kw = {"device_id": dev} if backend == "nccl" else {}
+            + f", collective backend {backend}"
+            + (", " + " ".join(f"{k}={os.environ[k]}" for k in NCCL_ENV)
+               if backend == "nccl" else ""))
     dist.init_process_group(backend, init_method=f"tcp://{addr}:{port}",
                             rank=rank, world_size=world, **kw)
     return dev

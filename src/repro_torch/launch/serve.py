@@ -83,9 +83,13 @@ cards; the collective backend, NCCL or gloo, follows the layout and is
 logged).  Rank 0 captures the calibration and compresses the plans (or
 loads ``--tuned-plan``) and hands them to the ranks, whose table bytes
 must agree by checksum; each rank draws only its share of the weights.
-The sharded step runs eagerly: a gloo collective cannot be captured in a
-CUDA graph; the weights are gathered once for the prefill and its decode
-loop (``mesh_gather`` logs the seconds).  ``--mesh-mode shard_map``
+With a card a rank the ranks run NCCL, and the sharded decode step is
+captured in a CUDA graph before the decode clock starts (``mesh_captured``
+logs its seconds; a moe step's expert all-gathers are inside the graph);
+ranks sharing a card run gloo, whose collectives cannot be captured, and
+step eagerly (``mesh_eager`` says why).  The weights are gathered once
+for the prefill and its decode loop (``mesh_gather`` logs the seconds),
+into buffers the captured step reads.  ``--mesh-mode shard_map``
 replicates every table slab; the default ``gspmd`` splits large stacked
 slabs by layer over the data axis.
 ``--kv-int8`` is refused with ``shard_map``, and ``--lut-fuse`` and
@@ -738,13 +742,16 @@ def _main(ap, args, tel) -> dict:
     return out
 
 
-def serve_rank(mesh, argv, policy=None) -> dict:
+def serve_rank(mesh, argv, policy=None, eager: bool = False) -> dict:
     """One rank of ``--mesh`` serving (every rank runs it): rank 0 logs
     and writes the obs log; every rank returns its own record — its rows'
     tokens and last-position logits a step, the gathered tokens, memory at
     rest, launches, placement and the tables' checksum.  ``policy``: the
     table :class:`~repro_torch.serve.sharded.PlacementPolicy` of the
-    ``gspmd`` mode (the reference's default without one)."""
+    ``gspmd`` mode (the reference's default without one).  Under NCCL the
+    decode step is captured in a CUDA graph; ``eager=True`` decodes
+    through the eager sharded step instead (the yardstick the captured
+    step is held against)."""
     ap = build_parser()
     args = parse_args(argv, ap)
     rank0 = mesh.rank == 0
@@ -754,18 +761,19 @@ def serve_rank(mesh, argv, policy=None) -> dict:
     tel = open_telemetry(args) if rank0 else (
         obs.Telemetry() if args.obs_log else None)
     with tel if tel is not None else nullcontext():
-        out = _serve_rank(ap, args, mesh, log, tel, policy)
+        out = _serve_rank(ap, args, mesh, log, tel, policy, eager)
     if tel is not None and tel.monitor is not None:
         out["drift_counts"] = tel.monitor.counts()
     return out
 
 
-def _serve_rank(ap, args, mesh, log, tel, policy) -> dict:
+def _serve_rank(ap, args, mesh, log, tel, policy, eager) -> dict:
     import torch.distributed as dist
 
     from repro_torch import sites
     from repro_torch.serve.sharded import (
         ShardedServe,
+        capture_refusal,
         init_params_sharded,
         rank_memory,
         shard_params,
@@ -825,15 +833,17 @@ def _serve_rank(ap, args, mesh, log, tel, policy) -> dict:
                  f"  {site}: {info['placement']} ({info['bytes']} B, "
                  f"{info['per_device_bytes']} B/dev)", site=site,
                  placement=info["placement"], bytes=info["bytes"])
-    log.info("mesh_eager", "the sharded step runs eagerly: a gloo "
-             "collective cannot be captured in a CUDA graph")
+    why = capture_refusal(mesh)
+    if why is not None or eager:
+        log.info("mesh_eager", "the sharded step runs eagerly: "
+                 + (why or "asked for"), reason=why or "asked for")
     local = serve.place_batch(batch)
     b, t = local["tokens"].shape
     start = decode_start(cfg, local)
     max_seq = start + args.new_tokens
     with serve.session(params):
         out = _mesh_decode(args, cfg, serve, params, local, start, max_seq,
-                           mesh, log)
+                           mesh, log, eager)
     log.info("mesh_gather", f"weights gathered once for the prefill and "
              f"the decode loop: {serve.gather_s:.4f}s",
              seconds=round(serve.gather_s, 4))
@@ -852,10 +862,13 @@ def _serve_rank(ap, args, mesh, log, tel, policy) -> dict:
 
 
 def _mesh_decode(args, cfg, serve, params, local, start, max_seq, mesh,
-                 log) -> dict:
+                 log, eager=False) -> dict:
     """The prefill and the greedy decode of one rank's rows, inside the
-    serving session: its tokens and logits, and the gathered tokens."""
-    from repro_torch.serve.sharded import gather_rows
+    serving session, through :meth:`~repro_torch.serve.sharded.
+    ShardedServe.decode_fn`'s step (captured before the decode clock
+    starts under NCCL, eager under gloo or with ``eager``): its tokens
+    and logits, and the gathered tokens."""
+    from repro_torch.serve.sharded import ShardedCapturedStep, gather_rows
 
     dev = local["tokens"].device
     b, t = local["tokens"].shape
@@ -874,13 +887,22 @@ def _mesh_decode(args, cfg, serve, params, local, start, max_seq, mesh,
                  "int8 KV cache enabled (decode writes quantized entries)")
         logits, cache = serve.replay(params, cache, local["tokens"])
     tok = logits[:, -1].argmax(-1)[:, None]
+    step = (lambda c, tk, pos: serve.decode(params, c, tk, pos)) if eager \
+        else serve.decode_fn(params)
+    capture_s = None
+    if isinstance(step, ShardedCapturedStep):
+        step.capture(cache, tok)
+        capture_s = step.capture_s
+        log.info("mesh_captured", f"the sharded decode step captured in a "
+                 f"CUDA graph over NCCL: {capture_s:.4f}s",
+                 seconds=round(capture_s, 4))
     toks, seen = [], [logits[:, -1].cpu()]
     synchronize(dev)
     t0 = time.perf_counter()
     with obs.span("decode", batch=b, new_tokens=args.new_tokens):
         for i in range(args.new_tokens):
             toks.append(tok)
-            logits, cache = serve.decode(params, cache, tok, start + i)
+            logits, cache = step(cache, tok, start + i)
             seen.append(logits[:, -1].cpu())
             tok = logits[:, -1].argmax(-1)[:, None]
         synchronize(dev)
@@ -896,7 +918,8 @@ def _mesh_decode(args, cfg, serve, params, local, start, max_seq, mesh,
     log.info("kernel_launches", f"kernel launches (rank 0): "
              f"{launch_counts()}", **launch_counts())
     return {"tokens": tokens, "rank_tokens": mine.tolist(), "logits": seen,
-            "prefill_s": prefill_s, "decode_s": dt, "start": start}
+            "prefill_s": prefill_s, "decode_s": dt, "decode_tok_s": tok_s,
+            "capture_s": capture_s, "start": start}
 
 
 if __name__ == "__main__":

@@ -21,9 +21,15 @@ shapes on gathered weights, so no float reduction is ever split over the
 model axis and no switch is needed.  The collectives both paths need are
 here: :func:`gather`, :func:`broadcast`, :func:`all_reduce` (sum or max)
 and :func:`each_member` (every member's tensor in rank order, which
-training sums in that order).  A gather is one broadcast per member of
-the axis, so it runs on gloo, whose CUDA support covers broadcast and
-all-reduce only, as on NCCL; a failed collective raises.  Each call tells
+training sums in that order).  A gather is one all-gather call where the
+group's backend has one for the tensor's device (NCCL on the card, gloo
+on the CPU), and one broadcast per member of the axis where it has not
+(gloo on the card, whose CUDA support covers broadcast and all-reduce
+only: ranks sharing a card); :func:`gather_route` decides from the
+backend and the device, never from a failure, and a failed collective
+raises.  An NCCL gather can sit inside a captured CUDA graph (the moe
+expert gather of :class:`repro_torch.serve.sharded.ShardedServe`'s
+captured decode step).  Each call tells
 the roofline's cost counter what it sends (:mod:`repro_torch.roofline.
 costs`, found through ``sys.modules``); inside the kernels' abstract
 route (a dry run on tensors without data,
@@ -323,18 +329,61 @@ def each_member(t: torch.Tensor, mesh: Mesh, axes: tuple):
         yield buf
 
 
-def gather(t: torch.Tensor, mesh: Mesh, axis: str, dim: int = 0
-           ) -> torch.Tensor:
-    """Every rank's ``t`` along ``axis`` concatenated along ``dim``, in
-    the order of their coordinate: one broadcast per member into a
-    ``(n, *t.shape)`` buffer, so every byte arrives as it was sent."""
-    n = mesh.shape.get(axis, 1)
-    if n == 1:
-        return t
-    buf = torch.empty((n, *t.shape), dtype=t.dtype, device=t.device)
+def gather_route(backend: str, device_type: str) -> str:
+    """How :func:`gather` moves a tensor on ``device_type`` over a group
+    of ``backend``: ``"broadcasts"``, one a member, where the backend has
+    no all-gather for that device (gloo on the card: its CUDA support
+    covers broadcast and all-reduce only), else ``"all_gather"``, one
+    call (NCCL on the card, gloo on the CPU)."""
+    if backend == "gloo" and device_type == "cuda":
+        return "broadcasts"
+    return "all_gather"
+
+
+def _all_gather():
+    # all_gather_single is the newer name (all_gather_into_tensor is
+    # deprecated where both exist); older torch has only the second
+    if hasattr(dist, "all_gather_single"):
+        return dist.all_gather_single
+    return dist.all_gather_into_tensor
+
+
+def _as_bytes(t: torch.Tensor) -> torch.Tensor:
+    return t.reshape(-1).view(torch.uint8)
+
+
+def gather_into(out: torch.Tensor, t: torch.Tensor, mesh: Mesh,
+                axis: str) -> torch.Tensor:
+    """Fill ``out`` (contiguous, its dim 0 the ``n`` members' blocks of
+    ``t``'s shape, in the order of their ``axis`` coordinate) with every
+    rank's ``t`` along ``axis``, as bytes, so every bit arrives as it was
+    sent: one all-gather or one broadcast a member, by
+    :func:`gather_route`.  Every rank of the group must call it."""
+    n = mesh.shape[axis]
+    group = mesh.group(axis)
+    if gather_route(dist.get_backend(group), t.device.type) == "all_gather":
+        if t.numel() and _sent("all-gather", out):
+            _all_gather()(_as_bytes(out), _as_bytes(t.contiguous()),
+                          group=group)
+        return out
+    blocks = out.view((n, *t.shape))
     me = mesh.index(axis)
     for j in range(n):
         if j == me:
-            buf[j].copy_(t)
-        broadcast(buf[j], mesh, axis, j, kind="all-gather")
+            blocks[j].copy_(t)
+        broadcast(blocks[j], mesh, axis, j, kind="all-gather")
+    return out
+
+
+def gather(t: torch.Tensor, mesh: Mesh, axis: str, dim: int = 0
+           ) -> torch.Tensor:
+    """Every rank's ``t`` along ``axis`` concatenated along ``dim``, in
+    the order of their coordinate (a negative ``dim`` counts from the
+    end), through a ``(n, *t.shape)`` buffer (:func:`gather_into`)."""
+    n = mesh.shape.get(axis, 1)
+    if n == 1:
+        return t
+    dim %= t.dim()
+    buf = torch.empty((n, *t.shape), dtype=t.dtype, device=t.device)
+    gather_into(buf, t, mesh, axis)
     return buf.movedim(0, dim).flatten(dim, dim + 1)

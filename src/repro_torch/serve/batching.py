@@ -33,10 +33,13 @@ the same traffic.
 With a ``mesh`` (:mod:`repro_torch.launch.mesh`) every rank runs the same
 scheduler over the same requests; the pool's rows split over the data
 axis (B / dp slots a rank, in order), the steps are a
-:class:`~.sharded.ShardedServe`'s (eager: gloo collectives cannot be
-captured), each tick gathers the weights once, and the ranks' next tokens
-are gathered over the data axis so that every rank's scheduler sees every
-slot's token.
+:class:`~.sharded.ShardedServe`'s, each tick gathers the weights once
+into the same buffers, and the ranks' next tokens are gathered over the
+data axis so that every rank's scheduler sees every slot's token.  With
+a card a rank (NCCL) the step and the replay run through the captured
+sharded step (:class:`~.sharded.ShardedCapturedStep`, two sharing one
+pool as above); ranks sharing a card (gloo, whose collectives cannot be
+captured) step eagerly.
 
 The batcher serves the dense and moe families and refuses the others
 (:data:`REFUSED`), whose reference batcher answers wrongly: its snapshot
@@ -188,16 +191,22 @@ class ContinuousBatcher:
             if step is not None and hasattr(step, "reset"):
                 step.reset()
         if self.mesh is not None:
-            from .sharded import ShardedServe
+            from .sharded import ShardedServe, capture_refusal
 
             serve = self._serve = ShardedServe(
                 self.cfg, self.mesh, self.lut_tables, kv_dtype=self.kv_dtype)
             self.lut_tables = serve.tables
-            self._step = self._step_plain = (
-                lambda cache, toks, pos: serve.decode(self.params, cache,
-                                                      toks, pos))
-            self._replay = lambda cache, toks: serve.replay(
-                self.params, cache, toks, 0)
+            if capture_refusal(self.mesh) is None:
+                # NCCL on the card: the captured steps over the session's
+                # weights, which every tick gathers into the same buffers
+                self._step = serve.decode_fn(None, pool=self._pool)
+                self._step_plain = serve.decode_fn(None, pool=self._pool)
+            else:
+                self._step = self._step_plain = (
+                    lambda cache, toks, pos: serve.decode(self.params, cache,
+                                                          toks, pos))
+            self._replay = lambda cache, toks: prefill_replay(
+                None, self.cfg, cache, toks, 0, step=self._step)
             return
         self._step = decode_fn(self.params, self.cfg, self.lut_tables,
                                pool=self._pool)

@@ -37,11 +37,16 @@ on that rank's rows.  Three pieces:
   ``"gspmd"`` (the default: policy-placed tables, replay served) or
   ``"shard_map"`` (every slab replicated, replay refused).  Both run the
   same explicit program here, the moe experts split over the model axis
-  in both; the modes keep the reference's meanings.  Gloo
-  collectives cannot be captured in a CUDA graph, so the sharded step runs
-  eagerly.  A step gathers the weights at its entry; :meth:`ShardedServe.
-  session` holds one gather over several steps (a batcher tick, or the
-  launcher's prefill and decode loop): over gloo on a shared card a
+  in both; the modes keep the reference's meanings.  A step gathers
+  the weights at its entry; :meth:`ShardedServe.session` holds one gather
+  over several steps (a batcher tick, or the launcher's prefill and
+  decode loop), into buffers allocated once and refilled by every
+  session.  Where the ranks have a card each and NCCL
+  (:mod:`repro_torch.launch.mesh`), :meth:`ShardedServe.decode_fn` hands
+  out the decode step captured in a CUDA graph over those buffers
+  (:class:`ShardedCapturedStep`; a moe step's expert all-gathers inside
+  it), replayed across sessions; gloo collectives cannot be captured, so
+  ranks sharing a card step eagerly.  Over gloo on a shared card a
   gather of qwen3-0.6b's weights takes about a second (PERF.md §6).
 
 The reference's ``split_table_operands`` and ``lower_decode`` serve
@@ -65,8 +70,8 @@ from repro_torch.nn.sharding import (
     TP_AXIS,
     Mesh,
     Placement,
-    broadcast,
     gather,
+    gather_into,
     named_sharding,
     use_mesh,
 )
@@ -77,6 +82,8 @@ from repro_torch.nn.transformer import (
     params_class,
     torch_dtype,
 )
+
+from .graphs import CapturedStep
 
 MODES = ("gspmd", "shard_map")
 # the shard_map mode's threshold: every slab replicated
@@ -147,19 +154,12 @@ class LayerShardedSlab:
     shard: dict
 
     def gather_into_buffer(self, mesh: Mesh) -> None:
-        """Fill the buffer from every data rank's layers: one broadcast a
-        tensor a member, each into its block of rows."""
+        """Fill the buffer from every data rank's layers, each into its
+        block of rows: one gather a tensor (:func:`~repro_torch.nn.
+        sharding.gather_into`)."""
         bufs = _slab_tensors(self.entry)
-        n = mesh.shape[self.axis]
-        me = mesh.index(self.axis)
         for name, shard in self.shard.items():
-            buf = bufs[name]
-            blk = buf.shape[0] // n
-            for j in range(n):
-                rows = buf[j * blk:(j + 1) * blk]
-                if j == me:
-                    rows.copy_(shard)
-                broadcast(rows, mesh, self.axis, j, kind="all-gather")
+            gather_into(bufs[name], shard, mesh, self.axis)
 
 
 def place_tables(lut_tables: dict | None, mesh,
@@ -417,6 +417,9 @@ class ShardedServe:
             lut_tables, mesh, self.policy)
         self._param_pl = serve_param_shardings(cfg, mesh)
         self._full = None   # the gathered weights inside a session
+        self._held = None   # the params object over the held buffers
+        self._held_key = None   # the parameters' pointers it was made for
+        self._held_leaves = {}  # dotted name -> held gathered buffer
         self.gather_s = None   # the last session's gather, seconds
 
     # -- placement helpers -------------------------------------------------
@@ -444,15 +447,27 @@ class ShardedServe:
     def gather_weights(self, params):
         """The weights a step computes with: every parameter but the
         expert stacks gathered over the model axis (a collective: every
-        rank of the mesh calls it)."""
+        rank of the mesh calls it) into buffers allocated at the first
+        call and refilled in place by every later one, so the same params
+        object comes back and a step captured over it replays after each
+        gather.  Other ``params`` (other tensors) get new buffers."""
+        named = list(params.named_parameters())
+        key = tuple(p.data_ptr() for _, p in named)
+        if key != self._held_key:
+            self._held, self._held_key, self._held_leaves = None, key, {}
         leaves = {}
-        for name, p in params.named_parameters():
+        for name, p in named:
             pl = self._param_pl[name]
             if _leaf(name) in _EXPERT_PARAMS or pl.replicated:
                 leaves[name] = p.detach()
+            elif name in self._held_leaves:
+                self._held_leaves[name].copy_(pl.gather(p.detach()))
             else:
-                leaves[name] = pl.gather(p.detach())
-        return _local_params(self.cfg, leaves, params.embed.device)
+                leaves[name] = self._held_leaves[name] = pl.gather(
+                    p.detach())
+        if self._held is None:
+            self._held = _local_params(self.cfg, leaves, params.embed.device)
+        return self._held
 
     @contextlib.contextmanager
     def session(self, params):
@@ -474,6 +489,17 @@ class ShardedServe:
                 yield self._full
             finally:
                 self._full = None
+
+    def decode_fn(self, params, pool=None):
+        """The decode step a serving loop calls inside :meth:`session`,
+        ``(cache, tokens, pos) -> (logits, cache)``: a
+        :class:`ShardedCapturedStep` (into ``pool`` when given) where the
+        mesh runs NCCL on the card, the eager sharded step where it runs
+        gloo or on the CPU (:func:`capture_refusal` says why)."""
+        if capture_refusal(self.mesh) is None:
+            return ShardedCapturedStep(self, pool=pool)
+        return lambda cache, tokens, pos: self.decode(params, cache, tokens,
+                                                      pos)
 
     # -- public API --------------------------------------------------------
     def prefill(self, params, batch: dict, max_seq: int):
@@ -503,6 +529,61 @@ class ShardedServe:
                                   self.tables, step=step)
 
 
+def capture_refusal(mesh) -> str | None:
+    """Why this rank's sharded decode step cannot be captured in a CUDA
+    graph, or ``None`` when it can: a graph runs on the card and can hold
+    an NCCL collective, not a gloo one."""
+    why = []
+    if mesh.backend != "nccl":
+        why.append(f"the mesh's collective backend is {mesh.backend} (a "
+                   f"CUDA graph holds NCCL collectives only)")
+    dev = torch.device(mesh.device or "cpu")
+    if dev.type != "cuda":
+        why.append(f"the rank serves on {dev} (CUDA graphs run on the "
+                   f"card)")
+    return "; ".join(why) or None
+
+
+class ShardedCapturedStep(CapturedStep):
+    """The sharded decode step as a replayed CUDA graph, where the mesh
+    runs NCCL on the card: :func:`~repro_torch.serve.decode.decode_step`
+    over a :class:`ShardedServe`'s held weights, called inside its
+    :meth:`~ShardedServe.session` like the eager step, and captured once
+    per cache and batch (every session refills the same buffers).  A
+    dense model runs no collective inside the step; a moe model's expert
+    gather is one NCCL all-gather a layer, captured in the graph, so
+    every rank captures and replays in step (they run one scheduler).
+    The session's gather and the capture's eager warm-up steps use the
+    communicators before the capture starts.  A capture or a replay that
+    fails raises; nothing falls back to the eager step."""
+
+    def __init__(self, serve: ShardedServe, pool=None):
+        why = capture_refusal(serve.mesh)
+        if why is not None:
+            raise ValueError(f"ShardedCapturedStep: {why}; such a rank "
+                             f"steps eagerly (ShardedServe.decode_fn)")
+        super().__init__(None, serve.cfg, serve.tables, pool=pool)
+        self.serve = serve
+
+    def _held(self):
+        full = self.serve._full
+        if full is None:
+            raise RuntimeError("ShardedCapturedStep: called outside "
+                               "ShardedServe.session, which gathers the "
+                               "weights it reads")
+        return full
+
+    def capture(self, cache: dict, tokens: torch.Tensor) -> None:
+        self.params = self._held()
+        with use_mesh(self.serve.mesh):
+            super().capture(cache, tokens)
+
+    def __call__(self, cache: dict, tokens: torch.Tensor, pos):
+        if self._held() is not self.params:
+            self.reset()
+        return super().__call__(cache, tokens, pos)
+
+
 def rank_memory(device) -> int | None:
     """``torch.cuda.memory_allocated`` on the rank's card (None on the
     CPU)."""
@@ -515,4 +596,5 @@ __all__ = ["PlacementPolicy", "place_tables", "plan_placement_report",
            "serve_param_shardings", "serve_cache_shardings",
            "batch_placement", "gather_rows", "shard_params",
            "init_params_sharded", "tables_checksum", "ShardedServe",
+           "ShardedCapturedStep", "capture_refusal",
            "TP_AXIS", "DP_AXES"]

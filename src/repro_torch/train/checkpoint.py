@@ -163,8 +163,9 @@ def save_checkpoint(ckpt_dir: str, state: dict, step: int,
     if mesh is not None:
         from repro_torch.nn.sharding import all_reduce
 
-        # the ranks wait for rank 0's commit
-        all_reduce(torch.zeros(1, device=mesh.device or "cpu"), mesh)
+        # the ranks wait for rank 0's commit (read back: an NCCL
+        # all-reduce returns to the host before it completes)
+        float(all_reduce(torch.zeros(1, device=mesh.device or "cpu"), mesh))
     return final
 
 

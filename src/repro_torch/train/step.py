@@ -39,10 +39,13 @@ compression.compressed_dp_mean`; a rank keeps its share of its own new
 error buffer, which is what the reference's ``ef_error`` holds after its
 step (its per-shard buffers leave the ``shard_map`` under a replicated
 spec, and the step's output placement keeps each device's slice of its
-own).  Gloo collectives cannot be captured in a CUDA graph, so the
-sharded step runs eagerly; ``step.timings`` holds the last call's
-seconds (host clock, the device synchronized) of the weight gather, the
-forward and backward, the gradient reduction and the update.
+own).  The step's gathers take one all-gather a leaf where the backend
+has one (NCCL with a card a rank; :func:`~repro_torch.nn.sharding.
+gather_route`), and the rank-order sums stay one broadcast a member.  The
+sharded step runs eagerly, as the single-device training step does (no
+training step is captured in a CUDA graph); ``step.timings`` holds the
+last call's seconds (host clock, the device synchronized) of the weight
+gather, the forward and backward, the gradient reduction and the update.
 
 Serving's counterparts of the reference's ``make_serve_step`` and
 ``make_prefill`` are :func:`repro_torch.serve.decode_step` (captured in a

@@ -60,6 +60,13 @@ print(int('torch' in sys.modules),
     ("repro_torch.launch.dryrun", 1, 0),
     ("repro_torch.launch.hillclimb", 0, 0),
     ("repro_torch.roofline.report", 1, 0),
+    # the mesh's collectives, its launcher and the captured sharded step
+    ("repro_torch.nn.sharding", 1, 1),
+    ("repro_torch.launch.mesh", 1, 1),
+    ("repro_torch.serve.sharded", 1, 1),
+    ("repro_torch.serve.batching", 1, 1),
+    ("repro_torch.launch.serve", 1, 1),
+    ("repro_torch.train.checkpoint", 1, 1),
 ])
 def test_telemetry_modules_import_alone(name, torch_, obs_):
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
