@@ -213,8 +213,11 @@ Phases (any failure exits non-zero; nothing is caught):
      graph of one call); ``whisper-small`` at full width and ``deepseek-moe-16b``,
      ``recurrentgemma-9b`` and ``phi-3-vision-4.2b`` with their depth cut
      (``P18_DEPTH`` gives why), 2 steps each at 4 x 64, losses and gradient
-     norms finite; the qwen3-0.6b step-19 checkpoint stays under
-     ``build/p18_ckpt/`` for phase 19;
+     norms finite; then AdamW in slices of the leading axis held bit for
+     bit against AdamW whole, and an expert stack's shares' slab terms
+     of the norm against the whole stack's, both on the card
+     (``p18_update_slices``); the qwen3-0.6b step-19 checkpoint stays
+     under ``build/p18_ckpt/`` for phase 19;
   19. (run after phase 18) the accuracy-parity autotuner and the serving
      control plane at full width: ``repro_torch.launch.tune``'s functions
      with the reference's flags (``--full --arch qwen3-0.6b --ckpt-dir``
@@ -401,10 +404,13 @@ Phases (any failure exits non-zero; nothing is caught):
      and form (a) (the reference's frozen plans), eager then captured in
      one session: bit for bit the single-device run, the replay's expert
      all-gathers counted inside the capture (one a layer); (f)
-     deepseek-moe-16b training, 4 x 64, 2 steps at ``P25_MOE_TRAIN``'s
-     depth (the dry run's reason there): the first loss bit for bit the
-     single-device forward, and a 2-layer cut bit for bit the
-     single-device step.
+     deepseek-moe-16b training at its 28 layers (``P25_MOE_TRAIN``), 4 x
+     64, 2 steps, each rank holding only its share of the expert stacks'
+     gradients (the dry run: 43.8 GB a rank, 133.4 when the step gathered
+     them whole): the first loss bit for bit the single-device forward,
+     each rank's peak beside the dry run's for the same rank (traced in
+     a process of its own on the meta device), and a 2-layer cut bit for
+     bit the single-device step.
 The last lines are the kernel JSON, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``; with ``--cards 4`` the first is phase
 25's summary and ``count`` is 4; the kernels' launches include phases
@@ -3429,6 +3435,93 @@ def profile_train_step(label, setup, step) -> dict:
     return out
 
 
+# AdamW in slices against AdamW whole on the card: leaves cut at a
+# threshold of 2^16 elements (one row a slice, 21 rows, one of 100000,
+# whole) against the same update with no cut
+P18_SLICE_CHUNK = 1 << 16
+P18_SLICE_SHAPES = ((4, 64, 1024), (40, 3000), (2, 100000), (777,))
+
+
+def p18_update_slices(dev) -> dict:
+    """On the card: ``adamw_apply`` in slices of the leading axis bit for
+    bit the whole leaves' update (float32 and bf16 leaves, the clip
+    binding, the step's values as Python floats and as the captured
+    form's 0-d tensors); an expert stack's share's slab terms
+    (``slab_square_sums``) bit for bit its experts' columns of the whole
+    stack's (deepseek-moe-16b's ``moe_w_in`` at 2 layers, bf16 and
+    float32, the shares of tp 2 and 4); and the slab terms' cost beside
+    one ``square_sum`` of the stack (``timed_ms``: host and device)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.optim import adamw as aw
+
+    gen = torch.Generator(device=dev).manual_seed(18)
+    cfg = aw.AdamWConfig(lr=1e-3, grad_clip_norm=1.0)
+    clip = torch.tensor(np.float32(1.0), device=dev)
+    count = 3
+    c1 = float(np.float32(1) - np.float32(cfg.b1) ** np.float32(count))
+    c2 = float(np.float32(1) - np.float32(cfg.b2) ** np.float32(count))
+    forms = {"floats": (c1, c2, float(cfg.lr_at(count))),
+             "scalars": tuple(torch.as_tensor(aw.adamw_step_scalars(
+                 cfg, count), device=dev).unbind())}
+    held = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        leaves = [[torch.randn(sh, generator=gen, device=dev) * k
+                   for sh in P18_SLICE_SHAPES] for k in (1.0, 2.0, 0.1, 0.01)]
+        for form, (a1, a2, lr) in forms.items():
+            outs = []
+            for chunk in (P18_SLICE_CHUNK, None):
+                ps, gs, ms, vs = ([t.to(dtype, copy=True) for t in ts]
+                                  for ts in leaves)
+                vs = [v.abs() for v in vs]
+                st = {"mu": ms, "nu": vs, "count": count}
+                old = aw.ADAMW_CHUNK
+                aw.ADAMW_CHUNK = chunk or max(t.numel() for t in ps)
+                try:
+                    gn = aw.adamw_apply(gs, st, ps, cfg, clip, a1, a2, lr)
+                finally:
+                    aw.ADAMW_CHUNK = old
+                outs.append([gn] + ps + ms + vs)
+            if not all(torch.equal(a, b) for a, b in zip(*outs)):
+                raise AssertionError(f"[18] AdamW in slices differs from "
+                                     f"AdamW whole ({dtype}, {form})")
+            held += 1
+    m = get_config("deepseek-moe-16b").moe
+    shape = (2, m.n_experts, get_config("deepseek-moe-16b").d_model,
+             2 * m.d_expert)
+    times = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        t = torch.randn(shape, generator=gen, device=dev).to(dtype)
+        whole = aw.slab_square_sums(t)
+        for tp in (2, 4):
+            e = shape[1] // tp
+            for k in range(tp):
+                part = aw.slab_square_sums(t[:, k * e:(k + 1) * e].contiguous())
+                if not torch.equal(part, whole[:, k * e:(k + 1) * e]):
+                    raise AssertionError(f"[18] the slab terms of share {k} "
+                                         f"of {tp} differ from the whole "
+                                         f"stack's ({dtype})")
+        times[str(dtype)] = {
+            "slabs_ms": timed_ms(lambda: aw.slab_square_sums(t), n=5,
+                                 warmup=1, reps=3),
+            "square_sum_ms": timed_ms(lambda: aw.square_sum(t), n=5,
+                                      warmup=1, reps=3)}
+        del t, whole
+    out = {"adamw_cases": held, "slab_shape": shape,
+           "slabs": shape[0] * shape[1], "times": times}
+    log(f"[18] AdamW in slices (threshold {P18_SLICE_CHUNK}, leaves "
+        f"{P18_SLICE_SHAPES}) bit for bit AdamW whole in {held} cases "
+        f"(float32 and bf16, the clip binding, floats and the captured "
+        f"form's tensors); slab terms of the shares of tp 2 and 4 bit for "
+        f"bit the whole stack's at {shape}; the {out['slabs']} slabs' "
+        f"terms / one square_sum of the stack: " + ", ".join(
+            f"{k} {v['slabs_ms']:.3f} / {v['square_sum_ms']:.3f} ms"
+            for k, v in times.items()))
+    return out
+
+
 def run_phase18(dev, stamp, gen) -> dict:
     """Training through ``repro_torch.launch.train``'s functions (module
     docstring, phase 18).  Returns the numbers for ``chip_smoke.json`` and
@@ -3594,10 +3687,12 @@ def run_phase18(dev, stamp, gen) -> dict:
                       f"{arch} 2 steps", cfg=cfg)
         free(r)
         res[arch] = r
+    slices = p18_update_slices(dev)
     log(f"[18] {stamp()} done")
     for r in res.values():
         r.pop("_args", None)
     return {"runs": res, "k8b": k8b, "k8_launches": counts["wkv"],
+            "update_slices": slices,
             "rwkv_step_launches": {f"cuda:{k}": v // 5
                                    for k, v in counts.items()},
             "ckpt_dir": main_dir}
@@ -5973,16 +6068,14 @@ P25_MOE = ("qwen3-moe-30b-a3b", "deepseek-moe-16b")
 # fit in phase 23; one rank a card does: 18.5 GB a rank by the dry run)
 P25_RWKV = ["--arch", "rwkv6-3b", "--full", "--remat", "--batch", "4",
             "--seq", "256", "--steps", "3", "--device", "cuda"]
-# (f): deepseek-moe-16b on 1x4, 4 x 64, 2 steps.  The step gathers each
-# expert stack's gradient whole for the global norm and squares it in
-# float32 (moe_w_in: 369 M elements a layer).  The dry run
-# (launch/dryrun.py's trace_step on the meta device, a fake four-rank
-# group) gives a rank a peak of 133.4 GB at 28 layers, 67.1 at 14 and
-# 48.2 at 10.  On the card 14 layers ran out of memory: 43.5 GiB
-# allocated and 18.0 GiB reserved but free (the allocator's cached
-# blocks) when the float32 copy asked for 19.25 GiB.  A smaller batch
-# does not lower it, so the depth is cut to 10
-P25_MOE_TRAIN = (10, ["--arch", "deepseek-moe-16b", "--full", "--batch",
+# (f): deepseek-moe-16b on 1x4, 4 x 64, 2 steps, at its 28 layers.  A
+# rank keeps its share of each expert stack's gradient: the norm takes
+# the (layer, expert) slabs' square sums and AdamW one layer at a time.
+# The dry run (launch/dryrun.py's trace_step on the meta device, a fake
+# four-rank group) gives a rank a peak of 43.8 GB at 28 layers and 17.1
+# at 10 (133.4 and 48.2 while the step gathered each expert gradient
+# whole for the norm, which ran out of memory at 14 layers)
+P25_MOE_TRAIN = (28, ["--arch", "deepseek-moe-16b", "--full", "--batch",
                       "4", "--seq", "64", "--steps", "2", "--device",
                       "cuda"])
 P25_MOE_CUT = 2   # (f)'s cut held against the single-device step
@@ -6102,6 +6195,24 @@ def p25_ref_moe_train() -> dict:
     cut = dataclasses.replace(cfg, n_layers=P25_MOE_CUT)
     out["cut"] = p23_reference(argv, cut, layouts={2: [(1, 4)]})
     return out
+
+
+def p25_dryrun_moe_train() -> int:
+    """(f)'s rank peak by the dry run, in bytes: one 1x4 rank's step at
+    (f)'s depth and shape traced on the meta device in a fake four-rank
+    group (``launch/dryrun.py``; nothing runs on the card)."""
+    from repro_torch.launch import train as tl
+    from repro_torch.launch.dryrun import dryrun_cell
+
+    cfg, argv = p23_cut(P25_MOE_TRAIN)
+    args = tl.parse_args(argv)
+    r = dryrun_cell(args.arch, "train_4k", False, tl.train_config(args),
+                    quiet=True, cfg=cfg,
+                    info=dict(kind="train", seq=args.seq, batch=args.batch),
+                    mesh_shape=(1, P25_CARDS))
+    if r["status"] != "ok":
+        raise AssertionError(f"[25] (f) the dry run: {r.get('error')}")
+    return r["peak_bytes"]
 
 
 def p25_ref_qwen_train() -> dict:
@@ -6455,6 +6566,7 @@ def run_phase25(stamp, parts=("a", "b", "c", "d", "e", "f", "g")) -> dict:
         ref("rwkv", p25_ref_rwkv)
     if "f" in parts:
         ref("moe_train", p25_ref_moe_train)
+        ref("moe_train_dryrun", p25_dryrun_moe_train)
     if "g" in parts:
         ref("qwen_train", p25_ref_qwen_train)
 
@@ -6659,20 +6771,26 @@ def run_phase25(stamp, parts=("a", "b", "c", "d", "e", "f", "g")) -> dict:
         p23_held("(f) cut: the state after 2 steps",
                  [f["cut"]["hashes"] for f in recs],
                  rf["cut"]["hashes"][2, (1, 4)])
+        pred = refs["moe_train_dryrun"]
         out["f"] = {"depth": rf["depth"], "loss": rf["loss"],
                     "metrics": recs[0]["metrics"],
                     "one_device_forward_peak": rf["peak"],
+                    "dryrun_peak": pred,
                     "ranks": [{k: f[k] for k in (
                         "state_bytes", "memory_at_rest", "peak", "seconds",
                         "splits")} for f in recs]}
         log(f"[25] {stamp()} (f) deepseek-moe-16b ({rf['depth']} of 28 "
-            f"layers, 4 x 64) on 1x4 over NCCL: the first loss "
+            f"layers, 4 x 64) on 1x4 over NCCL, each rank its share of the "
+            f"expert gradients: the first loss "
             f"{rf['loss']!r} bit for bit the single-device forward's, and "
             f"the {P25_MOE_CUT}-layer cut's 2 steps bit for bit the "
             f"single-device step; per rank "
             + "; ".join(f"r{i} steps {[round(x * 1e3, 1) for x in f['seconds']]}"
                         f" ms (step 2: {p25_split(f['splits'][-1])}), state "
-                        f"{f['state_bytes']} B, peak {f['peak']} B"
+                        f"{f['state_bytes']} B, peak {f['peak']} B "
+                        f"({f['peak'] / 1e9:.2f} GB; the dry run "
+                        f"{pred / 1e9:.2f} GB, "
+                        f"{(f['peak'] - pred) / 1e9:+.2f})"
                         for i, f in enumerate(recs)))
 
     if "g" in parts:

@@ -8,10 +8,13 @@ decay added to the step, and the update ``p - lr * step`` in float32.
 ``sqrt(v) / sqrt(c2) + eps``: another association, other bits.)
 
 Unlike the reference, which returns new trees, :func:`adamw_update`
-updates the parameters and the moments in place: the step's memory is the
-parameters' and the moments', nothing more.  The step count stays on the
-host, so the learning rate and the bias corrections are float32 scalars
-computed there.
+updates the parameters and the moments in place, a leaf above
+``ADAMW_CHUNK`` elements in slices along its leading axis (one layer of a
+stacked leaf): the update is elementwise, so the slices give the whole
+leaf's bits, and the step's memory is the parameters', the moments' and
+one slice's temporaries (XLA fuses the reference's update).  The step
+count stays on the host, so the learning rate and the bias corrections
+are float32 scalars computed there.
 """
 from __future__ import annotations
 
@@ -22,6 +25,10 @@ import numpy as np
 import torch
 
 _F = np.float32
+
+# elements: a leaf above this is updated a slice of its leading axis at a
+# time, each slice of at most this many elements or one row
+ADAMW_CHUNK = 1 << 24
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,10 +57,22 @@ def square_sum(t: torch.Tensor) -> torch.Tensor:
     return torch.sum(torch.square(t.float()))
 
 
+def slab_square_sums(t: torch.Tensor) -> torch.Tensor:
+    """The ``(L, E)`` float32 :func:`square_sum` of each ``t[l, e]`` of a
+    stack ``(L, E, ...)`` (a moe expert stack's term of the norm), one
+    slab at a time: the same call on a slab of the same shape, so a rank's
+    share ``(L, E / tp, ...)`` gives its experts' entries bit for bit the
+    whole stack's, and no float32 copy of more than one slab is made."""
+    L, E = t.shape[:2]
+    return torch.stack([square_sum(t[i, e]) for i in range(L)
+                        for e in range(E)]).view(L, E)
+
+
 def global_norm(tensors: list[torch.Tensor]) -> torch.Tensor:
     """``sqrt(0 + s_0 + s_1 + ...)`` over the leaves' :func:`square_sum`
-    in order (a sharded step adds the same terms of its full gradients
-    leaf by leaf)."""
+    in order (the train step adds the same terms, a moe expert stack's
+    from :func:`slab_square_sums`, and hands the norm to
+    :func:`adamw_update`)."""
     return torch.sqrt(sum(square_sum(t) for t in tensors))
 
 
@@ -106,18 +125,30 @@ def adamw_apply(grads: list[torch.Tensor], state: dict,
     when given (see :func:`adamw_update`)."""
     if gnorm is None:
         gnorm = global_norm(grads)
+    scale = None
     if clip is not None:
         scale = torch.minimum(torch.ones_like(gnorm),
                               clip / (gnorm + 1e-9))
-        grads = [g * scale for g in grads]
     # tensors c1, c2 hold the reciprocals
     div = torch.mul if torch.is_tensor(c1) else torch.div
     b1, b2 = cfg.b1, cfg.b2
-    for p, g, m, v in zip(params, grads, state["mu"], state["nu"]):
-        m.copy_(b1 * m + (1 - b1) * g.to(m.dtype))
-        v.copy_(b2 * v + (1 - b2) * torch.square(g.to(v.dtype)))
-        step = div(m, c1) / (torch.sqrt(div(v, c2)) + cfg.eps)
-        if cfg.weight_decay > 0:
-            step = step + cfg.weight_decay * p.to(step.dtype)
-        p.copy_((p.float() - lr * step).to(p.dtype))
+    for leaf in zip(params, grads, state["mu"], state["nu"]):
+        for p, g, m, v in zip(*map(_chunks, leaf)):
+            if scale is not None:
+                g = g * scale
+            m.copy_(b1 * m + (1 - b1) * g.to(m.dtype))
+            v.copy_(b2 * v + (1 - b2) * torch.square(g.to(v.dtype)))
+            step = div(m, c1) / (torch.sqrt(div(v, c2)) + cfg.eps)
+            if cfg.weight_decay > 0:
+                step = step + cfg.weight_decay * p.to(step.dtype)
+            p.copy_((p.float() - lr * step).to(p.dtype))
     return gnorm
+
+
+def _chunks(t: torch.Tensor) -> tuple:
+    """``t`` whole up to ``ADAMW_CHUNK`` elements, else views of slices
+    along dim 0, each of ``ADAMW_CHUNK`` elements or fewer (one row when
+    a row is larger)."""
+    if t.numel() <= ADAMW_CHUNK:
+        return (t,)
+    return torch.split(t, max(1, ADAMW_CHUNK // (t.numel() // t.shape[0])))

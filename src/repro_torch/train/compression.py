@@ -15,11 +15,16 @@ from __future__ import annotations
 import torch
 
 
-def quantize_int8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def quantize_int8(x: torch.Tensor, amax: torch.Tensor | None = None
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """``(q int8, scale float32 0-d)``: ``scale = max|x| / 127 + 1e-12``,
     ``q = clip(round(x / scale), -127, 127)`` (round half to even).  Both
-    divisions are tensor by tensor (a true division, as XLA's)."""
-    scale = torch.amax(torch.abs(x)) / x.new_tensor(127.0) + 1e-12
+    divisions are tensor by tensor (a true division, as XLA's).  ``amax``:
+    ``max|x|`` given, when ``x`` is a share of the leaf (the whole leaf's;
+    a maximum is exact under any split)."""
+    if amax is None:
+        amax = torch.amax(torch.abs(x))
+    scale = amax / x.new_tensor(127.0) + 1e-12
     q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
     return q, scale
 
@@ -28,13 +33,17 @@ def dequantize_int8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return q.float() * scale
 
 
-def ef_compress_grads(grads: list, error: list):
+def ef_compress_grads(grads: list, error: list, leaf_max=None):
     """Apply error feedback and quantize.  Returns ``(q8, scales,
-    new_error)``, lists in the order of ``grads``."""
+    new_error)``, lists in the order of ``grads``.  ``leaf_max``: maps a
+    share's ``max|x|`` to its whole leaf's (shares of split leaves)."""
     qs, ss, es = [], [], []
     for g, e in zip(grads, error):
         corrected = g.float() + e
-        q, s = quantize_int8(corrected)
+        amax = None
+        if leaf_max is not None:
+            amax = leaf_max(torch.amax(torch.abs(corrected)))
+        q, s = quantize_int8(corrected, amax)
         qs.append(q)
         ss.append(s)
         es.append(corrected - dequantize_int8(q, s))
@@ -55,21 +64,34 @@ def compressed_mean_local(grads: list, error: list):
     return _mean([q.to(torch.int32) for q in q8], scales, 1), new_e
 
 
-def compressed_dp_mean(grads: list, error: list, mesh, dp_axes: tuple):
+def compressed_dp_mean(grads: list, error: list, mesh, dp_axes: tuple,
+                       share_axes: tuple = ()):
     """Error-feedback int8 mean over the data axes ``dp_axes`` of
     ``mesh`` (every rank of the mesh calls it with its own data shard's
     full gradients and its error buffers, lists in one order): ``(mean,
     new_error)``, the mean equal on every rank, ``new_error`` the rank's
     own (what its rounding lost).  The codes travel as int8, one member's
     at a time, into int32 sums (the reference's ``psum`` of the codes as
-    int32 is the same sum: integers add exactly in any order)."""
+    int32 is the same sum: integers add exactly in any order).
+    ``share_axes``: the leaves are the rank's shares of leaves split over
+    these axes (moe expert stacks over the model axis), each scale taken
+    from the whole leaf's ``max|x|`` (the shares' maximum over the axes);
+    everything else is elementwise given the scale, so a rank's results
+    are bit for bit its slices of the whole leaves'."""
     from repro_torch.nn.sharding import all_reduce, each_member
 
     axes = tuple(a for a in dp_axes if a in mesh.axis_names)
     n_dp = 1
     for a in axes:
         n_dp *= mesh.shape[a]
-    q8, scales, new_e = ef_compress_grads(grads, error)
+
+    def leaf_max(amax):
+        for a in share_axes:
+            all_reduce(amax, mesh, a, op="max")
+        return amax
+
+    q8, scales, new_e = ef_compress_grads(grads, error,
+                                          leaf_max if share_axes else None)
     summed = []
     for q in q8:
         acc = torch.zeros(q.shape, dtype=torch.int32, device=q.device)

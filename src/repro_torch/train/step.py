@@ -7,9 +7,11 @@ and its gradients by autograd, ``remat`` as activation checkpointing per
 layer, microbatches as a Python loop that sums the gradients in float32
 and divides by ``microbatch`` (the reference's ``lax.scan`` with float32
 accumulators), the int8 error-feedback compression under
-``grad_compress``, and :func:`repro_torch.optim.adamw_update` in place.
-The metrics are the reference's: ``loss``, ``grad_norm`` (0-d tensors, no
-host read) and ``lr`` (float32).
+``grad_compress``, and :func:`repro_torch.optim.adamw_update` in place
+with the global norm of step 5 below (a moe expert stack's term the sum
+of its ``(layer, expert)`` slabs' square sums).  The metrics are the
+reference's: ``loss``, ``grad_norm`` (0-d tensors, no host read) and
+``lr`` (float32).
 
 With a ``mesh`` the step is an explicit SPMD program in the exact mode of
 sharded serving (:mod:`repro_torch.serve.sharded`): a rank's state is its
@@ -26,26 +28,37 @@ step
    rank order, ``0 + g_0 + g_1 + ...``, then divides by ``n_dp`` (one
    member's gradient at a time into one accumulator:
    :func:`~repro_torch.nn.sharding.each_member`); the loss is averaged
-   the same way;
-5. takes the global norm over the full mean gradients, leaf by leaf;
-6. runs AdamW on the rank's own shares with that norm.
+   the same way.  An expert stack's gradient stays the rank's share over
+   the model axis: no rank holds a whole one, as no device of the
+   reference does (its ``shard_map`` is manual over the data axes only);
+5. takes the global norm leaf by leaf: a full mean gradient's square sum,
+   and for an expert stack the ``(L, E)`` square sums of its ``(layer,
+   expert)`` slabs, the rank's own experts' from its share, gathered
+   over the model axis into expert order (a few KB) and summed as the
+   single-device step sums the whole stack's;
+6. runs AdamW on the rank's own shares with that norm (its piece of a
+   full mean gradient, or of an expert stack's share).
 
 So at ``microbatch=None`` a sharded step on any ``(dp, tp)`` is bit for
 bit the single-device step with ``microbatch=dp`` (the same float32 sums
 in the same order), and at dp 1 the single-device step itself.  Under
-``grad_compress`` each rank compresses its own gradients against the full
-error buffers and the ranks meet in :func:`~repro_torch.train.
-compression.compressed_dp_mean`; a rank keeps its share of its own new
-error buffer, which is what the reference's ``ef_error`` holds after its
-step (its per-shard buffers leave the ``shard_map`` under a replicated
-spec, and the step's output placement keeps each device's slice of its
-own).  The step's gathers take one all-gather a leaf where the backend
-has one (NCCL with a card a rank; :func:`~repro_torch.nn.sharding.
-gather_route`), and the rank-order sums stay one broadcast a member.  The
-sharded step runs eagerly, as the single-device training step does (no
-training step is captured in a CUDA graph); ``step.timings`` holds the
-last call's seconds (host clock, the device synchronized) of the weight
-gather, the forward and backward, the gradient reduction and the update.
+``grad_compress`` each rank compresses its own gradients against the
+error buffers gathered over the data axes (an expert stack's share
+against its share of them, its scale the whole leaf's: the shares'
+``max|x|`` maxed over the model axis) and the ranks meet in
+:func:`~repro_torch.train.compression.compressed_dp_mean`; a rank keeps
+its share of its own new error buffer, which is what the reference's
+``ef_error`` holds after its step (its per-shard buffers leave the
+``shard_map`` under a replicated spec, and the step's output placement
+keeps each device's slice of its own).  The step's gathers take one
+all-gather a leaf where the backend has one (NCCL with a card a rank;
+:func:`~repro_torch.nn.sharding.gather_route`), and the rank-order sums
+stay one broadcast a member.  Checkpoints (:mod:`.checkpoint`) gather
+whole leaves on rank 0, outside the step.  The sharded step runs
+eagerly, as the single-device training step does (no training step is
+captured in a CUDA graph); ``step.timings`` holds the last call's
+seconds (host clock, the device synchronized) of the weight gather, the
+forward and backward, the gradient reduction and the update.
 
 Serving's counterparts of the reference's ``make_serve_step`` and
 ``make_prefill`` are :func:`repro_torch.serve.decode_step` (captured in a
@@ -65,19 +78,36 @@ from repro_torch.device import resolve_device, synchronize
 from repro_torch.nn.sharding import (
     DP_AXES,
     TP_AXIS,
+    Placement,
     each_member,
     named_sharding,
     use_mesh,
 )
 from repro_torch.nn.transformer import loss_fn, params_class
 from repro_torch.optim import adamw_update
-from repro_torch.optim.adamw import square_sum
+from repro_torch.optim.adamw import slab_square_sums, square_sum
 
 from .compression import compressed_dp_mean, compressed_mean_local
 from .state import TrainConfig, train_state_shardings
 
-# the moe expert stacks: split over the model axis through the compute
+# the moe expert stacks, (L, E, ., .): split over the model axis through
+# the compute, each (layer, expert) slab its own term of the norm
 _EXPERT_PARAMS = ("moe_w_in", "moe_w_out")
+
+
+def _is_expert(name: str) -> bool:
+    return name.rsplit(".", 1)[-1] in _EXPERT_PARAMS
+
+
+def _norm_term(name: str, g: torch.Tensor, gather=None) -> torch.Tensor:
+    """Leaf ``name``'s term of the global norm: an expert stack's slab
+    terms (:func:`~repro_torch.optim.adamw.slab_square_sums`) summed as
+    one ``(L, E)`` tensor, put into expert order by ``gather`` when ``g``
+    is a share over the model axis; any other leaf's ``square_sum``."""
+    if not _is_expert(name):
+        return square_sum(g)
+    sq = slab_square_sums(g)
+    return torch.sum(sq if gather is None else gather(sq))
 
 
 def input_batch_specs(cfg: ArchConfig, global_batch: int, seq_len: int
@@ -188,8 +218,10 @@ def make_train_step(cfg: ArchConfig, tcfg: TrainConfig, device=None,
         if tcfg.grad_compress:
             g, new_error = compressed_mean_local(g, state["ef_error"])
             state["ef_error"] = new_error
+        gnorm = torch.sqrt(sum(_norm_term(n, gi) for (n, _), gi in zip(
+            params.named_parameters(), g)))
         metrics = adamw_update(g, state["opt"], list(params.parameters()),
-                               tcfg.optimizer)
+                               tcfg.optimizer, gnorm=gnorm)
         state["step"] += 1
         return state, {"loss": loss, **metrics}
 
@@ -205,9 +237,16 @@ def _sharded_step(cfg: ArchConfig, tcfg: TrainConfig, dev, mesh, grads_of):
     for a in dp_axes:
         n_dp *= mesh.shape[a]
     # an expert stack split over the model axis stays split in the compute
-    keep = {n: (TP_AXIS,) if (n.rsplit(".", 1)[-1] in _EXPERT_PARAMS
+    keep = {n: (TP_AXIS,) if (_is_expert(n)
                               and not pl[n].only((TP_AXIS,)).replicated)
             else () for n in pl}
+    # the rank's share of a leaf from what the step holds of it: the whole
+    # leaf, or an expert stack's share over the model axis
+    own = {n: pl[n].only(tuple(a for a in mesh.axis_names if a != TP_AXIS))
+           if keep[n] else pl[n] for n in pl}
+    # an expert stack's (L, E / tp) slab terms into expert order
+    slabs = {n: Placement(mesh, pl[n].spec[:2]).only(keep[n])
+             for n in pl if keep[n]}
     div = torch.tensor(n_dp, dtype=torch.float32, device=dev)
     timings = {}
 
@@ -253,17 +292,19 @@ def _sharded_step(cfg: ArchConfig, tcfg: TrainConfig, dev, mesh, grads_of):
         sqs, shares, errs = [], [], []
         for i, (n, _) in enumerate(named):
             gi, g[i] = g[i], None
-            if keep[n]:     # every expert's gradient, for the norm
-                gi = pl[n].only((TP_AXIS,)).gather(gi)
             if tcfg.grad_compress:
+                # an expert stack's share against its share of the error
+                # buffers, its scale the whole leaf's (max over the model
+                # axis)
                 (gi,), (e,) = compressed_dp_mean(
-                    [gi], [pl[n].gather(state["ef_error"][i])], mesh,
-                    dp_axes)
-                errs.append(pl[n].local(e))
+                    [gi], [pl[n].gather(state["ef_error"][i], keep=keep[n])],
+                    mesh, dp_axes, keep[n])
+                errs.append(own[n].local(e))
             elif n_dp > 1:
                 gi = rank_order_mean(gi)
-            sqs.append(square_sum(gi))
-            shares.append(pl[n].local(gi))
+            sqs.append(_norm_term(n, gi, slabs[n].gather if keep[n]
+                                  else None))
+            shares.append(own[n].local(gi))
         gnorm = torch.sqrt(sum(sqs))
         if tcfg.grad_compress:
             state["ef_error"] = errs

@@ -338,6 +338,63 @@ def test_dryrun_cell_on_a_fake_2x2_group(arch, shape, lut):
     json.dumps(cell)
 
 
+class _Allocated:
+    """A dispatch mode recording ``(shape, dtype)`` of every tensor an
+    operation returns (outside the trace's own modes, so it sees what
+    they run)."""
+
+    def __init__(self):
+        from torch.utils._python_dispatch import TorchDispatchMode
+        from torch.utils._pytree import tree_leaves
+
+        seen = self.seen = set()
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                out = func(*args, **(kwargs or {}))
+                seen.update((tuple(t.shape), t.dtype)
+                            for t in tree_leaves(out)
+                            if isinstance(t, torch.Tensor))
+                return out
+
+        self.mode = Mode()
+
+
+@pytest.mark.parametrize("depth,compress,limit", [
+    (10, False, 20e9), (28, False, 48e9), (10, True, None)])
+def test_moe_training_rank_holds_expert_shares(depth, compress, limit):
+    """One 1x4 rank of deepseek-moe-16b's training step at its published
+    widths (4 x 64, no remat, on the meta device): no tensor of a whole
+    expert stack's shape is made (gradient, float32 copy, error buffer),
+    and without compression no float32 tensor of a share's either (the
+    norm takes one slab at a time, AdamW one layer); the rank's peak
+    below ``limit`` (the whole-stack step's: 48.2 GB at 10 layers, 133.4
+    at 28)."""
+    from repro_torch.train import TrainConfig
+
+    cfg = dataclasses.replace(tconfigs.get_config("deepseek-moe-16b"),
+                              n_layers=depth)
+    m, d = cfg.moe, cfg.d_model
+    stacks = [(depth, m.n_experts, d, 2 * m.d_expert),
+              (depth, m.n_experts, m.d_expert, d)]
+    shares = [(s[0], s[1] // 4, *s[2:]) for s in stacks]
+    rec = _Allocated()
+    with rec.mode:
+        cell = dryrun_cell("deepseek-moe-16b", "train_4k", False, quiet=True,
+                           tcfg=TrainConfig(remat=False,
+                                            grad_compress=compress),
+                           cfg=cfg, info=dict(kind="train", seq=64, batch=4),
+                           mesh_shape=(1, 4))
+    assert cell["status"] == "ok", cell.get("trace")
+    assert shares[0] in {s for s, _ in rec.seen}     # the mode saw the step
+    assert not [s for s, _ in rec.seen if s in stacks]
+    if not compress:
+        assert not [s for s, dt in rec.seen
+                    if s in shares and dt == torch.float32]
+    if limit is not None:
+        assert cell["peak_bytes"] < limit, cell["peak_bytes"]
+
+
 def test_unsupported_cell_is_skipped_with_the_reference_reason():
     import os
 

@@ -269,6 +269,66 @@ def sc_dp_mean(mesh, ref_dir):
             "data": d}
 
 
+def sc_experts(mesh, compress):
+    """deepseek-moe-16b, 2 steps on this mesh from the port's own initial
+    state (seed 0), every gather of the step recorded; under compression
+    each call of ``compressed_dp_mean`` on an expert stack's share held
+    against the same call on the whole leaves (gathered over the model
+    axis here, outside the step), sliced to the rank's experts.  Without
+    compression, and with it at dp 1, the single-device ``microbatch =
+    dp`` step beside it."""
+    from repro_torch.nn import sharding
+    from repro_torch.train import (
+        TrainConfig,
+        init_train_state,
+        shard_train_state,
+        train_state_shardings,
+    )
+    from repro_torch.train import step as step_mod
+
+    cfg = _cfg("deepseek-moe-16b")
+    tcfg = TrainConfig(remat=False, grad_compress=compress)
+    full = init_train_state(cfg, tcfg, device="cpu")
+    whole = {tuple(p.shape) for n, p in full["params"].named_parameters()
+             if n.rsplit(".", 1)[-1] in ("moe_w_in", "moe_w_out")}
+    sh = train_state_shardings(cfg, tcfg, mesh)
+    state = shard_train_state(full, cfg, mesh)
+    del full
+    gather, dp_mean = sharding.gather, step_mod.compressed_dp_mean
+    gathered, checks = [], []
+
+    def gather_spy(t, *a, **kw):
+        out = gather(t, *a, **kw)
+        gathered.append(tuple(out.shape))
+        return out
+
+    def dp_mean_spy(g, e, m, dp_axes, share_axes=()):
+        mean, new_e = dp_mean(g, e, m, dp_axes, share_axes)
+        if share_axes:
+            gw, ew = (gather(x[0], m, "model", dim=1) for x in (g, e))
+            (mw,), (new_w,) = dp_mean([gw], [ew], m, dp_axes)
+            n = g[0].shape[1]
+            cut = slice(m.index("model") * n, (m.index("model") + 1) * n)
+            checks.append((torch.equal(mean[0], mw[:, cut]),
+                           torch.equal(new_e[0], new_w[:, cut])))
+        return mean, new_e
+
+    sharding.gather, step_mod.compressed_dp_mean = gather_spy, dp_mean_spy
+    try:
+        state, got = _sharded(mesh, cfg, tcfg, state, _batches(cfg, 2))
+    finally:
+        sharding.gather, step_mod.compressed_dp_mean = gather, dp_mean
+    out = {"metrics": got, "tp": mesh.shape["model"],
+           "whole_gathered": [s for s in gathered if s in whole],
+           "checks": checks}
+    if not compress or _n_dp(mesh) == 1:
+        one = init_train_state(cfg, tcfg, device="cpu")
+        one, out["single"] = _single(cfg, tcfg, one, _n_dp(mesh),
+                                     _batches(cfg, 2))
+        out["crc_equal"] = _crcs(state, sh) == _crcs(one)
+    return out
+
+
 def sc_save(mesh, ref_dir, ckpt_dir):
     """The 2x2 state after 2 qwen3 steps saved (rank 0 writes), and one
     more step's record: what the other meshes restore and repeat."""
@@ -402,7 +462,8 @@ def _spawn(dp, tp, scenarios):
 
 def _steps(ref_dir):
     return [(f"steps-{a}", sc_steps, {"arch": a, "ref_dir": ref_dir})
-            for a in ARCHS]
+            for a in ARCHS] + [
+        (f"experts-{c}", sc_experts, {"compress": c}) for c in (False, True)]
 
 
 @pytest.fixture(scope="module")
@@ -502,6 +563,34 @@ def test_sharded_step_matches_reference(request, shape, arch):
         assert abs(g - r) <= 1e-4 * r, (g, r)
     for n, (mean, top) in out["param_diffs"].items():
         assert top <= 2e-3 and mean <= 1e-3 * LR, (n, mean, top)
+
+
+@pytest.mark.parametrize("compress", [False, True])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_expert_gradients_stay_shares(request, shape, compress):
+    """deepseek-moe-16b on every mesh shape, with and without
+    ``grad_compress``: with the experts split (tp > 1) no gather of the
+    step has a whole expert stack's shape; under compression each expert
+    call's mean and new error are bit for bit the slices of the
+    whole-leaf call (both stacks, both steps); the metrics are equal and
+    finite on every rank, and without compression (or at dp 1 with it)
+    bit for bit the single-device ``microbatch = dp`` step, state
+    included."""
+    ranks = _mesh(request, shape)
+    out = _outcome(ranks, f"experts-{compress}")
+    if out["tp"] > 1:
+        assert out["whole_gathered"] == []
+    if compress and out["tp"] > 1:
+        assert out["checks"] == [(True, True)] * 4
+    else:
+        assert out["checks"] == []
+    for r in ranks:
+        assert r[f"experts-{compress}"][1]["metrics"] == out["metrics"]
+    assert np.all(np.isfinite(out["metrics"]))
+    if "single" in out:
+        assert out["metrics"] == out["single"] and out["crc_equal"]
+    else:
+        assert compress and shape != "1x2"
 
 
 def test_microbatch_within_each_data_rank(mesh22):
