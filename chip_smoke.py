@@ -352,8 +352,18 @@ Phases (any failure exits non-zero; nothing is caught):
      ``wkv_backward_plain`` (phase 11's and 18's tolerances), K8 8 and K8b
      4 launches a rank a step; (f) deepseek-moe-16b at 2 layers (phase
      18's cut), 4 x 64, 2 steps, on 1x2 (expert parallel, against the
-     plain step) and 2x1 (against ``--microbatch 2``); (c) on one device
-     and (f) on 1x2 run in threads beside the 2x1 ranks.
+     plain step) and 2x1 (against ``--microbatch 2``); (h) full-width
+     qwen3-0.6b (28 layers, float32) on 1x2 with ``--tp-mode
+     partitioned`` (``P23_TP``: 2 x 32 tokens, the fewest that keep the
+     widths and the depth), 2 steps: each loss within 1e-2 of the
+     single-device step's and each gradient norm within 1e-2 relative
+     (phase 24 (d)'s bound; float32 because in bf16 the single-device
+     step's own reassociation moves these losses further: ``P23_TP``), no
+     whole tp-split leaf gathered over the model axis (a spy
+     on ``Placement.gather``), the same 2 steps in exact mode bit for bit
+     the single-device run, each rank's peak beside exact mode's and both
+     steps' splits printed; (c) on one device and (f), (h) on 1x2 run in
+     threads beside the 2x1 ranks.
   24. the dry run (``repro_torch.launch.dryrun.trace_step``: the port's
      own step traced on ``meta`` tensors, the kernels' abstract
      route, the roofline's cost counter and ``MemTracker``) against the
@@ -410,7 +420,19 @@ Phases (any failure exits non-zero; nothing is caught):
      them whole): the first loss bit for bit the single-device forward,
      each rank's peak beside the dry run's for the same rank (traced in
      a process of its own on the meta device), and a 2-layer cut bit for
-     bit the single-device step.
+     bit the single-device step; (h) (g)'s qwen3-0.6b 8 x 512 ``--remat``
+     with ``--tp-mode partitioned`` on 2x2, 3 steps in bf16 and 3 in
+     float32: every float32 loss within 1e-2 of the single-device float32
+     ``--microbatch 2`` step's (gradient norms 1e-2 relative), the first 2
+     bf16 losses within 1e-2 of (g)'s exact steps on the same batches
+     (``P25_TP_BF16_HELD``: at the third, the single-device program's own
+     reassociations spread the bf16 loss over 0.45), step ms and splits
+     beside (g)'s; (i) nemotron-4-15b at its 32 layers (``P25_TP_NEM``)
+     on 1x4, ``--remat``, 4 x 64, 2 steps partitioned (exact mode would
+     gather its 31.3 GB of bf16 parameters, then their gradients, on every
+     card): the first loss within 1e-2 of a single-device forward's (its
+     own process on ``cuda:0``), each rank's peak beside the dry run's
+     partitioned trace of the same rank.
 The last lines are the kernel JSON, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``; with ``--cards 4`` the first is phase
 25's summary and ``count`` is 4; the kernels' launches include phases
@@ -5446,6 +5468,23 @@ P23_RWKV = (4, ["--arch", "rwkv6-3b", "--full", "--remat", "--batch", "4",
 # (f): phase 18's cut of deepseek-moe-16b (P18_DEPTH), 2 steps at 4 x 64
 P23_MOE = (2, ["--arch", "deepseek-moe-16b", "--full", "--batch", "4",
                "--seq", "64", "--steps", "2", "--device", "cuda"])
+# (h): qwen3-0.6b's published widths and 28 layers on 1x2, partitioned,
+# at the fewest tokens that keep them (a step's weight exchange and
+# all-reduces through the host over gloo, within the 60 s the case has),
+# in float32: in bf16 at these 2 x 32 tokens the single-device step's own
+# reassociation (--microbatch 2) moves step 2's loss by 0.030, past the
+# bound, so the bound would not tell a fault from rounding; in float32
+# the partitioned step is within 3e-6 of it (PERF.md section 4)
+P23_TP = ["--arch", "qwen3-0.6b", "--full", "--batch", "2", "--seq", "32",
+          "--steps", "2", "--device", "cuda"]
+P23_TP_DTYPE = "float32"
+P23_TP_RTOL = 1e-2    # phase 24 (d)'s bf16 bound on the loss
+
+
+def p23_tp_cfg():
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config("qwen3-0.6b"), dtype=P23_TP_DTYPE)
 # (b): the leaves whose step-1 mean gradient is recounted on the host
 P23_RECOUNT = ("final_norm", "blocks.ln1", "blocks.wk")
 P23_SAMPLE = 2   # K8 / K8b calls a rank holds against their plain versions
@@ -5806,9 +5845,60 @@ def p23_moe(mesh, flags) -> dict:
     return f
 
 
+class WholeGatherSpy:
+    """Count the :meth:`Placement.gather` calls that put a leaf split over
+    the model axis back together whole over it (the model axis not
+    kept)."""
+
+    def __enter__(self):
+        from repro_torch.nn import sharding
+
+        self.orig, self.whole = sharding.Placement.gather, []
+        orig, whole = self.orig, self.whole
+
+        def spy(pl, local, keep=()):
+            if (sharding.TP_AXIS not in keep
+                    and not pl.only((sharding.TP_AXIS,)).replicated):
+                whole.append(tuple(pl.spec))
+            return orig(pl, local, keep)
+
+        sharding.Placement.gather = spy
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.nn import sharding
+
+        sharding.Placement.gather = self.orig
+
+
+def p23_tp(mesh) -> dict:
+    """(h) on one rank of 1x2: qwen3-0.6b partitioned, then exact, 2
+    steps each, every gather of the steps spied."""
+    import torch
+
+    out = {}
+    for mode in ("partitioned", "exact"):
+        s, h = p23_rank_setup(P23_TP + ["--tp", "2", "--tp-mode", mode],
+                              mesh, p23_tp_cfg())
+        with WholeGatherSpy() as spy:
+            h.update(p23_steps(s, 0, 2))
+        h["whole_gathered"] = len(spy.whole)
+        h["peak"] = torch.cuda.max_memory_allocated(mesh.device)
+        if mode == "exact":
+            h["hashes"] = p23_hashes(s["state"])
+        out[mode] = h
+        del s
+        p23_free(mesh)
+    return out
+
+
 def p23_mesh12_rank(mesh):
-    """(f) at 1x2 on one rank of the 1x2 mesh (expert parallel)."""
-    return {"rank": mesh.rank, "f": p23_moe(mesh, ["--tp", "2"])}
+    """(f) and (h) at 1x2 on one rank of the 1x2 mesh."""
+    f = p23_moe(mesh, ["--tp", "2"])
+    t0 = time.perf_counter()
+    h = p23_tp(mesh)
+    h["seconds_h"] = time.perf_counter() - t0
+    return {"rank": mesh.rank, "f": f, "h": h}
 
 
 def p23_split(splits) -> str:
@@ -5816,6 +5906,54 @@ def p23_split(splits) -> str:
     keys = ("gather_s", "forward_backward_s", "reduce_s", "update_s")
     med = lambda k: statistics.median(sp[k] for sp in splits)
     return ", ".join(f"{k[:-2]} {med(k):.2f}" for k in keys) + " s"
+
+
+def p23_tp_held(ranks12, ref_h, ref_s, stamp) -> dict:
+    """(h)'s checks on the 1x2 ranks' records against the single-device
+    run ``ref_h``; its numbers."""
+    recs = [r["h"] for r in ranks12]
+    want = ref_h["metrics"]
+    for i, h in enumerate(recs):
+        part, exact = h["partitioned"], h["exact"]
+        for j, ((l, g), (wl, wg)) in enumerate(zip(part["metrics"], want)):
+            if abs(l - wl) > P23_TP_RTOL or abs(g - wg) > P23_TP_RTOL * wg:
+                raise AssertionError(
+                    f"[23] (h) rank {i} step {j}: partitioned loss / norm "
+                    f"{l!r} / {g!r} against the single-device step's "
+                    f"{wl!r} / {wg!r} (bounds {P23_TP_RTOL}, "
+                    f"{P23_TP_RTOL} relative)")
+        if part["whole_gathered"]:
+            raise AssertionError(f"[23] (h) rank {i}: the partitioned steps "
+                                 f"gathered {part['whole_gathered']} whole "
+                                 f"tp-split leaves")
+        p23_same(f"(h) rank {i}'s exact-mode metrics", exact["metrics"],
+                 want)
+    p23_held("(h) exact mode: the state after 2 steps",
+             [h["exact"]["hashes"] for h in recs], ref_h["hashes"][2, (1, 2)])
+    out = {"metrics": recs[0]["partitioned"]["metrics"],
+           "one_device_metrics": want, "one_device_peak": ref_h["peak"],
+           "reference_s": ref_s,
+           "ranks": [{mode: {k: h[mode][k] for k in (
+               "state_bytes", "memory_at_rest", "peak", "seconds",
+               "splits")} for mode in ("partitioned", "exact")}
+               | {"seconds_h": h["seconds_h"]} for h in recs]}
+    log(f"[23] {stamp()} (h) qwen3-0.6b (28 layers, {P23_TP_DTYPE}, 2 x 32) "
+        f"on 1x2 with "
+        f"--tp-mode partitioned: losses / norms "
+        f"{out['metrics']} within {P23_TP_RTOL} of the single-device "
+        f"step's {want}; no whole tp-split leaf gathered; exact mode's 2 "
+        f"steps bit for bit the single-device run; per rank "
+        + "; ".join(
+            f"r{i} partitioned peak {h['partitioned']['peak']} B, state "
+            f"{h['partitioned']['state_bytes']} B, steps "
+            f"{[round(x, 2) for x in h['partitioned']['seconds']]} s "
+            f"({p23_split(h['partitioned']['splits'])}); exact peak "
+            f"{h['exact']['peak']} B, steps "
+            f"{[round(x, 2) for x in h['exact']['seconds']]} s "
+            f"({p23_split(h['exact']['splits'])}); (h) "
+            f"{h['seconds_h']:.1f}s on the ranks" for i, h in enumerate(recs))
+        + f"; one device: peak {ref_h['peak']} B, reference {ref_s:.1f}s")
+    return out
 
 
 def run_phase23(dev, stamp) -> dict:
@@ -5860,6 +5998,9 @@ def run_phase23(dev, stamp) -> dict:
                                   layouts={2: [(2, 1)]}),
              "1x2": p23_reference(moe_argv, moe_cfg, layouts={2: [(1, 2)]})}
     refs_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ref_h = p23_reference(P23_TP, p23_tp_cfg(), layouts={2: [(1, 2)]})
+    ref_h_s = time.perf_counter() - t0
     log(f"[23] {stamp()} single-device references in {refs_s:.1f}s: "
         f"qwen3-0.6b --microbatch 2 {ref_a['state_bytes']} state bytes, "
         f"peak {ref_a['peak']} B, steps "
@@ -6047,6 +6188,7 @@ def run_phase23(dev, stamp) -> dict:
                         f"{ref_f[shape]['state_bytes']}, peak {f['peak']} B, "
                         f"steps {[round(x, 2) for x in f['seconds']]} s "
                         f"({p23_split(f['splits'])})" for f in rs))
+    out["h"] = p23_tp_held(ranks12, ref_h, ref_h_s, stamp)
     out["seconds"] = time.perf_counter() - t_phase
     out["walls"] = {"references": refs_s, "2x2": wall22, "1x1": one_s,
                     "2x1": wall21, "1x2": wall12}
@@ -6079,6 +6221,24 @@ P25_MOE_TRAIN = (28, ["--arch", "deepseek-moe-16b", "--full", "--batch",
                       "4", "--seq", "64", "--steps", "2", "--device",
                       "cuda"])
 P25_MOE_CUT = 2   # (f)'s cut held against the single-device step
+# (i): nemotron-4-15b at its published 32 layers on 1x4, partitioned.  In
+# exact mode a rank would gather its 31.3 GB of bf16 parameters, then
+# their gradients; partitioned, a rank holds a quarter of each split
+# leaf.  The dry run (a fake four-rank group, the meta device) gives a
+# rank's peak; above P25_TP_NEM_LIMIT the depth would be cut here, beside
+# SERVE_DEPTH's cuts
+P25_TP_NEM = (32, ["--arch", "nemotron-4-15b", "--full", "--remat",
+                   "--batch", "4", "--seq", "64", "--steps", "2",
+                   "--device", "cuda", "--tp-mode", "partitioned"])
+P25_TP_NEM_LIMIT = 70e9
+P25_TP_RTOL = P23_TP_RTOL
+# (h): bf16 beside (g) for the step's time, held on its first
+# P25_TP_BF16_HELD steps: at the third the single-device program's own
+# reassociations (--microbatch 1 / 2 / 4) spread its bf16 loss over 0.45
+# (11.05-11.50), so a 1e-2 bound there would not tell a fault from
+# rounding; the same 3 steps in float32 are held on every step (there the
+# partitioned step is within 5e-4 of exact mode's; PERF.md section 4)
+P25_TP_BF16_HELD = 2
 
 
 def p25_in_process(fn, *args):
@@ -6195,6 +6355,49 @@ def p25_ref_moe_train() -> dict:
     cut = dataclasses.replace(cfg, n_layers=P25_MOE_CUT)
     out["cut"] = p23_reference(argv, cut, layouts={2: [(1, 4)]})
     return out
+
+
+def p25_ref_nemotron() -> dict:
+    """(i)'s reference: the first step's loss as one forward at (i)'s
+    depth on ``cuda:0`` (parameters only, no state)."""
+    import torch
+
+    from repro_torch.launch import train as tl
+    from repro_torch.nn import init_params
+    from repro_torch.nn.transformer import loss_fn
+    from repro_torch.train.step import batch_to_device
+
+    dev = torch.device("cuda", 0)
+    cfg, argv = p23_cut(P25_TP_NEM)
+    args = tl.parse_args(argv)
+    tcfg = tl.train_config(args)
+    params = init_params(cfg, tcfg.seed, dev)
+    batch = batch_to_device(tl.batch_fn(cfg, args)(0), dev)
+    with torch.no_grad():
+        loss = float(loss_fn(cfg)(params, batch=batch, remat=tcfg.remat,
+                                  chunk_q=tcfg.chunk_q, lut_tables=None))
+    return {"loss": loss, "depth": cfg.n_layers,
+            "param_bytes": sum(p.numel() * p.element_size()
+                               for p in params.parameters()),
+            "peak": torch.cuda.max_memory_allocated(dev)}
+
+
+def p25_dryrun_nemotron() -> int:
+    """(i)'s rank peak by the dry run, in bytes: one 1x4 rank's
+    partitioned step at (i)'s depth and shape traced on the meta device
+    in a fake four-rank group."""
+    from repro_torch.launch import train as tl
+    from repro_torch.launch.dryrun import dryrun_cell
+
+    cfg, argv = p23_cut(P25_TP_NEM)
+    args = tl.parse_args(argv)
+    r = dryrun_cell(args.arch, "train_4k", False, tl.train_config(args),
+                    quiet=True, cfg=cfg,
+                    info=dict(kind="train", seq=args.seq, batch=args.batch),
+                    mesh_shape=(1, P25_CARDS), tp_mode="partitioned")
+    if r["status"] != "ok":
+        raise AssertionError(f"[25] (i) the dry run: {r.get('error')}")
+    return r["peak_bytes"]
 
 
 def p25_dryrun_moe_train() -> int:
@@ -6460,6 +6663,56 @@ def p25_train_qwen14(mesh, ckpt_dir) -> dict:
     return g
 
 
+def p25_qwen_f32():
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config("qwen3-0.6b"), dtype="float32")
+
+
+def p25_ref_qwen_tp32() -> dict:
+    """(h)'s float32 reference: (g)'s single-device run at
+    ``--microbatch 2`` in float32, 3 steps."""
+    return {"metrics": p23_reference(P23_QWEN + ["--microbatch", "2"],
+                                     p25_qwen_f32())["metrics"]}
+
+
+def p25_train_qwen_tp(mesh) -> dict:
+    """(h) on one rank of 2x2: (g)'s qwen3-0.6b run with ``--tp-mode
+    partitioned``, 3 steps in bf16, then in float32."""
+    import torch
+
+    out = {}
+    for dt, cfg in (("bf16", None), ("f32", p25_qwen_f32())):
+        p25_rank_reset(mesh)
+        s, h = p23_rank_setup(P23_QWEN + ["--dp", "2", "--tp", "2",
+                                          "--tp-mode", "partitioned"],
+                              mesh, cfg)
+        with WholeGatherSpy() as spy:
+            h.update(p23_steps(s, 0, 3))
+        h["whole_gathered"] = len(spy.whole)
+        h["peak"] = torch.cuda.max_memory_allocated(mesh.device)
+        out[dt] = h
+        del s
+    return out
+
+
+def p25_train_nemotron(mesh) -> dict:
+    """(i) on one rank of 1x4: nemotron-4-15b partitioned at (i)'s depth,
+    2 steps."""
+    import torch
+
+    p25_rank_reset(mesh)
+    cfg, argv = p23_cut(P25_TP_NEM)
+    t0 = time.perf_counter()
+    s, i = p23_rank_setup(argv + ["--tp", str(P25_CARDS)], mesh, cfg)
+    i["setup_s"] = time.perf_counter() - t0
+    with WholeGatherSpy() as spy:
+        i.update(p23_steps(s, 0, 2))
+    i["whole_gathered"] = len(spy.whole)
+    i["peak"] = torch.cuda.max_memory_allocated(mesh.device)
+    return i
+
+
 def p25_train_moe(mesh) -> dict:
     """(f) on one rank of 1x4: deepseek-moe-16b at (f)'s depth, 2 steps;
     then the 2-layer cut, 2 steps, its state hashed."""
@@ -6507,6 +6760,8 @@ def p25_rank(mesh, spec) -> dict:
         timed("e", p25_train_rwkv, mesh)
     if "g" in parts:
         timed("g22", p25_train_qwen22, mesh, spec["ckpt_dir"])
+    if "h" in parts:
+        timed("h", p25_train_qwen_tp, mesh)
     mesh14 = make_host_mesh(1, 4, device=mesh.device)
     if "g" in parts:
         timed("g14", p25_train_qwen14, mesh14, spec["ckpt_dir"])
@@ -6515,6 +6770,8 @@ def p25_rank(mesh, spec) -> dict:
             timed(part, p25_moe_serve, mesh14, arch, spec["moe_tuned"][arch])
     if "f" in parts:
         timed("f", p25_train_moe, mesh14)
+    if "i" in parts:
+        timed("i", p25_train_nemotron, mesh14)
     p25_rank_reset(mesh)
     out["walls"] = walls
     return out
@@ -6531,7 +6788,8 @@ def p25_mem(recs, key_rest="memory_at_rest", key_peak="memory_peak") -> str:
                      for i, r in enumerate(recs))
 
 
-def run_phase25(stamp, parts=("a", "b", "c", "d", "e", "f", "g")) -> dict:
+def run_phase25(stamp, parts=("a", "b", "c", "d", "e", "f", "g", "h", "i")
+                ) -> dict:
     """Phase 25 (module docstring): the references, each in a process of
     its own on ``cuda:0``, then the four ranks (a card each, NCCL) run
     ``parts``; every case held as the table in ``PERF.md`` section 4
@@ -6567,8 +6825,19 @@ def run_phase25(stamp, parts=("a", "b", "c", "d", "e", "f", "g")) -> dict:
     if "f" in parts:
         ref("moe_train", p25_ref_moe_train)
         ref("moe_train_dryrun", p25_dryrun_moe_train)
-    if "g" in parts:
+    if {"g", "h"} & set(parts):
         ref("qwen_train", p25_ref_qwen_train)
+    if "h" in parts:
+        ref("qwen_tp32", p25_ref_qwen_tp32)
+    if "i" in parts:
+        ref("nemotron", p25_ref_nemotron)
+        ref("nemotron_dryrun", p25_dryrun_nemotron)
+        if refs["nemotron_dryrun"] > P25_TP_NEM_LIMIT:
+            raise AssertionError(
+                f"[25] (i) the dry run gives a rank "
+                f"{refs['nemotron_dryrun'] / 1e9:.2f} GB at "
+                f"{P25_TP_NEM[0]} layers, over {P25_TP_NEM_LIMIT / 1e9:.0f}"
+                f" GB: cut P25_TP_NEM's depth")
 
     spec = {"parts": tuple(parts), "ckpt_dir": str(ckpt),
             "qwen_tuned": refs.get("qwen", {}).get("tuned"),
@@ -6824,6 +7093,86 @@ def run_phase25(stamp, parts=("a", "b", "c", "d", "e", "f", "g")) -> dict:
             + f"; the 1x4 step "
             + ", ".join(f"{b['seconds'][0] * 1e3:.1f}" for b in r14)
             + " ms")
+    if "h" in parts:
+        rf, r32 = refs["qwen_train"], refs["qwen_tp32"]
+        both = [r["h"] for r in ranks]
+        for i, hh in enumerate(both):
+            for dt, want, n in (("f32", r32["metrics"], 3),
+                                ("bf16", rf["metrics"], P25_TP_BF16_HELD)):
+                for j, ((l, g), (wl, wg)) in enumerate(zip(
+                        hh[dt]["metrics"][:n], want)):
+                    if abs(l - wl) > P25_TP_RTOL or \
+                            abs(g - wg) > P25_TP_RTOL * wg:
+                        raise AssertionError(
+                            f"[25] (h) {dt} rank {i} step {j}: partitioned "
+                            f"loss / norm {l!r} / {g!r} against the exact "
+                            f"steps' {wl!r} / {wg!r}")
+                if hh[dt]["whole_gathered"]:
+                    raise AssertionError(f"[25] (h) {dt} rank {i} gathered "
+                                         f"{hh[dt]['whole_gathered']} whole "
+                                         f"tp-split leaves")
+        recs = [hh["bf16"] for hh in both]
+        g22 = [r["g22"] for r in ranks] if "g" in parts else None
+        out["h"] = {"metrics": recs[0]["metrics"],
+                    "exact_metrics": rf["metrics"],
+                    "f32_metrics": both[0]["f32"]["metrics"],
+                    "f32_one_device_metrics": r32["metrics"],
+                    "ranks": [{k: h[k] for k in (
+                        "state_bytes", "memory_at_rest", "peak", "seconds",
+                        "splits")} for h in recs]}
+        log(f"[25] {stamp()} (h) qwen3-0.6b 8 x 512 --remat on 2x2 with "
+            f"--tp-mode partitioned, 3 steps: float32 losses / norms "
+            f"{out['h']['f32_metrics']} within {P25_TP_RTOL} of the "
+            f"single-device float32 --microbatch 2 steps' {r32['metrics']}; "
+            f"bf16 {out['h']['metrics']}, the first {P25_TP_BF16_HELD} "
+            f"within {P25_TP_RTOL} of (g)'s exact steps {rf['metrics']}; no "
+            f"whole tp-split leaf gathered; per rank (bf16) "
+            + "; ".join(f"r{i} steps "
+                        f"{[round(x * 1e3, 1) for x in h['seconds']]} ms "
+                        f"(step 2: {p25_split(h['splits'][1])}), state "
+                        f"{h['state_bytes']} B, peak {h['peak']} B"
+                        + (f"; (g) exact steps "
+                           f"{[round(x * 1e3, 1) for x in g22[i]['seconds']]}"
+                           f" ms (step 2: {p25_split(g22[i]['splits'][1])}),"
+                           f" peak {g22[i]['peak']} B" if g22 else "")
+                        for i, h in enumerate(recs)))
+
+    if "i" in parts:
+        rf, pred = refs["nemotron"], refs["nemotron_dryrun"]
+        recs = [r["i"] for r in ranks]
+        for i, x in enumerate(recs):
+            l0 = x["metrics"][0][0]
+            if abs(l0 - rf["loss"]) > P25_TP_RTOL:
+                raise AssertionError(f"[25] (i) rank {i}'s first loss "
+                                     f"{l0!r} against the single-device "
+                                     f"forward's {rf['loss']!r}")
+            if x["whole_gathered"] or not all(
+                    math.isfinite(v) for m in x["metrics"] for v in m):
+                raise AssertionError(f"[25] (i) rank {i}: "
+                                     f"{x['whole_gathered']} whole gathers, "
+                                     f"metrics {x['metrics']}")
+        out["i"] = {"depth": rf["depth"], "loss": rf["loss"],
+                    "metrics": recs[0]["metrics"],
+                    "one_device_param_bytes": rf["param_bytes"],
+                    "one_device_forward_peak": rf["peak"],
+                    "dryrun_peak": pred,
+                    "ranks": [{k: x[k] for k in (
+                        "state_bytes", "memory_at_rest", "peak", "seconds",
+                        "splits", "setup_s")} for x in recs]}
+        log(f"[25] {stamp()} (i) nemotron-4-15b ({rf['depth']} of 32 layers, "
+            f"--remat, 4 x 64) on 1x4 with --tp-mode partitioned: the first "
+            f"loss {recs[0]['metrics'][0][0]!r} within {P25_TP_RTOL} of the "
+            f"single-device forward's {rf['loss']!r} (parameters "
+            f"{rf['param_bytes']} B, forward peak {rf['peak']} B); no "
+            f"whole tp-split leaf gathered; per rank "
+            + "; ".join(f"r{i} steps "
+                        f"{[round(v * 1e3, 1) for v in x['seconds']]} ms "
+                        f"(step 2: {p25_split(x['splits'][-1])}), metrics "
+                        f"{x['metrics']}, state {x['state_bytes']} B, peak "
+                        f"{x['peak']} B ({x['peak'] / 1e9:.2f} GB; the dry "
+                        f"run {pred / 1e9:.2f} GB, "
+                        f"{(x['peak'] - pred) / 1e9:+.2f}), set-up "
+                        f"{x['setup_s']:.1f}s" for i, x in enumerate(recs)))
     out["seconds"] = time.perf_counter() - t_phase
     log(f"[25] {stamp()} phase 25 in {out['seconds']:.0f}s (references "
         + ", ".join(f"{k} {v:.0f}s" for k, v in ref_s.items())
@@ -6847,8 +7196,9 @@ def main_cards(smi, stamp, t_start) -> int:
     log(f"done in {time.perf_counter() - t_start:.0f}s")
     print(json.dumps({"phase25": sig4({
         "seconds": p25["out"]["seconds"], "launches": p25["launches"],
-        **{k: p25["out"][k] for k in ("a", "b", "c", "d", "e", "f", "g")
-           if k in p25["out"]}})}, separators=(",", ":"), default=str),
+        **{k: p25["out"][k] for k in ("a", "b", "c", "d", "e", "f", "g",
+                                      "h", "i") if k in p25["out"]}})},
+        separators=(",", ":"), default=str),
         flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -91,7 +91,7 @@ def main(argv=None) -> list[tuple[str, float, str]]:
         shutdown_pools()
 
     print("## Kernel micro-benchmarks and roofline: not in this package yet "
-          "(ROADMAP queue A, items 3 and 12)")
+          "(ROADMAP queue A, item 3)")
 
     print("\nname,us_per_call,derived")
     for name, us, derived in rows:

@@ -37,9 +37,18 @@ point).  A rank that needs more than a card holds is recorded, not an
 error, as the reference records ``memory_analysis`` without judging it.
 These are model numbers from an H100's peaks, not measurements.
 
+A training cell traces the train step in either mode of
+:func:`~repro_torch.train.make_train_step`: ``--tp-mode exact`` (the
+default; every weight gathered at the step's entry) or ``partitioned``
+(the dense family's tp shares in the compute, as the reference's GSPMD
+step runs them); a partitioned cell records ``"tp_mode"`` in its JSON and
+its file name ends in ``__part``, and a cell the mode does not cover (a
+serving shape, another family) is skipped with the reason.
+
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-0.6b \\
-      --shape train_4k [--multi-pod] [--out experiments/torch/dryrun]
+      --shape train_4k [--multi-pod] [--out experiments/torch/dryrun] \\
+      [--tp-mode partitioned]
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--lut-act]
 """
 from __future__ import annotations
@@ -70,9 +79,15 @@ SHAPES = {
 CARD_BYTES = 80 * 10**9
 
 
-def cell_supported(cfg, shape: str) -> tuple[bool, str]:
+def cell_supported(cfg, shape: str, tp_mode: str = "exact"
+                   ) -> tuple[bool, str]:
     if shape == "long_500k" and not cfg.supports_long_context:
         return False, "full attention at 524k decode is O(T) cache: skipped per assignment (noted in DESIGN.md)"
+    if tp_mode == "partitioned" and (SHAPES[shape]["kind"] != "train"
+                                     or cfg.family != "dense"):
+        return False, ("tp_mode partitioned is the dense family's train "
+                       "step; serving and the other families run exact "
+                       "mode")
     return True, ""
 
 
@@ -150,7 +165,7 @@ def _serve_inputs(cfg, kind: str, batch: int, seq: int, srv, dev,
 
 def trace_step(cfg, kind: str, batch: int, seq: int, *, mesh=None,
                tcfg=None, lut_tables=None, kv_dtype: str = "bfloat16",
-               device="meta") -> dict:
+               device="meta", tp_mode: str = "exact") -> dict:
     """Trace one rank's step of ``kind`` (``"train"``, ``"prefill"``,
     ``"decode"``) at ``batch`` x ``seq`` without data: ``{"costs",
     "terms", "argument_bytes", "output_bytes", "alias_bytes",
@@ -159,7 +174,8 @@ def trace_step(cfg, kind: str, batch: int, seq: int, *, mesh=None,
     trace's device, built inside ``ops.abstract()``) are served on their
     backend.  ``device``: ``meta``, the card's program; inside a
     ``FakeTensorMode`` another device traces its own program on fake
-    tensors (``"cpu"``: the plain versions)."""
+    tensors (``"cpu"``: the plain versions).  ``tp_mode``: the train
+    step's (:func:`~repro_torch.train.make_train_step`)."""
     from torch.distributed._tools.mem_tracker import MemTracker
 
     from repro_torch.kernels import ops
@@ -177,7 +193,7 @@ def trace_step(cfg, kind: str, batch: int, seq: int, *, mesh=None,
         tcfg = tcfg or TrainConfig()
         state = abstract_train_state(cfg, tcfg, dev, mesh)
         gbatch = abstract_batch(cfg, batch, seq, dev)
-        step = make_train_step(cfg, tcfg, dev, mesh=mesh)
+        step = make_train_step(cfg, tcfg, dev, mesh=mesh, tp_mode=tp_mode)
         rest = (state, gbatch)
         run = lambda: step(state, gbatch)
     else:
@@ -255,25 +271,28 @@ def dryrun_cell(arch: str, shape: str, multi_pod: bool,
                 tcfg=None, quiet: bool = False,
                 lut_act: bool = False, *, cfg=None, info=None,
                 mesh_shape=None, kv_dtype: str = "bfloat16",
-                lut_tables=None) -> dict:
+                lut_tables=None, tp_mode: str = "exact") -> dict:
     """One cell: ``arch`` at ``SHAPES[shape]`` on the production mesh
     (``multi_pod``: two pods, 512 ranks).  ``cfg``, ``info`` (``{"kind",
     "seq", "batch"}``) and ``mesh_shape`` (``(dp, tp)``) override the
     config, the shape and the mesh (the tests trace smoke configs on
     small meshes); ``lut_tables`` serves given tables (the hill climb's
-    variants) instead of ``lut_act``'s plans."""
+    variants) instead of ``lut_act``'s plans; ``tp_mode`` the train
+    step's, recorded in the JSON when ``"partitioned"``."""
     from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
     from repro_torch.train import TrainConfig
 
     cfg = cfg or get_config(arch)
     info = info or SHAPES[shape]
-    ok, why = cell_supported(cfg, shape)
+    ok, why = cell_supported(cfg, shape, tp_mode)
     sizes = tuple(mesh_shape) if mesh_shape is not None else (
         (2, 16, 16) if multi_pod else (16, 16))
     result = {
         "arch": arch, "shape": shape, "mesh": "x".join(map(str, sizes)),
         "kind": info["kind"],
     }
+    if tp_mode != "exact":
+        result["tp_mode"] = tp_mode
     if not ok:
         result["status"] = "skipped"
         result["reason"] = why
@@ -297,7 +316,7 @@ def dryrun_cell(arch: str, shape: str, multi_pod: bool,
                     remat=True)
             tr = trace_step(cfg, info["kind"], info["batch"], info["seq"],
                             mesh=mesh, tcfg=tcfg, lut_tables=lut_tables,
-                            kv_dtype=kv_dtype)
+                            kv_dtype=kv_dtype, tp_mode=tp_mode)
         terms = tr["terms"]
         peak = tr["peak_bytes"]
         result.update({
@@ -346,6 +365,10 @@ def main(argv=None) -> None:
                     help="decode cells serve shared-calibration LUT plans "
                          "and report per-device table bytes "
                          "(replicated vs layer-sharded)")
+    ap.add_argument("--tp-mode", choices=("exact", "partitioned"),
+                    default="exact",
+                    help="the train step's mode (training cells; "
+                         "partitioned: the dense family only)")
     ap.add_argument("--out", default="experiments/torch/dryrun")
     args = ap.parse_args(argv)
 
@@ -361,6 +384,8 @@ def main(argv=None) -> None:
                 tag = f"{arch}__{shape}__{'mp' if mp else 'sp'}"
                 if args.lut_act:
                     tag += "__lut"
+                if args.tp_mode != "exact":
+                    tag += "__part"
                 path = os.path.join(args.out, tag + ".json")
                 if os.path.exists(path):
                     with open(path) as f:
@@ -370,7 +395,8 @@ def main(argv=None) -> None:
                         cells.append(prev)
                         continue
                 print(f"[dryrun] {tag}", flush=True)
-                res = dryrun_cell(arch, shape, mp, lut_act=args.lut_act)
+                res = dryrun_cell(arch, shape, mp, lut_act=args.lut_act,
+                                  tp_mode=args.tp_mode)
                 cells.append(res)
                 with open(path, "w") as f:
                     json.dump(res, f, indent=1)

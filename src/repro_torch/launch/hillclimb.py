@@ -8,9 +8,9 @@ the cached baselines.  Each variant is one hypothesis: a microbatch
 count, the fast stream (:func:`repro_torch.nn.layers.set_fast_stream`),
 the WKV chunk (:func:`repro_torch.nn.ssm.set_wkv_chunk`), an int8 KV
 cache, a LUT activation or gradient compression.  The reference's
-sequence-parallel variants have no counterpart: the port resolves the
-``"sp"`` axis to replicated (ROADMAP queue C), so they are recorded with
-status ``"skipped"`` and that reason.  The levers are reset after every
+sequence-parallel variants have no counterpart yet: the port resolves
+the ``"sp"`` axis to replicated (ROADMAP queue A, item 13), so they are
+recorded with status ``"skipped"`` and that reason.  The levers are reset after every
 variant.  Model numbers from an H100's peaks, not measurements.
 
 Usage:
@@ -29,9 +29,9 @@ import numpy as np
 OUT_DIR = "experiments/torch/hillclimb"
 
 SEQ_PARALLEL_SKIP = (
-    "sequence parallelism is not ported: the port computes at "
-    "single-device shapes on gathered weights and resolves the 'sp' axis "
-    "to replicated (ROADMAP queue C)")
+    "sequence parallelism is not ported: the port resolves the 'sp' axis "
+    "to replicated (ROADMAP queue A, item 13, after partitioned training "
+    "of the other families)")
 
 
 def _lut_tables(cfg):

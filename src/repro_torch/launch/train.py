@@ -5,7 +5,7 @@
       --steps 100 --batch 8 --seq 128 [--full] [--microbatch M] \\
       [--remat] [--grad-compress] [--ckpt-dir D] [--ckpt-every N] \\
       [--dp DP --tp TP | --production-mesh [--multi-pod]] \\
-      [--device cuda|cpu]
+      [--tp-mode exact|partitioned] [--device cuda|cpu]
 
 The reference's flags and defaults; the model is the smoke config unless
 ``--full``.  Batches come from :class:`repro_torch.data.TokenStream`
@@ -24,7 +24,12 @@ TP`` ranks (:mod:`repro_torch.launch.mesh`): spawned from here, or started
 by ``torchrun`` (each rank joins from its environment).  Each rank holds
 its shares of the state and runs the sharded step of
 :mod:`repro_torch.train.step` on its rows of the one global batch stream;
-rank 0 prints the lines and writes the checkpoints.  ``--production-mesh``
+rank 0 prints the lines and writes the checkpoints.  ``--tp-mode``
+picks the step's mode on the model axis: ``exact`` (the default: every
+weight gathered, the single-device bits) or ``partitioned`` (the dense
+family: each rank keeps its tp share of the split weights in the compute,
+as the reference's GSPMD step does; the reference has only that mode).
+``--production-mesh``
 builds the reference's 16 x 16 mesh (``--multi-pod`` its 2 x 16 x 16), so
 it needs 256 (512) ranks started by ``torchrun``; with any other count
 the launcher exits with status 2 naming the count, as the reference's
@@ -80,6 +85,11 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--microbatch", type=int, default=None)
     ap.add_argument("--remat", action="store_true")
     ap.add_argument("--grad-compress", action="store_true")
+    ap.add_argument("--tp-mode", choices=("exact", "partitioned"),
+                    default="exact",
+                    help="exact (default): gathered weights, the "
+                         "single-device bits; partitioned: the dense "
+                         "family's tp shares in the compute")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--device", default=None,
@@ -175,7 +185,8 @@ def setup(args, cfg=None, mesh=None) -> dict:
             "mesh": mesh,
             "shardings": (train_state_shardings(cfg, tcfg, mesh)
                           if mesh is not None else None),
-            "step": make_train_step(cfg, tcfg, dev, mesh=mesh),
+            "step": make_train_step(cfg, tcfg, dev, mesh=mesh,
+                                    tp_mode=args.tp_mode),
             "batch_at": batch_fn(cfg, args)}
 
 
@@ -212,7 +223,8 @@ def run(args, run_setup: dict | None = None, log=print,
     log(f"arch={cfg.name} (~{n_params / 1e6:.1f}M params) device={dev} "
         f"{where + ' ' if where else ''}steps={args.steps} "
         f"batch={args.batch}x{args.seq} remat={args.remat} "
-        f"microbatch={args.microbatch} grad_compress={args.grad_compress}")
+        f"microbatch={args.microbatch} grad_compress={args.grad_compress}"
+        + (f" tp_mode={args.tp_mode}" if mesh is not None else ""))
     losses, norms, seconds, splits = {}, {}, {}, {}
     inner = step_fn or s["step"]
     timings = getattr(s["step"], "timings", None)

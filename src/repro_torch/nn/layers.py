@@ -5,6 +5,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from .sharding import reduce_from_tp
+
 
 # The dry run's hill-climbing lever (the reference's FAST_STREAM,
 # repro_torch.launch.hillclimb): when True, norms and rope keep the
@@ -53,6 +55,19 @@ def is_gated(name: str) -> bool:
 
 def embed_lookup(embed: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     return embed[tokens]
+
+
+def embed_lookup_tp(embed: torch.Tensor, tokens: torch.Tensor,
+                    vocab_start: int) -> torch.Tensor:
+    """The vocab-parallel :func:`embed_lookup`: ``embed`` holds this
+    rank's rows ``vocab_start ..`` of the table; a masked local take
+    (zeros for a token another rank owns), summed over the model axis
+    (:func:`~repro_torch.nn.sharding.reduce_from_tp`).  One rank adds its
+    row to zeros, so the result is the whole table's row bit for bit."""
+    idx = tokens - vocab_start
+    mine = (idx >= 0) & (idx < embed.shape[0])
+    rows = embed[torch.where(mine, idx, 0)]
+    return reduce_from_tp(torch.where(mine[..., None], rows, 0.0))
 
 
 def logits_projection(x: torch.Tensor, lm_head: torch.Tensor

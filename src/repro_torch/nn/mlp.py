@@ -48,6 +48,7 @@ from repro_torch.kernels.lut_act import (
 )
 
 from .layers import activation_fn, is_gated, logits_projection
+from .sharding import copy_to_tp, current_tp, reduce_from_tp
 
 BACKENDS = ("gather", "cuda")
 
@@ -278,7 +279,18 @@ def mlp_block(p: dict, x: torch.Tensor, cfg, lut_tables=None,
 
     Under ``cfg.lut_fuse`` the up-projection and the LUT activation run as
     one step: kernel K3 on the ``"cuda"`` backend, its plain version on
-    ``"gather"``."""
+    ``"gather"``.  In a partitioned train step that splits ``w_in``
+    (:func:`~repro_torch.nn.sharding.use_tp`) the block runs on the
+    rank's shares: ``w_in`` column-parallel (a gated one as ``[gate_i |
+    up_i]``), ``w_out`` row-parallel, its partial sums reduced over the
+    model axis."""
+    tp = current_tp()
+    if tp is not None and tp.splits("blocks.w_in"):
+        return reduce_from_tp(_mlp_plain(p, copy_to_tp(x), cfg, None, layer))
+    return _mlp_plain(p, x, cfg, lut_tables, layer)
+
+
+def _mlp_plain(p: dict, x: torch.Tensor, cfg, lut_tables, layer):
     gated = is_gated(cfg.activation)
     ftab = fused_matmul_tab(cfg, lut_tables, sites.MLP, layer)
     if ftab is not None:

@@ -15,10 +15,20 @@ from the shares (:meth:`Placement.gather`).
 
 The rules are the reference's: ``resolve_axis`` maps a logical axis to
 mesh axes, and a dim whose size the axes' product does not divide is
-replicated (``_divisible``).  The port serves and trains only in the
-reference's exact mode (``exact_tp``): its ranks compute at single-device
-shapes on gathered weights, so no float reduction is ever split over the
-model axis and no switch is needed.  The collectives both paths need are
+replicated (``_divisible``).  The port serves in the reference's exact
+mode (``exact_tp``): its ranks compute at single-device shapes on
+gathered weights, so no float reduction is split over the model axis.
+Training runs that mode by default too; its ``"partitioned"`` mode (the
+reference's GSPMD train step, dense family) keeps each rank's tp share of
+the split weights in the compute (:class:`TPShares`, entered with
+:func:`use_tp`) and joins the shares with :func:`copy_to_tp` (identity
+forward, gradient all-reduced over the model axis) before a
+column-parallel product, :func:`reduce_from_tp` (partial sums
+all-reduced forward, identity backward) after a row-parallel one,
+:func:`vocab_parallel_cross_entropy` over vocab-split logits and
+:func:`gate_up_exchange` (a gated ``w_in``'s share between its stored
+``[gate|up]`` block and the compute's matching columns).  The
+collectives the paths need are
 here: :func:`gather`, :func:`broadcast`, :func:`all_reduce` (sum or max)
 and :func:`each_member` (every member's tensor in rank order, which
 training sums in that order).  A gather is one all-gather call where the
@@ -39,7 +49,8 @@ The reference's ``manual_axes``, ``layer_scan`` / ``SCAN_STATS``,
 ``SEQ_PARALLEL``, ``exact_tp`` and ``spec`` / ``shard`` steer XLA's
 partitioner and have no counterpart in an explicit SPMD program (ROADMAP
 queue C: sequence parallelism, the dry run's one lever of them, is
-skipped there).
+skipped there; the ``shard`` constraints of the partitioned train step
+are the places :func:`copy_to_tp` and :func:`reduce_from_tp` stand).
 """
 from __future__ import annotations
 
@@ -225,8 +236,9 @@ class Placement:
         """The full tensor from every rank's share (collective over each
         split dim's axes: every rank of those groups must call it).  Axes
         in ``keep`` stay split: a dim split over ``keep`` only is left as
-        this rank's share (training keeps the moe expert stacks split over
-        the model axis through the compute)."""
+        this rank's share (training keeps the moe expert stacks, and a
+        partitioned step every leaf it splits, split over the model axis
+        through the compute)."""
         out = local
         for i in range(len(self.spec)):
             axes = _axes_tuple(self.spec[i])
@@ -387,3 +399,176 @@ def gather(t: torch.Tensor, mesh: Mesh, axis: str, dim: int = 0
     buf = torch.empty((n, *t.shape), dtype=t.dtype, device=t.device)
     gather_into(buf, t, mesh, axis)
     return buf.movedim(0, dim).flatten(dim, dim + 1)
+
+
+def exchange(send: dict, recv_from: list, mesh: Mesh, axis: str) -> list:
+    """Blocks between the ranks along ``axis`` in one all-to-all:
+    ``send`` maps a member's coordinate to the block this rank sends it
+    (all of one shape and dtype), ``recv_from`` the coordinates this rank
+    receives from, one block each, in the order returned.  Every rank of
+    the group must call it; each pair of ranks carries at most one block.
+    Gloo on the card stages the bytes through the host."""
+    like = next(iter(send.values()))
+    nbytes = like.numel() * like.element_size()
+    if len(set(recv_from)) != len(recv_from):
+        raise ValueError(f"exchange: a source twice in {recv_from}")
+    n = mesh.shape[axis]
+    inp = torch.cat([_as_bytes(send[d].contiguous()) for d in sorted(send)])
+    out = torch.empty(len(recv_from) * nbytes, dtype=torch.uint8,
+                      device=like.device)
+    if _sent("all-to-all", inp):
+        group = mesh.group(axis)
+        splits_in = [nbytes if d in send else 0 for d in range(n)]
+        splits_out = [nbytes if s in recv_from else 0 for s in range(n)]
+        if gather_route(dist.get_backend(group),
+                        like.device.type) == "broadcasts":
+            # gloo on the card: through host copies, as gloo makes of a
+            # card tensor anyway
+            got = torch.empty(out.shape, dtype=out.dtype)
+            dist.all_to_all_single(got, inp.cpu(), splits_out, splits_in,
+                                   group=group)
+            out.copy_(got)
+        else:
+            dist.all_to_all_single(out, inp, splits_out, splits_in,
+                                   group=group)
+    by_src = dict(zip(sorted(recv_from), out.split(nbytes)))
+    return [by_src[s].view(like.dtype).view(like.shape) for s in recv_from]
+
+
+# -------------------------------------------------------------------------
+# partitioned tensor parallelism (the partitioned train step)
+# -------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class TPShares:
+    """What a rank of a partitioned train step keeps as its share over
+    the model axis through the compute: the dotted names of those leaves
+    (``split``; every other leaf is whole), and among them the gated
+    ``w_in`` stacks, held in the compute's ``[gate_i | up_i]`` layout
+    (``gate_up``, :func:`gate_up_exchange`)."""
+
+    mesh: Mesh
+    split: frozenset
+    gate_up: frozenset = frozenset()
+
+    @property
+    def size(self) -> int:
+        return self.mesh.shape.get(TP_AXIS, 1)
+
+    @property
+    def index(self) -> int:
+        return self.mesh.index(TP_AXIS)
+
+    def splits(self, name: str) -> bool:
+        return name in self.split
+
+
+def current_tp() -> TPShares | None:
+    return getattr(_STATE, "tp", None)
+
+
+@contextlib.contextmanager
+def use_tp(shares: TPShares | None):
+    """Run the model on the rank's tp shares (``None``: whole weights)."""
+    prev = current_tp()
+    _STATE.tp = shares
+    try:
+        yield
+    finally:
+        _STATE.tp = prev
+
+
+class _CopyToTP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone(memory_format=torch.contiguous_format)
+        return all_reduce(g, ctx.mesh, TP_AXIS), None
+
+
+class _ReduceFromTP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        return all_reduce(x.clone(memory_format=torch.contiguous_format),
+                          mesh, TP_AXIS)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def _tp_mesh() -> Mesh | None:
+    mesh = current_mesh()
+    if mesh is None or mesh.shape.get(TP_AXIS, 1) == 1:
+        return None
+    return mesh
+
+
+def copy_to_tp(x: torch.Tensor) -> torch.Tensor:
+    """``x`` into a column-parallel product (or a replicated parameter
+    into the rank's part of the compute): the identity forward, its
+    gradient, a partial sum on each rank, all-reduced over the model axis
+    backward.  Through :func:`all_reduce`, so over gloo and NCCL alike;
+    a group that cannot all-reduce raises."""
+    mesh = _tp_mesh()
+    return x if mesh is None else _CopyToTP.apply(x, mesh)
+
+
+def reduce_from_tp(x: torch.Tensor) -> torch.Tensor:
+    """A row-parallel product's partial sums (or a vocab-split lookup's),
+    all-reduced over the model axis forward; the identity backward."""
+    mesh = _tp_mesh()
+    return x if mesh is None else _ReduceFromTP.apply(x, mesh)
+
+
+def vocab_parallel_cross_entropy(local_logits: torch.Tensor,
+                                 labels: torch.Tensor,
+                                 vocab_start: int) -> torch.Tensor:
+    """Mean cross-entropy over logits split by vocab over the model axis
+    (this rank's columns ``vocab_start ..``), in float32: the max over the
+    axis first, then the sum of exps, each reduced over it; the picked
+    logit from the rank that owns the label, summed over the axis; then
+    ``mean(lse - picked)``, the order of
+    :func:`~repro_torch.nn.layers.softmax_cross_entropy`."""
+    mesh = _tp_mesh()
+    logits = local_logits.float()
+    m = torch.amax(logits.detach(), dim=-1).contiguous()
+    if mesh is not None:
+        all_reduce(m, mesh, TP_AXIS, op="max")
+    lse = m + torch.log(reduce_from_tp(torch.sum(
+        torch.exp(logits - m[..., None]), dim=-1)))
+    idx = labels.long() - vocab_start
+    mine = (idx >= 0) & (idx < logits.shape[-1])
+    picked = torch.gather(logits, -1, torch.where(mine, idx, 0)[..., None])
+    picked = torch.where(mine, picked[..., 0], 0.0)
+    return torch.mean(lse - reduce_from_tp(picked))
+
+
+def gate_up_exchange(t: torch.Tensor, mesh: Mesh, inverse: bool = False
+                     ) -> torch.Tensor:
+    """A gated ``w_in`` share (``(..., S)``, split over the model axis on
+    its last dim) between the layout it is stored in and the compute's.
+    Stored, rank ``j`` holds columns ``j S .. (j + 1) S`` of the whole
+    ``[gate | up]`` (at tp 2 one rank all of ``gate``, the other all of
+    ``up``); the compute needs ``[gate_i | up_i]``, the ``i``-th
+    ``1 / tp`` of each.  With ``s = S / 2``, half-block ``k`` of the whole
+    (``k < tp``: ``gate_k``, else ``up_{k - tp}``) is stored on rank
+    ``k // 2`` and computed on rank ``k % tp``, so a rank sends its two
+    halves and receives two: one all-to-all moving one share's bytes
+    (:func:`exchange`), never the whole leaf.  ``inverse``: the compute
+    layout back to the stored one (a gradient on the way out)."""
+    n = mesh.shape.get(TP_AXIS, 1)
+    if n == 1:
+        return t
+    i = mesh.index(TP_AXIS)
+    halves = t.chunk(2, dim=-1)
+    if inverse:
+        send = {i // 2: halves[0], (n + i) // 2: halves[1]}
+        recv = [(2 * i) % n, (2 * i + 1) % n]
+    else:
+        send = {(2 * i) % n: halves[0], (2 * i + 1) % n: halves[1]}
+        recv = [i // 2, (n + i) // 2]
+    return torch.cat(exchange(send, recv, mesh, TP_AXIS), dim=-1)

@@ -37,12 +37,28 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 
 from .attention import decode_attend, mha, ring_decode_attend
-from .layers import embed_lookup, is_gated, rms_norm, softmax_cross_entropy
+from .layers import (
+    embed_lookup,
+    embed_lookup_tp,
+    is_gated,
+    rms_norm,
+    softmax_cross_entropy,
+)
 from .mlp import mlp_block, project_logits, site_act
 from .moe import moe_block
 from .rglru import recurrent_block, recurrent_block_step
 from .rope import apply_rope
-from .sharding import current_mesh, use_mesh
+from .sharding import (
+    TP_AXIS,
+    TPShares,
+    copy_to_tp,
+    current_mesh,
+    current_tp,
+    reduce_from_tp,
+    use_mesh,
+    use_tp,
+    vocab_parallel_cross_entropy,
+)
 from .ssm import rwkv_channel_mix, rwkv_time_mix
 
 
@@ -433,10 +449,13 @@ def draw_params(cfg: ArchConfig, seed: int, device):
 # attention sub-block
 # =========================================================================
 def _qkv(p, x, cfg):
+    """Queries, keys and values ``(B, T, heads, Dh)``: every head, or in
+    a partitioned train step the rank's (the heads follow the weights'
+    columns)."""
     b, t, _ = x.shape
-    q = torch.matmul(x, p["wq"]).reshape(b, t, cfg.n_heads, cfg.d_head)
-    k = torch.matmul(x, p["wk"]).reshape(b, t, cfg.n_kv_heads, cfg.d_head)
-    v = torch.matmul(x, p["wv"]).reshape(b, t, cfg.n_kv_heads, cfg.d_head)
+    q = torch.matmul(x, p["wq"]).reshape(b, t, -1, cfg.d_head)
+    k = torch.matmul(x, p["wk"]).reshape(b, t, -1, cfg.d_head)
+    v = torch.matmul(x, p["wv"]).reshape(b, t, -1, cfg.d_head)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
@@ -448,9 +467,17 @@ def _attn_apply(p, x, cfg, *, causal: bool = True, window: int | None = None,
                 layer: int | None = None, chunk_q: int = 512):
     """Self-attention over a segment at positions ``pos_offset ..``,
     causal and, with ``window``, local; queries in chunks of ``chunk_q``.
-    Returns (out, (k, v))."""
+    Returns (out, (k, v)).  In a partitioned train step that splits
+    ``wq`` the rank's heads only (:func:`_tp_heads`), ``wo`` row-parallel
+    with its partial sums reduced over the model axis."""
     b, t, _ = x.shape
+    tp = current_tp()
+    kv_index = None
+    if tp is not None and tp.splits("blocks.wq"):
+        p, x, kv_index = _tp_heads(p, x, cfg, tp)
     q, k, v = _qkv(p, x, cfg)
+    if kv_index is not None:
+        k, v = k.index_select(2, kv_index), v.index_select(2, kv_index)
     if rope:
         positions = torch.arange(t, device=x.device) + pos_offset
         sin_fn = site_act(cfg, lut_tables, sites.ROPE, layer)
@@ -459,8 +486,68 @@ def _attn_apply(p, x, cfg, *, causal: bool = True, window: int | None = None,
     out = mha(q, k, v, causal=causal, window=window, q_offset=pos_offset,
               chunk_q=chunk_q,
               exp_fn=site_act(cfg, lut_tables, sites.ATTN_EXP, layer))
-    out = torch.matmul(out.reshape(b, t, cfg.q_dim), p["wo"])
+    out = torch.matmul(out.reshape(b, t, -1), p["wo"])
+    if tp is not None and tp.splits("blocks.wq"):
+        out = reduce_from_tp(out)
     return out, (k, v)
+
+
+def _tp_heads(p, x, cfg, tp: TPShares):
+    """A partitioned step's attention inputs on rank ``i`` of the model
+    axis: ``(p, x, kv_index)``.  ``wq`` / ``wo`` hold its ``n_heads / tp``
+    contiguous query heads (the reference's placement), and ``wk`` / ``wv``
+    its ``n_kv_heads / tp`` KV heads where tp divides them, so query head
+    ``h`` keeps KV head ``h // (n_heads / n_kv_heads)`` on the same rank.
+    Where tp does not divide the KV heads, ``wk`` / ``wv`` stay whole (the
+    reference's divisibility fallback) and the rank takes the columns of
+    the KV heads its query heads read; ``kv_index`` maps each of its query
+    heads to one of them where the grouped layout cannot (else ``None``).
+    ``x`` and every replicated weight used here enter through
+    :func:`~repro_torch.nn.sharding.copy_to_tp`, whose backward sums the
+    ranks' partial gradients."""
+    p = dict(p)
+    for name in ("q_norm", "k_norm"):
+        if name in p:
+            p[name] = copy_to_tp(p[name])
+    kv_index = None
+    if not tp.splits("blocks.wk"):
+        hl, g = cfg.n_heads // tp.size, cfg.n_heads // cfg.n_kv_heads
+        first = tp.index * hl
+        lo, hi = first // g, (first + hl - 1) // g
+        cols = slice(lo * cfg.d_head, (hi + 1) * cfg.d_head)
+        p["wk"] = copy_to_tp(p["wk"])[:, cols]
+        p["wv"] = copy_to_tp(p["wv"])[:, cols]
+        heads = [(first + a) // g - lo for a in range(hl)]
+        n_kv = hi - lo + 1
+        if hl % n_kv or heads != [a // (hl // n_kv) for a in range(hl)]:
+            kv_index = torch.tensor(heads, device=x.device)
+    return p, copy_to_tp(x), kv_index
+
+
+def dense_tp_shares(cfg: ArchConfig, placements: dict, mesh) -> TPShares:
+    """The leaves a partitioned train step on ``mesh`` keeps as the rank's
+    share over the model axis through the compute (``placements``: the
+    parameters' at rest, :func:`repro_torch.train.train_param_shardings`).
+    A leaf its placement leaves whole on the model axis stays whole, as do
+    ``wq`` / ``wo`` where tp does not divide the query heads, ``wk`` /
+    ``wv`` where it does not divide the KV heads, and the MLP where it
+    does not divide ``d_ff`` (the reference's divisibility fallback); the
+    norms are never split."""
+    if cfg.family != "dense":
+        raise ValueError(f"dense_tp_shares: the partitioned train step "
+                         f"covers the dense family, not {cfg.family!r}")
+    tp = mesh.shape.get(TP_AXIS, 1)
+    on = lambda *ns: all(
+        not placements[n].only((TP_AXIS,)).replicated for n in ns)
+    split = {n for n in ("embed", "lm_head") if on(n)}
+    if cfg.n_heads % tp == 0 and on("blocks.wq", "blocks.wo"):
+        split |= {"blocks.wq", "blocks.wo"}
+        if cfg.n_kv_heads % tp == 0 and on("blocks.wk", "blocks.wv"):
+            split |= {"blocks.wk", "blocks.wv"}
+    if cfg.d_ff % tp == 0 and on("blocks.w_in", "blocks.w_out"):
+        split |= {"blocks.w_in", "blocks.w_out"}
+    gate_up = {"blocks.w_in"} & split if is_gated(cfg.activation) else set()
+    return TPShares(mesh, frozenset(split), frozenset(gate_up))
 
 
 def _quantize_kv(x: torch.Tensor):
@@ -537,7 +624,12 @@ def _decoder_embed(params: DecoderParams, cfg: ArchConfig,
     """Token embeddings; for vlm with ``patches`` (B, P, d) the projected
     patch embeddings come first (cast to the model dtype before the
     ``patch_proj`` product, as the reference casts them)."""
-    x = embed_lookup(params.embed, tokens)
+    tp = current_tp()
+    if tp is not None and tp.splits("embed"):
+        x = embed_lookup_tp(params.embed, tokens,
+                            tp.index * params.embed.shape[0])
+    else:
+        x = embed_lookup(params.embed, tokens)
     if cfg.family == "vlm" and patches is not None:
         pre = torch.matmul(patches.to(x.dtype), params.patch_proj)
         x = torch.cat([pre, x], dim=1)
@@ -548,15 +640,16 @@ def _run(fn, remat: bool, *args):
     """``fn(*args)``; with ``remat`` its activations are recomputed in the
     backward instead of kept (the reference's ``jax.checkpoint`` of a
     layer body), through ``torch.utils.checkpoint``.  The recompute runs in
-    the autograd engine's thread, so it is handed the caller's mesh (a
-    thread's own, :func:`~repro_torch.nn.sharding.use_mesh`)."""
+    the autograd engine's thread, so it is handed the caller's mesh and tp
+    shares (a thread's own, :func:`~repro_torch.nn.sharding.use_mesh`,
+    :func:`~repro_torch.nn.sharding.use_tp`)."""
     if remat:
-        mesh = current_mesh()
+        mesh, tp = current_mesh(), current_tp()
         if mesh is not None:
             body = fn
 
             def fn(*a):
-                with use_mesh(mesh):
+                with use_mesh(mesh), use_tp(tp):
                     return body(*a)
         return checkpoint(fn, *args, use_reentrant=False)
     return fn(*args)
@@ -895,15 +988,27 @@ def decoder_loss(params: DecoderParams, cfg: ArchConfig, batch: dict,
                  lut_tables=None, remat: bool = False, chunk_q: int = 512):
     """Mean next-token cross-entropy of the decoder; vlm drops the patch
     prefix's positions before the head, moe adds ``router_aux_weight *
-    aux / n_layers`` (the layers' summed router auxiliary loss)."""
+    aux / n_layers`` (the layers' summed router auxiliary loss).  In a
+    partitioned train step that splits ``lm_head`` the rank's vocab
+    columns give its logits, and the loss is
+    :func:`~repro_torch.nn.sharding.vocab_parallel_cross_entropy`."""
+    tp = current_tp()
+    if tp is not None and lut_tables is not None:
+        raise ValueError("decoder_loss: the partitioned train step takes "
+                         "no LUT tables")
     patches = batch.get("patches")
     with params.unstacked():
         x, _, auxes = _decoder_run(params, cfg, batch["tokens"], patches,
                                    lut_tables, remat=remat, chunk_q=chunk_q)
     if patches is not None:
         x = x[:, patches.shape[1]:]
-    logits = project_logits(x, params.lm_head, cfg, lut_tables)
-    loss = softmax_cross_entropy(logits, batch["labels"])
+    if tp is not None and tp.splits("lm_head"):
+        logits = project_logits(copy_to_tp(x), params.lm_head, cfg)
+        loss = vocab_parallel_cross_entropy(
+            logits, batch["labels"], tp.index * params.lm_head.shape[-1])
+    else:
+        logits = project_logits(x, params.lm_head, cfg, lut_tables)
+        loss = softmax_cross_entropy(logits, batch["labels"])
     if cfg.moe:
         aux = torch.sum(torch.stack(auxes))
         loss = loss + cfg.moe.router_aux_weight * aux / cfg.n_layers

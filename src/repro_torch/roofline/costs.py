@@ -17,10 +17,11 @@ on the card's tensors:
   once).  Views, reshapes, ``detach``, allocations and metadata queries
   are free, as the reference's ``_FREE_OPS`` are;
 * **collective bytes** — by kind (``all-gather``, ``all-reduce``,
-  ``broadcast``), from :mod:`repro_torch.nn.sharding`'s collectives
-  (:func:`note_collective`): the bytes each call sends, an all-reduce
-  twice (the reference's ring convention).  A gather is one broadcast a
-  member, and counts as those broadcasts, under ``all-gather``;
+  ``broadcast``, ``all-to-all``), from :mod:`repro_torch.nn.sharding`'s
+  collectives (:func:`note_collective`): the bytes each call sends, an
+  all-reduce twice (the reference's ring convention).  A gather is one
+  broadcast a member, and counts as those broadcasts, under
+  ``all-gather``;
 * **the hand-written kernels** — each launch is one line at its kernel
   point (``cuda:lut_act_stacked``, ``cuda:wkv``, ...; :func:`note_kernel`,
   called by the wrappers of :mod:`repro_torch.kernels.ops`): its operand
@@ -46,7 +47,7 @@ from torch.utils.flop_counter import flop_registry
 # this module through sys.modules and note into every one)
 _ACTIVE: list["StepCosts"] = []
 
-COLLECTIVES = ("all-gather", "all-reduce", "broadcast")
+COLLECTIVES = ("all-gather", "all-reduce", "broadcast", "all-to-all")
 
 _aten = torch.ops.aten
 # no kernel: allocations, aliases and metadata (views are found by

@@ -60,6 +60,35 @@ captured in a CUDA graph); ``step.timings`` holds the last call's
 seconds (host clock, the device synchronized) of the weight gather, the
 forward and backward, the gradient reduction and the update.
 
+With ``tp_mode="partitioned"`` (the dense family) the step is the
+reference's GSPMD train step instead: its ``param_specs`` placements kept
+in the compute over the model axis.  The state and its placements are
+exact mode's (so checkpoints and the elastic re-mesh are the same), and
+each step
+
+1. gathers each leaf over the data axes only (the reference's ZeRO-3
+   ``"fsdp"`` axis), keeping the model axis's split of the leaves
+   :func:`~repro_torch.nn.transformer.dense_tp_shares` names (the
+   column-parallel ``wq`` / ``wk`` / ``wv`` / ``w_in``, the row-parallel
+   ``wo`` / ``w_out``, the vocab-split ``embed`` and ``lm_head``); a
+   gated ``w_in`` share is exchanged within the model axis into the
+   compute's ``[gate_i | up_i]`` (one all-to-all of one share's bytes,
+   :func:`~repro_torch.nn.sharding.gate_up_exchange`);
+2. runs the rank's rows through the model on those shares
+   (:func:`~repro_torch.nn.sharding.use_tp`: the activations' partial
+   sums and gradients all-reduced over the model axis, a vocab-parallel
+   embedding and cross-entropy), its gated ``w_in`` gradient exchanged
+   back to the stored layout;
+3. takes the rank-order mean over the data axes, as exact mode does
+   (under ``grad_compress`` a split leaf's share against its share of
+   the error buffers, its scale the whole leaf's);
+4. forms the global norm from the split leaves' share square sums summed
+   over the model axis, each replicated leaf counted once;
+5. runs AdamW on the rank's own shares.
+
+No rank holds a whole split leaf or its gradient.  ``tp_mode="exact"``
+stays the default, every bit as before.
+
 Serving's counterparts of the reference's ``make_serve_step`` and
 ``make_prefill`` are :func:`repro_torch.serve.decode_step` (captured in a
 CUDA graph by :class:`repro_torch.serve.CapturedStep`) and
@@ -79,11 +108,14 @@ from repro_torch.nn.sharding import (
     DP_AXES,
     TP_AXIS,
     Placement,
+    all_reduce,
     each_member,
+    gate_up_exchange,
     named_sharding,
     use_mesh,
+    use_tp,
 )
-from repro_torch.nn.transformer import loss_fn, params_class
+from repro_torch.nn.transformer import dense_tp_shares, loss_fn, params_class
 from repro_torch.optim import adamw_update
 from repro_torch.optim.adamw import slab_square_sums, square_sum
 
@@ -93,6 +125,8 @@ from .state import TrainConfig, train_state_shardings
 # the moe expert stacks, (L, E, ., .): split over the model axis through
 # the compute, each (layer, expert) slab its own term of the norm
 _EXPERT_PARAMS = ("moe_w_in", "moe_w_out")
+
+TP_MODES = ("exact", "partitioned")
 
 
 def _is_expert(name: str) -> bool:
@@ -166,13 +200,29 @@ def _split_micro(batch: dict, n_micro: int) -> list[dict]:
 
 
 def make_train_step(cfg: ArchConfig, tcfg: TrainConfig, device=None,
-                    lut_tables=None, mesh=None):
+                    lut_tables=None, mesh=None, tp_mode: str = "exact"):
     """``step(state, batch) -> (state, metrics)``, updating ``state`` in
     place.  ``lut_tables`` (compressed activations in the forward) must use
     the ``gather`` backend: the kernels' entries have no gradient (neither
     have the reference's Pallas entries).  ``mesh``: this rank's mesh
     (:func:`repro_torch.launch.mesh.make_host_mesh`), ``state`` its
-    shares and ``batch`` the global batch (module docstring)."""
+    shares and ``batch`` the global batch (module docstring).
+    ``tp_mode``: ``"exact"`` (gathered weights) or ``"partitioned"`` (the
+    dense family's tp shares in the compute; without a mesh, or on a
+    model axis of 1, nothing splits and it is the same step); anything
+    else raises, as does ``"partitioned"`` on another family or with
+    ``lut_tables``."""
+    if tp_mode not in TP_MODES:
+        raise ValueError(f"make_train_step: tp_mode {tp_mode!r}; expected "
+                         f"one of {TP_MODES}")
+    if tp_mode == "partitioned":
+        if cfg.family != "dense":
+            raise ValueError(f"make_train_step: tp_mode 'partitioned' "
+                             f"covers the dense family, not {cfg.family!r} "
+                             f"({cfg.name})")
+        if lut_tables is not None:
+            raise ValueError("make_train_step: tp_mode 'partitioned' takes "
+                             "no LUT tables")
     dev = resolve_device(device)
     if lut_tables is not None and lut_tables.get("backend") != "gather":
         raise ValueError(
@@ -209,7 +259,7 @@ def make_train_step(cfg: ArchConfig, tcfg: TrainConfig, device=None,
         return torch.mean(torch.stack(losses)), [a / div for a in acc]
 
     if mesh is not None:
-        return _sharded_step(cfg, tcfg, dev, mesh, grads_of)
+        return _sharded_step(cfg, tcfg, dev, mesh, grads_of, tp_mode)
 
     def step(state: dict, batch: dict):
         batch = batch_to_device(batch, dev)
@@ -228,7 +278,8 @@ def make_train_step(cfg: ArchConfig, tcfg: TrainConfig, device=None,
     return step
 
 
-def _sharded_step(cfg: ArchConfig, tcfg: TrainConfig, dev, mesh, grads_of):
+def _sharded_step(cfg: ArchConfig, tcfg: TrainConfig, dev, mesh, grads_of,
+                  tp_mode: str = "exact"):
     """The step on ``mesh`` (module docstring), around the single-device
     ``grads_of`` of the rank's rows."""
     pl = train_state_shardings(cfg, tcfg, mesh)["params"]
@@ -236,9 +287,14 @@ def _sharded_step(cfg: ArchConfig, tcfg: TrainConfig, dev, mesh, grads_of):
     n_dp = 1
     for a in dp_axes:
         n_dp *= mesh.shape[a]
-    # an expert stack split over the model axis stays split in the compute
-    keep = {n: (TP_AXIS,) if (_is_expert(n)
-                              and not pl[n].only((TP_AXIS,)).replicated)
+    tp = (dense_tp_shares(cfg, pl, mesh) if tp_mode == "partitioned"
+          else None)
+    split = tp.split if tp is not None else frozenset()
+    gate_up = tp.gate_up if tp is not None else frozenset()
+    # an expert stack split over the model axis stays split in the compute,
+    # as does every leaf a partitioned step splits
+    keep = {n: (TP_AXIS,) if n in split or (
+        _is_expert(n) and not pl[n].only((TP_AXIS,)).replicated)
             else () for n in pl}
     # the rank's share of a leaf from what the step holds of it: the whole
     # leaf, or an expert stack's share over the model axis
@@ -246,7 +302,7 @@ def _sharded_step(cfg: ArchConfig, tcfg: TrainConfig, dev, mesh, grads_of):
            if keep[n] else pl[n] for n in pl}
     # an expert stack's (L, E / tp) slab terms into expert order
     slabs = {n: Placement(mesh, pl[n].spec[:2]).only(keep[n])
-             for n in pl if keep[n]}
+             for n in pl if keep[n] and _is_expert(n)}
     div = torch.tensor(n_dp, dtype=torch.float32, device=dev)
     timings = {}
 
@@ -275,14 +331,30 @@ def _sharded_step(cfg: ArchConfig, tcfg: TrainConfig, dev, mesh, grads_of):
             acc.add_(m.float())
         return acc / div
 
+    def leaf(n, p):
+        t = pl[n].gather(p.detach(), keep=keep[n])
+        return gate_up_exchange(t, mesh) if n in gate_up else t
+
+    def norm(sqs: list, names: list) -> torch.Tensor:
+        """The global norm from the leaves' terms in leaf order, a
+        partitioned step's split leaves' share terms summed over the model
+        axis first (one all-reduce of them all)."""
+        at = [i for i, n in enumerate(names) if n in split]
+        if at:
+            summed = all_reduce(torch.stack([sqs[i] for i in at]), mesh,
+                                TP_AXIS)
+            for j, i in enumerate(at):
+                sqs[i] = summed[j]
+        return torch.sqrt(sum(sqs))
+
     def step(state: dict, batch: dict):
         t0 = time.perf_counter()
         named = list(state["params"].named_parameters())
         params = params_class(cfg)(cfg, dev, leaves={
-            n: pl[n].gather(p.detach(), keep=keep[n]) for n, p in named})
+            n: leaf(n, p) for n, p in named})
         params.requires_grad_(True)
         t0 = mark("gather_s", t0)
-        with use_mesh(mesh):
+        with use_mesh(mesh), use_tp(tp):
             loss, g = grads_of(params, rows(batch))
         del params
         t0 = mark("forward_backward_s", t0)
@@ -292,6 +364,8 @@ def _sharded_step(cfg: ArchConfig, tcfg: TrainConfig, dev, mesh, grads_of):
         sqs, shares, errs = [], [], []
         for i, (n, _) in enumerate(named):
             gi, g[i] = g[i], None
+            if n in gate_up:
+                gi = gate_up_exchange(gi, mesh, inverse=True)
             if tcfg.grad_compress:
                 # an expert stack's share against its share of the error
                 # buffers, its scale the whole leaf's (max over the model
@@ -302,10 +376,10 @@ def _sharded_step(cfg: ArchConfig, tcfg: TrainConfig, dev, mesh, grads_of):
                 errs.append(own[n].local(e))
             elif n_dp > 1:
                 gi = rank_order_mean(gi)
-            sqs.append(_norm_term(n, gi, slabs[n].gather if keep[n]
+            sqs.append(_norm_term(n, gi, slabs[n].gather if n in slabs
                                   else None))
             shares.append(own[n].local(gi))
-        gnorm = torch.sqrt(sum(sqs))
+        gnorm = norm(sqs, [n for n, _ in named])
         if tcfg.grad_compress:
             state["ef_error"] = errs
         t0 = mark("reduce_s", t0)

@@ -28,6 +28,19 @@ queue C).  It writes to ``OUT_DIR``:
   ``shard_map``): the inputs, every shard's int8 codes (int32 sums are
   theirs summed), the mean and every shard's new error;
 * ``ckpt/``: the 2-step 2x2 qwen3-0.6b state saved at step 2.
+
+With ``partitioned`` after ``OUT_DIR`` it writes only what
+``test_torch_train_partitioned.py`` reads: ``part_{arch}.npz`` for the
+dense smoke configs qwen3-0.6b (gated ``w_in``) and nemotron-4-15b (relu2,
+no gate), the initial parameters and, on 1x2 and 2x2, two steps without
+(``DxT/...``) and with ``grad_compress`` (``c/DxT/...``): the losses,
+norms and parameters after.  The reference's train step is partitioned
+there: ``param_specs`` place the weights over ``"tp"`` and XLA's GSPMD
+divides each product by the model axis.  Under this jax its compressed
+step raises on qwen3-0.6b at 1x2 (an XLA ``RET_CHECK``: a cross-partition
+all-reduce outside manual partitioning) and on nemotron-4-15b (a context
+mesh that does not match the sharding's); such a case records its error
+(``c/DxT/error``) instead.
 """
 from __future__ import annotations
 
@@ -208,8 +221,45 @@ def write_dp_mean(out_dir):
     np.savez(os.path.join(out_dir, "dp_mean.npz"), **rec)
 
 
+PART_ARCHS = ("qwen3-0.6b", "nemotron-4-15b")
+PART_SHAPES = ((1, 2), (2, 2))
+
+
+def write_partitioned(out_dir):
+    for arch in PART_ARCHS:
+        cfg = cfg_of(arch)
+        rec = {f"p/{k}": np.asarray(v) for k, v in flat(
+            init_train_state(cfg, TrainConfig(remat=False))["params"]
+        ).items()}
+        for dp, tp in PART_SHAPES:
+            for pre, compress in (("", False), ("c/", True)):
+                key = f"{pre}{dp}x{tp}"
+
+                def keep(st, key=key):
+                    rec.update({f"{key}/p/{k}": np.asarray(v)
+                                for k, v in flat(st["params"]).items()})
+
+                try:
+                    losses, norms = steps(
+                        cfg, TrainConfig(remat=False, grad_compress=compress),
+                        mesh_of(dp, tp), 2, keep=keep)
+                except Exception as e:  # noqa: BLE001 — recorded
+                    if not compress:
+                        raise
+                    rec[f"{key}/error"] = np.array(
+                        f"{type(e).__name__}: {e}"[:300])
+                    continue
+                rec[f"{key}/loss"] = np.array(losses)
+                rec[f"{key}/grad_norm"] = np.array(norms)
+        np.savez(os.path.join(out_dir, f"part_{arch}.npz"), **rec)
+
+
 if __name__ == "__main__":
     out = sys.argv[1]
+    if sys.argv[2:] == ["partitioned"]:
+        write_partitioned(out)
+        print("ok")
+        sys.exit(0)
     write_specs(out)
     write_dp_mean(out)
     write_steps(out)
