@@ -40,10 +40,11 @@ These are model numbers from an H100's peaks, not measurements.
 A training cell traces the train step in either mode of
 :func:`~repro_torch.train.make_train_step`: ``--tp-mode exact`` (the
 default; every weight gathered at the step's entry) or ``partitioned``
-(the dense family's tp shares in the compute, as the reference's GSPMD
-step runs them); a partitioned cell records ``"tp_mode"`` in its JSON and
-its file name ends in ``__part``, and a cell the mode does not cover (a
-serving shape, another family) is skipped with the reason.
+(the tp shares in the compute, as the reference's GSPMD step runs
+them: the dense, moe, vlm and ssm families); a partitioned cell records
+``"tp_mode"`` in its JSON and its file name ends in ``__part``, and a
+cell the mode does not cover (a serving shape, the hybrid or encdec
+family) is skipped with the reason.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-0.6b \\
@@ -83,11 +84,15 @@ def cell_supported(cfg, shape: str, tp_mode: str = "exact"
                    ) -> tuple[bool, str]:
     if shape == "long_500k" and not cfg.supports_long_context:
         return False, "full attention at 524k decode is O(T) cache: skipped per assignment (noted in DESIGN.md)"
-    if tp_mode == "partitioned" and (SHAPES[shape]["kind"] != "train"
-                                     or cfg.family != "dense"):
-        return False, ("tp_mode partitioned is the dense family's train "
-                       "step; serving and the other families run exact "
-                       "mode")
+    if tp_mode == "partitioned" and SHAPES[shape]["kind"] != "train":
+        return False, ("tp_mode partitioned is the train step's; serving "
+                       "runs exact mode")
+    from repro_torch.nn.transformer import TP_FAMILIES
+
+    if tp_mode == "partitioned" and cfg.family not in TP_FAMILIES:
+        return False, (f"tp_mode partitioned covers the "
+                       f"{', '.join(TP_FAMILIES)} families, not "
+                       f"{cfg.family} (ROADMAP item 13)")
     return True, ""
 
 
@@ -368,7 +373,8 @@ def main(argv=None) -> None:
     ap.add_argument("--tp-mode", choices=("exact", "partitioned"),
                     default="exact",
                     help="the train step's mode (training cells; "
-                         "partitioned: the dense family only)")
+                         "partitioned: the dense, moe, vlm and ssm "
+                         "families)")
     ap.add_argument("--out", default="experiments/torch/dryrun")
     args = ap.parse_args(argv)
 

@@ -274,18 +274,21 @@ def project_logits(x, lm_head, cfg, lut_tables: dict | None = None):
 
 
 def mlp_block(p: dict, x: torch.Tensor, cfg, lut_tables=None,
-              layer: int | None = None) -> torch.Tensor:
+              layer: int | None = None, tp_leaf: str = "blocks.w_in"
+              ) -> torch.Tensor:
     """(B, T, d) -> (B, T, d); swiglu uses the fused [gate|up] ``w_in``.
 
     Under ``cfg.lut_fuse`` the up-projection and the LUT activation run as
     one step: kernel K3 on the ``"cuda"`` backend, its plain version on
-    ``"gather"``.  In a partitioned train step that splits ``w_in``
-    (:func:`~repro_torch.nn.sharding.use_tp`) the block runs on the
-    rank's shares: ``w_in`` column-parallel (a gated one as ``[gate_i |
+    ``"gather"``.  In a partitioned train step that splits the leaf
+    ``p["w_in"]`` is (``tp_leaf``: a dense block's ``blocks.w_in``, the moe
+    shared experts' ``blocks.sh_w_in``;
+    :func:`~repro_torch.nn.sharding.use_tp`) the block runs on the rank's
+    shares: ``w_in`` column-parallel (a gated one as ``[gate_i |
     up_i]``), ``w_out`` row-parallel, its partial sums reduced over the
     model axis."""
     tp = current_tp()
-    if tp is not None and tp.splits("blocks.w_in"):
+    if tp is not None and tp.splits(tp_leaf):
         return reduce_from_tp(_mlp_plain(p, copy_to_tp(x), cfg, None, layer))
     return _mlp_plain(p, x, cfg, lut_tables, layer)
 

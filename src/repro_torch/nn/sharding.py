@@ -19,12 +19,15 @@ replicated (``_divisible``).  The port serves in the reference's exact
 mode (``exact_tp``): its ranks compute at single-device shapes on
 gathered weights, so no float reduction is split over the model axis.
 Training runs that mode by default too; its ``"partitioned"`` mode (the
-reference's GSPMD train step, dense family) keeps each rank's tp share of
-the split weights in the compute (:class:`TPShares`, entered with
-:func:`use_tp`) and joins the shares with :func:`copy_to_tp` (identity
-forward, gradient all-reduced over the model axis) before a
-column-parallel product, :func:`reduce_from_tp` (partial sums
-all-reduced forward, identity backward) after a row-parallel one,
+reference's GSPMD train step, for the dense, moe, vlm and ssm families)
+keeps each rank's tp share of the split weights in the compute
+(:class:`TPShares`, entered with :func:`use_tp`) and joins the shares
+with :func:`copy_to_tp` (identity forward, gradient all-reduced over the
+model axis) before a column-parallel product, :func:`reduce_from_tp`
+(partial sums all-reduced forward, identity backward) after a
+row-parallel one, :func:`gather_from_tp` (a column-parallel product's
+columns all-gathered forward, the rank's own slice of the gradient
+backward: RWKV6's receptance gate),
 :func:`vocab_parallel_cross_entropy` over vocab-split logits and
 :func:`gate_up_exchange` (a gated ``w_in``'s share between its stored
 ``[gate|up]`` block and the compute's matching columns).  The
@@ -443,8 +446,8 @@ class TPShares:
     """What a rank of a partitioned train step keeps as its share over
     the model axis through the compute: the dotted names of those leaves
     (``split``; every other leaf is whole), and among them the gated
-    ``w_in`` stacks, held in the compute's ``[gate_i | up_i]`` layout
-    (``gate_up``, :func:`gate_up_exchange`)."""
+    ``w_in`` and ``sh_w_in`` stacks, held in the compute's ``[gate_i |
+    up_i]`` layout (``gate_up``, :func:`gate_up_exchange`)."""
 
     mesh: Mesh
     split: frozenset
@@ -522,6 +525,28 @@ def reduce_from_tp(x: torch.Tensor) -> torch.Tensor:
     all-reduced over the model axis forward; the identity backward."""
     mesh = _tp_mesh()
     return x if mesh is None else _ReduceFromTP.apply(x, mesh)
+
+
+class _GatherFromTP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh, ctx.width = mesh, x.shape[-1]
+        return gather(x, mesh, TP_AXIS, dim=-1)
+
+    @staticmethod
+    def backward(ctx, g):
+        i, w = ctx.mesh.index(TP_AXIS), ctx.width
+        return g[..., i * w:(i + 1) * w], None
+
+
+def gather_from_tp(x: torch.Tensor) -> torch.Tensor:
+    """A column-parallel product's output (split over the model axis on
+    its last dim) made whole: every rank's columns in rank order, one
+    all-gather forward (:func:`gather`: one call on NCCL, broadcasts on
+    gloo; a group that cannot gather raises); the rank's own slice of the
+    gradient backward, which every model rank holds whole."""
+    mesh = _tp_mesh()
+    return x if mesh is None else _GatherFromTP.apply(x, mesh)
 
 
 def vocab_parallel_cross_entropy(local_logits: torch.Tensor,

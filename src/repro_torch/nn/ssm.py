@@ -10,6 +10,20 @@ so kv_j reaches y_i (j < i) with decay prod_{s=j+1}^{i-1} w_s.  A prompt
 runs the chunkwise-parallel form :func:`wkv_chunked` (kernel K8 on the
 card, its plain version on the CPU); a decode step the recurrence
 :func:`wkv_decode_step` in plain PyTorch, as in the reference.
+
+In a partitioned train step (:func:`~repro_torch.nn.sharding.use_tp`)
+that splits ``w_r`` a rank runs the time mix on its ``H / tp`` heads:
+``r`` / ``k`` / ``v`` / ``g`` from its column shares, the decay from its
+columns of ``decay_b`` and ``decay_base``, ``bonus`` and ``ln_x`` cut to
+its heads, the WKV (K8, K8b) at ``(B, T, H / tp, N)`` and ``w_o``
+row-parallel.  The channel mix's ``w_ffn_k`` / ``w_ffn_v`` run column- /
+row-parallel and its gate's columns are all-gathered
+(:func:`~repro_torch.nn.sharding.gather_from_tp`) before the product with
+the reduced value.  What a rank computes on its part alone enters through
+:func:`~repro_torch.nn.sharding.copy_to_tp` (the token-shift mixes fed to
+the split products, the decay LoRA's hidden, the cut vectors), so its
+partial gradients sum over the model axis; the mixes themselves and their
+``mu_*`` / LoRA weights see whole activations and whole gradients.
 """
 from __future__ import annotations
 
@@ -21,6 +35,7 @@ from repro_torch.kernels import ops
 
 from .layers import rms_norm
 from .mlp import fused_act_matmul, fused_matmul_tab, make_activation
+from .sharding import copy_to_tp, current_tp, gather_from_tp, reduce_from_tp
 
 # The model's WKV chunk length (the reference's WKV_CHUNK), a lever of the
 # dry run's hill climb (repro_torch.launch.hillclimb); on the card a
@@ -90,12 +105,26 @@ def rwkv_time_mix(p: dict, x, cfg, x_last=None, wkv_state=None,
     mixed = {name: _ddlerp(x, x_prev, p[f"mu_{name}"], p["lora_a"],
                            p[f"lora_b_{name}"])
              for name in ("r", "k", "v", "w", "g")}
+    tp = current_tp()
+    part = tp is not None and tp.splits("blocks.w_r")
+    if part:
+        # the rank's heads: its columns lo .. hi of every d-wide vector
+        lo = tp.index * p["w_r"].shape[-1]
+        cols = slice(lo, lo + p["w_r"].shape[-1])
+        h = p["w_r"].shape[-1] // n
+        mixed = {name: copy_to_tp(m) if name != "w" else m
+                 for name, m in mixed.items()}
+        p = dict(p, decay_b=copy_to_tp(p["decay_b"])[:, cols],
+                 **{name: copy_to_tp(p[name])[cols]
+                    for name in ("decay_base", "bonus", "ln_x")})
+        wa = copy_to_tp(torch.tanh(torch.matmul(mixed["w"], p["decay_a"])))
+    else:
+        wa = torch.tanh(torch.matmul(mixed["w"], p["decay_a"]))
     r = torch.matmul(mixed["r"], p["w_r"])
     k = torch.matmul(mixed["k"], p["w_k"])
     v = torch.matmul(mixed["v"], p["w_v"])
     g = F.silu(torch.matmul(mixed["g"], p["w_g"]))
-    w_dyn = torch.matmul(mixed["w"], p["decay_a"])
-    w_dyn = torch.matmul(torch.tanh(w_dyn), p["decay_b"])
+    w_dyn = torch.matmul(wa, p["decay_b"])
     log_w = -torch.exp(torch.clamp(
         p["decay_base"][None, None] + w_dyn.float(), -8.0, 1.0))
 
@@ -117,8 +146,10 @@ def rwkv_time_mix(p: dict, x, cfg, x_last=None, wkv_state=None,
                                    state=wkv_state)
 
     y = rms_norm(y.reshape(b * t, h, n), p["ln_x"].reshape(h, n),
-                 eps=1e-5).reshape(b, t, d)
+                 eps=1e-5).reshape(b, t, h * n)
     out = torch.matmul(y.to(x.dtype) * g, p["w_o"])
+    if part:
+        out = reduce_from_tp(out)
     return out, (x[:, -1:], wkv_state)
 
 
@@ -134,6 +165,11 @@ def rwkv_channel_mix(p: dict, x, cfg, x_last=None, lut_tables=None,
     x_prev = torch.cat([x_last, x[:, :-1]], dim=1)
     xk = x + (x_prev - x) * p["mu_ffn_k"]
     xr = x + (x_prev - x) * p["mu_ffn_r"]
+    tp = current_tp()
+    split_k = tp is not None and tp.splits("blocks.w_ffn_k")
+    split_r = tp is not None and tp.splits("blocks.w_ffn_r")
+    if split_k:
+        xk = copy_to_tp(xk)
     ftab = fused_matmul_tab(cfg, lut_tables, sites.FFN, layer)
     if ftab is not None:
         akk = fused_act_matmul(xk, p["w_ffn_k"], ftab, lut_tables,
@@ -143,5 +179,11 @@ def rwkv_channel_mix(p: dict, x, cfg, x_last=None, lut_tables=None,
                               fallback="relu2", layer=layer)
         akk = act(torch.matmul(xk, p["w_ffn_k"]))
     vv = torch.matmul(akk, p["w_ffn_v"])
-    rr = torch.sigmoid(torch.matmul(xr, p["w_ffn_r"]))
+    if split_k:
+        vv = reduce_from_tp(vv)
+    if split_r:
+        rr = gather_from_tp(torch.sigmoid(torch.matmul(copy_to_tp(xr),
+                                                       p["w_ffn_r"])))
+    else:
+        rr = torch.sigmoid(torch.matmul(xr, p["w_ffn_r"]))
     return rr * vv, x[:, -1:]

@@ -524,29 +524,63 @@ def _tp_heads(p, x, cfg, tp: TPShares):
     return p, copy_to_tp(x), kv_index
 
 
-def dense_tp_shares(cfg: ArchConfig, placements: dict, mesh) -> TPShares:
+# the families whose partitioned train step is ported (ROADMAP item 13:
+# hybrid and encdec next)
+TP_FAMILIES = ("dense", "moe", "vlm", "ssm")
+
+
+def tp_shares(cfg: ArchConfig, placements: dict, mesh) -> TPShares:
     """The leaves a partitioned train step on ``mesh`` keeps as the rank's
     share over the model axis through the compute (``placements``: the
-    parameters' at rest, :func:`repro_torch.train.train_param_shardings`).
-    A leaf its placement leaves whole on the model axis stays whole, as do
-    ``wq`` / ``wo`` where tp does not divide the query heads, ``wk`` /
-    ``wv`` where it does not divide the KV heads, and the MLP where it
-    does not divide ``d_ff`` (the reference's divisibility fallback); the
-    norms are never split."""
-    if cfg.family != "dense":
-        raise ValueError(f"dense_tp_shares: the partitioned train step "
-                         f"covers the dense family, not {cfg.family!r}")
+    parameters' at rest, :func:`repro_torch.train.train_param_shardings`),
+    for the families of :data:`TP_FAMILIES` (another raises, naming it).
+    A leaf its placement leaves whole on the model axis stays whole, as
+    does each group below where tp does not divide its heads or columns
+    (the reference's divisibility fallback); norms, routers, vlm's
+    ``patch_proj`` and RWKV6's decay LoRA, ``bonus``, ``ln_x`` and
+    ``mu_*`` vectors are never split.
+
+    * ``embed`` / ``lm_head``: the vocabulary (every family);
+    * attention (dense, moe, vlm): ``wq`` / ``wo`` by query heads, ``wk`` /
+      ``wv`` by KV heads;
+    * the MLP (dense, vlm): ``w_in`` / ``w_out`` where tp divides
+      ``d_ff``; moe's shared experts ``sh_w_in`` / ``sh_w_out`` where it
+      divides ``d_expert * n_shared`` (a gated ``w_in`` in ``gate_up``).
+      The routed expert stacks keep exact mode's shares over the model
+      axis and are not named here;
+    * RWKV6 (ssm): ``w_r`` / ``w_k`` / ``w_v`` / ``w_g`` by columns and
+      ``w_o`` by rows, in whole heads, where tp divides ``d /
+      rwkv_head_dim``; ``w_ffn_k`` by columns and ``w_ffn_v`` by rows
+      where it divides ``d_ff``; ``w_ffn_r`` by columns."""
+    if cfg.family not in TP_FAMILIES:
+        raise ValueError(f"tp_shares: the partitioned train step covers "
+                         f"the {', '.join(TP_FAMILIES)} families, not "
+                         f"{cfg.family!r} (ROADMAP item 13)")
     tp = mesh.shape.get(TP_AXIS, 1)
     on = lambda *ns: all(
         not placements[n].only((TP_AXIS,)).replicated for n in ns)
+    pair = lambda *ns: set(ns) if on(*ns) else set()
     split = {n for n in ("embed", "lm_head") if on(n)}
+    if cfg.family == "ssm":
+        if (cfg.d_model // cfg.rwkv_head_dim) % tp == 0:
+            split |= pair(*(f"blocks.{w}" for w in (
+                "w_r", "w_k", "w_v", "w_g", "w_o")))
+        if cfg.d_ff % tp == 0:
+            split |= pair("blocks.w_ffn_k", "blocks.w_ffn_v")
+        split |= pair("blocks.w_ffn_r")
+        return TPShares(mesh, frozenset(split))
     if cfg.n_heads % tp == 0 and on("blocks.wq", "blocks.wo"):
         split |= {"blocks.wq", "blocks.wo"}
-        if cfg.n_kv_heads % tp == 0 and on("blocks.wk", "blocks.wv"):
-            split |= {"blocks.wk", "blocks.wv"}
-    if cfg.d_ff % tp == 0 and on("blocks.w_in", "blocks.w_out"):
-        split |= {"blocks.w_in", "blocks.w_out"}
-    gate_up = {"blocks.w_in"} & split if is_gated(cfg.activation) else set()
+        if cfg.n_kv_heads % tp == 0:
+            split |= pair("blocks.wk", "blocks.wv")
+    if cfg.moe:
+        if cfg.moe.n_shared and (cfg.moe.d_expert * cfg.moe.n_shared) % tp \
+                == 0:
+            split |= pair("blocks.sh_w_in", "blocks.sh_w_out")
+    elif cfg.d_ff % tp == 0:
+        split |= pair("blocks.w_in", "blocks.w_out")
+    gate_up = ({"blocks.w_in", "blocks.sh_w_in"} & split
+               if is_gated(cfg.activation) else set())
     return TPShares(mesh, frozenset(split), frozenset(gate_up))
 
 
@@ -624,16 +658,21 @@ def _decoder_embed(params: DecoderParams, cfg: ArchConfig,
     """Token embeddings; for vlm with ``patches`` (B, P, d) the projected
     patch embeddings come first (cast to the model dtype before the
     ``patch_proj`` product, as the reference casts them)."""
-    tp = current_tp()
-    if tp is not None and tp.splits("embed"):
-        x = embed_lookup_tp(params.embed, tokens,
-                            tp.index * params.embed.shape[0])
-    else:
-        x = embed_lookup(params.embed, tokens)
+    x = _embed_tokens(params.embed, tokens)
     if cfg.family == "vlm" and patches is not None:
         pre = torch.matmul(patches.to(x.dtype), params.patch_proj)
         x = torch.cat([pre, x], dim=1)
     return x
+
+
+def _embed_tokens(embed: torch.Tensor, tokens: torch.Tensor
+                  ) -> torch.Tensor:
+    """The token embeddings; in a partitioned train step that splits
+    ``embed`` the vocab-parallel lookup of the rank's rows."""
+    tp = current_tp()
+    if tp is not None and tp.splits("embed"):
+        return embed_lookup_tp(embed, tokens, tp.index * embed.shape[0])
+    return embed_lookup(embed, tokens)
 
 
 def _run(fn, remat: bool, *args):
@@ -666,7 +705,7 @@ def feed_forward_aux(p, x, cfg, lut_tables, layer: int | None = None):
     if cfg.moe.n_shared:
         shared = lambda z: mlp_block(
             {"w_in": p["sh_w_in"], "w_out": p["sh_w_out"]}, z, cfg,
-            lut_tables, layer=layer)
+            lut_tables, layer=layer, tp_leaf="blocks.sh_w_in")
     return moe_block({"router": p["router"], "w_in": p["moe_w_in"],
                       "w_out": p["moe_w_out"]}, x, cfg, shared_mlp=shared,
                      lut_tables=lut_tables, layer=layer)
@@ -766,7 +805,7 @@ def rwkv_forward(params: RWKVParams, cfg: ArchConfig, tokens: torch.Tensor,
     if remat and states:
         raise ValueError("rwkv_forward: remat is for training, which keeps "
                          "no state")
-    x = embed_lookup(params.embed, tokens)
+    x = _embed_tokens(params.embed, tokens)
     for i in range(cfg.n_layers):
         p = params.layer(i)
         st = {k: v[i] for k, v in states.items()} if states else {}
@@ -984,31 +1023,40 @@ def encdec_forward(params: EncDecParams, cfg: ArchConfig,
 # =========================================================================
 # losses (training)
 # =========================================================================
+def _no_tp_tables(who: str, lut_tables) -> None:
+    if current_tp() is not None and lut_tables is not None:
+        raise ValueError(f"{who}: the partitioned train step takes no LUT "
+                         f"tables")
+
+
+def _head_loss(x, lm_head, cfg: ArchConfig, labels, lut_tables):
+    """Mean cross-entropy of the logits of ``x``.  In a partitioned train
+    step that splits ``lm_head`` the rank's vocab columns give its logits,
+    and the loss is
+    :func:`~repro_torch.nn.sharding.vocab_parallel_cross_entropy`."""
+    tp = current_tp()
+    if tp is not None and tp.splits("lm_head"):
+        logits = project_logits(copy_to_tp(x), lm_head, cfg)
+        return vocab_parallel_cross_entropy(
+            logits, labels, tp.index * lm_head.shape[-1])
+    return softmax_cross_entropy(project_logits(x, lm_head, cfg, lut_tables),
+                                 labels)
+
+
 def decoder_loss(params: DecoderParams, cfg: ArchConfig, batch: dict,
                  lut_tables=None, remat: bool = False, chunk_q: int = 512):
     """Mean next-token cross-entropy of the decoder; vlm drops the patch
     prefix's positions before the head, moe adds ``router_aux_weight *
     aux / n_layers`` (the layers' summed router auxiliary loss).  In a
-    partitioned train step that splits ``lm_head`` the rank's vocab
-    columns give its logits, and the loss is
-    :func:`~repro_torch.nn.sharding.vocab_parallel_cross_entropy`."""
-    tp = current_tp()
-    if tp is not None and lut_tables is not None:
-        raise ValueError("decoder_loss: the partitioned train step takes "
-                         "no LUT tables")
+    partitioned train step the head is :func:`_head_loss`'s."""
+    _no_tp_tables("decoder_loss", lut_tables)
     patches = batch.get("patches")
     with params.unstacked():
         x, _, auxes = _decoder_run(params, cfg, batch["tokens"], patches,
                                    lut_tables, remat=remat, chunk_q=chunk_q)
     if patches is not None:
         x = x[:, patches.shape[1]:]
-    if tp is not None and tp.splits("lm_head"):
-        logits = project_logits(copy_to_tp(x), params.lm_head, cfg)
-        loss = vocab_parallel_cross_entropy(
-            logits, batch["labels"], tp.index * params.lm_head.shape[-1])
-    else:
-        logits = project_logits(x, params.lm_head, cfg, lut_tables)
-        loss = softmax_cross_entropy(logits, batch["labels"])
+    loss = _head_loss(x, params.lm_head, cfg, batch["labels"], lut_tables)
     if cfg.moe:
         aux = torch.sum(torch.stack(auxes))
         loss = loss + cfg.moe.router_aux_weight * aux / cfg.n_layers
@@ -1018,12 +1066,13 @@ def decoder_loss(params: DecoderParams, cfg: ArchConfig, batch: dict,
 def rwkv_loss(params: RWKVParams, cfg: ArchConfig, batch: dict,
               lut_tables=None, remat: bool = False, **_):
     """Mean cross-entropy of RWKV6 (its WKV through K8 and K8b on the
-    card)."""
+    card; in a partitioned train step on the rank's heads, the head
+    :func:`_head_loss`'s)."""
+    _no_tp_tables("rwkv_loss", lut_tables)
     with params.unstacked():
         x, _ = rwkv_forward(params, cfg, batch["tokens"],
                             lut_tables=lut_tables, remat=remat)
-    logits = project_logits(x, params.lm_head, cfg, lut_tables)
-    return softmax_cross_entropy(logits, batch["labels"])
+    return _head_loss(x, params.lm_head, cfg, batch["labels"], lut_tables)
 
 
 def hybrid_loss(params: HybridParams, cfg: ArchConfig, batch: dict,

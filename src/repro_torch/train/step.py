@@ -60,30 +60,35 @@ captured in a CUDA graph); ``step.timings`` holds the last call's
 seconds (host clock, the device synchronized) of the weight gather, the
 forward and backward, the gradient reduction and the update.
 
-With ``tp_mode="partitioned"`` (the dense family) the step is the
-reference's GSPMD train step instead: its ``param_specs`` placements kept
-in the compute over the model axis.  The state and its placements are
-exact mode's (so checkpoints and the elastic re-mesh are the same), and
-each step
+With ``tp_mode="partitioned"`` (the dense, moe, vlm and ssm families;
+hybrid and encdec raise, ROADMAP item 13) the step is the reference's
+GSPMD train step instead: its ``param_specs`` placements kept in the
+compute over the model axis.  The state and its placements are exact
+mode's (so checkpoints and the elastic re-mesh are the same), and each
+step
 
 1. gathers each leaf over the data axes only (the reference's ZeRO-3
    ``"fsdp"`` axis), keeping the model axis's split of the leaves
-   :func:`~repro_torch.nn.transformer.dense_tp_shares` names (the
-   column-parallel ``wq`` / ``wk`` / ``wv`` / ``w_in``, the row-parallel
-   ``wo`` / ``w_out``, the vocab-split ``embed`` and ``lm_head``); a
-   gated ``w_in`` share is exchanged within the model axis into the
+   :func:`~repro_torch.nn.transformer.tp_shares` names (the
+   column-parallel ``wq`` / ``wk`` / ``wv`` / ``w_in`` / ``sh_w_in`` and
+   RWKV6's ``w_r`` / ``w_k`` / ``w_v`` / ``w_g`` / ``w_ffn_k`` /
+   ``w_ffn_r``, the row-parallel ``wo`` / ``w_out`` / ``sh_w_out`` /
+   ``w_o`` / ``w_ffn_v``, the vocab-split ``embed`` and ``lm_head``) and
+   of the moe expert stacks, as exact mode does; a gated ``w_in`` or
+   ``sh_w_in`` share is exchanged within the model axis into the
    compute's ``[gate_i | up_i]`` (one all-to-all of one share's bytes,
    :func:`~repro_torch.nn.sharding.gate_up_exchange`);
 2. runs the rank's rows through the model on those shares
    (:func:`~repro_torch.nn.sharding.use_tp`: the activations' partial
-   sums and gradients all-reduced over the model axis, a vocab-parallel
-   embedding and cross-entropy), its gated ``w_in`` gradient exchanged
-   back to the stored layout;
+   sums and gradients all-reduced over the model axis, RWKV6's WKV on the
+   rank's heads, a vocab-parallel embedding and cross-entropy), its gated
+   gradients exchanged back to the stored layout;
 3. takes the rank-order mean over the data axes, as exact mode does
    (under ``grad_compress`` a split leaf's share against its share of
    the error buffers, its scale the whole leaf's);
 4. forms the global norm from the split leaves' share square sums summed
-   over the model axis, each replicated leaf counted once;
+   over the model axis, the expert stacks' slab terms as exact mode
+   forms them, each replicated leaf counted once;
 5. runs AdamW on the rank's own shares.
 
 No rank holds a whole split leaf or its gradient.  ``tp_mode="exact"``
@@ -107,15 +112,20 @@ from repro_torch.device import resolve_device, synchronize
 from repro_torch.nn.sharding import (
     DP_AXES,
     TP_AXIS,
-    Placement,
     all_reduce,
     each_member,
     gate_up_exchange,
+    gather,
     named_sharding,
     use_mesh,
     use_tp,
 )
-from repro_torch.nn.transformer import dense_tp_shares, loss_fn, params_class
+from repro_torch.nn.transformer import (
+    TP_FAMILIES,
+    loss_fn,
+    params_class,
+    tp_shares,
+)
 from repro_torch.optim import adamw_update
 from repro_torch.optim.adamw import slab_square_sums, square_sum
 
@@ -208,18 +218,20 @@ def make_train_step(cfg: ArchConfig, tcfg: TrainConfig, device=None,
     (:func:`repro_torch.launch.mesh.make_host_mesh`), ``state`` its
     shares and ``batch`` the global batch (module docstring).
     ``tp_mode``: ``"exact"`` (gathered weights) or ``"partitioned"`` (the
-    dense family's tp shares in the compute; without a mesh, or on a
-    model axis of 1, nothing splits and it is the same step); anything
-    else raises, as does ``"partitioned"`` on another family or with
-    ``lut_tables``."""
+    tp shares in the compute, for the families of
+    :data:`~repro_torch.nn.transformer.TP_FAMILIES`; without a mesh, or
+    on a model axis of 1, nothing splits and it is the same step);
+    anything else raises, as does ``"partitioned"`` on another family
+    (naming it) or with ``lut_tables``."""
     if tp_mode not in TP_MODES:
         raise ValueError(f"make_train_step: tp_mode {tp_mode!r}; expected "
                          f"one of {TP_MODES}")
     if tp_mode == "partitioned":
-        if cfg.family != "dense":
+        if cfg.family not in TP_FAMILIES:
             raise ValueError(f"make_train_step: tp_mode 'partitioned' "
-                             f"covers the dense family, not {cfg.family!r} "
-                             f"({cfg.name})")
+                             f"covers the {', '.join(TP_FAMILIES)} "
+                             f"families, not {cfg.family!r} ({cfg.name}; "
+                             f"ROADMAP item 13)")
         if lut_tables is not None:
             raise ValueError("make_train_step: tp_mode 'partitioned' takes "
                              "no LUT tables")
@@ -287,8 +299,7 @@ def _sharded_step(cfg: ArchConfig, tcfg: TrainConfig, dev, mesh, grads_of,
     n_dp = 1
     for a in dp_axes:
         n_dp *= mesh.shape[a]
-    tp = (dense_tp_shares(cfg, pl, mesh) if tp_mode == "partitioned"
-          else None)
+    tp = tp_shares(cfg, pl, mesh) if tp_mode == "partitioned" else None
     split = tp.split if tp is not None else frozenset()
     gate_up = tp.gate_up if tp is not None else frozenset()
     # an expert stack split over the model axis stays split in the compute,
@@ -301,8 +312,12 @@ def _sharded_step(cfg: ArchConfig, tcfg: TrainConfig, dev, mesh, grads_of,
     own = {n: pl[n].only(tuple(a for a in mesh.axis_names if a != TP_AXIS))
            if keep[n] else pl[n] for n in pl}
     # an expert stack's (L, E / tp) slab terms into expert order
-    slabs = {n: Placement(mesh, pl[n].spec[:2]).only(keep[n])
-             for n in pl if keep[n] and _is_expert(n)}
+    # (one gather over the model axis of square sums, never of a leaf)
+    slabs = {n for n in pl if keep[n] and _is_expert(n)}
+
+    def expert_order(sq: torch.Tensor) -> torch.Tensor:
+        return gather(sq, mesh, TP_AXIS, dim=1)
+
     div = torch.tensor(n_dp, dtype=torch.float32, device=dev)
     timings = {}
 
@@ -376,7 +391,7 @@ def _sharded_step(cfg: ArchConfig, tcfg: TrainConfig, dev, mesh, grads_of,
                 errs.append(own[n].local(e))
             elif n_dp > 1:
                 gi = rank_order_mean(gi)
-            sqs.append(_norm_term(n, gi, slabs[n].gather if n in slabs
+            sqs.append(_norm_term(n, gi, expert_order if n in slabs
                                   else None))
             shares.append(own[n].local(gi))
         gnorm = norm(sqs, [n for n, _ in named])

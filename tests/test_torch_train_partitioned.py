@@ -1,19 +1,22 @@
-"""The partitioned tensor-parallel train step (``tp_mode="partitioned"``,
-the dense family) on spawned CPU ranks joined over gloo, held against the
-reference's GSPMD train step, against the port's plain functions and
-against its own exact mode.
+"""The partitioned tensor-parallel train step (``tp_mode="partitioned"``:
+the dense, moe, vlm and ssm families) on spawned CPU ranks joined over
+gloo, held against the reference's GSPMD train step, against the port's
+plain functions and against its own exact mode.
 
 The reference runs once, in a subprocess with 4 forced host devices
 (``tests/torch_mesh_train_reference.py partitioned``, ``Auto`` mesh axes),
 on float32 smoke configs from ``PRNGKey(0)``: qwen3-0.6b (a gated
-``w_in``, whose tp share the step exchanges into ``[gate_i | up_i]``) and
-nemotron-4-15b (relu2, no gate), two steps on 1x2 and 2x2 with and
+``w_in``, whose tp share the step exchanges into ``[gate_i | up_i]``),
+nemotron-4-15b (relu2, no gate), deepseek-moe-16b (routed experts as
+exact mode splits them, shared experts on tp shares), phi-3-vision-4.2b
+(the patch prefix; the reference's seeded patches read from its file) and
+rwkv6-3b (RWKV6 on each rank's heads), two steps on 1x2 and 2x2 with and
 without ``grad_compress``.  Its compressed step raises under this jax on
-qwen3 1x2 and on nemotron (the reference script records the errors);
-there the partitioned compressed step is held to the same bounds against
-the port's exact-mode compressed step on the same mesh, which
-``test_torch_train_sharded.py`` holds against the reference and the
-single-device step.  Bounds against the reference are
+qwen3 and phi-3-vision at 1x2 and on the other three everywhere (the
+reference script records the errors); there the partitioned compressed
+step is held to the same bounds against the port's exact-mode compressed
+step on the same mesh, which ``test_torch_train_sharded.py`` holds
+against the reference and the single-device step.  Bounds against the reference are
 ``test_torch_train_sharded.py``'s: step 1's loss within ``1e-5``, each
 gradient norm within ``1e-4`` relative, every parameter after 2 steps
 within ``2e-3`` (a leaf's mean difference within ``1e-3 * lr``).
@@ -21,7 +24,9 @@ within ``2e-3`` (a leaf's mean difference within ``1e-3 * lr``).
 Each mesh shape (1x2, 2x2, 1x4) starts its ranks once and runs every
 scenario of that shape in them; a test reads its scenario's outcome.
 """
+import contextlib
 import dataclasses
+import math
 import os
 import subprocess
 import sys
@@ -43,7 +48,11 @@ from test_torch_train_sharded import (
 )
 
 ROOT = Path(__file__).resolve().parents[1]
-ARCHS = ("qwen3-0.6b", "nemotron-4-15b")
+ARCHS = ("qwen3-0.6b", "nemotron-4-15b", "deepseek-moe-16b",
+         "phi-3-vision-4.2b", "rwkv6-3b")
+# where the reference's compressed step runs under this jax (elsewhere it
+# raises and the case is held against exact mode, module docstring)
+REF_COMPRESS_RUNS = {("qwen3-0.6b", "2x2"), ("phi-3-vision-4.2b", "2x2")}
 SHAPES = ("1x2", "2x2")
 LR = 1e-3
 
@@ -94,6 +103,38 @@ class _GatherSpy:
         sharding.Placement.gather = self.orig
 
 
+def _part_batches(cfg, ref, n):
+    """``_batches``, vlm's with the reference's patches of each step."""
+    batches = _batches(cfg, n)
+    if cfg.family == "vlm":
+        for i, b in enumerate(batches):
+            b["patches"] = ref[f"patches/{i}"]
+    return batches
+
+
+class _WKVHeads:
+    """Record the head count of every ``ops.wkv`` call (K8 on the card,
+    its plain version here)."""
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+
+        self.orig, self.heads = ops.wkv, []
+        orig, heads = self.orig, self.heads
+
+        def spy(q, *a, **kw):
+            heads.append(q.shape[2])
+            return orig(q, *a, **kw)
+
+        ops.wkv = spy
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ops
+
+        ops.wkv = self.orig
+
+
 def _run(mesh, cfg, tcfg, state, batches, tp_mode):
     from repro_torch.train import make_train_step
 
@@ -120,11 +161,11 @@ def sc_steps(mesh, arch, ref_dir, compress):
         cfg, tcfg, full = _state(arch, ref_dir, grad_compress=compress)
         sh = train_state_shardings(cfg, tcfg, mesh)
         state = shard_train_state(full, cfg, mesh)
-        with _GatherSpy() as spy:
+        with _GatherSpy() as spy, _WKVHeads() as heads:
             state, got, timings = _run(mesh, cfg, tcfg, state,
-                                       _batches(cfg, 2), mode)
+                                       _part_batches(cfg, ref, 2), mode)
         out[mode] = {"metrics": got, "timings": timings,
-                     "whole_gathered": spy.whole,
+                     "whole_gathered": spy.whole, "wkv_heads": heads.heads,
                      "params": _gathered_params(state, sh)}
     if out["ref_error"] is None:
         out["ref"] = {"loss": ref[f"{key}/loss"].tolist(),
@@ -143,8 +184,10 @@ def sc_ops(mesh):
     """The vocab-parallel embedding and cross-entropy against
     ``embed_lookup`` / ``softmax_cross_entropy`` on the whole table and
     logits (values and gradients; the labels and tokens on every rank's
-    first and last vocab entries among them), and the gated ``w_in``
-    exchange against slicing the whole leaf, both ways."""
+    first and last vocab entries among them), the gated ``w_in``
+    exchange against slicing the whole leaf, both ways, and
+    ``gather_from_tp`` against the whole tensor forward and its slice of
+    the gradient backward."""
     from repro_torch.nn.layers import (
         embed_lookup,
         embed_lookup_tp,
@@ -153,6 +196,7 @@ def sc_ops(mesh):
     from repro_torch.nn.sharding import (
         TP_AXIS,
         gate_up_exchange,
+        gather_from_tp,
         use_mesh,
         vocab_parallel_cross_entropy,
     )
@@ -200,7 +244,44 @@ def sc_ops(mesh):
         out["exchange"] = torch.equal(compute, want)
         out["exchange_back"] = torch.equal(
             gate_up_exchange(compute, mesh, inverse=True), stored)
+        whole = torch.from_numpy(rng.normal(size=(2, 5, 3 * n)).astype(
+            np.float32))
+        local = whole[..., 3 * i:3 * (i + 1)].clone().requires_grad_(True)
+        joined = gather_from_tp(local)
+        w = torch.from_numpy(rng.normal(size=(2, 5, 3 * n)).astype(
+            np.float32))
+        (joined * w).sum().backward()
+        out["gather"] = torch.equal(joined, whole)
+        out["gather_grad"] = torch.equal(local.grad,
+                                         w[..., 3 * i:3 * (i + 1)])
     return out
+
+
+def sc_shared_exchange(mesh, ref_dir):
+    """deepseek-moe-16b's ``blocks.sh_w_in``: the rank's share as the
+    partitioned step holds it (gathered over the data axes only, the model
+    axis kept) exchanged into the compute's layout, against ``[gate_i |
+    up_i]`` sliced from the whole leaf; and the leaves the step splits."""
+    from repro_torch.nn.sharding import TP_AXIS, gate_up_exchange
+    from repro_torch.nn.transformer import tp_shares
+    from repro_torch.train import shard_train_state, train_state_shardings
+
+    cfg, tcfg, full = _state("deepseek-moe-16b", ref_dir)
+    pl = train_state_shardings(cfg, tcfg, mesh)["params"]
+    state = shard_train_state(full, cfg, mesh)
+    name = "blocks.sh_w_in"
+    share = dict(state["params"].named_parameters())[name].detach()
+    compute = gate_up_exchange(pl[name].gather(share, keep=(TP_AXIS,)),
+                               mesh)
+    whole = dict(full["params"].named_parameters())[name].detach()
+    n, i = mesh.shape[TP_AXIS], mesh.index(TP_AXIS)
+    f = whole.shape[-1] // 2
+    s = f // n
+    want = torch.cat([whole[..., i * s:(i + 1) * s],
+                      whole[..., f + i * s:f + (i + 1) * s]], dim=-1)
+    tp = tp_shares(cfg, pl, mesh)
+    return {"exchange": torch.equal(compute, want),
+            "split": sorted(tp.split), "gate_up": sorted(tp.gate_up)}
 
 
 def sc_save(mesh, ref_dir, ckpt_dir):
@@ -279,7 +360,9 @@ def _spawn(dp, tp, scenarios):
 def _steps(ref_dir):
     return [(f"steps-{a}-{c}", sc_steps,
              {"arch": a, "ref_dir": ref_dir, "compress": c})
-            for a in ARCHS for c in (False, True)] + [("ops", sc_ops, {})]
+            for a in ARCHS for c in (False, True)] + [
+        ("ops", sc_ops, {}),
+        ("shared", sc_shared_exchange, {"ref_dir": ref_dir})]
 
 
 @pytest.fixture(scope="module")
@@ -294,8 +377,9 @@ def mesh12(ref_dir):
 
 
 @pytest.fixture(scope="module")
-def mesh14(ckpt_dir, mesh22):
+def mesh14(ref_dir, ckpt_dir, mesh22):
     return _spawn(1, 4, [("ops", sc_ops, {}),
+                         ("shared", sc_shared_exchange, {"ref_dir": ref_dir}),
                          ("restore", sc_restore, {"ckpt_dir": ckpt_dir})])
 
 
@@ -334,7 +418,7 @@ def test_partitioned_step_matches_reference(request, shape, arch, compress):
         want = list(zip(out["ref"]["loss"], out["ref"]["grad_norm"]))
         diffs = out["ref"]["param_diffs"]
     else:
-        assert compress and (arch != "qwen3-0.6b" or shape == "1x2"), \
+        assert compress and (arch, shape) not in REF_COMPRESS_RUNS, \
             out["ref_error"]
         want, diffs = out["exact"]["metrics"], out["exact_diffs"]
     assert abs(got[0][0] - want[0][0]) <= 1e-5
@@ -359,17 +443,26 @@ def test_partitioned_step_gathers_no_whole_split_leaf(request, shape, arch,
         "forward_backward_s", "gather_s", "reduce_s", "update_s"]
 
 
+# rwkv6-3b's step-2 gradient norm is held at the reference's bound (1e-4
+# relative): AdamW's first step moves a weight whose gradient is rounding
+# noise by +-lr either way, and there the port's exact mode is itself
+# 4e-5 from the reference's GSPMD step (32.66303 against 32.66437)
+NEAR_EXACT_STEP2_NORM = {"rwkv6-3b": 1e-4}
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 @pytest.mark.parametrize("shape", SHAPES)
 def test_partitioned_step_near_exact_mode(request, shape, arch):
     """The two modes compute the same sums associated otherwise (the
     row-parallel products' partial sums, the vocab-split log-sum-exp):
-    losses and norms within 1e-5 relative, parameters after 2 steps as
+    losses and norms within 1e-5 relative (rwkv6-3b's second norm
+    within ``NEAR_EXACT_STEP2_NORM``), parameters after 2 steps as
     against the reference."""
     out = _outcome(_mesh(request, shape), f"steps-{arch}-False")
-    for (l, g), (wl, wg) in zip(out["partitioned"]["metrics"],
-                                out["exact"]["metrics"]):
-        assert abs(l - wl) <= 1e-5 * wl and abs(g - wg) <= 1e-5 * wg
+    for j, ((l, g), (wl, wg)) in enumerate(zip(out["partitioned"]["metrics"],
+                                               out["exact"]["metrics"])):
+        rtol = NEAR_EXACT_STEP2_NORM.get(arch, 1e-5) if j else 1e-5
+        assert abs(l - wl) <= 1e-5 * wl and abs(g - wg) <= rtol * wg
     for n, (mean, top) in out["exact_diffs"].items():
         assert top <= 2e-3 and mean <= 1e-3 * LR, (n, mean, top)
 
@@ -401,6 +494,50 @@ def test_gate_up_exchange_is_slicing_the_whole_leaf(request, shape):
         assert out["exchange"] and out["exchange_back"], r
 
 
+@pytest.mark.parametrize("shape", ["1x2", "2x2", "1x4"])
+def test_gather_from_tp_is_slicing_the_whole_tensor(request, shape):
+    """On every rank ``gather_from_tp`` of the rank's columns is the whole
+    tensor bit for bit, and its backward the rank's columns of the whole
+    gradient bit for bit."""
+    for r, res in enumerate(_mesh(request, shape)):
+        status, out = res["ops"]
+        assert status == "ok", out
+        assert out["gather"] and out["gather_grad"], r
+
+
+@pytest.mark.parametrize("shape", ["1x2", "2x2", "1x4"])
+def test_shared_expert_exchange_is_slicing_the_whole_leaf(request, shape):
+    """deepseek-moe-16b: every rank's ``sh_w_in`` share as the step holds
+    it, exchanged, is ``[gate_i | up_i]`` of the whole leaf bit for bit;
+    the step splits the shared experts (``sh_w_in`` in the gated layout),
+    the attention and the vocabulary, and leaves the router and the
+    routed expert stacks to exact mode's handling."""
+    for r, res in enumerate(_mesh(request, shape)):
+        status, out = res["shared"]
+        assert status == "ok", out
+        assert out["exchange"], r
+        assert out["gate_up"] == ["blocks.sh_w_in"]
+        assert set(out["split"]) == {
+            "embed", "lm_head", "blocks.wq", "blocks.wo", "blocks.sh_w_in",
+            "blocks.sh_w_out"} | ({"blocks.wk", "blocks.wv"}
+                                  if shape != "1x4" else set())
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_partitioned_rwkv_runs_the_wkv_on_the_ranks_heads(request, shape):
+    """rwkv6-3b: every WKV call of the partitioned steps (``ops.wkv``: K8
+    on the card) takes ``H / tp`` heads, exact mode's ``H``; one call a
+    layer a step."""
+    from test_torch_train_sharded import _cfg as cfg_of
+
+    cfg = cfg_of("rwkv6-3b")
+    heads = cfg.d_model // cfg.rwkv_head_dim
+    out = _outcome(_mesh(request, shape), "steps-rwkv6-3b-False")
+    n = 2 * cfg.n_layers
+    assert out["partitioned"]["wkv_heads"] == [heads // 2] * n
+    assert out["exact"]["wkv_heads"] == [heads] * n
+
+
 # -------------------------------------------------------------------------
 # checkpoints, the launcher, the refusals, the dry run
 # -------------------------------------------------------------------------
@@ -424,19 +561,23 @@ def test_launcher_tp_mode(mesh12):
 
 
 def test_tp_mode_refusals():
-    """A mode but the two raises; so does ``"partitioned"`` on a family
-    other than dense (naming it) or with LUT tables; the launcher refuses
-    another mode with status 2."""
+    """A mode but the two raises; so does ``"partitioned"`` on the hybrid
+    and encdec families (naming them) or with LUT tables, while the moe,
+    vlm and ssm families take it; the launcher refuses another mode with
+    status 2."""
     from repro_torch.launch import train as tl
     from repro_torch.train import TrainConfig, make_train_step
 
     tcfg = TrainConfig(remat=False)
     with pytest.raises(ValueError, match="tp_mode 'bogus'"):
         make_train_step(_cfg("qwen3-0.6b"), tcfg, "cpu", tp_mode="bogus")
-    for arch, family in (("deepseek-moe-16b", "moe"), ("rwkv6-3b", "ssm"),
+    for arch, family in (("recurrentgemma-9b", "hybrid"),
                          ("whisper-small", "encdec")):
         with pytest.raises(ValueError, match=f"not '{family}'"):
             make_train_step(_cfg(arch), tcfg, "cpu", tp_mode="partitioned")
+    for arch in ("deepseek-moe-16b", "phi-3-vision-4.2b", "rwkv6-3b"):
+        assert callable(make_train_step(_cfg(arch), tcfg, "cpu",
+                                        tp_mode="partitioned"))
     with pytest.raises(ValueError, match="no LUT tables"):
         make_train_step(_cfg("qwen3-0.6b"), tcfg, "cpu",
                         lut_tables={"backend": "gather"},
@@ -446,13 +587,41 @@ def test_tp_mode_refusals():
     assert e.value.code == 2
 
 
-def _trace(tp_mode):
+class _Products:
+    """Record every ``mm`` / ``bmm`` the cost counter of a trace sees:
+    ``(op, operand shapes, FLOPs)``."""
+
+    def __enter__(self):
+        from repro_torch.roofline import costs
+
+        self.orig = orig = costs._Counter.__torch_dispatch__
+        calls = self.calls = []
+
+        def spy(mode, func, types, args=(), kwargs=None):
+            out = orig(mode, func, types, args, kwargs)
+            op = str(func._overloadpacket)
+            if op in ("aten.mm", "aten.bmm"):
+                a, b = args[0].shape, args[1].shape
+                calls.append((op, [tuple(a), tuple(b)],
+                              2 * math.prod(a) * b[-1]))
+            return out
+
+        costs._Counter.__torch_dispatch__ = spy
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.roofline import costs
+
+        costs._Counter.__torch_dispatch__ = self.orig
+
+
+def _trace(tp_mode, arch="qwen3-0.6b", products=None):
     from repro_torch.launch.dryrun import fake_group, trace_step
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.train import TrainConfig
 
-    cfg = dataclasses.replace(_cfg("qwen3-0.6b"), dtype="bfloat16")
-    with fake_group(2):
+    cfg = dataclasses.replace(_cfg(arch), dtype="bfloat16")
+    with fake_group(2), (products or contextlib.nullcontext()):
         tr = trace_step(cfg, "train", 4, 16, mesh=make_host_mesh(1, 2),
                         tcfg=TrainConfig(remat=False), tp_mode=tp_mode)
     return tr["costs"]
@@ -482,3 +651,46 @@ def test_dryrun_partitioned_rank_halves_the_products():
     skipped = dryrun_cell("qwen3-0.6b", "decode_32k", False, quiet=True,
                           tp_mode="partitioned")
     assert skipped["status"] == "skipped"
+
+
+def test_dryrun_partitioned_rwkv_halves_the_split_products():
+    """rwkv6-3b, one 1x2 rank's step traced on the meta device: the
+    products of the split weights (``w_r`` / ``w_k`` / ``w_v`` / ``w_g`` /
+    ``w_o``, ``w_ffn_k`` / ``w_ffn_v`` / ``w_ffn_r``, the rank's columns of
+    ``decay_b``, ``lm_head``; each a forward and two backward ``mm``)
+    count half an exact rank's FLOPs and every other product the same;
+    the WKV kernel points launch as often."""
+    from test_torch_train_sharded import _cfg as cfg_of
+
+    cfg = cfg_of("rwkv6-3b")
+    d, ff, bt = cfg.d_model, cfg.d_ff, 4 * 16
+    weights = cfg.n_layers * (6 * d * d + 2 * d * ff + 64 * d) \
+        + d * cfg.vocab_size
+    split_flops = 3 * 2 * bt * weights
+    exact, part = _trace("exact", "rwkv6-3b"), _trace("partitioned",
+                                                       "rwkv6-3b")
+    assert exact.per_comp_flops["aten.mm"] - part.per_comp_flops[
+        "aten.mm"] == split_flops // 2
+    assert part.launches == exact.launches and part.launches
+    assert "all-gather" in part.per_op_coll      # the gate's columns
+
+
+def test_dryrun_partitioned_moe_keeps_the_expert_products():
+    """deepseek-moe-16b, one 1x2 rank's step traced on the meta device:
+    the expert products (the ``bmm`` over the rank's experts' capacity
+    slots) are an exact rank's, call for call; the rank's other products
+    count fewer FLOPs (attention, shared experts and head split)."""
+    from repro_torch.nn.moe import moe_capacity
+    from test_torch_train_sharded import _cfg as cfg_of
+
+    cap = moe_capacity(4 * 16, cfg_of("deepseek-moe-16b").moe)
+    runs = {}
+    for mode in ("exact", "partitioned"):
+        with _Products() as rec:
+            _trace(mode, "deepseek-moe-16b", products=rec)
+        experts = sorted(c for c in rec.calls if c[0] == "aten.bmm"
+                         and any(cap in sh for sh in c[1]))
+        runs[mode] = (experts, sum(c[2] for c in rec.calls
+                                   if c not in experts))
+    assert runs["exact"][0] and runs["partitioned"][0] == runs["exact"][0]
+    assert runs["partitioned"][1] < runs["exact"][1]

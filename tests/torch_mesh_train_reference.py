@@ -31,10 +31,13 @@ queue C).  It writes to ``OUT_DIR``:
 
 With ``partitioned`` after ``OUT_DIR`` it writes only what
 ``test_torch_train_partitioned.py`` reads: ``part_{arch}.npz`` for the
-dense smoke configs qwen3-0.6b (gated ``w_in``) and nemotron-4-15b (relu2,
-no gate), the initial parameters and, on 1x2 and 2x2, two steps without
-(``DxT/...``) and with ``grad_compress`` (``c/DxT/...``): the losses,
-norms and parameters after.  The reference's train step is partitioned
+smoke configs of qwen3-0.6b (dense, gated ``w_in``), nemotron-4-15b
+(dense, relu2, no gate), deepseek-moe-16b (routed and shared experts),
+phi-3-vision-4.2b (the patch prefix; its batches carry seeded float32
+``patches`` of ``input_batch_specs``' shape, stored as ``patches/<step>``
+for the port to read) and rwkv6-3b, the initial parameters and, on 1x2
+and 2x2, two steps without (``DxT/...``) and with ``grad_compress``
+(``c/DxT/...``): the losses, norms and parameters after.  The reference's train step is partitioned
 there: ``param_specs`` place the weights over ``"tp"`` and XLA's GSPMD
 divides each product by the model axis.  Under this jax its compressed
 step raises on qwen3-0.6b at 1x2 (an XLA ``RET_CHECK``: a cross-partition
@@ -100,9 +103,21 @@ def flat(tree, prefix=""):
     return out
 
 
+def patches_at(cfg, i):
+    """vlm's float32 patches for step ``i``: ``input_batch_specs``' shape,
+    from a numpy seed (None for another family)."""
+    if cfg.family != "vlm":
+        return None
+    return np.random.default_rng(1000 + i).normal(
+        size=(BATCH, cfg.n_patches, cfg.d_model)).astype(np.float32)
+
+
 def batch_at(cfg, i):
     stream = TokenStream(cfg.vocab_size, SEQ, BATCH, seed=0)
-    return {k: jnp.asarray(v) for k, v in stream.batch_at(i).items()}
+    b = stream.batch_at(i)
+    if cfg.family == "vlm":
+        b["patches"] = patches_at(cfg, i)
+    return {k: jnp.asarray(v) for k, v in b.items()}
 
 
 def steps(cfg, tcfg, mesh, n, at=2, keep=None):
@@ -221,7 +236,8 @@ def write_dp_mean(out_dir):
     np.savez(os.path.join(out_dir, "dp_mean.npz"), **rec)
 
 
-PART_ARCHS = ("qwen3-0.6b", "nemotron-4-15b")
+PART_ARCHS = ("qwen3-0.6b", "nemotron-4-15b", "deepseek-moe-16b",
+              "phi-3-vision-4.2b", "rwkv6-3b")
 PART_SHAPES = ((1, 2), (2, 2))
 
 
@@ -231,6 +247,8 @@ def write_partitioned(out_dir):
         rec = {f"p/{k}": np.asarray(v) for k, v in flat(
             init_train_state(cfg, TrainConfig(remat=False))["params"]
         ).items()}
+        if cfg.family == "vlm":
+            rec.update({f"patches/{i}": patches_at(cfg, i) for i in (0, 1)})
         for dp, tp in PART_SHAPES:
             for pre, compress in (("", False), ("c/", True)):
                 key = f"{pre}{dp}x{tp}"
