@@ -319,7 +319,10 @@ Phases (any failure exits non-zero; nothing is caught):
      (c) the batcher on 2x2 with phase 13's 8 requests through 4 slots
      (replay prefill, form (a)'s tables from the frozen plans): outputs
      equal the single-device batcher's on every rank, and each rank's
-     first 8 served K1 calls bit for bit the plain version; (d) (a)'s
+     first 8 served K1 calls bit for bit the plain version (its four
+     ranks, host-bound, run in a thread beside (a), (d) and (b) and are
+     checked after them; phase 23's references run while they finish);
+     (d) (a)'s
      first run with ``--obs-log obs/mesh.jsonl``: ``mesh_serving``, a
      ``table_placement`` a site and the ``drift`` rows, whose counts,
      summed over the ranks, equal the single-device runs' on the same
@@ -328,7 +331,8 @@ Phases (any failure exits non-zero; nothing is caught):
      ``launch/train``'s functions (``setup(args, mesh=...)``, ``run``) on
      ranks that share ``cuda:0`` over gloo, bf16, random weights from seed
      0, each part held bit for bit against its single-device counterpart
-     (run first, under PyTorch's default matmul settings, the ranks' own;
+     (run in phase 22 while (c)'s ranks finish, under PyTorch's default
+     matmul settings, the ranks' own;
      every rank's shares held against the single-device state cut to that
      mesh by ``bits_hash``, a 128-bit position-weighted sum of the bits
      computed on the card, so no state is gathered or moved to compare it):
@@ -372,8 +376,22 @@ Phases (any failure exits non-zero; nothing is caught):
      exact mode's and each norm within 1e-2 relative, no whole tp-split
      leaf gathered, rwkv6's first 2 K8 and 2 K8b calls of the partitioned
      steps held against their plain versions on 20 heads, the split
-     leaves printed; (c) on one device and (f), (h), (i) on 1x2 run in
-     threads beside the 2x1 ranks.
+     leaves printed; (j) the hybrid and encdec families partitioned on
+     1x2, float32, 2 x 32, 2 steps: whisper-small at its 12 + 12 layers
+     (after its 1500 stub frames) on the same ranks after (i), held
+     against its 2 exact steps as (i) is; recurrentgemma-9b at one (rec,
+     rec, attn) group and its tail layer (``P23_TPJ_RG``: 4 layers) on
+     1x2 ranks of its own, held against the one-device float32 run (exact
+     mode's two ranks do not fit the card: ``P23_TPJ``), the RG-LRU on
+     each rank's 2048 of 4096 channels, its one KV head's ``wk`` / ``wv``
+     the only leaves gathered whole (once a step).  The rank work that
+     needs nothing of the phases between runs earlier in a thread
+     (``P23Ranks``): (j)'s recurrentgemma-9b ranks, then (a) + (b)'s 2x2
+     ranks beside phase 19 (phase 20 waits for them: it times its runs),
+     (d) + (e)'s 2x1 ranks beside phase 22 until (b); here (c) on one
+     device and (f), (h), (i) and (j)'s whisper-small on 1x2 run in
+     threads beside (c) and (f) on 2x1, then (j)'s one-device run; every
+     check in the order above.
   24. the dry run (``repro_torch.launch.dryrun.trace_step``: the port's
      own step traced on ``meta`` tensors, the kernels' abstract
      route, the roofline's cost counter and ``MemTracker``) against the
@@ -461,8 +479,16 @@ Phases (any failure exits non-zero; nothing is caught):
      1x4 with ``--tp-mode partitioned``, ``--remat``, 4 x 64 after its
      256 patches, 2 steps: the first loss within 1e-2 of a single-device
      forward's (its own process on ``cuda:0``), each rank's peak beside
-     the dry run's partitioned trace.
-The last lines are the kernel JSON, the card's name and power limit, and
+     the dry run's partitioned trace; (m) recurrentgemma-9b at its 38 of
+     38 layers (``P25_TP_RG``) on 1x4, ``--remat``, 4 x 64, 2 steps
+     partitioned (its bf16 training state, about 84 GB whole, fits no one
+     card): the first loss within 1e-2 of a single-device forward's (its
+     own process), its one KV head's ``wk`` / ``wv`` the only leaves
+     gathered whole, each rank's peak within 3% of the dry run's
+     partitioned trace and under ``P25_TP_NEM_LIMIT``.
+Before ``done in``, one line (``phases (start, seconds)``) logs each
+phase's start and seconds, also kept under ``"phases"`` in
+``chip_smoke.json``.  The last lines are the kernel JSON, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``; with ``--cards 4`` the first is phase
 25's summary and ``count`` is 4; the kernels' launches include phases
 19's-24's (phases 22's and 23's summed over their ranks).  Long logs go to the
@@ -5262,12 +5288,15 @@ def p22_moe_rank(mesh, tuned_path):
             "launches": launch_counts()}
 
 
-def run_phase22(dev, stamp, parts=("a", "c", "b")) -> dict:
+def run_phase22(dev, stamp, parts=("a", "c", "b"), before_b=None,
+                tail=None) -> dict:
     """Phase 22 (module docstring): sharded serving through
     ``repro_torch.launch.serve --mesh`` and the batcher, on ranks that
     share ``cuda:0`` over gloo: ``parts`` of (a) with (d), (c) and (b).
-    Returns the numbers for ``chip_smoke.json`` and the ranks' launches,
-    summed."""
+    ``before_b()`` is called before (b) takes its share of the card, and
+    ``tail()`` while (c)'s ranks finish (phase 23's references), its
+    result returned under ``"tail"``.  Returns the numbers for
+    ``chip_smoke.json`` and the ranks' launches, summed."""
     import numpy as np
     import torch
 
@@ -5322,6 +5351,27 @@ def run_phase22(dev, stamp, parts=("a", "c", "b")) -> dict:
                             tuned_plan_from_serving(cfg, plans))
     log(f"[22] {stamp()} single-device references: qwen3-0.6b "
         f"{full_bytes} parameter bytes, tables {checksum[:16]}")
+
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    if "c" in parts:
+        # ---- (c): the batcher on 2x2 with phase 13's requests; its four
+        # ranks (host-bound: a weight gather a tick over gloo; a few GB of
+        # the card each) run in a thread beside (a), (d) and (b) and are
+        # checked after them
+        prng = np.random.default_rng(13)
+        prompts = [[int(t) for t in prng.integers(1, cfg.vocab_size, int(n))]
+                   for n in prng.integers(T // 4, T + 1, BATCHER_REQUESTS)]
+        with torch_matmul_defaults():
+            want_outs, b1, secs1 = batcher_run(cfg, params, tabs["stacked"],
+                                               prompts, prefill="replay")
+        del b1
+
+        def ranks_c():
+            t = time.perf_counter()
+            return (run_ranks(p22_batcher_rank, (tuned, prompts), dp=2,
+                              tp=2), time.perf_counter() - t)
+
+        fut_c = pool.submit(ranks_c)
 
     if "a" in parts:
         # ---- (a) + (d): qwen3-0.6b on 2x2 through the launcher, then the
@@ -5422,42 +5472,15 @@ def run_phase22(dev, stamp, parts=("a", "c", "b")) -> dict:
             f"summed counts equal the single-device runs' "
             f"({out['d']['hits']} hits of {out['d']['lookups']} lookups)")
 
-    if "c" in parts:
-        # ---- (c): the batcher on 2x2 with phase 13's requests ------------
-        prng = np.random.default_rng(13)
-        prompts = [[int(t) for t in prng.integers(1, cfg.vocab_size, int(n))]
-                   for n in prng.integers(T // 4, T + 1, BATCHER_REQUESTS)]
-        with torch_matmul_defaults():
-            want_outs, b1, secs1 = batcher_run(cfg, params, tabs["stacked"],
-                                               prompts, prefill="replay")
-        ranks = run_ranks(p22_batcher_rank, (tuned, prompts), dp=2, tp=2)
-        for r in ranks:
-            if r["outs"] != want_outs:
-                raise AssertionError(f"[22] (c) rank {r['rank']}'s batcher "
-                                     f"outputs differ from the single-device "
-                                     f"batcher's")
-            if r["metrics"]["dropped"] or r["launches"]["lut_act_stacked"] == 0:
-                raise AssertionError(f"[22] (c) rank {r['rank']}: {r['metrics']}"
-                                     f", launches {r['launches']}")
-            add_launches(r["launches"])
-        out["c"] = {"seconds": [r["seconds"] for r in ranks],
-                    "single_seconds": secs1,
-                    "ticks": ranks[0]["metrics"]["ticks"],
-                    "K1": [r["launches"]["lut_act_stacked"] for r in ranks],
-                    "held": [r["held"] for r in ranks]}
-        log(f"[22] {stamp()} (c) the batcher on 2x2 (replay prefill, 8 requests "
-            f"of {[len(p) for p in prompts]} tokens, 4 slots): outputs equal "
-            f"the single-device batcher's on every rank; "
-            f"{ranks[0]['metrics']['ticks']} ticks in "
-            f"{max(r['seconds'] for r in ranks):.1f}s (one device "
-            f"{secs1:.1f}s); K1 launches {out['c']['K1']}; each rank's first "
-            f"{P22_SAMPLE} served K1 calls bit for bit the plain version")
-        del params, tabs, plans, b1
-        gc.collect()
-        torch.cuda.empty_cache()
+    del params, tabs, plans
+    gc.collect()
+    torch.cuda.empty_cache()
+    if before_b is not None:
+        before_b()
 
     if "b" in parts:
         # ---- (b): deepseek-moe-16b on 1x2 (expert parallel) --------------
+        t_b = time.perf_counter()
         with torch_matmul_defaults():
             args_m = launcher.parse_args(["--arch", "deepseek-moe-16b",
                                           *P22_COMMON, "--calib-steps", "2"])
@@ -5497,7 +5520,8 @@ def run_phase22(dev, stamp, parts=("a", "c", "b")) -> dict:
                     "ranks": {r["rank"]: {k: r[k] for k in (
                         "expert_bytes", "param_bytes", "memory_at_rest",
                         "memory_peak", "drops", "seconds")} for r in ranks},
-                    "drops_one_device": drops_one}
+                    "drops_one_device": drops_one,
+                    "seconds_b": time.perf_counter() - t_b}
         log(f"[22] {stamp()} (b) deepseek-moe-16b on 1x2: tokens and logits "
             f"bit for bit the single-device run's; dropped at prefill "
             f"{[r['drops'] for r in ranks]} (one device {drops_one}); per rank "
@@ -5507,8 +5531,37 @@ def run_phase22(dev, stamp, parts=("a", "c", "b")) -> dict:
                         f"{r['memory_peak']} B, K1 "
                         f"{r['launches']['lut_act_stacked']}, gather "
                         f"{r['gather_s']:.2f}s, {NEW} steps "
-                        f"{r['seconds']:.1f}s" for r in ranks))
-    return {"out": out, "launches": launches}
+                        f"{r['seconds']:.1f}s" for r in ranks)
+            + f"; (b) in {out['b']['seconds_b']:.1f}s")
+
+    tail_out = tail() if tail is not None else None
+    if "c" in parts:
+        ranks, wall_c = fut_c.result()
+        for r in ranks:
+            if r["outs"] != want_outs:
+                raise AssertionError(f"[22] (c) rank {r['rank']}'s batcher "
+                                     f"outputs differ from the single-device "
+                                     f"batcher's")
+            if r["metrics"]["dropped"] or r["launches"]["lut_act_stacked"] == 0:
+                raise AssertionError(f"[22] (c) rank {r['rank']}: {r['metrics']}"
+                                     f", launches {r['launches']}")
+            add_launches(r["launches"])
+        out["c"] = {"seconds": [r["seconds"] for r in ranks],
+                    "single_seconds": secs1,
+                    "ticks": ranks[0]["metrics"]["ticks"],
+                    "K1": [r["launches"]["lut_act_stacked"] for r in ranks],
+                    "held": [r["held"] for r in ranks]}
+        log(f"[22] {stamp()} (c) the batcher on 2x2 (replay prefill, 8 requests "
+            f"of {[len(p) for p in prompts]} tokens, 4 slots): outputs equal "
+            f"the single-device batcher's on every rank; "
+            f"{ranks[0]['metrics']['ticks']} ticks in "
+            f"{max(r['seconds'] for r in ranks):.1f}s (one device "
+            f"{secs1:.1f}s); K1 launches {out['c']['K1']}; each rank's first "
+            f"{P22_SAMPLE} served K1 calls bit for bit the plain version; "
+            f"the ranks {wall_c:.1f}s beside (a), (d) and (b)")
+        out["c"]["wall_s"] = wall_c
+    pool.shutdown()
+    return {"out": out, "launches": launches, "tail": tail_out}
 
 
 
@@ -5561,11 +5614,38 @@ P23_TPF = ("deepseek-moe-16b", "phi-3-vision-4.2b", "rwkv6-3b")
 P23_TPF_DEPTH = 2
 
 
-def p23_tpf_cfg(arch):
+def p23_tpf_cfg(arch, depth=P23_TPF_DEPTH):
+    """``arch`` at ``depth`` layers (``None``: its own), in
+    ``P23_TP_DTYPE``."""
     from repro_torch.configs import get_config
 
-    return dataclasses.replace(get_config(arch), n_layers=P23_TPF_DEPTH,
+    cfg = get_config(arch)
+    return dataclasses.replace(cfg, n_layers=depth or cfg.n_layers,
                                dtype=P23_TP_DTYPE)
+
+
+# (j): the hybrid and encdec families partitioned on 1x2 at their
+# published widths, float32 for (h)'s reason, (h)'s 2 x 32 tokens.
+# whisper-small (P23_TPJ) at its 12 + 12 layers, after its 1500 stub
+# frames, runs on (h) / (i)'s ranks after (i), 2 steps partitioned then 2
+# exact, held together as (i)'s.  recurrentgemma-9b at one (rec, rec,
+# attn) group and its tail layer (P23_TPJ_RG) is held against the
+# one-device float32 run instead: by the dry run (launch/dryrun's
+# trace_step, a fake 2-rank group) a partitioned 1x2 rank peaks at 26.8
+# GB, an exact one at 46.0 and one device at 52.0, so exact mode's two
+# ranks do not fit the card and neither the partitioned pair nor the
+# one-device run fits beside the 2x1 ranks (2 x 15.4 GB at their peak):
+# its ranks run first in P23Ranks (beside phase 19, work of a few GB),
+# its one-device run after phase 23's threads join
+P23_TPJ = ("whisper-small",)
+P23_TPJ_RG = (4, ["--arch", "recurrentgemma-9b", "--full", "--batch", "2",
+                  "--seq", "32", "--steps", "2", "--device", "cuda"])
+
+
+def p23_tpj_rg():
+    """(config, argv) of (j)'s recurrentgemma-9b, in ``P23_TP_DTYPE``."""
+    cfg, argv = p23_cut(P23_TPJ_RG)
+    return dataclasses.replace(cfg, dtype=P23_TP_DTYPE), argv
 # (b): the leaves whose step-1 mean gradient is recounted on the host
 P23_RECOUNT = ("final_norm", "blocks.ln1", "blocks.wk")
 P23_SAMPLE = 2   # K8 / K8b calls a rank holds against their plain versions
@@ -5845,13 +5925,9 @@ def p23_wkv_held(recs, label="(e)") -> dict:
     return out
 
 
-def p23_mesh21_rank(mesh, ckpt_dir, sup_dir):
-    """(c), (d), (e) and (f) at 2x1 on one rank of the 2x1 mesh."""
-    import torch
-
-    from repro_torch.kernels import launch_counts, reset_launch_counts
-    from repro_torch.launch import train as tl
-    from repro_torch.train import Supervisor, restore_checkpoint
+def p23_mesh21_rank(mesh, ckpt_dir):
+    """(c) and (f) at 2x1 on one rank of the 2x1 mesh."""
+    from repro_torch.train import restore_checkpoint
 
     out = {"rank": mesh.rank}
     # (c): (a)'s step-2 checkpoint onto 2x1, then step 3
@@ -5867,6 +5943,21 @@ def p23_mesh21_rank(mesh, ckpt_dir, sup_dir):
     del s
     p23_free(mesh)
 
+    # (f) at 2x1
+    out["f"] = p23_moe(mesh, ["--dp", "2"])
+    return out
+
+
+def p23_mesh21_de_rank(mesh, sup_dir):
+    """(d) and (e) on one rank of the 2x1 mesh (they need no checkpoint of
+    (a), so they run before it is written: :class:`P23Ranks`)."""
+    import torch
+
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import train as tl
+    from repro_torch.train import Supervisor
+
+    out = {"rank": mesh.rank}
     # (d): the supervised run with rank 1 failing once
     cfg, argv = p23_cut(P23_SUP)
     argv = argv + ["--dp", "2"]
@@ -5910,9 +6001,6 @@ def p23_mesh21_rank(mesh, ckpt_dir, sup_dir):
     out["e"] = e
     del s, recs
     p23_free(mesh)
-
-    # (f) at 2x1
-    out["f"] = p23_moe(mesh, ["--dp", "2"])
     return out
 
 
@@ -5977,28 +6065,46 @@ def p23_tp(mesh) -> dict:
     return out
 
 
-def p23_tp_families(mesh) -> dict:
-    """(i) on one rank of 1x2: each of ``P23_TPF`` partitioned, then
-    exact, 2 steps each, every gather of the steps spied; rwkv6's first
-    K8 / K8b calls of the partitioned steps sampled (the rank's heads);
-    the rank's K8 / K8b launches."""
+def tp_fallback(s, mesh) -> list:
+    """The leaves of ``setup(...)``'s model that rest split over the model
+    axis but that a partitioned step takes whole into the compute (the
+    reference's divisibility fallback: recurrentgemma-9b's one KV head,
+    ``wk`` / ``wv``); such a leaf is gathered whole once a step, so a
+    spied step's whole gathers count them and nothing else."""
+    from repro_torch.nn.sharding import TP_AXIS
+    from repro_torch.nn.transformer import tp_shares
+    from repro_torch.train.step import _is_expert
+
+    pl = s["shardings"]["params"]
+    split = tp_shares(s["cfg"], pl, mesh).split
+    return [n for n, p in pl.items() if not p.only((TP_AXIS,)).replicated
+            and n not in split and not _is_expert(n)]
+
+
+def p23_tp_families(mesh, archs=P23_TPF, depth=P23_TPF_DEPTH) -> dict:
+    """(i) on one rank of 1x2 (and (j)'s ``P23_TPJ`` at their own depth):
+    each of ``archs`` partitioned, then exact, 2 steps each, every gather
+    of the steps spied; rwkv6's first K8 / K8b calls of the partitioned
+    steps sampled (the rank's heads); the K8 / K8b launches of these
+    steps (the rank's counts since the call)."""
     import torch
 
     from repro_torch.kernels import launch_counts
     from repro_torch.nn.transformer import tp_shares
 
-    out = {}
-    for arch in P23_TPF:
+    out, before = {}, launch_counts()
+    for arch in archs:
         t0 = time.perf_counter()
         rec = {}
         argv = ["--arch", arch, "--full", "--batch", "2", "--seq", "32",
                 "--steps", "2", "--device", "cuda", "--tp", "2"]
         for mode in ("partitioned", "exact"):
             s, x = p23_rank_setup(argv + ["--tp-mode", mode], mesh,
-                                  p23_tpf_cfg(arch))
+                                  p23_tpf_cfg(arch, depth))
             if mode == "partitioned":
                 x["split_leaves"] = sorted(tp_shares(
                     s["cfg"], s["shardings"]["params"], mesh).split)
+                x["fallback"] = tp_fallback(s, mesh)
             sample = arch == "rwkv6-3b" and mode == "partitioned"
             recs, restore = p23_wkv_spy() if sample else (None, None)
             try:
@@ -6016,13 +6122,15 @@ def p23_tp_families(mesh) -> dict:
             p23_free(mesh)
         rec["seconds"] = time.perf_counter() - t0
         out[arch] = rec
-    out["launches"] = {k: v for k, v in launch_counts().items()
-                       if k.startswith("wkv") and v}
+    out["launches"] = {k: v - before.get(k, 0)
+                       for k, v in launch_counts().items()
+                       if k.startswith("wkv") and v > before.get(k, 0)}
     return out
 
 
 def p23_mesh12_rank(mesh):
-    """(f), (h) and (i) at 1x2 on one rank of the 1x2 mesh."""
+    """(f), (h), (i) and (j)'s whisper-small at 1x2 on one rank of the
+    1x2 mesh."""
     f = p23_moe(mesh, ["--tp", "2"])
     t0 = time.perf_counter()
     h = p23_tp(mesh)
@@ -6030,7 +6138,46 @@ def p23_mesh12_rank(mesh):
     t0 = time.perf_counter()
     i = p23_tp_families(mesh)
     i["seconds_i"] = time.perf_counter() - t0
-    return {"rank": mesh.rank, "f": f, "h": h, "i": i}
+    t0 = time.perf_counter()
+    j = p23_tp_families(mesh, P23_TPJ, None)
+    j["seconds_j"] = time.perf_counter() - t0
+    return {"rank": mesh.rank, "f": f, "h": h, "i": i, "j": j}
+
+
+def p23_tp_rg_rank(mesh) -> dict:
+    """(j)'s recurrentgemma-9b on one rank of 1x2: partitioned, 2 steps,
+    every gather spied, the RG-LRU scans' channel counts recorded."""
+    import torch
+
+    from repro_torch.nn import rglru
+    from repro_torch.nn.transformer import tp_shares
+
+    t0 = time.perf_counter()
+    cfg, argv = p23_tpj_rg()
+    s, x = p23_rank_setup(argv + ["--tp", "2", "--tp-mode", "partitioned"],
+                          mesh, cfg)
+    x["split_leaves"] = sorted(tp_shares(s["cfg"], s["shardings"]["params"],
+                                         mesh).split)
+    x["fallback"] = tp_fallback(s, mesh)
+    orig, channels = rglru._lru_scan, set()
+
+    def spy(log_a, b):
+        channels.add(b.shape[-1])
+        return orig(log_a, b)
+
+    rglru._lru_scan = spy
+    try:
+        with WholeGatherSpy() as gathers:
+            x.update(p23_steps(s, 0, 2))
+    finally:
+        rglru._lru_scan = orig
+    x["whole_gathered"] = len(gathers.whole)
+    x["scan_channels"] = sorted(channels)
+    x["peak"] = torch.cuda.max_memory_allocated(mesh.device)
+    x["seconds_rank"] = time.perf_counter() - t0
+    del s
+    p23_free(mesh)
+    return x
 
 
 def p23_split(splits) -> str:
@@ -6088,17 +6235,18 @@ def p23_tp_held(ranks12, ref_h, ref_s, stamp) -> dict:
     return out
 
 
-def p23_tpf_held(ranks12, stamp) -> dict:
-    """(i)'s checks on the 1x2 ranks' records: each family's partitioned
-    losses and norms within ``P23_TP_RTOL`` of its exact steps on the same
-    ranks, no whole tp-split leaf gathered, rwkv6's sampled K8 / K8b calls
-    held (:func:`p23_wkv_held`) on the rank's ``H / 2`` heads; its
-    numbers."""
+def p23_tpf_held(ranks12, stamp, key="i", archs=P23_TPF) -> dict:
+    """(i)'s checks on the 1x2 ranks' records (``key`` ``"j"``: (j)'s
+    ``P23_TPJ``): each family's partitioned losses and norms within
+    ``P23_TP_RTOL`` of its exact steps on the same ranks, no whole
+    tp-split leaf gathered (a fallback leaf, :func:`tp_fallback`, once a
+    step), rwkv6's sampled K8 / K8b calls held (:func:`p23_wkv_held`) on
+    the rank's ``H / 2`` heads; its numbers."""
     from repro_torch.configs import get_config
 
     out = {}
-    for arch in P23_TPF:
-        recs = [r["i"][arch] for r in ranks12]
+    for arch in archs:
+        recs = [r[key][arch] for r in ranks12]
         for i, x in enumerate(recs):
             part, exact = x["partitioned"], x["exact"]
             for j, ((l, g), (wl, wg)) in enumerate(zip(part["metrics"],
@@ -6106,21 +6254,24 @@ def p23_tpf_held(ranks12, stamp) -> dict:
                 if abs(l - wl) > P23_TP_RTOL or \
                         abs(g - wg) > P23_TP_RTOL * wg:
                     raise AssertionError(
-                        f"[23] (i) {arch} rank {i} step {j}: partitioned "
-                        f"loss / norm {l!r} / {g!r} against exact mode's "
-                        f"{wl!r} / {wg!r} (bounds {P23_TP_RTOL}, "
-                        f"{P23_TP_RTOL} relative)")
-            if part["whole_gathered"] or not exact["whole_gathered"]:
+                        f"[23] ({key}) {arch} rank {i} step {j}: "
+                        f"partitioned loss / norm {l!r} / {g!r} against "
+                        f"exact mode's {wl!r} / {wg!r} (bounds "
+                        f"{P23_TP_RTOL}, {P23_TP_RTOL} relative)")
+            fallback = 2 * len(part["fallback"])
+            if part["whole_gathered"] != fallback or \
+                    not exact["whole_gathered"]:
                 raise AssertionError(
-                    f"[23] (i) {arch} rank {i}: the partitioned steps "
+                    f"[23] ({key}) {arch} rank {i}: the partitioned steps "
                     f"gathered {part['whole_gathered']} whole tp-split "
-                    f"leaves, exact mode's {exact['whole_gathered']}")
+                    f"leaves (fallback {part['fallback']}), exact mode's "
+                    f"{exact['whole_gathered']}")
             if arch == "rwkv6-3b":
                 cfg = get_config(arch)
                 want = cfg.d_model // cfg.rwkv_head_dim // 2
                 heads = part["held"]["heads"]
                 if any(h != want for k in heads for h in heads[k]):
-                    raise AssertionError(f"[23] (i) rwkv6-3b rank {i}: "
+                    raise AssertionError(f"[23] ({key}) rwkv6-3b rank {i}: "
                                          f"sampled heads {heads}, not "
                                          f"{want}")
         out[arch] = {"metrics": recs[0]["partitioned"]["metrics"],
@@ -6133,11 +6284,14 @@ def p23_tpf_held(ranks12, stamp) -> dict:
         if arch == "rwkv6-3b":
             out[arch]["held"] = [x["partitioned"]["held"] for x in recs]
         x0 = recs[0]
-        log(f"[23] {stamp()} (i) {arch} ({P23_TPF_DEPTH} layers, "
-            f"{P23_TP_DTYPE}, 2 x 32) on 1x2 with --tp-mode partitioned: "
-            f"losses / norms {out[arch]['metrics']} within {P23_TP_RTOL} of "
-            f"exact mode's {out[arch]['exact_metrics']} on the same ranks; "
-            f"no whole tp-split leaf gathered; split "
+        depth = p23_tpf_cfg(arch, P23_TPF_DEPTH if key == "i" else None)
+        log(f"[23] {stamp()} ({key}) {arch} ({depth.n_layers}"
+            + (f" + {depth.n_encoder_layers}" if depth.n_encoder_layers
+               else "")
+            + f" layers, {P23_TP_DTYPE}, 2 x 32) on 1x2 with --tp-mode "
+            f"partitioned: losses / norms {out[arch]['metrics']} within "
+            f"{P23_TP_RTOL} of exact mode's {out[arch]['exact_metrics']} on "
+            f"the same ranks; no whole tp-split leaf gathered; split "
             f"{len(out[arch]['split_leaves'])} leaves "
             f"{out[arch]['split_leaves']}"
             + (f"; sampled K8 / K8b calls on every rank held against their "
@@ -6151,22 +6305,163 @@ def p23_tpf_held(ranks12, stamp) -> dict:
                 f"{[round(v, 2) for v in x['exact']['seconds']]} s; "
                 f"{x['seconds']:.1f}s" for i, x in enumerate(recs))
             + f"; r0 state {x0['partitioned']['state_bytes']} B")
-    out["seconds_i"] = [r["i"]["seconds_i"] for r in ranks12]
-    out["launches"] = [r["i"]["launches"] for r in ranks12]
-    log(f"[23] {stamp()} (i) {', '.join(P23_TPF)} in "
-        + ", ".join(f"{v:.1f}s" for v in out["seconds_i"])
+    out[f"seconds_{key}"] = [r[key][f"seconds_{key}"] for r in ranks12]
+    out["launches"] = [r[key]["launches"] for r in ranks12]
+    log(f"[23] {stamp()} ({key}) {', '.join(archs)} in "
+        + ", ".join(f"{v:.1f}s" for v in out[f"seconds_{key}"])
         + f" on the 1x2 ranks; their K8 / K8b launches {out['launches']}")
     return out
 
 
-def run_phase23(dev, stamp) -> dict:
+def p23_tp_rg_held(ranks, ref, stamp) -> dict:
+    """(j)'s recurrentgemma-9b: every rank's partitioned losses and norms
+    within ``P23_TP_RTOL`` of the one-device float32 run ``ref``'s (norms
+    relative), the fallback leaves alone gathered whole (once a step), the
+    RG-LRU scanned on ``d_rnn / 2`` channels; its numbers."""
+    cfg, _ = p23_tpj_rg()
+    want = ref["metrics"]
+    for i, x in enumerate(ranks):
+        for j, ((l, g), (wl, wg)) in enumerate(zip(x["metrics"], want)):
+            if abs(l - wl) > P23_TP_RTOL or abs(g - wg) > P23_TP_RTOL * wg:
+                raise AssertionError(
+                    f"[23] (j) recurrentgemma-9b rank {i} step {j}: "
+                    f"partitioned loss / norm {l!r} / {g!r} against the "
+                    f"one-device run's {wl!r} / {wg!r} (bounds "
+                    f"{P23_TP_RTOL}, {P23_TP_RTOL} relative)")
+        if x["whole_gathered"] != 2 * len(x["fallback"]):
+            raise AssertionError(
+                f"[23] (j) recurrentgemma-9b rank {i}: {x['whole_gathered']}"
+                f" whole gathers, fallback {x['fallback']}")
+        if x["scan_channels"] != [cfg.d_rnn // 2]:
+            raise AssertionError(f"[23] (j) recurrentgemma-9b rank {i}: "
+                                 f"scans on {x['scan_channels']} channels")
+    out = {"metrics": ranks[0]["metrics"], "one_device_metrics": want,
+           "one_device_peak": ref["peak"], "fallback": ranks[0]["fallback"],
+           "split_leaves": ranks[0]["split_leaves"],
+           "ranks": [{k: x[k] for k in ("state_bytes", "memory_at_rest",
+                                        "peak", "seconds", "splits",
+                                        "seconds_rank")} for x in ranks]}
+    log(f"[23] {stamp()} (j) recurrentgemma-9b ({cfg.n_layers} layers: a "
+        f"(rec, rec, attn) group and the tail, {P23_TP_DTYPE}, 2 x 32) on "
+        f"1x2 with --tp-mode partitioned: losses / norms {out['metrics']} "
+        f"within {P23_TP_RTOL} of the one-device run's {want}; the RG-LRU "
+        f"on {cfg.d_rnn // 2} of {cfg.d_rnn} channels a rank; whole gathers "
+        f"only of the one KV head's {out['fallback']}; split "
+        f"{len(out['split_leaves'])} leaves; per rank "
+        + "; ".join(f"r{i} peak {x['peak']} B, state {x['state_bytes']} B, "
+                    f"steps {[round(v, 2) for v in x['seconds']]} s "
+                    f"({p23_split(x['splits'])}), {x['seconds_rank']:.1f}s"
+                    for i, x in enumerate(ranks))
+        + f"; one device: peak {ref['peak']} B")
+    return out
+
+
+P23_ROOT = ROOT / "build" / "p23_ckpt"
+
+
+def p23_references() -> dict:
+    """Phase 23's single-device references (PyTorch's default matmul
+    settings), one after another in this process (by the dry run they
+    peak at 22.4 GB, deepseek-moe's ``--microbatch 2``); ``main`` runs
+    them in phase 22 while (c)'s ranks finish."""
+    rwkv_cfg, rwkv_argv = p23_cut(P23_RWKV)
+    sup_cfg, sup_argv = p23_cut(P23_SUP)
+    moe_cfg, moe_argv = p23_cut(P23_MOE)
+    t = time.perf_counter()
+    refs = {"a": p23_reference(P23_QWEN + ["--microbatch", "2"],
+                               layouts={2: [(1, 1), (2, 1)],
+                                        3: [(2, 2), (2, 1)]}),
+            "e": p23_reference(rwkv_argv + ["--microbatch", "2"],
+                               rwkv_cfg, layouts={3: [(2, 1)]}),
+            "d": p23_reference(sup_argv + ["--microbatch", "2"], sup_cfg,
+                               layouts={3: [(2, 1)]}),
+            "f": {"2x1": p23_reference(moe_argv + ["--microbatch", "2"],
+                                       moe_cfg, layouts={2: [(2, 1)]}),
+                  "1x2": p23_reference(moe_argv, moe_cfg,
+                                       layouts={2: [(1, 2)]})}}
+    refs["s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    refs["h"] = p23_reference(P23_TP, p23_tp_cfg(), layouts={2: [(1, 2)]})
+    refs["h_s"] = time.perf_counter() - t
+    return refs
+
+
+class P23Ranks:
+    """The rank work of phase 23 that needs nothing of the parent's
+    phases, in a thread of its own, in two segments: (j)'s
+    recurrentgemma-9b on 1x2 (2 x 26.1 GB at its peak), then (a) + (b)'s
+    qwen3-0.6b on 2x2 (4 x 9.1 GB; it writes the step-2 checkpoint); and
+    (d) + (e) on 2x1 (2 x 5.3 GB).  The ranks are host-bound (gloo stages
+    every collective through the host), so ``main`` runs the first
+    segment beside phase 19, whose numbers are counts, and waits for it
+    before phase 20's timed runs, and the second beside phase 22's
+    references, (a) and (c), waiting for it before (b) takes 40 GB;
+    phase 23 checks their results in its own order."""
+
+    SEGMENTS = ((("rg_1x2", "p23_tp_rg_rank", 1, 2),
+                 ("2x2", "p23_mesh22_rank", 2, 2)),
+                (("2x1_de", "p23_mesh21_de_rank", 2, 1),))
+
+    def __init__(self):
+        import shutil
+
+        shutil.rmtree(P23_ROOT, ignore_errors=True)
+        self.root = P23_ROOT
+        self.ckpt_dir = str(P23_ROOT / "a")
+        self.args = {"p23_tp_rg_rank": (),
+                     "p23_mesh22_rank": (self.ckpt_dir,),
+                     "p23_mesh21_de_rank": (str(P23_ROOT / "sup"),)}
+        self.pool = concurrent.futures.ThreadPoolExecutor(1)
+        self.futs = []
+
+    def start(self) -> None:
+        """Queue the next segment (it runs after the one before)."""
+        self.futs.append(self.pool.submit(self._run,
+                                          self.SEGMENTS[len(self.futs)]))
+
+    def _run(self, segment) -> dict:
+        from repro_torch.launch.mesh import run_ranks
+
+        out = {"walls": {}}
+        for key, fn, dp, tp in segment:
+            t = time.perf_counter()
+            out[key] = run_ranks(globals()[fn], self.args[fn], dp=dp, tp=tp)
+            out["walls"][key] = time.perf_counter() - t
+        return out
+
+    def wait(self) -> float:
+        """Until the queued segments have ended (a failure is raised by
+        :meth:`result`, in phase 23); the seconds waited."""
+        t = time.perf_counter()
+        concurrent.futures.wait(self.futs)
+        return time.perf_counter() - t
+
+    def result(self) -> dict:
+        """Every segment's ranks (those not yet queued run now)."""
+        while len(self.futs) < len(self.SEGMENTS):
+            self.start()
+        try:
+            out = {"walls": {}}
+            for fut in self.futs:
+                r = fut.result()
+                out["walls"].update(r.pop("walls"))
+                out.update(r)
+            return out
+        finally:
+            self.pool.shutdown()
+
+
+def run_phase23(dev, stamp, early: P23Ranks | None = None,
+                refs: dict | None = None) -> dict:
     """Phase 23 (module docstring): sharded training through
     ``repro_torch.launch.train``'s functions on ranks that share
     ``cuda:0`` over gloo, each part held bit for bit against its
     single-device counterpart (every rank's shares against the
-    single-device state cut to that mesh, by :func:`bits_hash`).  Returns
-    the numbers for ``chip_smoke.json`` and the ranks' K8 / K8b launches,
-    summed."""
+    single-device state cut to that mesh, by :func:`bits_hash`).
+    ``early``: the :class:`P23Ranks` started before (else started and
+    waited for here), ``refs``: :func:`p23_references`' (else run here).
+    Returns the numbers for ``chip_smoke.json`` and the ranks' K8 / K8b
+    launches, summed."""
     import shutil
 
     import torch
@@ -6179,41 +6474,31 @@ def run_phase23(dev, stamp) -> dict:
         restore_checkpoint,
     )
 
-    root = ROOT / "build" / "p23_ckpt"
-    shutil.rmtree(root, ignore_errors=True)
-    ckpt_dir, sup_dir = str(root / "a"), str(root / "sup")
     out, t_phase = {}, time.perf_counter()
+    if early is None:
+        early = P23Ranks()
+    chain = early.result()
+    if refs is None:
+        gc.collect()
+        torch.cuda.empty_cache()
+        refs = p23_references()
+    ckpt_dir = early.ckpt_dir
+    rwkv_cfg, _ = p23_cut(P23_RWKV)
+    moe_cfg, _ = p23_cut(P23_MOE)
     gc.collect()
     torch.cuda.empty_cache()
 
-    # ---- single-device references (PyTorch's default matmul settings) --
-    t0 = time.perf_counter()
-    ref_a = p23_reference(P23_QWEN + ["--microbatch", "2"], layouts={
-        2: [(1, 1), (2, 1)], 3: [(2, 2), (2, 1)]})
-    rwkv_cfg, rwkv_argv = p23_cut(P23_RWKV)
-    ref_e = p23_reference(rwkv_argv + ["--microbatch", "2"], rwkv_cfg,
-                          layouts={3: [(2, 1)]})
-    sup_cfg, sup_argv = p23_cut(P23_SUP)
-    ref_d = p23_reference(sup_argv + ["--microbatch", "2"], sup_cfg,
-                          layouts={3: [(2, 1)]})
-    moe_cfg, moe_argv = p23_cut(P23_MOE)
-    ref_f = {"2x1": p23_reference(moe_argv + ["--microbatch", "2"], moe_cfg,
-                                  layouts={2: [(2, 1)]}),
-             "1x2": p23_reference(moe_argv, moe_cfg, layouts={2: [(1, 2)]})}
-    refs_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    ref_h = p23_reference(P23_TP, p23_tp_cfg(), layouts={2: [(1, 2)]})
-    ref_h_s = time.perf_counter() - t0
-    log(f"[23] {stamp()} single-device references in {refs_s:.1f}s: "
+    # ---- (a) + (b): qwen3-0.6b on 2x2 (its ranks ran in P23Ranks) -------
+    ranks, wall22 = chain["2x2"], chain["walls"]["2x2"]
+    ref_a, ref_e, ref_d, ref_f, ref_h = (refs[k] for k in "aedfh")
+    refs_s, ref_h_s = refs["s"], refs["h_s"]
+    log(f"[23] {stamp()} single-device references in "
+        f"{refs_s + ref_h_s:.1f}s; the 2x2 ranks {wall22:.1f}s (in "
+        f"P23Ranks): "
         f"qwen3-0.6b --microbatch 2 {ref_a['state_bytes']} state bytes, "
         f"peak {ref_a['peak']} B, steps "
         f"{[round(x, 3) for x in ref_a['seconds']]} s, metrics "
         f"{ref_a['metrics']}")
-
-    # ---- (a) + (b): qwen3-0.6b on 2x2 ----------------------------------
-    t0 = time.perf_counter()
-    ranks = run_ranks(p23_mesh22_rank, (ckpt_dir,), dp=2, tp=2)
-    wall22 = time.perf_counter() - t0
     for r in ranks:
         p23_same(f"(a) rank {r['rank']}'s losses and gradient norms",
                  r["a"]["metrics"], ref_a["metrics"])
@@ -6275,8 +6560,10 @@ def run_phase23(dev, stamp) -> dict:
         f"({p23_split(b[0]['splits'])}), peak {b[0]['peak']} B")
     del ranks, b
 
-    # ---- (c) on one device and (f) on 1x2, each in a thread beside (c)-(f)
-    # on 2x1 (their peaks, about 4.5 + 2 x 13 + 2 x 16 GB, fit the card) ---
+    # ---- (c) on one device and (f), (h), (i) and (j)'s whisper-small on
+    # 1x2, each in a thread beside (c) and (f) on 2x1 (their peaks, about
+    # 4.5 + 2 x 15.4 + 2 x 17.2 GB by the dry run, fit the card); (d) and
+    # (e)'s 2x1 ranks ran in P23Ranks ------------------------------------
     def restore_1x1():
         t = time.perf_counter()
         one = init_train_state(get_config("qwen3-0.6b"),
@@ -6295,7 +6582,7 @@ def run_phase23(dev, stamp) -> dict:
     with concurrent.futures.ThreadPoolExecutor(2) as pool:
         fut1, fut12 = pool.submit(restore_1x1), pool.submit(ranks_1x2)
         t0 = time.perf_counter()
-        ranks = run_ranks(p23_mesh21_rank, (ckpt_dir, sup_dir), dp=2, tp=1)
+        ranks = run_ranks(p23_mesh21_rank, (ckpt_dir,), dp=2, tp=1)
         wall21 = time.perf_counter() - t0
         one_s = fut1.result()
         ranks12, wall12 = fut12.result()
@@ -6320,8 +6607,9 @@ def run_phase23(dev, stamp) -> dict:
         f"single-device state after 2 steps bit for bit; step 3 on 2x1 "
         f"(a)'s ({c0['metrics']}) and its shares the single-device state's")
 
-    d = ranks[0]["d"]
-    for r in ranks:
+    ranks_de = chain["2x1_de"]
+    d = ranks_de[0]["d"]
+    for r in ranks_de:
         if r["d"]["restarts"] != 1:
             raise AssertionError(f"[23] (d) rank {r['rank']}: "
                                  f"{r['d']['restarts']} restarts, not 1")
@@ -6329,7 +6617,7 @@ def run_phase23(dev, stamp) -> dict:
                  list(zip(r["d"]["losses"], r["d"]["grad_norms"])),
                  ref_d["metrics"])
     p23_held("(d) the restarted run's state", [r["d"]["hashes"]
-                                                for r in ranks],
+                                                for r in ranks_de],
              ref_d["hashes"][3, (2, 1)])
     out["d"] = {"restarts": 1, "seconds": d["supervised_s"],
                 "losses": d["losses"]}
@@ -6340,7 +6628,7 @@ def run_phase23(dev, stamp) -> dict:
         f"run ({d['supervised_s']:.1f}s)")
 
     launches = {}
-    for r in ranks:
+    for r in ranks_de:
         e = r["e"]
         p23_same(f"(e) rank {r['rank']}'s metrics", e["metrics"],
                  ref_e["metrics"])
@@ -6350,13 +6638,14 @@ def run_phase23(dev, stamp) -> dict:
                  want)
         for k, v in e["launches"].items():
             launches[k] = launches.get(k, 0) + v
-    p23_held("(e) the state after 3 steps", [r["e"]["hashes"] for r in ranks],
+    p23_held("(e) the state after 3 steps", [r["e"]["hashes"]
+                                              for r in ranks_de],
              ref_e["hashes"][3, (2, 1)])
     out["e"] = {"depth": rwkv_cfg.n_layers,
-                "metrics": ranks[0]["e"]["metrics"],
+                "metrics": ranks_de[0]["e"]["metrics"],
                 "ranks": {r["rank"]: {k: r["e"][k] for k in (
                     "state_bytes", "memory_at_rest", "peak", "seconds",
-                    "splits", "launches", "held")} for r in ranks},
+                    "splits", "launches", "held")} for r in ranks_de},
                 "one_device_state_bytes": ref_e["state_bytes"],
                 "one_device_peak": ref_e["peak"]}
     log(f"[23] {stamp()} (e) rwkv6-3b (published widths, {rwkv_cfg.n_layers} "
@@ -6368,7 +6657,7 @@ def run_phase23(dev, stamp) -> dict:
                     f"{r['e']['held']}, steps "
                     f"{[round(x, 2) for x in r['e']['seconds']]} s "
                     f"({p23_split(r['e']['splits'])}), peak "
-                    f"{r['e']['peak']} B" for r in ranks))
+                    f"{r['e']['peak']} B" for r in ranks_de))
 
     out["f"] = {}
     for shape, layout, rs in (("2x1", (2, 1), [r["f"] for r in ranks]),
@@ -6393,17 +6682,39 @@ def run_phase23(dev, stamp) -> dict:
                         f"({p23_split(f['splits'])})" for f in rs))
     out["h"] = p23_tp_held(ranks12, ref_h, ref_h_s, stamp)
     out["i"] = p23_tpf_held(ranks12, stamp)
-    for r in out["i"]["launches"]:
-        for k, v in r.items():
-            launches[k] = launches.get(k, 0) + v
+    out["j"] = p23_tpf_held(ranks12, stamp, "j", P23_TPJ)
+    for part in "ij":
+        for r in out[part]["launches"]:
+            for k, v in r.items():
+                launches[k] = launches.get(k, 0) + v
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- (j)'s recurrentgemma-9b: its 1x2 ranks (in P23Ranks), then one
+    # device --------------------------------------------------------------
+    ranks_rg, wall_rg = chain["rg_1x2"], chain["walls"]["rg_1x2"]
+    t0 = time.perf_counter()
+    rg_cfg, rg_argv = p23_tpj_rg()
+    ref_rg = p23_reference(rg_argv, rg_cfg)
+    ref_rg_s = time.perf_counter() - t0
+    out["j"]["recurrentgemma-9b"] = p23_tp_rg_held(ranks_rg, ref_rg, stamp)
+    out["j"]["recurrentgemma-9b"].update(ranks_s=wall_rg,
+                                         one_device_s=ref_rg_s)
     out["seconds"] = time.perf_counter() - t_phase
-    out["walls"] = {"references": refs_s, "2x2": wall22, "1x1": one_s,
-                    "2x1": wall21, "1x2": wall12}
-    shutil.rmtree(root, ignore_errors=True)
-    log(f"[23] {stamp()} phase 23 in {out['seconds']:.0f}s (references "
-        f"{refs_s:.0f}s, the 2x2 ranks {wall22:.0f}s, then 1x1 {one_s:.0f}s "
-        f"and the 2x1 ranks {wall21:.0f}s beside the 1x2 ranks "
-        f"{wall12:.0f}s); the ranks' K8 / K8b launches {launches}")
+    out["walls"] = {"references": refs_s + ref_h_s, "1x1": one_s,
+                    "2x1": wall21, "1x2": wall12,
+                    "rg_one_device": ref_rg_s, **{
+                        f"{k} (P23Ranks)": v
+                        for k, v in chain["walls"].items()}}
+    shutil.rmtree(early.root, ignore_errors=True)
+    log(f"[23] {stamp()} phase 23 in {out['seconds']:.0f}s: 1x1 {one_s:.0f}s "
+        f"and the 2x1 ranks of (c) and (f) {wall21:.0f}s beside the 1x2 "
+        f"ranks {wall12:.0f}s, then (j)'s one-device recurrentgemma-9b run "
+        f"{ref_rg_s:.0f}s; before it, in P23Ranks, (j)'s recurrentgemma-9b "
+        f"ranks {wall_rg:.0f}s, the 2x2 ranks {wall22:.0f}s and the 2x1 "
+        f"ranks of (d) and (e) {chain['walls']['2x1_de']:.0f}s, and the "
+        f"references {refs_s + ref_h_s:.0f}s; the ranks' K8 / K8b launches "
+        f"{launches}")
     return {"out": out, "launches": launches}
 
 
@@ -6470,11 +6781,19 @@ P25_RWKV_SPLITS = ("halves", "quarters", "evenodd")
 P25_TP_VLM = (32, ["--arch", "phi-3-vision-4.2b", "--full", "--remat",
                    "--batch", "4", "--seq", "64", "--steps", "2",
                    "--device", "cuda", "--tp-mode", "partitioned"])
+# (m): recurrentgemma-9b at its 38 layers on 1x4, partitioned, --remat,
+# 4 x 64: its bf16 training state, about 84 GB whole, fits no one card;
+# the dry run gives a rank 23.5 GB.  Its one KV head stays whole (wk / wv:
+# the divisibility fallback), gathered once a step
+P25_TP_RG = (38, ["--arch", "recurrentgemma-9b", "--full", "--remat",
+                  "--batch", "4", "--seq", "64", "--steps", "2",
+                  "--device", "cuda", "--tp-mode", "partitioned"])
+P25_TP_PEAK_RTOL = 0.03   # (m)'s rank peak against the dry run's trace
 # the meshes of the partitioned cases: (h) and (k) on 2x2, the others 1x4
 P25_TP_MESH = {"i": (1, P25_CARDS), "j": (1, P25_CARDS), "k": (2, 2),
-               "l": (1, P25_CARDS)}
+               "l": (1, P25_CARDS), "m": (1, P25_CARDS)}
 P25_TP_CASE = {"i": P25_TP_NEM, "j": P25_TP_MOE, "k": P25_TP_RWKV,
-               "l": P25_TP_VLM}
+               "l": P25_TP_VLM, "m": P25_TP_RG}
 
 
 def p25_in_process(fn, *args):
@@ -6652,7 +6971,7 @@ def p25_ref_moe_train() -> dict:
 
 
 def p25_ref_forward(part: str) -> dict:
-    """(i)'s or (l)'s reference: the first step's loss as one forward at
+    """(i)'s, (l)'s or (m)'s reference: the first step's loss as one forward at
     the case's depth on ``cuda:0`` (parameters only, no state)."""
     import torch
 
@@ -6997,8 +7316,9 @@ def p25_train_qwen_tp(mesh) -> dict:
 
 
 def p25_train_tp(mesh, part: str) -> dict:
-    """(i), (j), (k) or (l) on one rank of ``P25_TP_MESH[part]``: the
-    case partitioned at its depth, every gather of its steps spied; (k)
+    """(i)-(m) on one rank of ``P25_TP_MESH[part]``: the case partitioned
+    at its depth, every gather of its steps spied (:func:`tp_fallback`'s
+    leaves expected once a step); (k)
     in bf16 (its first K8 / K8b calls sampled, both kernels' launches
     counted), then in float32 (under ``"f32"``)."""
     import torch
@@ -7019,6 +7339,7 @@ def p25_train_tp(mesh, part: str) -> dict:
         s, x = p23_rank_setup(argv + ["--dp", str(dp), "--tp", str(tp)],
                               mesh, c)
         x["setup_s"] = time.perf_counter() - t0
+        x["fallback"] = tp_fallback(s, mesh)
         sample = part == "k" and dt == "bf16"
         recs, restore = p23_wkv_spy() if sample else (None, None)
         try:
@@ -7097,7 +7418,7 @@ def p25_rank(mesh, spec) -> dict:
             timed(part, p25_moe_serve, mesh14, arch, spec["moe_tuned"][arch])
     if "f" in parts:
         timed("f", p25_train_moe, mesh14)
-    for part in "ijl":
+    for part in "ijlm":
         if part in parts:
             timed(part, p25_train_tp, mesh14, part)
     p25_rank_reset(mesh)
@@ -7116,7 +7437,7 @@ def p25_mem(recs, key_rest="memory_at_rest", key_peak="memory_peak") -> str:
                      for i, r in enumerate(recs))
 
 
-def run_phase25(stamp, parts=tuple("abcdefghijkl")) -> dict:
+def run_phase25(stamp, parts=tuple("abcdefghijklm")) -> dict:
     """Phase 25 (module docstring): the references, each in a process of
     its own on ``cuda:0``, then the four ranks (a card each, NCCL) run
     ``parts``; every case held as the table in ``PERF.md`` section 4
@@ -7160,10 +7481,10 @@ def run_phase25(stamp, parts=tuple("abcdefghijkl")) -> dict:
         ref("qwen_train", p25_ref_qwen_train)
     if "h" in parts:
         ref("qwen_tp32", p25_ref_qwen_tp32)
-    for part in "il":
+    for part in "ilm":
         if part in parts:
             ref(f"forward_{part}", p25_ref_forward, part)
-    tp_parts = [part for part in "ijkl" if part in parts]
+    tp_parts = [part for part in "ijklm" if part in parts]
     if tp_parts:
         ref("dryrun_tp", p25_dryrun_tps, tp_parts)
     for part in tp_parts:
@@ -7511,18 +7832,20 @@ def run_phase25(stamp, parts=tuple("abcdefghijkl")) -> dict:
     def tp_checked(part, want):
         """A partitioned case's records: the first loss within
         ``P25_TP_RTOL`` of ``want``, every metric finite, no whole
-        tp-split leaf gathered."""
+        tp-split leaf gathered (a fallback leaf once a step)."""
         recs = [r[part] for r in ranks]
         for i, x in enumerate(recs):
             l0 = x["metrics"][0][0]
             if abs(l0 - want) > P25_TP_RTOL:
                 raise AssertionError(f"[25] ({part}) rank {i}: partitioned "
                                      f"first loss {l0!r} against {want!r}")
-            if x["whole_gathered"] or not all(
+            if x["whole_gathered"] != len(x["metrics"]) * len(
+                    x["fallback"]) or not all(
                     math.isfinite(v) for m in x["metrics"] for v in m):
                 raise AssertionError(f"[25] ({part}) rank {i}: "
-                                     f"{x['whole_gathered']} whole gathers, "
-                                     f"metrics {x['metrics']}")
+                                     f"{x['whole_gathered']} whole gathers "
+                                     f"(fallback {x['fallback']}), metrics "
+                                     f"{x['metrics']}")
         return recs
 
     def tp_ranks(recs, extra=()):
@@ -7626,6 +7949,32 @@ def run_phase25(stamp, parts=tuple("abcdefghijkl")) -> dict:
             f"{rf['param_bytes']} B, forward peak {rf['peak']} B); no whole "
             f"tp-split leaf gathered; per rank " + tp_line(recs, pred))
 
+    if "m" in parts:
+        rf, pred = refs["forward_m"], refs["dryrun_tp"]["m"]
+        recs = tp_checked("m", rf["loss"])
+        for i, x in enumerate(recs):
+            if abs(x["peak"] - pred) > P25_TP_PEAK_RTOL * pred or \
+                    x["peak"] > P25_TP_NEM_LIMIT:
+                raise AssertionError(
+                    f"[25] (m) rank {i}: peak {x['peak']} B against the dry "
+                    f"run's {pred} B (within {P25_TP_PEAK_RTOL:.0%}) and "
+                    f"{P25_TP_NEM_LIMIT:.0f} B")
+        out["m"] = {"depth": rf["depth"], "loss": rf["loss"],
+                    "metrics": recs[0]["metrics"], "dryrun_peak": pred,
+                    "fallback": recs[0]["fallback"],
+                    "one_device_param_bytes": rf["param_bytes"],
+                    "one_device_forward_peak": rf["peak"],
+                    "ranks": tp_ranks(recs)}
+        log(f"[25] {stamp()} (m) recurrentgemma-9b ({rf['depth']} of 38 "
+            f"layers, --remat, 4 x 64) on 1x4 with --tp-mode partitioned: "
+            f"the first loss {recs[0]['metrics'][0][0]!r} within "
+            f"{P25_TP_RTOL} of the single-device forward's {rf['loss']!r} "
+            f"(parameters {rf['param_bytes']} B, forward peak {rf['peak']} "
+            f"B); whole gathers only of the one KV head's "
+            f"{recs[0]['fallback']}, once a step; every rank's peak within "
+            f"{P25_TP_PEAK_RTOL:.0%} of the dry run's; per rank "
+            + tp_line(recs, pred))
+
     out["seconds"] = time.perf_counter() - t_phase
     log(f"[25] {stamp()} phase 25 in {out['seconds']:.0f}s (references "
         + ", ".join(f"{k} {v:.0f}s" for k, v in ref_s.items())
@@ -7649,7 +7998,7 @@ def main_cards(smi, stamp, t_start) -> int:
     log(f"done in {time.perf_counter() - t_start:.0f}s")
     print(json.dumps({"phase25": sig4({
         "seconds": p25["out"]["seconds"], "launches": p25["launches"],
-        **{k: p25["out"][k] for k in "abcdefghijkl" if k in p25["out"]}})},
+        **{k: p25["out"][k] for k in "abcdefghijklm" if k in p25["out"]}})},
         separators=(",", ":"), default=str),
         flush=True)
     print(smi, flush=True)
@@ -7703,6 +8052,12 @@ def main(argv=None) -> int:
 
     t_start = time.perf_counter()
     stamp = lambda: f"[{time.perf_counter() - t_start:.0f}s]"
+    marks = []   # (phase, seconds since the start) as each phase begins
+
+    def phase(label: str) -> None:
+        """A phase's start: its stamp logged and kept for the summary."""
+        marks.append((label, time.perf_counter() - t_start))
+        log(f"[{label}] {stamp()}")
     OUT_DIR.mkdir(exist_ok=True)
     LOG.append(open(OUT_DIR / "chip_smoke.log", "w"))
     # parity runs: no TF32, no reduced-precision bf16 reductions
@@ -7739,6 +8094,7 @@ def main(argv=None) -> int:
             build, built["wkv_bwd"]["path"]).items()) + " HMMA")
 
     # ---- 3. model, calibration, plans ------------------------------------
+    phase("3")
     common = ["--arch", "qwen3-0.6b", "--full", "--batch", str(B),
               "--prompt-len", str(T), "--new-tokens", str(NEW), "--lut-act",
               "--device", "cuda"]
@@ -7780,6 +8136,7 @@ def main(argv=None) -> int:
         log=lambda m: log("    " + m))
 
     # ---- 4. kernels against their plain versions on the card -------------
+    phase("4")
     gen = torch.Generator(device=dev).manual_seed(1)
     st_cuda = plans.tables_for_model(backend="cuda", device=dev)
     st_raw = plans.tables_for_model(backend="gather", device=dev)
@@ -7937,6 +8294,7 @@ def main(argv=None) -> int:
         f"record is refused")
 
     # ---- 5. the serving path, qwen3-0.6b (path A: forms e-g) --------------
+    phase("5")
     results = {}
     totals = {k: 0 for k in launch_counts()}
     quiet = lambda m: None
@@ -7984,21 +8342,23 @@ def main(argv=None) -> int:
 
     # ---- 13. the continuous batcher and 14. artifacts (run here, so that
     # the batcher's launches count on the main path) ------------------------
-    log(f"[13] {stamp()}")
+    phase("13")
     batcher = run_batcher(launcher, dev, cfg0, params, batch,
                           (args_a, plans), (args_e, plans_all), totals)
-    log(f"[14] {stamp()}")
+    phase("14")
     check_artifacts(launcher, common, results)
 
     # ---- 6. K5/K6 and 7. K7 against their plain versions on the card ------
+    phase("6-7")
     errors = check_gather_kernels(dev)
     errors["lutnn_layer"] = check_lutnn_layer(dev)
 
     # ---- 8. the LUT-NN toolflows (paper width), quickstart ---------------
-    log(f"[8] {stamp()}")
+    phase("8")
     flow = run_toolflow(dev)
 
     # ---- 9. rwkv6-3b (path B): model, plans, K3 non-gated and K8 ----------
+    phase("9")
     rcommon = ["--arch", "rwkv6-3b", "--full", "--batch", str(B),
                "--prompt-len", str(T), "--new-tokens", str(NEW),
                "--device", "cuda"]
@@ -8062,6 +8422,7 @@ def main(argv=None) -> int:
         ("j", r_args_j, r_plans_all,
          ["fused_matmul_lut", "lut_act_multi", "wkv"], "i"),
     ]
+    phase("10")
     for label, args, pl, uses, ref in r_forms:
         log(f"[10] {stamp()}")
         serve_form(launcher, dev, label, args, rcfg0, rparams, rbatch, pl,
@@ -8088,7 +8449,7 @@ def main(argv=None) -> int:
                              f"{tuple(r_logits.shape)}")
 
     # ---- 11. per-kernel times ---------------------------------------------
-    log(f"[11] {stamp()}")
+    phase("11")
     L = cfg.n_layers
     st = stacks["packed"]
     slab_bytes = sum(int(st["arrays"][c][0].numel()) * 4
@@ -8295,7 +8656,7 @@ def main(argv=None) -> int:
     # K5-K7's times come after phase 21, which hands them more shapes
 
     # ---- 12. where a decode step's time goes -------------------------------
-    log(f"[12] {stamp()}")
+    phase("12")
     r_tables_j = launcher.serving_tables(r_args_j, r_plans_all, dev,
                                          log=quiet)
     steps = {}
@@ -8336,14 +8697,14 @@ def main(argv=None) -> int:
     # ---- 24 (a). the dry run against the card: qwen3-0.6b's decode step
     # (run here, while phase 5's model and form (a)'s tables live); the
     # counted steps' K1 launches join its entry
-    log(f"[24] {stamp()}")
+    phase("24a")
     p24 = {"a": run_phase24_decode(dev, cfg0, plans, params, steps)}
     for k in kernels:
         k["launches"] += p24["a"]["a"]["launches"].get(f"cuda:{k['name']}",
                                                        0)
 
     # ---- 15. the moe family, after the others (their models freed first)
-    log(f"[15] {stamp()}")
+    phase("15")
     del (params, rparams, sparams, s_params, cases, w_in, rws, st, stacks)
     gc.collect()
     torch.cuda.empty_cache()
@@ -8373,7 +8734,7 @@ def main(argv=None) -> int:
     log(f"[15] phase 15's launches: {moe_totals}")
 
     # ---- 16. the vlm and hybrid families, after the moe models are freed
-    log(f"[16] {stamp()}")
+    phase("16")
     fam_totals = {k: 0 for k in launch_counts()}
     fam = {}
     for arch in FAMILY_FORMS:
@@ -8397,7 +8758,7 @@ def main(argv=None) -> int:
 
     # ---- 17. the encdec family and the other dense configurations, after
     # the vlm and hybrid models are freed
-    log(f"[17] {stamp()}")
+    phase("17")
     p17_totals = {k: 0 for k in launch_counts()}
     p17 = {}
     for arch in P17_FORMS:
@@ -8420,24 +8781,36 @@ def main(argv=None) -> int:
 
     # ---- 18. training through launch/train, after phase 17's models are
     # freed; K8's launches there join its entry, K8b joins the kernels
-    log(f"[18] {stamp()}")
+    phase("18")
     p18 = run_phase18(dev, stamp, gen)
     for k in kernels:
         if k["name"] == "wkv":
             k["launches"] += p18["k8_launches"]
     kernels.append(p18["k8b"])
 
+    # ---- phase 23's host-bound rank work (P23Ranks): its first segment,
+    # (j)'s recurrentgemma-9b and (a) + (b), beside phase 19; phase 23
+    # checks it in its own order
+    gc.collect()
+    torch.cuda.empty_cache()
+    early23 = P23Ranks()
+    early23.start()
+    log(f"[23] {stamp()} its ranks for (j)'s recurrentgemma-9b and (a) + "
+        f"(b) start beside phase 19 (P23Ranks)")
+
     # ---- 19. the autotuner and the control plane, from phase 18's
     # checkpoint; K1's and K4's launches there join their entries
-    log(f"[19] {stamp()}")
+    phase("19")
     p19 = run_phase19(dev, stamp, p18["ckpt_dir"])
     for k in kernels:
         k["launches"] += p19["launches"].get(k["name"], 0)
+    log(f"[23] {stamp()} waited {early23.wait():.1f}s for P23Ranks' "
+        f"first segment, so that phase 20 times its runs alone")
 
     # ---- 20. telemetry on the served path (the launcher with --obs-log,
     # the batcher under the drift monitor, the control plane's timeline);
     # K1's, K3's and K4's launches there join their entries
-    log(f"[20] {stamp()}")
+    phase("20")
     p20 = run_phase20(dev, stamp, p19["tuned_path"])
     for k in kernels:
         k["launches"] += p20["launches"].get(k["name"], 0)
@@ -8445,35 +8818,38 @@ def main(argv=None) -> int:
     # ---- 21. the paper's sweeps at the paper's scale (repro_torch.bench);
     # then K5-K7's times at the toolflow's and the sweeps' shapes, their
     # launches phase 8's and phase 21's
-    log(f"[21] {stamp()}")
+    phase("21")
     p21 = run_phase21(dev, stamp)
 
     # ---- 22. sharded serving on a mesh of ranks sharing cuda:0 (the
     # parent built the kernels in phase 2, before any rank starts); the
     # ranks' K1 / K2 launches join their entries
-    log(f"[22] {stamp()}")
-    p22 = run_phase22(dev, stamp)
+    early23.start()       # (d) + (e)'s 2x1 ranks, beside phase 22 to (b)
+    phase("22")
+    p22 = run_phase22(dev, stamp, before_b=lambda: log(
+        f"[23] {stamp()} waited {early23.wait():.1f}s for P23Ranks' second "
+        f"segment before phase 22 (b)"), tail=p23_references)
     for k in kernels:
         k["launches"] += p22["launches"].get(k["name"], 0)
 
     # ---- 23. sharded training on meshes of ranks sharing cuda:0; the
     # ranks' K8 / K8b launches (rwkv6-3b's, part (e)) join their entries
-    log(f"[23] {stamp()}")
-    p23 = run_phase23(dev, stamp)
+    phase("23")
+    p23 = run_phase23(dev, stamp, early23, p22["tail"])
     for k in kernels:
         k["launches"] += p23["launches"].get(k["name"], 0)
 
     # ---- 24 (b)-(d). the dry run against the card: training steps; the
     # counted steps' K8 / K8b launches join their entries
     t24 = time.perf_counter()
-    log(f"[24] {stamp()}")
+    phase("24b-d")
     p24.update(run_phase24_train(dev, stamp, p18))
     for part in ("b", "c"):
         for k in kernels:
             k["launches"] += p24[part]["launches"].get(f"cuda:{k['name']}",
                                                        0)
     log(f"[24] {stamp()} (b)-(d) in {time.perf_counter() - t24:.0f}s")
-    log(f"[11] {stamp()} K5-K7")
+    phase("11 K5-K7")
     kernels += time_toolflow_kernels(dev, flow, errors, p21)
 
     summary = {"card": smi, "seconds": time.perf_counter() - t_start,
@@ -8494,7 +8870,12 @@ def main(argv=None) -> int:
                            k7_calls=[[*k, c] for k, (_, c) in sorted(
                                f["k7_calls"].items())])
                    for m, f in flow["flows"].items()})}
+    marks.append(("end", time.perf_counter() - t_start))
+    summary["phases"] = [(a, t, u - t) for (a, t), (_, u)
+                         in zip(marks, marks[1:])]
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(summary, indent=1))
+    log("phases (start, seconds): " + ", ".join(
+        f"[{a}] {t:.0f} {d:.1f}" for a, t, d in summary["phases"]))
     log(f"done in {time.perf_counter() - t_start:.0f}s")
     # four significant digits, no spaces and compact() entries for the
     # served and timed shapes keep this line short (about 18 KB; the tool

@@ -41,10 +41,9 @@ A training cell traces the train step in either mode of
 :func:`~repro_torch.train.make_train_step`: ``--tp-mode exact`` (the
 default; every weight gathered at the step's entry) or ``partitioned``
 (the tp shares in the compute, as the reference's GSPMD step runs
-them: the dense, moe, vlm and ssm families); a partitioned cell records
-``"tp_mode"`` in its JSON and its file name ends in ``__part``, and a
-cell the mode does not cover (a serving shape, the hybrid or encdec
-family) is skipped with the reason.
+them: every family); a partitioned cell records ``"tp_mode"`` in its
+JSON and its file name ends in ``__part``, and a cell the mode does not
+cover (a serving shape) is skipped with the reason.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-0.6b \\
@@ -87,12 +86,6 @@ def cell_supported(cfg, shape: str, tp_mode: str = "exact"
     if tp_mode == "partitioned" and SHAPES[shape]["kind"] != "train":
         return False, ("tp_mode partitioned is the train step's; serving "
                        "runs exact mode")
-    from repro_torch.nn.transformer import TP_FAMILIES
-
-    if tp_mode == "partitioned" and cfg.family not in TP_FAMILIES:
-        return False, (f"tp_mode partitioned covers the "
-                       f"{', '.join(TP_FAMILIES)} families, not "
-                       f"{cfg.family} (ROADMAP item 13)")
     return True, ""
 
 
@@ -373,8 +366,7 @@ def main(argv=None) -> None:
     ap.add_argument("--tp-mode", choices=("exact", "partitioned"),
                     default="exact",
                     help="the train step's mode (training cells; "
-                         "partitioned: the dense, moe, vlm and ssm "
-                         "families)")
+                         "partitioned: every family)")
     ap.add_argument("--out", default="experiments/torch/dryrun")
     args = ap.parse_args(argv)
 

@@ -9,9 +9,9 @@ count, the fast stream (:func:`repro_torch.nn.layers.set_fast_stream`),
 the WKV chunk (:func:`repro_torch.nn.ssm.set_wkv_chunk`), an int8 KV
 cache, a LUT activation or gradient compression.  The reference's
 sequence-parallel variants have no counterpart yet: the port resolves
-the ``"sp"`` axis to replicated (ROADMAP queue A, item 13), so they are
-recorded with status ``"skipped"`` and that reason.  The levers are reset after every
-variant.  Model numbers from an H100's peaks, not measurements.
+the ``"sp"`` axis to replicated (ROADMAP queue A, item 13: sequence
+parallelism), so they are recorded with status ``"skipped"`` and that
+reason.  The levers are reset after every variant.  Model numbers from an H100's peaks, not measurements.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.hillclimb [--only rwkv6-3b]
@@ -30,8 +30,7 @@ OUT_DIR = "experiments/torch/hillclimb"
 
 SEQ_PARALLEL_SKIP = (
     "sequence parallelism is not ported: the port resolves the 'sp' axis "
-    "to replicated (ROADMAP queue A, item 13, after partitioned training "
-    "of the other families)")
+    "to replicated (ROADMAP queue A, item 13: sequence parallelism)")
 
 
 def _lut_tables(cfg):

@@ -26,10 +26,10 @@ its shares of the state and runs the sharded step of
 :mod:`repro_torch.train.step` on its rows of the one global batch stream;
 rank 0 prints the lines and writes the checkpoints.  ``--tp-mode``
 picks the step's mode on the model axis: ``exact`` (the default: every
-weight gathered, the single-device bits) or ``partitioned`` (the dense,
-moe, vlm and ssm families: each rank keeps its tp share of the split
-weights in the compute, as the reference's GSPMD step does; the
-reference has only that mode).
+weight gathered, the single-device bits) or ``partitioned`` (every
+family: each rank keeps its tp share of the split weights in the
+compute, as the reference's GSPMD step does; the reference has only
+that mode).
 ``--production-mesh``
 builds the reference's 16 x 16 mesh (``--multi-pod`` its 2 x 16 x 16), so
 it needs 256 (512) ranks started by ``torchrun``; with any other count
@@ -90,8 +90,7 @@ def build_parser() -> argparse.ArgumentParser:
                     default="exact",
                     help="exact (default): gathered weights, the "
                          "single-device bits; partitioned: the tp "
-                         "shares in the compute (the dense, moe, vlm "
-                         "and ssm families)")
+                         "shares in the compute (every family)")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--device", default=None,

@@ -18,12 +18,23 @@ parameter dtype (bf16 at full width, each operation rounded as
 ``jnp.logaddexp`` rounds it) before the float32 ``r`` widens the product;
 ``u`` (float32) meets the bf16 ``W_a`` / ``W_x`` in float32; the conv
 multiplies and sums in the model dtype, one rounding per operation.
+
+In a partitioned train step (:func:`~repro_torch.nn.sharding.use_tp`)
+that splits the block's ``w_in``, a rank runs :func:`recurrent_block` on
+its ``d_rnn / tp`` channels: ``w_in`` / ``w_gate`` / ``conv_w`` / ``lam``
+and the columns of ``w_a`` / ``w_x`` are its shares, ``x`` enters through
+:func:`~repro_torch.nn.sharding.copy_to_tp`, the conv output is
+all-gathered into the gate products by
+:func:`~repro_torch.nn.sharding.gather_to_tp` (their input is every
+channel), the conv and the scan run on the rank's channels, and ``w_out``
+is row-parallel (:func:`~repro_torch.nn.sharding.reduce_from_tp`).
 """
 from __future__ import annotations
 
 import torch
 
 from .layers import activation_fn
+from .sharding import copy_to_tp, current_tp, gather_to_tp, reduce_from_tp
 
 RG_LRU_C = 8.0
 
@@ -43,7 +54,8 @@ def _mm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def _log_a(params, u):
-    """``(r, i, log a)`` of the RG-LRU for float32 ``u``."""
+    """``(r, i, log a)`` of the RG-LRU for float32 ``u``, the gate
+    products' input (every channel)."""
     r = torch.sigmoid(_mm(u, params["w_a"]))
     i = torch.sigmoid(_mm(u, params["w_x"]))
     log_a = ((-RG_LRU_C * _softplus(params["lam"])) * r).float()
@@ -71,9 +83,13 @@ def _lru_scan(log_a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def rg_lru(params, u: torch.Tensor, h_prev: torch.Tensor | None = None):
-    """u: (B, T, D) float32.  Returns (h (B, T, D), last state (B, D))."""
-    _, i, log_a = _log_a(params, u)
+def rg_lru(params, u: torch.Tensor, h_prev: torch.Tensor | None = None,
+           gate_in: torch.Tensor | None = None):
+    """u: (B, T, D) float32.  Returns (h (B, T, D), last state (B, D)).
+    ``gate_in``: the input of the ``W_a`` / ``W_x`` products where it is
+    not ``u`` (a partitioned step: ``u`` the rank's channels, ``gate_in``
+    all of them)."""
+    _, i, log_a = _log_a(params, u if gate_in is None else gate_in)
     gated = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), 1e-6, 1.0))
     b = gated * (i * u).float()
     if h_prev is not None:
@@ -109,17 +125,29 @@ def causal_conv1d(w: torch.Tensor, x: torch.Tensor,
     return out, xp[:, -(k - 1):]
 
 
-def recurrent_block(params, x: torch.Tensor, cfg, state: dict | None = None):
+def recurrent_block(params, x: torch.Tensor, cfg, state: dict | None = None,
+                    tp_leaf: str | None = None):
     """Griffin recurrent temporal block over a segment.  x: (B, T, d);
     ``state``: ``None`` (a fresh segment) or ``{"conv": (B, K-1, drnn),
-    "lru": (B, drnn)}``.  Returns (out (B, T, d), new state)."""
+    "lru": (B, drnn)}``.  Returns (out (B, T, d), new state).  In a
+    partitioned train step that splits the leaf ``params["w_in"]`` is
+    (``tp_leaf``, its dotted name) the block runs on the rank's channels
+    (module docstring); training keeps no state."""
+    tp = current_tp()
+    split = tp is not None and tp.splits(tp_leaf)
+    if split:
+        x = copy_to_tp(x)
     state = state or {}
     branch = torch.matmul(x, params["w_in"])
     branch, conv_state = causal_conv1d(params["conv_w"], branch,
                                        state.get("conv"))
-    h, lru_state = rg_lru(params, branch.float(), state.get("lru"))
+    u = branch.float()
+    h, lru_state = rg_lru(params, u, state.get("lru"),
+                          gather_to_tp(u) if split else None)
     gate = activation_fn("gelu")(torch.matmul(x, params["w_gate"]))
     out = torch.matmul(h.to(x.dtype) * gate, params["w_out"])
+    if split:
+        out = reduce_from_tp(out)
     return out, {"conv": conv_state, "lru": lru_state}
 
 

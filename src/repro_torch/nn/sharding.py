@@ -19,7 +19,7 @@ replicated (``_divisible``).  The port serves in the reference's exact
 mode (``exact_tp``): its ranks compute at single-device shapes on
 gathered weights, so no float reduction is split over the model axis.
 Training runs that mode by default too; its ``"partitioned"`` mode (the
-reference's GSPMD train step, for the dense, moe, vlm and ssm families)
+reference's GSPMD train step, for every family)
 keeps each rank's tp share of the split weights in the compute
 (:class:`TPShares`, entered with :func:`use_tp`) and joins the shares
 with :func:`copy_to_tp` (identity forward, gradient all-reduced over the
@@ -27,7 +27,10 @@ model axis) before a column-parallel product, :func:`reduce_from_tp`
 (partial sums all-reduced forward, identity backward) after a
 row-parallel one, :func:`gather_from_tp` (a column-parallel product's
 columns all-gathered forward, the rank's own slice of the gradient
-backward: RWKV6's receptance gate),
+backward: RWKV6's receptance gate), :func:`gather_to_tp` (a split
+activation all-gathered into column-parallel products, its gradient
+summed over the model axis before the slice: the recurrent block's
+``w_a`` / ``w_x``),
 :func:`vocab_parallel_cross_entropy` over vocab-split logits and
 :func:`gate_up_exchange` (a gated ``w_in``'s share between its stored
 ``[gate|up]`` block and the compute's matching columns).  The
@@ -547,6 +550,36 @@ def gather_from_tp(x: torch.Tensor) -> torch.Tensor:
     gradient backward, which every model rank holds whole."""
     mesh = _tp_mesh()
     return x if mesh is None else _GatherFromTP.apply(x, mesh)
+
+
+class _GatherToTP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh, ctx.width = mesh, x.shape[-1]
+        return gather(x, mesh, TP_AXIS, dim=-1)
+
+    @staticmethod
+    def backward(ctx, g):
+        i, w = ctx.mesh.index(TP_AXIS), ctx.width
+        g = all_reduce(g.clone(memory_format=torch.contiguous_format),
+                       ctx.mesh, TP_AXIS)
+        return g[..., i * w:(i + 1) * w], None
+
+
+def gather_to_tp(x: torch.Tensor) -> torch.Tensor:
+    """A tensor split over the model axis on its last dim made whole as
+    the input of column-parallel products: every rank's columns in rank
+    order, one all-gather forward (:func:`gather`); backward, each rank's
+    gradient of the whole tensor is a partial sum (its own columns of the
+    products' weights), so it is all-reduced over the model axis before
+    the rank takes its slice.  The recurrent block's conv output into
+    ``w_a`` / ``w_x`` (:func:`repro_torch.nn.rglru.recurrent_block`).
+    Where every rank uses the gathered tensor whole and alike (RWKV6's
+    receptance gate), :func:`gather_from_tp` is the one: its gradient is
+    already whole on each rank, and summing it would count it ``tp``
+    times."""
+    mesh = _tp_mesh()
+    return x if mesh is None else _GatherToTP.apply(x, mesh)
 
 
 def vocab_parallel_cross_entropy(local_logits: torch.Tensor,

@@ -464,17 +464,20 @@ def _qkv(p, x, cfg):
 
 def _attn_apply(p, x, cfg, *, causal: bool = True, window: int | None = None,
                 pos_offset: int = 0, rope: bool = True, lut_tables=None,
-                layer: int | None = None, chunk_q: int = 512):
+                layer: int | None = None, chunk_q: int = 512,
+                tp_leaf: str = "blocks.wq"):
     """Self-attention over a segment at positions ``pos_offset ..``,
     causal and, with ``window``, local; queries in chunks of ``chunk_q``.
-    Returns (out, (k, v)).  In a partitioned train step that splits
-    ``wq`` the rank's heads only (:func:`_tp_heads`), ``wo`` row-parallel
-    with its partial sums reduced over the model axis."""
+    Returns (out, (k, v)).  In a partitioned train step that splits the
+    leaf ``p["wq"]`` is (``tp_leaf``, its dotted name) the rank's heads
+    only (:func:`_tp_heads`), ``wo`` row-parallel with its partial sums
+    reduced over the model axis."""
     b, t, _ = x.shape
     tp = current_tp()
+    split = tp is not None and tp.splits(tp_leaf)
     kv_index = None
-    if tp is not None and tp.splits("blocks.wq"):
-        p, x, kv_index = _tp_heads(p, x, cfg, tp)
+    if split:
+        p, x, kv_index = _tp_heads(p, x, cfg, tp, tp_leaf)
     q, k, v = _qkv(p, x, cfg)
     if kv_index is not None:
         k, v = k.index_select(2, kv_index), v.index_select(2, kv_index)
@@ -487,12 +490,12 @@ def _attn_apply(p, x, cfg, *, causal: bool = True, window: int | None = None,
               chunk_q=chunk_q,
               exp_fn=site_act(cfg, lut_tables, sites.ATTN_EXP, layer))
     out = torch.matmul(out.reshape(b, t, -1), p["wo"])
-    if tp is not None and tp.splits("blocks.wq"):
+    if split:
         out = reduce_from_tp(out)
     return out, (k, v)
 
 
-def _tp_heads(p, x, cfg, tp: TPShares):
+def _tp_heads(p, x, cfg, tp: TPShares, tp_leaf: str = "blocks.wq"):
     """A partitioned step's attention inputs on rank ``i`` of the model
     axis: ``(p, x, kv_index)``.  ``wq`` / ``wo`` hold its ``n_heads / tp``
     contiguous query heads (the reference's placement), and ``wk`` / ``wv``
@@ -504,13 +507,15 @@ def _tp_heads(p, x, cfg, tp: TPShares):
     heads to one of them where the grouped layout cannot (else ``None``).
     ``x`` and every replicated weight used here enter through
     :func:`~repro_torch.nn.sharding.copy_to_tp`, whose backward sums the
-    ranks' partial gradients."""
+    ranks' partial gradients.  ``tp_leaf``: the dotted name of ``wq``
+    (``blocks.wq``, ``groups.t2_attn.wq``, ``dec_blocks.xwq``, ...), whose
+    ``wk`` beside it is asked for."""
     p = dict(p)
     for name in ("q_norm", "k_norm"):
         if name in p:
             p[name] = copy_to_tp(p[name])
     kv_index = None
-    if not tp.splits("blocks.wk"):
+    if not tp.splits(tp_leaf[:-len("wq")] + "wk"):
         hl, g = cfg.n_heads // tp.size, cfg.n_heads // cfg.n_kv_heads
         first = tp.index * hl
         lo, hi = first // g, (first + hl - 1) // g
@@ -524,9 +529,8 @@ def _tp_heads(p, x, cfg, tp: TPShares):
     return p, copy_to_tp(x), kv_index
 
 
-# the families whose partitioned train step is ported (ROADMAP item 13:
-# hybrid and encdec next)
-TP_FAMILIES = ("dense", "moe", "vlm", "ssm")
+# the families the partitioned train step covers: all of them
+TP_FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid", "encdec")
 
 
 def tp_shares(cfg: ArchConfig, placements: dict, mesh) -> TPShares:
@@ -538,24 +542,32 @@ def tp_shares(cfg: ArchConfig, placements: dict, mesh) -> TPShares:
     does each group below where tp does not divide its heads or columns
     (the reference's divisibility fallback); norms, routers, vlm's
     ``patch_proj`` and RWKV6's decay LoRA, ``bonus``, ``ln_x`` and
-    ``mu_*`` vectors are never split.
+    ``mu_*`` vectors are never split.  Each block's leaves carry its
+    tree's prefix: ``blocks.`` (dense, moe, vlm, ssm), ``groups.t{i}_rec.``
+    / ``groups.t{i}_attn.`` / ``groups.m{i}.`` and ``tail.t{i}_rec.`` /
+    ``tail.m{i}.`` (hybrid), ``enc_blocks.`` and ``dec_blocks.`` (encdec,
+    the cross-attention's ``dec_blocks.x*``).
 
-    * ``embed`` / ``lm_head``: the vocabulary (every family);
-    * attention (dense, moe, vlm): ``wq`` / ``wo`` by query heads, ``wk`` /
-      ``wv`` by KV heads;
-    * the MLP (dense, vlm): ``w_in`` / ``w_out`` where tp divides
-      ``d_ff``; moe's shared experts ``sh_w_in`` / ``sh_w_out`` where it
-      divides ``d_expert * n_shared`` (a gated ``w_in`` in ``gate_up``).
-      The routed expert stacks keep exact mode's shares over the model
-      axis and are not named here;
+    * ``embed`` / ``lm_head``: the vocabulary (every family; whisper-small's
+      odd 51865 stays whole);
+    * attention (dense, moe, vlm; the hybrid's local attention; the
+      encoder's, the decoder's and the cross-attention): ``wq`` / ``wo`` by
+      query heads, ``wk`` / ``wv`` by KV heads;
+    * the MLP (dense, vlm, hybrid, encdec): ``w_in`` / ``w_out`` where tp
+      divides ``d_ff``; moe's shared experts ``sh_w_in`` / ``sh_w_out``
+      where it divides ``d_expert * n_shared`` (a gated ``w_in`` in
+      ``gate_up``).  The routed expert stacks keep exact mode's shares over
+      the model axis and are not named here;
+    * the recurrent block (hybrid): ``w_in`` / ``w_gate`` / ``w_a`` /
+      ``w_x`` by columns, ``conv_w`` / ``lam`` by channels and ``w_out``
+      by rows, where tp divides ``d_rnn``;
     * RWKV6 (ssm): ``w_r`` / ``w_k`` / ``w_v`` / ``w_g`` by columns and
       ``w_o`` by rows, in whole heads, where tp divides ``d /
       rwkv_head_dim``; ``w_ffn_k`` by columns and ``w_ffn_v`` by rows
       where it divides ``d_ff``; ``w_ffn_r`` by columns."""
     if cfg.family not in TP_FAMILIES:
-        raise ValueError(f"tp_shares: the partitioned train step covers "
-                         f"the {', '.join(TP_FAMILIES)} families, not "
-                         f"{cfg.family!r} (ROADMAP item 13)")
+        raise ValueError(f"tp_shares: no partitioned train step for the "
+                         f"family {cfg.family!r}")
     tp = mesh.shape.get(TP_AXIS, 1)
     on = lambda *ns: all(
         not placements[n].only((TP_AXIS,)).replicated for n in ns)
@@ -569,18 +581,45 @@ def tp_shares(cfg: ArchConfig, placements: dict, mesh) -> TPShares:
             split |= pair("blocks.w_ffn_k", "blocks.w_ffn_v")
         split |= pair("blocks.w_ffn_r")
         return TPShares(mesh, frozenset(split))
-    if cfg.n_heads % tp == 0 and on("blocks.wq", "blocks.wo"):
-        split |= {"blocks.wq", "blocks.wo"}
-        if cfg.n_kv_heads % tp == 0:
-            split |= pair("blocks.wk", "blocks.wv")
-    if cfg.moe:
-        if cfg.moe.n_shared and (cfg.moe.d_expert * cfg.moe.n_shared) % tp \
-                == 0:
-            split |= pair("blocks.sh_w_in", "blocks.sh_w_out")
-    elif cfg.d_ff % tp == 0:
-        split |= pair("blocks.w_in", "blocks.w_out")
-    gate_up = ({"blocks.w_in", "blocks.sh_w_in"} & split
-               if is_gated(cfg.activation) else set())
+
+    mlps = set()          # the split w_in / sh_w_in: gated, in gate_up
+
+    def attn(pre):
+        if cfg.n_heads % tp == 0 and on(pre + "wq", pre + "wo"):
+            split.update({pre + "wq", pre + "wo"})
+            if cfg.n_kv_heads % tp == 0:
+                split.update(pair(pre + "wk", pre + "wv"))
+
+    def mlp(pre, width=cfg.d_ff):
+        if width % tp == 0 and on(pre + "w_in", pre + "w_out"):
+            split.update({pre + "w_in", pre + "w_out"})
+            mlps.add(pre + "w_in")
+
+    def rec(pre):
+        if (cfg.d_rnn or cfg.d_model) % tp == 0:
+            split.update(pair(*(pre + w for w in (
+                "w_in", "w_gate", "w_out", "conv_w", "w_a", "w_x", "lam"))))
+
+    if cfg.family == "hybrid":
+        n_groups, n_tail = hybrid_layout(cfg)
+        for i, kind in enumerate(block_pattern(cfg) if n_groups else ()):
+            (rec if kind == "rec" else attn)(f"groups.t{i}_{kind}.")
+            mlp(f"groups.m{i}.")
+        for i in range(n_tail):
+            rec(f"tail.t{i}_rec.")
+            mlp(f"tail.m{i}.")
+    elif cfg.family == "encdec":
+        for pre in ("enc_blocks.", "dec_blocks.", "dec_blocks.x"):
+            attn(pre)
+        for pre in ("enc_blocks.", "dec_blocks."):
+            mlp(pre)
+    else:
+        attn("blocks.")
+        if not cfg.moe:
+            mlp("blocks.")
+        elif cfg.moe.n_shared:
+            mlp("blocks.sh_", cfg.moe.d_expert * cfg.moe.n_shared)
+    gate_up = mlps if is_gated(cfg.activation) else set()
     return TPShares(mesh, frozenset(split), frozenset(gate_up))
 
 
@@ -838,16 +877,19 @@ def _ring_from_segment(k: torch.Tensor, v: torch.Tensor, window: int):
             torch.where(valid, v[:, idx], 0))
 
 
-def _hybrid_temporal(kind: str, p, x, cfg, pos, state, mode: str):
+def _hybrid_temporal(kind: str, p, x, cfg, pos, state, mode: str,
+                     pre: str = ""):
     """One temporal block (``rec`` or local ``attn``).  ``decode``: one
     token against ``state``, updated in place; ``prefill``: a fresh
     segment whose final state (the conv window and LRU vector, or the
-    ring) is written into ``state``; ``train``: no state."""
+    ring) is written into ``state``; ``train``: no state.  ``pre``: the
+    block's leaf prefix (``groups.t0_rec.``, ``tail.t1_rec.``, ...), the
+    names a partitioned train step's shares go by."""
     if kind == "rec":
         if mode == "decode":
             out, _ = recurrent_block_step(p, x, cfg, state)
             return out
-        out, st = recurrent_block(p, x, cfg)
+        out, st = recurrent_block(p, x, cfg, tp_leaf=pre + "w_in")
         if state is not None:
             state["conv"].copy_(st["conv"])
             state["lru"].copy_(st["lru"])
@@ -856,7 +898,8 @@ def _hybrid_temporal(kind: str, p, x, cfg, pos, state, mode: str):
         return _decode_attn(p, x, cfg, state["k"], state["v"], pos,
                             window=cfg.local_window)
     out, (k, v) = _attn_apply(p, x, cfg, causal=True,
-                              window=cfg.local_window, pos_offset=pos)
+                              window=cfg.local_window, pos_offset=pos,
+                              tp_leaf=pre + "wq")
     if state is not None:
         kr, vr = _ring_from_segment(k, v, cfg.local_window)
         state["k"].copy_(kr)
@@ -865,12 +908,15 @@ def _hybrid_temporal(kind: str, p, x, cfg, pos, state, mode: str):
 
 
 def _hybrid_layer(kind, p_t, ln, p_m, m_ln, x, cfg, pos, state, mode,
-                  lut_tables, layer: int):
+                  lut_tables, layer: int, names: tuple[str, str] = ("", "")):
+    """One layer; ``names``: the leaf prefixes of its temporal block and
+    its MLP (``groups.t{i}_{kind}.``, ``groups.m{i}.``; the tail's
+    ``tail.t{i}_rec.``, ``tail.m{i}.``)."""
     rs = site_act(cfg, lut_tables, sites.NORM_RSQRT, layer)
     x = x + _hybrid_temporal(kind, p_t, rms_norm(x, ln, cfg.norm_eps, rs),
-                             cfg, pos, state, mode)
+                             cfg, pos, state, mode, names[0])
     return x + mlp_block(p_m, rms_norm(x, m_ln, cfg.norm_eps, rs), cfg,
-                         lut_tables, layer=layer)
+                         lut_tables, layer=layer, tp_leaf=names[1] + "w_in")
 
 
 def hybrid_forward(params: HybridParams, cfg: ArchConfig,
@@ -896,7 +942,7 @@ def hybrid_forward(params: HybridParams, cfg: ArchConfig,
                          f"{mode!r}")
     pattern = block_pattern(cfg)
     n_groups, n_tail = hybrid_layout(cfg)
-    x = embed_lookup(params.embed, tokens)
+    x = _embed_tokens(params.embed, tokens)
 
     def group(x, p, g, gstates):
         for i, kind in enumerate(pattern):
@@ -905,7 +951,8 @@ def hybrid_forward(params: HybridParams, cfg: ArchConfig,
                 st = {k: v[g] for k, v in gstates[f"t{i}"].items()}
             x = _hybrid_layer(kind, p[f"t{i}_{kind}"], p[f"t{i}_ln"],
                               p[f"m{i}"], p[f"m{i}_ln"], x, cfg, pos, st,
-                              mode, lut_tables, g * len(pattern) + i)
+                              mode, lut_tables, g * len(pattern) + i,
+                              (f"groups.t{i}_{kind}.", f"groups.m{i}."))
         return x
 
     for g in range(n_groups):
@@ -919,7 +966,8 @@ def hybrid_forward(params: HybridParams, cfg: ArchConfig,
         p = params.tail_layer(i)
         st = states["tail"][f"t{i}"] if states is not None else None
         x = _hybrid_layer("rec", p["rec"], p["ln"], p["m"], p["m_ln"], x,
-                          cfg, pos, st, mode, lut_tables, tail_base + i)
+                          cfg, pos, st, mode, lut_tables, tail_base + i,
+                          (f"tail.t{i}_rec.", f"tail.m{i}."))
     x = rms_norm(x, params.final_norm, cfg.norm_eps)
     return x, states
 
@@ -938,9 +986,10 @@ def _sinusoid(n: int, d: int, device=None) -> torch.Tensor:
 
 def _encoder_layer(p, x, cfg):
     h, _ = _attn_apply(p, rms_norm(x, p["ln1"], cfg.norm_eps), cfg,
-                       causal=False, rope=False)
+                       causal=False, rope=False, tp_leaf="enc_blocks.wq")
     x = x + h
-    return x + mlp_block(p, rms_norm(x, p["ln2"], cfg.norm_eps), cfg)
+    return x + mlp_block(p, rms_norm(x, p["ln2"], cfg.norm_eps), cfg,
+                         tp_leaf="enc_blocks.w_in")
 
 
 def encoder_forward(params: EncDecParams, cfg: ArchConfig,
@@ -963,24 +1012,46 @@ def encoder_forward(params: EncDecParams, cfg: ArchConfig,
 
 def cross_kv(p, enc: torch.Tensor, cfg: ArchConfig):
     """A decoder layer's cross-attention K and V (B, S, KV, Dh) from the
-    encoder output."""
+    encoder output (a partitioned step's rank: its KV heads)."""
     b, s, _ = enc.shape
-    ek = torch.matmul(enc, p["xwk"]).reshape(b, s, cfg.n_kv_heads,
-                                             cfg.d_head)
-    ev = torch.matmul(enc, p["xwv"]).reshape(b, s, cfg.n_kv_heads,
-                                             cfg.d_head)
+    ek = torch.matmul(enc, p["xwk"]).reshape(b, s, -1, cfg.d_head)
+    ev = torch.matmul(enc, p["xwv"]).reshape(b, s, -1, cfg.d_head)
     return ek, ev
 
 
 def cross_attend(p, x, cfg: ArchConfig, ek, ev, lut_tables=None,
                  layer: int | None = None) -> torch.Tensor:
     """Cross-attention of the normed decoder stream ``x`` (B, T, d) over
-    the encoder's K / V: every query sees every frame."""
+    the encoder's K / V: every query sees every frame (a partitioned
+    step's rank: its query heads, ``xwo``'s partial sums)."""
     b, t, _ = x.shape
-    q = torch.matmul(x, p["xwq"]).reshape(b, t, cfg.n_heads, cfg.d_head)
+    q = torch.matmul(x, p["xwq"]).reshape(b, t, -1, cfg.d_head)
     h = mha(q, ek, ev, causal=False,
             exp_fn=site_act(cfg, lut_tables, sites.ATTN_EXP, layer))
-    return torch.matmul(h.reshape(b, t, cfg.q_dim), p["xwo"])
+    return torch.matmul(h.reshape(b, t, -1), p["xwo"])
+
+
+def _cross_block(p, x, enc_out, cfg, lut_tables, i: int):
+    """The cross-attention of the normed stream ``x``: ``(out, (ek,
+    ev))``.  In a partitioned train step that splits ``dec_blocks.xwq``
+    the rank's heads (:func:`_tp_heads` on ``xwq`` / ``xwk`` / ``xwv`` /
+    ``xwo``), the whole encoder output through
+    :func:`~repro_torch.nn.sharding.copy_to_tp` (its gradient summed over
+    the model axis), ``xwo`` row-parallel."""
+    tp = current_tp()
+    split = tp is not None and tp.splits("dec_blocks.xwq")
+    kv_index = None
+    if split:
+        heads, x, kv_index = _tp_heads(
+            {k: p["x" + k] for k in ("wq", "wk", "wv", "wo")}, x, cfg, tp,
+            "dec_blocks.xwq")
+        p = {"x" + k: v for k, v in heads.items()}
+        enc_out = copy_to_tp(enc_out)
+    ek, ev = cross_kv(p, enc_out, cfg)
+    if kv_index is not None:
+        ek, ev = ek.index_select(2, kv_index), ev.index_select(2, kv_index)
+    out = cross_attend(p, x, cfg, ek, ev, lut_tables, layer=i)
+    return (reduce_from_tp(out) if split else out), (ek, ev)
 
 
 def _encdec_layer(p, x, enc_out, cfg, lut_tables, i: int):
@@ -988,13 +1059,14 @@ def _encdec_layer(p, x, enc_out, cfg, lut_tables, i: int):
     rs = site_act(cfg, lut_tables, sites.NORM_RSQRT, i)
     h, (k, v) = _attn_apply(p, rms_norm(x, p["ln1"], cfg.norm_eps, rs),
                             cfg, causal=True, rope=True,
-                            lut_tables=lut_tables, layer=i)
+                            lut_tables=lut_tables, layer=i,
+                            tp_leaf="dec_blocks.wq")
     x = x + h
-    ek, ev = cross_kv(p, enc_out, cfg)
-    x = x + cross_attend(p, rms_norm(x, p["lnx"], cfg.norm_eps, rs), cfg,
-                         ek, ev, lut_tables, layer=i)
+    h, (ek, ev) = _cross_block(p, rms_norm(x, p["lnx"], cfg.norm_eps, rs),
+                               enc_out, cfg, lut_tables, i)
+    x = x + h
     x = x + mlp_block(p, rms_norm(x, p["ln2"], cfg.norm_eps, rs), cfg,
-                      lut_tables, layer=i)
+                      lut_tables, layer=i, tp_leaf="dec_blocks.w_in")
     return x, (k, v, ek, ev)
 
 
@@ -1007,7 +1079,7 @@ def encdec_forward(params: EncDecParams, cfg: ArchConfig,
     receives each layer's self K/V and cross K/V (projected once a layer,
     used here and handed on), so prefill can fill its cache.  ``remat``
     (training) recomputes each layer in the backward."""
-    x = embed_lookup(params.embed, tokens)
+    x = _embed_tokens(params.embed, tokens)
     for i in range(cfg.n_layers):
         p = params.layer(i)
         if remat:
@@ -1077,23 +1149,28 @@ def rwkv_loss(params: RWKVParams, cfg: ArchConfig, batch: dict,
 
 def hybrid_loss(params: HybridParams, cfg: ArchConfig, batch: dict,
                 lut_tables=None, remat: bool = False, **_):
+    """Mean cross-entropy of Griffin / RecurrentGemma (in a partitioned
+    train step on the rank's channels and heads, the head
+    :func:`_head_loss`'s)."""
+    _no_tp_tables("hybrid_loss", lut_tables)
     with params.unstacked():
         x, _ = hybrid_forward(params, cfg, batch["tokens"], mode="train",
                               lut_tables=lut_tables, remat=remat)
-    logits = project_logits(x, params.lm_head, cfg, lut_tables)
-    return softmax_cross_entropy(logits, batch["labels"])
+    return _head_loss(x, params.lm_head, cfg, batch["labels"], lut_tables)
 
 
 def encdec_loss(params: EncDecParams, cfg: ArchConfig, batch: dict,
                 lut_tables=None, remat: bool = False, **_):
     """The encoder over ``batch["frames"]``, then the decoder's mean
     cross-entropy.  The reference's decoder loss passes no tables to the
-    decoder layers, only to the head; so does this one."""
+    decoder layers, only to the head; so does this one.  In a partitioned
+    train step the head is :func:`_head_loss`'s: the whole-head route
+    where the vocabulary does not split (whisper-small's 51865)."""
+    _no_tp_tables("encdec_loss", lut_tables)
     with params.unstacked():
         enc = encoder_forward(params, cfg, batch["frames"], remat=remat)
         x = encdec_forward(params, cfg, batch["tokens"], enc, remat=remat)
-    logits = project_logits(x, params.lm_head, cfg, lut_tables)
-    return softmax_cross_entropy(logits, batch["labels"])
+    return _head_loss(x, params.lm_head, cfg, batch["labels"], lut_tables)
 
 
 LOSS_FNS = {

@@ -60,8 +60,7 @@ captured in a CUDA graph); ``step.timings`` holds the last call's
 seconds (host clock, the device synchronized) of the weight gather, the
 forward and backward, the gradient reduction and the update.
 
-With ``tp_mode="partitioned"`` (the dense, moe, vlm and ssm families;
-hybrid and encdec raise, ROADMAP item 13) the step is the reference's
+With ``tp_mode="partitioned"`` (every family) the step is the reference's
 GSPMD train step instead: its ``param_specs`` placements kept in the
 compute over the model axis.  The state and its placements are exact
 mode's (so checkpoints and the elastic re-mesh are the same), and each
@@ -70,10 +69,13 @@ step
 1. gathers each leaf over the data axes only (the reference's ZeRO-3
    ``"fsdp"`` axis), keeping the model axis's split of the leaves
    :func:`~repro_torch.nn.transformer.tp_shares` names (the
-   column-parallel ``wq`` / ``wk`` / ``wv`` / ``w_in`` / ``sh_w_in`` and
-   RWKV6's ``w_r`` / ``w_k`` / ``w_v`` / ``w_g`` / ``w_ffn_k`` /
-   ``w_ffn_r``, the row-parallel ``wo`` / ``w_out`` / ``sh_w_out`` /
-   ``w_o`` / ``w_ffn_v``, the vocab-split ``embed`` and ``lm_head``) and
+   column-parallel ``wq`` / ``wk`` / ``wv`` / ``w_in`` / ``sh_w_in``,
+   the recurrent block's ``w_in`` / ``w_gate`` / ``w_a`` / ``w_x`` (and
+   its ``conv_w`` / ``lam`` by channels), the cross-attention's ``xwq`` /
+   ``xwk`` / ``xwv`` and RWKV6's ``w_r`` / ``w_k`` / ``w_v`` / ``w_g`` /
+   ``w_ffn_k`` / ``w_ffn_r``, the row-parallel ``wo`` / ``xwo`` /
+   ``w_out`` / ``sh_w_out`` / ``w_o`` / ``w_ffn_v``, the vocab-split
+   ``embed`` and ``lm_head``) and
    of the moe expert stacks, as exact mode does; a gated ``w_in`` or
    ``sh_w_in`` share is exchanged within the model axis into the
    compute's ``[gate_i | up_i]`` (one all-to-all of one share's bytes,
@@ -81,8 +83,9 @@ step
 2. runs the rank's rows through the model on those shares
    (:func:`~repro_torch.nn.sharding.use_tp`: the activations' partial
    sums and gradients all-reduced over the model axis, RWKV6's WKV on the
-   rank's heads, a vocab-parallel embedding and cross-entropy), its gated
-   gradients exchanged back to the stored layout;
+   rank's heads, the RG-LRU and its conv on the rank's channels, a
+   vocab-parallel embedding and cross-entropy where the vocabulary
+   splits), its gated gradients exchanged back to the stored layout;
 3. takes the rank-order mean over the data axes, as exact mode does
    (under ``grad_compress`` a split leaf's share against its share of
    the error buffers, its scale the whole leaf's);
@@ -121,7 +124,6 @@ from repro_torch.nn.sharding import (
     use_tp,
 )
 from repro_torch.nn.transformer import (
-    TP_FAMILIES,
     loss_fn,
     params_class,
     tp_shares,
@@ -219,22 +221,16 @@ def make_train_step(cfg: ArchConfig, tcfg: TrainConfig, device=None,
     shares and ``batch`` the global batch (module docstring).
     ``tp_mode``: ``"exact"`` (gathered weights) or ``"partitioned"`` (the
     tp shares in the compute, for the families of
-    :data:`~repro_torch.nn.transformer.TP_FAMILIES`; without a mesh, or
-    on a model axis of 1, nothing splits and it is the same step);
-    anything else raises, as does ``"partitioned"`` on another family
-    (naming it) or with ``lut_tables``."""
+    :data:`~repro_torch.nn.transformer.TP_FAMILIES`, every family; without
+    a mesh, or on a model axis of 1, nothing splits and it is the same
+    step); anything else raises, as does ``"partitioned"`` with
+    ``lut_tables``."""
     if tp_mode not in TP_MODES:
         raise ValueError(f"make_train_step: tp_mode {tp_mode!r}; expected "
                          f"one of {TP_MODES}")
-    if tp_mode == "partitioned":
-        if cfg.family not in TP_FAMILIES:
-            raise ValueError(f"make_train_step: tp_mode 'partitioned' "
-                             f"covers the {', '.join(TP_FAMILIES)} "
-                             f"families, not {cfg.family!r} ({cfg.name}; "
-                             f"ROADMAP item 13)")
-        if lut_tables is not None:
-            raise ValueError("make_train_step: tp_mode 'partitioned' takes "
-                             "no LUT tables")
+    if tp_mode == "partitioned" and lut_tables is not None:
+        raise ValueError("make_train_step: tp_mode 'partitioned' takes no "
+                         "LUT tables")
     dev = resolve_device(device)
     if lut_tables is not None and lut_tables.get("backend") != "gather":
         raise ValueError(

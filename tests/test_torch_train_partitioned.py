@@ -1,7 +1,7 @@
 """The partitioned tensor-parallel train step (``tp_mode="partitioned"``:
-the dense, moe, vlm and ssm families) on spawned CPU ranks joined over
-gloo, held against the reference's GSPMD train step, against the port's
-plain functions and against its own exact mode.
+every family) on spawned CPU ranks joined over gloo, held against the
+reference's GSPMD train step, against the port's plain functions and
+against its own exact mode.
 
 The reference runs once, in a subprocess with 4 forced host devices
 (``tests/torch_mesh_train_reference.py partitioned``, ``Auto`` mesh axes),
@@ -9,10 +9,15 @@ on float32 smoke configs from ``PRNGKey(0)``: qwen3-0.6b (a gated
 ``w_in``, whose tp share the step exchanges into ``[gate_i | up_i]``),
 nemotron-4-15b (relu2, no gate), deepseek-moe-16b (routed experts as
 exact mode splits them, shared experts on tp shares), phi-3-vision-4.2b
-(the patch prefix; the reference's seeded patches read from its file) and
-rwkv6-3b (RWKV6 on each rank's heads), two steps on 1x2 and 2x2 with and
-without ``grad_compress``.  Its compressed step raises under this jax on
-qwen3 and phi-3-vision at 1x2 and on the other three everywhere (the
+(the patch prefix; the reference's seeded patches read from its file),
+rwkv6-3b (RWKV6 on each rank's heads), recurrentgemma-9b (the recurrent
+block on each rank's channels, the local attention's one KV head whole)
+and whisper-small (the encoder, the cross-attention; the reference's
+seeded frames read from its file), two steps on 1x2 and 2x2 with and
+without ``grad_compress``; and whisper-small with an odd vocabulary of 257
+on 1x2 (``embed`` and ``lm_head`` whole, the whole-head loss).  Its
+compressed step raises under this jax on qwen3, phi-3-vision,
+recurrentgemma and whisper at 1x2 and on the other three everywhere (the
 reference script records the errors); there the partitioned compressed
 step is held to the same bounds against the port's exact-mode compressed
 step on the same mesh, which ``test_torch_train_sharded.py`` holds
@@ -49,10 +54,16 @@ from test_torch_train_sharded import (
 
 ROOT = Path(__file__).resolve().parents[1]
 ARCHS = ("qwen3-0.6b", "nemotron-4-15b", "deepseek-moe-16b",
-         "phi-3-vision-4.2b", "rwkv6-3b")
+         "phi-3-vision-4.2b", "rwkv6-3b", "recurrentgemma-9b",
+         "whisper-small")
 # where the reference's compressed step runs under this jax (elsewhere it
 # raises and the case is held against exact mode, module docstring)
-REF_COMPRESS_RUNS = {("qwen3-0.6b", "2x2"), ("phi-3-vision-4.2b", "2x2")}
+REF_COMPRESS_RUNS = {("qwen3-0.6b", "2x2"), ("phi-3-vision-4.2b", "2x2"),
+                     ("recurrentgemma-9b", "2x2"), ("whisper-small", "2x2")}
+# whisper-small's smoke config with an odd vocabulary (the published 51865
+# is odd), as ``tests/torch_mesh_train_reference.py`` names it
+ODD = "whisper-small-odd"
+VARIANTS = {ODD: ("whisper-small", {"vocab_size": 257})}
 SHAPES = ("1x2", "2x2")
 LR = 1e-3
 
@@ -64,6 +75,12 @@ def _ref(ref_dir, arch):
     return np.load(os.path.join(ref_dir, f"part_{arch}.npz"))
 
 
+def _part_cfg(arch):
+    """``_cfg``, a variant of :data:`VARIANTS` with its override."""
+    arch, over = VARIANTS.get(arch, (arch, {}))
+    return dataclasses.replace(_cfg(arch), **over)
+
+
 def _state(arch, ref_dir, **kw):
     """A fresh single-device state on the reference's initial
     parameters."""
@@ -71,7 +88,7 @@ def _state(arch, ref_dir, **kw):
     from repro_torch.train import TrainConfig
     from repro_torch.train.state import state_for
 
-    cfg = _cfg(arch)
+    cfg = _part_cfg(arch)
     tcfg = TrainConfig(**dict(dict(remat=False), **kw))
     return cfg, tcfg, state_for(params_from_jax(
         _tree(_ref(ref_dir, arch)), cfg, "cpu"), tcfg)
@@ -104,11 +121,13 @@ class _GatherSpy:
 
 
 def _part_batches(cfg, ref, n):
-    """``_batches``, vlm's with the reference's patches of each step."""
+    """``_batches``, vlm's with the reference's patches of each step,
+    encdec's with its frames."""
     batches = _batches(cfg, n)
-    if cfg.family == "vlm":
+    extra = {"vlm": "patches", "encdec": "frames"}.get(cfg.family)
+    if extra:
         for i, b in enumerate(batches):
-            b["patches"] = ref[f"patches/{i}"]
+            b[extra] = ref[f"{extra}/{i}"]
     return batches
 
 
@@ -135,6 +154,32 @@ class _WKVHeads:
         ops.wkv = self.orig
 
 
+class _Calls:
+    """Record the calls of ``module.name`` (what the first argument's
+    shape is): the vocab-parallel cross-entropy as the losses call it,
+    the RG-LRU's scan."""
+
+    def __init__(self, module: str, name: str):
+        self.module, self.name = module, name
+
+    def __enter__(self):
+        import importlib
+
+        self.mod = importlib.import_module(self.module)
+        self.orig, self.shapes = getattr(self.mod, self.name), []
+        orig, shapes = self.orig, self.shapes
+
+        def spy(x, *a, **kw):
+            shapes.append(tuple(x.shape))
+            return orig(x, *a, **kw)
+
+        setattr(self.mod, self.name, spy)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.mod, self.name, self.orig)
+
+
 def _run(mesh, cfg, tcfg, state, batches, tp_mode):
     from repro_torch.train import make_train_step
 
@@ -150,22 +195,42 @@ def sc_steps(mesh, arch, ref_dir, compress):
     """Two partitioned steps from the reference's initial parameters
     (every gather of the steps spied), two exact-mode steps beside them,
     and the reference's record of the mesh."""
-    from repro_torch.train import shard_train_state, train_state_shardings
+    from repro_torch.nn.sharding import TP_AXIS
+    from repro_torch.nn.transformer import tp_shares
+    from repro_torch.train import (
+        TrainConfig,
+        shard_train_state,
+        train_state_shardings,
+    )
+    from repro_torch.train.step import _is_expert
 
     key = ("c/" if compress else "") + "x".join(
         str(mesh.shape[a]) for a in ("data", "model"))
     ref = _ref(ref_dir, arch)
     out = {"ref_error": (str(ref[f"{key}/error"])
                          if f"{key}/error" in ref.files else None)}
+    # the leaves split at rest that the partitioned compute takes whole
+    cfg = _part_cfg(arch)
+    pl = train_state_shardings(cfg, TrainConfig(), mesh)["params"]
+    split = tp_shares(cfg, pl, mesh).split
+    out["fallback"] = [(n, tuple(p.spec)) for n, p in pl.items()
+                       if not p.only((TP_AXIS,)).replicated
+                       and n not in split and not _is_expert(n)]
     for mode in ("partitioned", "exact"):
         cfg, tcfg, full = _state(arch, ref_dir, grad_compress=compress)
         sh = train_state_shardings(cfg, tcfg, mesh)
         state = shard_train_state(full, cfg, mesh)
-        with _GatherSpy() as spy, _WKVHeads() as heads:
+        with _GatherSpy() as spy, _WKVHeads() as heads, _Calls(
+                "repro_torch.nn.transformer",
+                "vocab_parallel_cross_entropy") as ce, _Calls(
+                "repro_torch.nn.rglru", "_lru_scan") as scans:
             state, got, timings = _run(mesh, cfg, tcfg, state,
                                        _part_batches(cfg, ref, 2), mode)
         out[mode] = {"metrics": got, "timings": timings,
                      "whole_gathered": spy.whole, "wkv_heads": heads.heads,
+                     "vocab_parallel_ce": len(ce.shapes),
+                     "scan_channels": sorted({sh[-1] for sh in
+                                              scans.shapes}),
                      "params": _gathered_params(state, sh)}
     if out["ref_error"] is None:
         out["ref"] = {"loss": ref[f"{key}/loss"].tolist(),
@@ -185,9 +250,11 @@ def sc_ops(mesh):
     ``embed_lookup`` / ``softmax_cross_entropy`` on the whole table and
     logits (values and gradients; the labels and tokens on every rank's
     first and last vocab entries among them), the gated ``w_in``
-    exchange against slicing the whole leaf, both ways, and
+    exchange against slicing the whole leaf, both ways,
     ``gather_from_tp`` against the whole tensor forward and its slice of
-    the gradient backward."""
+    the gradient backward, and ``gather_to_tp`` into a rank's columns of
+    a product against autograd of the unsplit product (the input's
+    gradient summed over the ranks' columns, then sliced)."""
     from repro_torch.nn.layers import (
         embed_lookup,
         embed_lookup_tp,
@@ -197,6 +264,7 @@ def sc_ops(mesh):
         TP_AXIS,
         gate_up_exchange,
         gather_from_tp,
+        gather_to_tp,
         use_mesh,
         vocab_parallel_cross_entropy,
     )
@@ -254,6 +322,19 @@ def sc_ops(mesh):
         out["gather"] = torch.equal(joined, whole)
         out["gather_grad"] = torch.equal(local.grad,
                                          w[..., 3 * i:3 * (i + 1)])
+        # y = u @ W on the whole u, the rank's columns of W on its share
+        u = torch.from_numpy(rng.normal(size=(2, 5, 3 * n)).astype(
+            np.float64)).requires_grad_(True)
+        wt = torch.from_numpy(rng.normal(size=(3 * n, 2 * n)))
+        up = torch.from_numpy(rng.normal(size=(2, 5, 2 * n)))
+        (torch.matmul(u, wt) * up).sum().backward()
+        mine = u.detach()[..., 3 * i:3 * (i + 1)].clone().requires_grad_(True)
+        cols = slice(2 * i, 2 * (i + 1))
+        joined = gather_to_tp(mine)
+        (torch.matmul(joined, wt[:, cols]) * up[..., cols]).sum().backward()
+        out["gather_to"] = torch.equal(joined, u.detach())
+        out["gather_to_grad"] = float((mine.grad - u.grad[
+            ..., 3 * i:3 * (i + 1)]).abs().max())
     return out
 
 
@@ -373,7 +454,10 @@ def mesh22(ref_dir, ckpt_dir):
 
 @pytest.fixture(scope="module")
 def mesh12(ref_dir):
-    return _spawn(1, 2, _steps(ref_dir) + [("launcher", sc_launcher, {})])
+    return _spawn(1, 2, _steps(ref_dir) + [
+        ("launcher", sc_launcher, {}),
+        (f"steps-{ODD}-False", sc_steps,
+         {"arch": ODD, "ref_dir": ref_dir, "compress": False})])
 
 
 @pytest.fixture(scope="module")
@@ -433,11 +517,20 @@ def test_partitioned_step_matches_reference(request, shape, arch, compress):
 @pytest.mark.parametrize("shape", SHAPES)
 def test_partitioned_step_gathers_no_whole_split_leaf(request, shape, arch,
                                                       compress):
-    """No gather of the partitioned steps puts a leaf split over the model
-    axis back together whole over it (exact mode's steps do, for every
-    such leaf); the step's timings keep exact mode's four keys."""
+    """No gather of the partitioned steps puts a leaf the step keeps split
+    over the model axis back together whole over it (exact mode's steps
+    do, for every leaf split at rest); only a leaf split at rest that the
+    compute takes whole (the reference's divisibility fallback:
+    recurrentgemma-9b's one KV head, ``wk`` / ``wv``, and nothing of the
+    other families) is gathered, once a step (and its error buffer once a
+    compressed step); the step's timings keep exact mode's four keys."""
     out = _outcome(_mesh(request, shape), f"steps-{arch}-{compress}")
-    assert out["partitioned"]["whole_gathered"] == []
+    fallback = [spec for _, spec in out["fallback"]]
+    assert sorted(out["partitioned"]["whole_gathered"]) == sorted(
+        fallback * 2 * (1 + compress))
+    assert [n for n, _ in out["fallback"]] == (
+        ["groups.t2_attn.wk", "groups.t2_attn.wv"]
+        if arch == "recurrentgemma-9b" else [])
     assert out["exact"]["whole_gathered"]
     assert out["partitioned"]["timings"] == out["exact"]["timings"] == [
         "forward_backward_s", "gather_s", "reduce_s", "update_s"]
@@ -506,6 +599,21 @@ def test_gather_from_tp_is_slicing_the_whole_tensor(request, shape):
 
 
 @pytest.mark.parametrize("shape", ["1x2", "2x2", "1x4"])
+def test_gather_to_tp_sums_the_gradient_before_the_slice(request, shape):
+    """On every rank ``gather_to_tp`` of the rank's columns is the whole
+    tensor bit for bit, and fed to the rank's columns of a product its
+    backward is the rank's columns of the whole input's gradient (autograd
+    of the unsplit product, float64, within 1e-12): the ranks' partial
+    gradients summed, where a slice alone would miss every other rank's
+    columns."""
+    for r, res in enumerate(_mesh(request, shape)):
+        status, out = res["ops"]
+        assert status == "ok", out
+        assert out["gather_to"], r
+        assert out["gather_to_grad"] <= 1e-12, (r, out["gather_to_grad"])
+
+
+@pytest.mark.parametrize("shape", ["1x2", "2x2", "1x4"])
 def test_shared_expert_exchange_is_slicing_the_whole_leaf(request, shape):
     """deepseek-moe-16b: every rank's ``sh_w_in`` share as the step holds
     it, exchanged, is ``[gate_i | up_i]`` of the whole leaf bit for bit;
@@ -538,6 +646,69 @@ def test_partitioned_rwkv_runs_the_wkv_on_the_ranks_heads(request, shape):
     assert out["exact"]["wkv_heads"] == [heads] * n
 
 
+@pytest.mark.parametrize("shape", SHAPES)
+def test_partitioned_hybrid_runs_the_scan_on_the_ranks_channels(request,
+                                                                shape):
+    """recurrentgemma-9b: every RG-LRU scan of the partitioned steps runs
+    on ``d_rnn / tp`` channels, exact mode's on ``d_rnn``; whisper-small
+    and the hybrid's even vocabulary take the vocab-parallel loss in the
+    partitioned steps only."""
+    from test_torch_train_sharded import _cfg as cfg_of
+
+    d_rnn = cfg_of("recurrentgemma-9b").d_rnn
+    out = _outcome(_mesh(request, shape), "steps-recurrentgemma-9b-False")
+    assert out["partitioned"]["scan_channels"] == [d_rnn // 2]
+    assert out["exact"]["scan_channels"] == [d_rnn]
+    for arch in ("recurrentgemma-9b", "whisper-small"):
+        out = _outcome(_mesh(request, shape), f"steps-{arch}-False")
+        assert out["partitioned"]["vocab_parallel_ce"] == 2
+        assert out["exact"]["vocab_parallel_ce"] == 0
+
+
+def test_odd_vocabulary_takes_the_whole_head(mesh12):
+    """whisper-small with an odd vocabulary (257; the published 51865 is
+    odd too) on 1x2: ``embed`` and ``lm_head`` stay whole, the loss takes
+    the whole-head route (no vocab-parallel cross-entropy), and the step
+    is within the bounds of :func:`test_partitioned_step_matches_reference`
+    of the reference's GSPMD step and of the port's exact mode."""
+    out = _outcome(mesh12, f"steps-{ODD}-False")
+    assert out["ref_error"] is None
+    part = out["partitioned"]
+    assert part["vocab_parallel_ce"] == 0 and part["whole_gathered"] == []
+    for want, diffs in ((list(zip(out["ref"]["loss"],
+                                  out["ref"]["grad_norm"])),
+                         out["ref"]["param_diffs"]),
+                        (out["exact"]["metrics"], out["exact_diffs"])):
+        got = part["metrics"]
+        assert abs(got[0][0] - want[0][0]) <= 1e-5
+        for (_, g), (_, r) in zip(got, want):
+            assert abs(g - r) <= 1e-4 * r, (g, r)
+        for n, (mean, top) in diffs.items():
+            assert top <= 2e-3 and mean <= 1e-3 * LR, (n, mean, top)
+
+
+def test_odd_vocabulary_leaves_the_head_whole():
+    """``tp_shares`` splits whisper-small's embedding and head at its
+    smoke vocabulary (256) and leaves them whole at an odd one, at the
+    published widths' 51865 too, on 1x2 and 1x4; the attention, the
+    cross-attention and the MLPs split either way."""
+    from repro_torch.configs import get_config
+    from repro_torch.nn.sharding import Mesh
+    from repro_torch.nn.transformer import tp_shares
+    from repro_torch.train import TrainConfig, train_state_shardings
+
+    for tp in (2, 4):
+        mesh = Mesh(("data", "model"), (1, tp), rank=0)
+        for cfg, whole in ((_part_cfg("whisper-small"), False),
+                           (_part_cfg(ODD), True),
+                           (get_config("whisper-small"), True)):
+            pl = train_state_shardings(cfg, TrainConfig(), mesh)["params"]
+            split = tp_shares(cfg, pl, mesh).split
+            assert ({"embed", "lm_head"} & split == set()) == whole
+            assert {"enc_blocks.wq", "dec_blocks.xwq", "dec_blocks.xwo",
+                    "enc_blocks.w_in", "dec_blocks.w_out"} <= split
+
+
 # -------------------------------------------------------------------------
 # checkpoints, the launcher, the refusals, the dry run
 # -------------------------------------------------------------------------
@@ -561,23 +732,28 @@ def test_launcher_tp_mode(mesh12):
 
 
 def test_tp_mode_refusals():
-    """A mode but the two raises; so does ``"partitioned"`` on the hybrid
-    and encdec families (naming them) or with LUT tables, while the moe,
-    vlm and ssm families take it; the launcher refuses another mode with
+    """A mode but the two raises; so does ``"partitioned"`` with LUT
+    tables, or ``tp_shares`` on a family that does not exist (naming it),
+    while every family takes it; the launcher refuses another mode with
     status 2."""
     from repro_torch.launch import train as tl
+    from repro_torch.nn.sharding import Mesh
+    from repro_torch.nn.transformer import TP_FAMILIES, tp_shares
     from repro_torch.train import TrainConfig, make_train_step
 
     tcfg = TrainConfig(remat=False)
     with pytest.raises(ValueError, match="tp_mode 'bogus'"):
         make_train_step(_cfg("qwen3-0.6b"), tcfg, "cpu", tp_mode="bogus")
-    for arch, family in (("recurrentgemma-9b", "hybrid"),
-                         ("whisper-small", "encdec")):
-        with pytest.raises(ValueError, match=f"not '{family}'"):
-            make_train_step(_cfg(arch), tcfg, "cpu", tp_mode="partitioned")
-    for arch in ("deepseek-moe-16b", "phi-3-vision-4.2b", "rwkv6-3b"):
+    archs = ("deepseek-moe-16b", "phi-3-vision-4.2b", "rwkv6-3b",
+             "recurrentgemma-9b", "whisper-small")
+    assert {_cfg(a).family for a in archs + ("qwen3-0.6b",)} == set(
+        TP_FAMILIES)
+    for arch in archs:
         assert callable(make_train_step(_cfg(arch), tcfg, "cpu",
                                         tp_mode="partitioned"))
+    with pytest.raises(ValueError, match="family 'bogus'"):
+        tp_shares(dataclasses.replace(_cfg("qwen3-0.6b"), family="bogus"),
+                  {}, Mesh(("data", "model"), (1, 2), rank=0))
     with pytest.raises(ValueError, match="no LUT tables"):
         make_train_step(_cfg("qwen3-0.6b"), tcfg, "cpu",
                         lut_tables={"backend": "gather"},
@@ -694,3 +870,38 @@ def test_dryrun_partitioned_moe_keeps_the_expert_products():
                                    if c not in experts))
     assert runs["exact"][0] and runs["partitioned"][0] == runs["exact"][0]
     assert runs["partitioned"][1] < runs["exact"][1]
+
+
+def test_dryrun_partitioned_hybrid_and_encdec_halve_the_split_products():
+    """One 1x2 rank's step traced on the meta device, for the two
+    families this mode reached last.  whisper-small: every product is
+    split (the encoder's and the decoder's attention and MLP, the
+    cross-attention, the head), so the rank's ``mm`` and ``bmm`` FLOPs are
+    half an exact rank's.  recurrentgemma-9b: the products of the split
+    weights (the recurrent block's ``w_in`` / ``w_gate`` / ``w_a`` /
+    ``w_x`` / ``w_out``, the local attention's ``wq`` / ``wo``, the MLPs,
+    ``lm_head``; each a forward and two backward ``mm``) count half an
+    exact rank's FLOPs, the one KV head's products the same; the
+    attention's ``bmm`` half."""
+    from test_torch_train_sharded import _cfg as cfg_of
+
+    exact, part = _trace("exact", "whisper-small"), _trace(
+        "partitioned", "whisper-small")
+    for op in ("aten.mm", "aten.bmm"):
+        assert part.per_comp_flops[op] * 2 == exact.per_comp_flops[op], op
+    assert "all-gather" not in part.per_op_coll
+
+    cfg = cfg_of("recurrentgemma-9b")
+    d, r, ff, bt = cfg.d_model, cfg.d_rnn, cfg.d_ff, 4 * 16
+    rec, attn = 3 * d * r + 2 * r * r, 2 * d * cfg.n_heads * cfg.d_head
+    mlp = 3 * d * ff                    # geglu: [gate|up] and w_out
+    n_rec = cfg.n_layers - cfg.n_layers // 3
+    weights = n_rec * rec + (cfg.n_layers - n_rec) * attn \
+        + cfg.n_layers * mlp + d * cfg.vocab_size
+    exact, part = _trace("exact", "recurrentgemma-9b"), _trace(
+        "partitioned", "recurrentgemma-9b")
+    assert exact.per_comp_flops["aten.mm"] - part.per_comp_flops[
+        "aten.mm"] == 3 * 2 * bt * weights // 2
+    assert part.per_comp_flops["aten.bmm"] * 2 == \
+        exact.per_comp_flops["aten.bmm"]
+    assert part.per_op_coll.get("all-gather", 0) > 0   # the conv output

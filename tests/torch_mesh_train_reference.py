@@ -35,9 +35,15 @@ smoke configs of qwen3-0.6b (dense, gated ``w_in``), nemotron-4-15b
 (dense, relu2, no gate), deepseek-moe-16b (routed and shared experts),
 phi-3-vision-4.2b (the patch prefix; its batches carry seeded float32
 ``patches`` of ``input_batch_specs``' shape, stored as ``patches/<step>``
-for the port to read) and rwkv6-3b, the initial parameters and, on 1x2
-and 2x2, two steps without (``DxT/...``) and with ``grad_compress``
-(``c/DxT/...``): the losses, norms and parameters after.  The reference's train step is partitioned
+for the port to read), rwkv6-3b, recurrentgemma-9b (the recurrent block,
+one KV head) and whisper-small (the encoder and the cross-attention; its
+batches carry seeded float32 ``frames``, stored as ``frames/<step>``),
+the initial parameters and, on 1x2 and 2x2, two steps without
+(``DxT/...``) and with ``grad_compress`` (``c/DxT/...``): the losses,
+norms and parameters after; and ``part_whisper-small-odd.npz``,
+whisper-small's smoke config with an odd vocabulary of 257 (the
+published 51865 is odd too, so ``embed`` and ``lm_head`` stay whole), on
+1x2 without compression.  The reference's train step is partitioned
 there: ``param_specs`` place the weights over ``"tp"`` and XLA's GSPMD
 divides each product by the model axis.  Under this jax its compressed
 step raises on qwen3-0.6b at 1x2 (an XLA ``RET_CHECK``: a cross-partition
@@ -88,9 +94,14 @@ def mesh_of(dp: int, tp: int):
                          devices=jax.devices()[:dp * tp])
 
 
+# a smoke config with an override, under its own name
+VARIANTS = {"whisper-small-odd": ("whisper-small", {"vocab_size": 257})}
+
+
 def cfg_of(arch: str):
+    arch, over = VARIANTS.get(arch, (arch, {}))
     return dataclasses.replace(smoke_config(get_config(arch)),
-                               dtype="float32")
+                               dtype="float32", **over)
 
 
 def flat(tree, prefix=""):
@@ -112,11 +123,22 @@ def patches_at(cfg, i):
         size=(BATCH, cfg.n_patches, cfg.d_model)).astype(np.float32)
 
 
+def frames_at(cfg, i):
+    """encdec's float32 audio frames for step ``i``, as :func:`patches_at`
+    (None for another family)."""
+    if cfg.family != "encdec":
+        return None
+    return np.random.default_rng(2000 + i).normal(
+        size=(BATCH, cfg.n_frames, cfg.d_model)).astype(np.float32)
+
+
 def batch_at(cfg, i):
     stream = TokenStream(cfg.vocab_size, SEQ, BATCH, seed=0)
     b = stream.batch_at(i)
     if cfg.family == "vlm":
         b["patches"] = patches_at(cfg, i)
+    if cfg.family == "encdec":
+        b["frames"] = frames_at(cfg, i)
     return {k: jnp.asarray(v) for k, v in b.items()}
 
 
@@ -237,8 +259,11 @@ def write_dp_mean(out_dir):
 
 
 PART_ARCHS = ("qwen3-0.6b", "nemotron-4-15b", "deepseek-moe-16b",
-              "phi-3-vision-4.2b", "rwkv6-3b")
+              "phi-3-vision-4.2b", "rwkv6-3b", "recurrentgemma-9b",
+              "whisper-small", "whisper-small-odd")
 PART_SHAPES = ((1, 2), (2, 2))
+# the cases a variant runs (default: both shapes, plain and compressed)
+PART_ONLY = {"whisper-small-odd": (((1, 2),), (("", False),))}
 
 
 def write_partitioned(out_dir):
@@ -249,8 +274,12 @@ def write_partitioned(out_dir):
         ).items()}
         if cfg.family == "vlm":
             rec.update({f"patches/{i}": patches_at(cfg, i) for i in (0, 1)})
-        for dp, tp in PART_SHAPES:
-            for pre, compress in (("", False), ("c/", True)):
+        if cfg.family == "encdec":
+            rec.update({f"frames/{i}": frames_at(cfg, i) for i in (0, 1)})
+        shapes, modes = PART_ONLY.get(
+            arch, (PART_SHAPES, (("", False), ("c/", True))))
+        for dp, tp in shapes:
+            for pre, compress in modes:
                 key = f"{pre}{dp}x{tp}"
 
                 def keep(st, key=key):
